@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port's serving path (ReID retrieval,
+int8 and fp32 modes) on one CUDA card.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each printing one JSON line; any failure exits nonzero:
+
+  1. device      torch's card name and ``nvidia-smi``'s name + power limit
+                 (no CUDA device -> exit 1, no result)
+  2. build       nvcc builds of every kernel of the path (seconds)
+  3. kernels     each CUDA kernel against its plain PyTorch version on the
+                 card, at the serving shapes and at ragged ones:
+                 quantize bit-identical, distances within 1e-5; times
+                 (CUDA events, median of 30 launches after warmup)
+  4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
+                 8 MiB/client int8 budget), int8 engine, batch 64, 512
+                 closed-loop queries with a head update at mid-stream
+  5. serve_fp32  the same at G=32768 (the fp32 budget) with fp32 rows kept
+  6. parity      served answers vs an engine built on the plain versions on
+                 the card, fp32 vs the numpy host oracle, int8-vs-fp32
+                 full-ranking mAP delta, and every kernel's launch count
+                 during phases 4-5 (counts are zeroed just before phase 4)
+  7. serve_breakdown  device time of each stage of one full query launch
+                 (featurize, score, rank, readback) beside its host wall time
+
+then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import edge_model as EM  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ref as REF  # noqa: E402
+from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
+from repro_torch.kernels.pairwise_dist import batched_pairwise_dist  # noqa: E402
+from repro_torch.kernels.quantize import batched_quantize  # noqa: E402
+from repro_torch.launch.serve import stacked_heads  # noqa: E402
+from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
+                                 RetrievalEngine, map_from_ranked_ids,
+                                 recall_at_k, run_closed_loop)
+from repro_torch.serving.engine import featurize, rank_topk  # noqa: E402
+from repro_torch.serving.index import index_features  # noqa: E402
+
+SEED = 0
+C, BATCH, K, N_QUERIES = 4, 64, 10, 512
+CFG = EM.EdgeModelConfig()
+F = CFG.feat_dim
+BUDGET_BYTES = 8 << 20                   # per-client gallery feature budget
+G_INT8 = BUDGET_BYTES // F               # 131072 int8 rows
+G_FP32 = BUDGET_BYTES // (4 * F)         # 32768 fp32 rows
+N_PER_ID, ID_RANK, ID_RHO = 8, 16, 0.22  # clustered gallery recipe
+N_HOST = 32                              # queries per client vs numpy oracle
+N_MAP = 64                               # queries per client for the mAP delta
+
+DIST_TOL = 1e-5        # kernel vs plain: fp32 sums over F=64 in another order
+SERVE_DIST_TOL = 1e-4  # served distances vs plain engine / numpy oracle
+MIN_RECALL = 0.999
+MAP_TOLERANCE = 0.01   # int8-vs-fp32 full-ranking mAP delta
+
+SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
+REPS, WARMUP = 30, 3
+
+# data-sheet peaks of the card: (name substring, HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores); the first match wins, the H100 SXM by default
+PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
+         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+
+KERNELS = {
+    "batched_quantize": {
+        "fn": batched_quantize,
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:58"},
+    "batched_int8_pairwise_dist": {
+        "fn": batched_int8_pairwise_dist,
+        "source": "src/repro_torch/kernels/csrc/int8_dist.cu",
+        "replaces": "src/repro/kernels/int8_dist.py:63"},
+    "batched_pairwise_dist": {
+        "fn": batched_pairwise_dist,
+        "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
+        "replaces": "src/repro/kernels/pairwise_dist.py:91"},
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn) -> float:
+    """Median device time of one call: CUDA events around it, behind a
+    device-side sleep so the host's enqueue is not in the window."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def peaks(kind: str):
+    for sub, bw, fl in PEAKS:
+        if sub in kind:
+            return bw, fl
+    return PEAKS[-1][1:]
+
+
+def bound(nbytes: float, flops: float, peak):
+    t_bytes = nbytes / peak[0] * 1e3
+    t_ops = flops / peak[1] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+
+def unit_rows(gen, dev, *shape):
+    x = torch.randn(shape, generator=gen, device=dev)
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def int8_gallery(g):
+    Cg, G, Fg = g.shape
+    q8, s = REF.batched_quantize_ref(g.reshape(Cg, G * Fg), chunk=Fg)
+    gq = q8.reshape(Cg, G, Fg)
+    return gq, s, torch.sum(torch.square(gq.float()), -1) * torch.square(s)
+
+
+def quantize_err(x, chunk):
+    qk, sk = batched_quantize(x, chunk=chunk)
+    qr, sr = REF.batched_quantize_ref(x, chunk=chunk)
+    torch.cuda.synchronize()
+    bad_q = int((qk != qr).sum())
+    bad_s = int((sk.view(torch.int32) != sr.view(torch.int32)).sum())
+    check(bad_q == 0 and bad_s == 0,
+          f"batched_quantize {tuple(x.shape)} chunk={chunk}: {bad_q} codes "
+          f"and {bad_s} scales differ from the plain version")
+    return max(float((qk.int() - qr.int()).abs().max()),
+               float((sk - sr).abs().max()))
+
+
+def dist_err(name, kernel, plain, *args):
+    out_k = kernel(*args)
+    out_r = plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), f"{name}: non-finite output")
+    err = float((out_k - out_r).abs().max())
+    check(err <= DIST_TOL, f"{name} {tuple(out_k.shape)}: max_abs_err {err} "
+          f"> {DIST_TOL}")
+    return err
+
+
+def phase_kernels(dev, peak, card):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+
+    # batched_quantize: the refresh's shape (one scale per feature row), a
+    # row with a tail chunk, an all-zero chunk and exact half-way values,
+    # and a wide chunk
+    x = unit_rows(gen, dev, C, G_INT8, F).reshape(C, G_INT8 * F)
+    err = quantize_err(x, F)
+    xr = torch.randn((3, 1000 * F + 37), generator=gen, device=dev)
+    xr[0, :F] = 0.0
+    halves = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                          device=dev)
+    xr[1, :F] = 0.0
+    xr[1, :halves.numel()] = halves
+    err = max(err, quantize_err(xr, F),
+              quantize_err(torch.randn((2, 999), generator=gen, device=dev),
+                           256))
+    P = G_INT8 * F
+    nbytes = C * P * 4 + C * P + C * G_INT8 * 4
+    rows["batched_quantize"] = dict(
+        max_abs_err=err, bound=bound(nbytes, 3.0 * C * P, peak),
+        ms=time_ms(lambda: batched_quantize(x, chunk=F)),
+        plain_ms=time_ms(lambda: REF.batched_quantize_ref(x, chunk=F)),
+        library_ms=None, shape=[C, P])
+
+    # batched_int8_pairwise_dist at the int8 serving shape + ragged shapes
+    q = unit_rows(gen, dev, C, BATCH, F)
+    gq, gs, gn2 = int8_gallery(unit_rows(gen, dev, C, G_INT8, F))
+    name = "batched_int8_pairwise_dist"
+    err = dist_err(name, batched_int8_pairwise_dist,
+                   REF.batched_int8_pairwise_dist_ref, q, gq, gs, gn2)
+    for (c, b, g, f) in ((3, 7, 1000, 64), (2, 5, 333, 40)):
+        err = max(err, dist_err(name, batched_int8_pairwise_dist,
+                                REF.batched_int8_pairwise_dist_ref,
+                                unit_rows(gen, dev, c, b, f),
+                                *int8_gallery(unit_rows(gen, dev, c, g, f))))
+    nbytes = (C * BATCH * F * 4 + C * G_INT8 * F + 2 * C * G_INT8 * 4
+              + C * BATCH * G_INT8 * 4)
+    flops = 2.0 * C * BATCH * G_INT8 * F
+    rows[name] = dict(
+        max_abs_err=err, bound=bound(nbytes, flops, peak),
+        ms=time_ms(lambda: batched_int8_pairwise_dist(q, gq, gs, gn2)),
+        plain_ms=time_ms(
+            lambda: REF.batched_int8_pairwise_dist_ref(q, gq, gs, gn2)),
+        library_ms=None, shape=[C, BATCH, G_INT8, F])
+
+    # batched_pairwise_dist at the fp32 serving shape + ragged shapes
+    gf = unit_rows(gen, dev, C, G_FP32, F)
+    name = "batched_pairwise_dist"
+    err = dist_err(name, batched_pairwise_dist, REF.batched_pairwise_dist_ref,
+                   q, gf)
+    for (c, b, g, f) in ((3, 7, 1000, 64), (2, 5, 333, 40)):
+        err = max(err, dist_err(name, batched_pairwise_dist,
+                                REF.batched_pairwise_dist_ref,
+                                unit_rows(gen, dev, c, b, f),
+                                unit_rows(gen, dev, c, g, f)))
+
+    def library():                   # one PyTorch call, norms included
+        qq = torch.sum(q * q, -1)[:, :, None]
+        gg = torch.sum(gf * gf, -1)[:, None, :]
+        return torch.baddbmm(qq + gg, q, gf.transpose(1, 2), alpha=-2)
+
+    nbytes = C * BATCH * F * 4 + C * G_FP32 * F * 4 + C * BATCH * G_FP32 * 4
+    flops = 2.0 * C * BATCH * G_FP32 * F
+    rows[name] = dict(
+        max_abs_err=err, bound=bound(nbytes, flops, peak),
+        ms=time_ms(lambda: batched_pairwise_dist(q, gf)),
+        plain_ms=time_ms(lambda: REF.batched_pairwise_dist_ref(q, gf)),
+        library_ms=time_ms(library), shape=[C, BATCH, G_FP32, F])
+
+    for name, r in rows.items():
+        emit({"phase": "kernel_check", "card": card, "name": name,
+              "shape": r["shape"], "max_abs_err": r["max_abs_err"],
+              "ms": r["ms"], "plain_ms": r["plain_ms"],
+              "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
+              "bound_by": r["bound"][1]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: serving
+# ---------------------------------------------------------------------------
+
+
+def _l2n(x):
+    return x / np.sqrt(np.maximum((x * x).sum(-1, keepdims=True), 1e-12))
+
+
+def clustered_gallery(rng, G):
+    """(G, proto_dim) rows around G // N_PER_ID unit id centers living in a
+    rank-ID_RANK subspace (the recipe of benchmarks/serve_bench.py)."""
+    U, _ = np.linalg.qr(rng.standard_normal((CFG.proto_dim, ID_RANK)))
+    z = _l2n(rng.standard_normal((G // N_PER_ID, ID_RANK))).astype(np.float32)
+    centers = _l2n(z @ U.T.astype(np.float32))
+    idx = np.repeat(np.arange(G // N_PER_ID), N_PER_ID)
+    noise = _l2n(rng.standard_normal((G, CFG.proto_dim))).astype(np.float32)
+    return _l2n(centers[idx] + ID_RHO * noise).astype(np.float32), centers
+
+
+def mk_query(rng, centers_c):
+    ctr = int(rng.integers(len(centers_c)))
+    noise = _l2n(rng.standard_normal(CFG.proto_dim)).astype(np.float32)
+    return _l2n(centers_c[ctr] + ID_RHO * noise).astype(np.float32), ctr
+
+
+def query_set(rng, centers, n):
+    """(C, n, proto_dim) clustered queries + their person ids."""
+    qp = np.zeros((C, n, CFG.proto_dim), np.float32)
+    qids = np.zeros((C, n), np.int64)
+    for c in range(C):
+        for b in range(n):
+            qp[c, b], qids[c, b] = mk_query(rng, centers[c])
+    return qp, qids
+
+
+def phase_serve(mode, G, dev, card):
+    rng = np.random.default_rng(SEED)
+    protos, centers = zip(*(clustered_gallery(rng, G) for _ in range(C)))
+    ids = [np.arange(G, dtype=np.int32) for _ in range(C)]
+    t0 = time.perf_counter()
+    index = GalleryIndex(protos, ids, keep_fp32=(mode == "fp32"), device=dev)
+    engine = RetrievalEngine(index, stacked_heads(CFG, C, SEED, dev), k=K,
+                             mode=mode)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stream = []
+    for i in range(N_QUERIES):
+        c = int(rng.integers(C))
+        stream.append((c, mk_query(rng, centers[c])[0], i))
+    batcher = ContinuousBatcher(engine, batch=BATCH)
+    batcher.submit(0, stream[0][1])
+    batcher.drain()                                       # warmup launch
+    half = N_QUERIES // 2
+    r1 = run_closed_loop(batcher, stream[:half])
+    tr = time.perf_counter()
+    engine.update(stacked_heads(CFG, C, SEED + 1, dev))   # a round lands
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - tr) * 1e3
+    r2 = run_closed_loop(batcher, stream[half:])
+    tickets = r1["tickets"] + r2["tickets"]
+    check(len(tickets) == N_QUERIES, f"serve_{mode}: {len(tickets)} answers")
+    for t in tickets:
+        check(t.ids.shape == (K,) and bool((t.ids >= 0).all())
+              and bool(np.isfinite(t.dists).all()),
+              f"serve_{mode}: malformed answer for query {t.qid}")
+    lat = np.array([t.latency for t in tickets]) * 1e3
+    wall = r1["wall_s"] + r2["wall_s"]
+    emit({"phase": f"serve_{mode}", "card": card, "clients": C, "gallery": G,
+          "batch": BATCH, "k": K, "queries": len(tickets),
+          "qps": len(tickets) / wall, "p50_ms": float(np.percentile(lat, 50)),
+          "p99_ms": float(np.percentile(lat, 99)),
+          "qps_pre_update": r1["qps"], "qps_post_update": r2["qps"],
+          "refresh_ms": refresh_ms, "index_build_s": build_s,
+          "resident_mb": index.resident_bytes(mode) / 1e6})
+    return engine, stream, r2["tickets"], centers, rng
+
+
+# ---------------------------------------------------------------------------
+# phase 6: parity
+# ---------------------------------------------------------------------------
+
+
+def plain_query(engine, qp, qmask):
+    """The engine's current state rebuilt and queried with the plain
+    versions on the same device; the plain int8 image must equal the
+    served one bit for bit."""
+    ix = engine.index
+    fn, mu, sd = index_features(engine.theta, ix.gp_dev, (ix.gids >= 0).float())
+    Cn, G, Fn = fn.shape
+    qf = featurize(engine.theta, mu, sd, qp)
+    if engine.mode == "int8":
+        q8, s = REF.batched_quantize_ref(fn.reshape(Cn, G * Fn), chunk=Fn)
+        gq = q8.reshape(Cn, G, Fn)
+        check(torch.equal(gq, ix.gq) and torch.equal(s, ix.gscale),
+              "plain int8 image differs from the served one")
+        gn2 = torch.sum(torch.square(gq.float()), -1) * torch.square(s)
+        dist = REF.batched_int8_pairwise_dist_ref(qf, gq, s, gn2)
+    else:
+        dist = REF.batched_pairwise_dist_ref(qf, fn)
+    ids, d = rank_topk(dist, ix.gids, qmask, engine.k)
+    return ids.cpu().numpy(), d.cpu().numpy()
+
+
+def served_vs_plain(engine, stream, tickets, dev):
+    """The post-update answers the batcher served vs the plain engine."""
+    by_c = [[t for t in tickets if t.client == c] for c in range(C)]
+    B = max(len(r) for r in by_c)
+    qp = np.zeros((C, B, CFG.proto_dim), np.float32)
+    qmask = np.zeros((C, B), np.float32)
+    ids = np.full((C, B, K), -1, np.int32)
+    dists = np.zeros((C, B, K), np.float32)
+    for c, row in enumerate(by_c):
+        for b, t in enumerate(row):
+            qp[c, b], qmask[c, b] = stream[t.qid][1], 1.0
+            ids[c, b], dists[c, b] = t.ids, t.dists
+    ids_p, d_p = plain_query(engine, torch.from_numpy(qp).to(dev),
+                             torch.from_numpy(qmask).to(dev))
+    valid = qmask > 0
+    return (recall_at_k(ids, ids_p, qmask),
+            float(np.abs(dists[valid] - d_p[valid]).max()))
+
+
+def phase_breakdown(served, card):
+    """Where one full (C, 64) query launch spends its time, stage by stage
+    (device times, as in phase 3), beside the host wall time of the whole
+    ``query_batch`` call."""
+    for mode, (engine, stream, _, _, _) in served.items():
+        ix = engine.index
+        qp_np = np.stack([np.stack([stream[(c * BATCH + b) % N_QUERIES][1]
+                                    for b in range(BATCH)]) for c in range(C)])
+        qmask_np = np.ones((C, BATCH), np.float32)
+        qp = torch.from_numpy(qp_np).to(ix.device)
+        qmask = torch.from_numpy(qmask_np).to(ix.device)
+        qf = featurize(engine.theta, ix.bn_mu, ix.bn_sd, qp)
+        if mode == "int8":
+            score = lambda: batched_int8_pairwise_dist(qf, ix.gq, ix.gscale,
+                                                       ix.gn2)
+        else:
+            score = lambda: batched_pairwise_dist(qf, ix.gf)
+        dist = score()
+        ids, _ = rank_topk(dist, ix.gids, qmask, K)
+        walls = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            engine.query_batch(qp_np, qmask_np)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "serve_breakdown", "card": card, "mode": mode,
+              "gallery": ix.capacity, "queries": C * BATCH,
+              "featurize_ms": time_ms(
+                  lambda: featurize(engine.theta, ix.bn_mu, ix.bn_sd, qp)),
+              "score_ms": time_ms(score),
+              "rank_ms": time_ms(lambda: rank_topk(dist, ix.gids, qmask, K)),
+              "readback_ms": time_ms(lambda: ids.cpu()),
+              "query_batch_wall_ms": float(np.median(walls))})
+
+
+def persons(ids):
+    return np.where(ids >= 0, ids // N_PER_ID, -1)
+
+
+def phase_parity(served, dev, card, launches):
+    out = {"phase": "parity", "card": card}
+    for mode, (engine, stream, tickets, _, _) in served.items():
+        rec, derr = served_vs_plain(engine, stream, tickets, dev)
+        out[f"{mode}_recall_vs_plain"] = rec
+        out[f"{mode}_dist_err_vs_plain"] = derr
+        check(rec >= MIN_RECALL and derr <= SERVE_DIST_TOL,
+              f"{mode}: served vs plain engine recall {rec}, dist err {derr}")
+
+    engf, _, _, centers, rng = served["fp32"]
+    qp, _ = query_set(rng, centers, N_HOST)
+    qm = np.ones((C, N_HOST), np.float32)
+    ids_d, d_d = engf.query_batch(qp, qm)
+    ids_h, d_h = engf.query_host(qp, qm)
+    rec, derr = recall_at_k(ids_d, ids_h, qm), float(np.abs(d_d - d_h).max())
+    out.update(fp32_recall_vs_host=rec, fp32_dist_err_vs_host=derr)
+    check(rec >= MIN_RECALL and derr <= SERVE_DIST_TOL,
+          f"fp32 vs numpy host oracle: recall {rec}, dist err {derr}")
+
+    G = engf.index.capacity
+    eng8 = RetrievalEngine(engf.index, engf.theta, k=K, mode="int8",
+                           refresh=False)
+    qp, qids = query_set(rng, centers, N_MAP)
+    qm = np.ones((C, N_MAP), np.float32)
+    i8, _ = eng8.query_batch(qp, qm, k=G)
+    i32, _ = engf.query_batch(qp, qm, k=G)
+    m8 = float(np.mean([map_from_ranked_ids(persons(i8[c]), qids[c])
+                        for c in range(C)]))
+    m32 = float(np.mean([map_from_ranked_ids(persons(i32[c]), qids[c])
+                         for c in range(C)]))
+    out.update(map_int8=m8, map_fp32=m32, map_delta=abs(m8 - m32),
+               map_gallery=G)
+    check(m32 > 0.0 and abs(m8 - m32) <= MAP_TOLERANCE,
+          f"int8-vs-fp32 mAP delta {abs(m8 - m32)} (fp32 mAP {m32})")
+
+    out["launches"] = launches
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched in phases 4-5: {launches}")
+    emit(out)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs a card")
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = f"{kind} ({smi})"
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "dir": str(_build.build_dir().relative_to(ROOT))})
+
+    rows = phase_kernels(dev, peaks(kind), card)
+
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    served = {"int8": phase_serve("int8", G_INT8, dev, card),
+              "fp32": phase_serve("fp32", G_FP32, dev, card)}
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+
+    phase_parity(served, dev, card, launches)
+    phase_breakdown(served, card)
+
+    kernels = []
+    for name, spec in KERNELS.items():
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            # aliases: the TPU site, the kernel time, the bound in microseconds
+            "tpu": spec["replaces"], "kernel_ms": r["ms"],
+            "bound_us": r["bound"][0] * 1e3,
+            "shape": r["shape"], "card": card})
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

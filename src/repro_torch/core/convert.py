@@ -1,0 +1,48 @@
+"""Weight carry between the JAX package's stacked pytrees and the port.
+
+The JAX package keeps a stacked head as a nested dict of ``(C, ...)``
+arrays (``theta["l1"]["w"]``); the port keeps a flat dict under dotted keys
+(``theta["l1.w"]``). Values cross as numpy arrays, bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def theta_from_jax(theta_np: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """Nested dict of arrays (numpy, or anything ``np.asarray`` takes) ->
+    the port's flat dict of tensors on ``device``."""
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                out[key] = torch.from_numpy(np.array(v)).to(device)
+
+    walk(theta_np, "")
+    return out
+
+
+def theta_numpy(theta: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's flat dict (tensors on any device) -> flat dict of numpy."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in theta.items()}
+
+
+def theta_to_jax(theta: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of ``theta_from_jax``: the port's flat dict -> the JAX
+    package's nested dict of numpy arrays."""
+    out: Dict[str, Any] = {}
+    for key, v in theta_numpy(theta).items():
+        node = out
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out

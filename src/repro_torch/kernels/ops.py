@@ -1,0 +1,47 @@
+"""Public kernel entry points: dispatch by the device the tensors lie on.
+
+A CUDA tensor goes to the hand-written kernel, which launches or raises;
+a CPU tensor goes to the plain PyTorch version in ``ref``. There is no
+backend switch: the plain version is never taken for a CUDA tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as REF
+from repro_torch.kernels.int8_dist import \
+    batched_int8_pairwise_dist as _bi8dist
+from repro_torch.kernels.pairwise_dist import batched_pairwise_dist as _bpdist
+from repro_torch.kernels.quantize import batched_quantize as _bquant
+
+
+def _on_cuda(*ts: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"operands on {sorted(kinds)}: all must lie on one "
+                     "CUDA device or all on the CPU")
+
+
+def batched_pairwise_dist(q, g):
+    """(C, Q, D) x (C, G, D) -> (C, Q, G) fp32 squared distances."""
+    if _on_cuda(q, g):
+        return _bpdist(q, g)
+    return REF.batched_pairwise_dist_ref(q, g)
+
+
+def batched_int8_pairwise_dist(q, gq, gscale, gn2):
+    """(C, B, F) fp32 queries x int8 resident gallery ((C, G, F) codes,
+    (C, G) scales, (C, G) dequantized squared norms) -> (C, B, G)."""
+    if _on_cuda(q, gq, gscale, gn2):
+        return _bi8dist(q, gq, gscale, gn2)
+    return REF.batched_int8_pairwise_dist_ref(q, gq, gscale, gn2)
+
+
+def batched_quantize(x, *, chunk: int = 256):
+    """(C, P) fp32 -> ((C, P) int8, (C, ceil(P/chunk)) fp32 scales)."""
+    if _on_cuda(x):
+        return _bquant(x, chunk=chunk)
+    return REF.batched_quantize_ref(x, chunk=chunk)

@@ -1,0 +1,60 @@
+"""Structural rules of the PyTorch port, checked on its sources:
+
+  * src/repro_torch/ and chip_smoke.py import neither jax / jaxlib nor the
+    JAX package ``repro`` (the port keeps its own copies);
+  * every CUDA kernel wrapper carries an integer ``launches`` counter, and
+    its kernel module names the TPU kernel it replaces;
+  * no CUDA source asks for fast math (the quantizer's bit-exactness and
+    the IEEE fp32 sums depend on it).
+"""
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+WRAPPERS = [("quantize", "batched_quantize"),
+            ("int8_dist", "batched_int8_pairwise_dist"),
+            ("pairwise_dist", "batched_pairwise_dist")]
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module,name", WRAPPERS)
+def test_kernel_wrappers_count_launches(module, name):
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    wrapper = getattr(mod, name)
+    assert isinstance(wrapper.launches, int)
+    src = (PORT / "kernels" / "csrc" / f"{module}.cu").read_text()
+    assert f"src/repro/kernels/{module}.py:{name}" in src
+    assert "extern \"C\" int repro_" in src
+
+
+def test_no_fast_math_in_kernel_builds():
+    flags = importlib.import_module("repro_torch.kernels._build").NVCC_FLAGS
+    assert not any("fast_math" in f or "ftz" in f or "prec-div" in f
+                   for f in flags)
+    assert "arch=compute_90a,code=sm_90a" in flags
