@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch/CUDA port's serving path (ReID retrieval,
-int8 and fp32 modes) on one CUDA card.
+"""On-card smoke of the PyTorch/CUDA port on one CUDA card: its two main
+paths, ReID retrieval serving (int8 and fp32 modes) and the FedSTIL
+federated round (stacked engine, device evaluation).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -8,11 +9,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
   1. device      torch's card name and ``nvidia-smi``'s name + power limit
                  (no CUDA device -> exit 1, no result)
-  2. build       nvcc builds of every kernel of the path (seconds)
+  2. build       nvcc builds of every kernel of both paths (seconds)
   3. kernels     each CUDA kernel against its plain PyTorch version on the
-                 card, at the serving shapes and at ragged ones:
-                 quantize bit-identical, distances within 1e-5; times
-                 (CUDA events, median of 30 launches after warmup)
+                 card, at the main paths' shapes and at ragged ones:
+                 quantize bit-identical, distances within 1e-5, KL
+                 similarity within 2e-6, normalized relevance within 1e-6
+                 and aggregated bases within 2e-5; times (CUDA events,
+                 median of 30 launches after warmup), the relevance kernels
+                 at the C = 1000 server shapes
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -23,12 +27,31 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  during phases 4-5 (counts are zeroed just before phase 4)
   7. serve_breakdown  device time of each stage of one full query launch
                  (featurize, score, rank, readback) beside its host wall time
+  8. round_fedstil  the federated round: ``run_simulation(FedSTIL(C=5),
+                 FederatedReIDBenchmark(), rounds=60)`` on the card (T=6
+                 tasks, 5 epochs, batch 64, eval every 2 rounds), per-eval-
+                 round mAP/R1/R5/forgetting, bytes, per-round wall and
+                 stage ms; the same run on the CPU (the plain versions) and
+                 their agreement; the launches of the round's kernels
+                 (counts zeroed just before the card run); each of them
+                 against its plain version on the operands of its last
+                 call in the card run (tolerances of phase 3); then each
+                 round's stage ms (``round_fedstil_stages``). The full
+                 per-round tables of both runs go to
+                 ``build/round_fedstil.json``.
+     round_profile: six more rounds on the card under torch.profiler:
+                 device kernels and copies per round, their summed device
+                 time, and the device's idle share of the profiled window
+  9. server_round_scale  the stacked server step alone (ring push, KL
+                 relevance, flatten, fused aggregate, unflatten) at C=100
+                 and C=1000, P=57664, D=128, k=6: device ms of each stage
 
-then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+then the script's wall time, the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -40,13 +63,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
+                                       unflatten_stacked)
 from repro_torch.core import edge_model as EM  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.fedstil import FedSTIL  # noqa: E402
+from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
+from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
+from repro_torch.federated import run_simulation  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
+from repro_torch.kernels.kl_similarity import kl_similarity  # noqa: E402
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist  # noqa: E402
 from repro_torch.kernels.quantize import batched_quantize  # noqa: E402
+from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
+    fused_relevance_aggregate)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
@@ -69,6 +103,18 @@ DIST_TOL = 1e-5        # kernel vs plain: fp32 sums over F=64 in another order
 SERVE_DIST_TOL = 1e-4  # served distances vs plain engine / numpy oracle
 MIN_RECALL = 0.999
 MAP_TOLERANCE = 0.01   # int8-vs-fp32 full-ranking mAP delta
+KL_TOL = 2e-6          # kernel vs plain; S in (0, 1], log-D-shifted fp32 sums
+WN_TOL = 1e-6          # normalized relevance, entries in [0, 1]
+AGG_TOL = 2e-5         # bases B at standard-normal Theta, K = C fp32 sums
+
+# the federated round (the paper's protocol) and the server-step scale
+ROUNDS, N_CLIENTS = 60, 5
+ROUND_W_TOL, ROUND_B_TOL = 1e-5, 1e-4   # card vs CPU, round 0
+ROUND_METRIC_TOL = 0.01                 # card vs CPU, final round mAP / R1
+HIST_K, SCALE_CLIENTS = 6, (100, 1000)
+P_EDGE = 57664                          # EdgeModelConfig() head, 512 classes
+P_ROUND = 37696                         # the round's head: the bench's 200 ids
+ROUND_OUT = ROOT / "build" / "round_fedstil.json"
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -80,17 +126,25 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 
 KERNELS = {
     "batched_quantize": {
-        "fn": batched_quantize,
+        "fn": batched_quantize, "paths": ("serve",),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:58"},
     "batched_int8_pairwise_dist": {
-        "fn": batched_int8_pairwise_dist,
+        "fn": batched_int8_pairwise_dist, "paths": ("serve",),
         "source": "src/repro_torch/kernels/csrc/int8_dist.cu",
         "replaces": "src/repro/kernels/int8_dist.py:63"},
     "batched_pairwise_dist": {
-        "fn": batched_pairwise_dist,
+        "fn": batched_pairwise_dist, "paths": ("serve", "round_fedstil"),
         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
         "replaces": "src/repro/kernels/pairwise_dist.py:91"},
+    "kl_similarity": {
+        "fn": kl_similarity, "paths": ("round_fedstil",),
+        "source": "src/repro_torch/kernels/csrc/kl_similarity.cu",
+        "replaces": "src/repro/kernels/kl_similarity.py:53"},
+    "fused_relevance_aggregate": {
+        "fn": fused_relevance_aggregate, "paths": ("round_fedstil",),
+        "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
+        "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
 }
 
 
@@ -257,12 +311,100 @@ def phase_kernels(dev, peak, card):
         plain_ms=time_ms(lambda: REF.batched_pairwise_dist_ref(q, gf)),
         library_ms=time_ms(library), shape=[C, BATCH, G_FP32, F])
 
+    rows.update(relevance_kernel_rows(gen, dev, peak))
+
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
               "shape": r["shape"], "max_abs_err": r["max_abs_err"],
               "ms": r["ms"], "plain_ms": r["plain_ms"],
               "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1]})
+    return rows
+
+
+def task_features(gen, dev, n):
+    """(n, proto_dim) rows like the server's task features: means of tanh
+    prototypes, entries in (-1, 1)."""
+    return torch.tanh(torch.randn((n, CFG.proto_dim), generator=gen,
+                                  device=dev))
+
+
+def kl_err(a, b):
+    out_k = kl_similarity(a, b)
+    out_r = REF.kl_similarity_ref(a, b)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "kl_similarity: non-finite")
+    err = float((out_k - out_r).abs().max())
+    check(err <= KL_TOL, f"kl_similarity {tuple(a.shape)} x {tuple(b.shape)}"
+          f": max_abs_err {err} > {KL_TOL}")
+    return err
+
+
+def aggregate_err(w, th):
+    b_k, wn_k = fused_relevance_aggregate(w, th)
+    b_r, wn_r = REF.fused_relevance_aggregate_ref(w, th)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(b_k).all() and torch.isfinite(wn_k).all()),
+          "fused_relevance_aggregate: non-finite output")
+    e_wn = float((wn_k - wn_r).abs().max())
+    e_b = float((b_k - b_r).abs().max())
+    check(e_wn <= WN_TOL and e_b <= AGG_TOL,
+          f"fused_relevance_aggregate C={w.shape[0]} P={th.shape[1]}: Wn err "
+          f"{e_wn} (<= {WN_TOL}), B err {e_b} (<= {AGG_TOL})")
+    return max(e_wn, e_b)
+
+
+def relevance_kernel_rows(gen, dev, peak):
+    """The round's two server kernels at C = 5, 100 and ragged shapes for
+    correctness, timed at the C = 1000 server shapes."""
+    rows = {}
+    D, k = CFG.proto_dim, HIST_K
+    err = 0.0
+    for n, m, d in ((5, 5 * k, D), (100, 100 * k, D), (7, 7 * k - 1, D),
+                    (3, 5, 37)):
+        err = max(err, kl_err(task_features(gen, dev, n)[:, :d].contiguous(),
+                              task_features(gen, dev, m)[:, :d].contiguous()),
+                  kl_err(torch.randn((n, d), generator=gen, device=dev),
+                         torch.randn((m, d), generator=gen, device=dev)))
+    C = SCALE_CLIENTS[-1]
+    N, M = C, C * k
+    a, b = task_features(gen, dev, N), task_features(gen, dev, M)
+    err = max(err, kl_err(a, b))
+    rows["kl_similarity"] = dict(
+        max_abs_err=err,
+        bound=bound(4.0 * (N * D + M * D + N * M), 2.0 * N * M * D, peak),
+        ms=time_ms(lambda: kl_similarity(a, b)),
+        plain_ms=time_ms(lambda: REF.kl_similarity_ref(a, b)),
+        library_ms=None, shape=[N, M, D])
+
+    def relevance(c):
+        return torch.rand((c, c), generator=gen, device=dev)
+
+    def params(c, p):
+        return torch.randn((c, p), generator=gen, device=dev)
+
+    err = 0.0
+    for c, p in ((5, P_EDGE), (5, P_ROUND), (100, P_EDGE), (7, 1001)):
+        w = relevance(c)
+        w.fill_diagonal_(7.5)                 # finite junk on the diagonal
+        w[1] = 0.0                            # an all-zero row
+        err = max(err, aggregate_err(w, params(c, p)))
+    zb, zw = fused_relevance_aggregate(torch.zeros((6, 6), device=dev),
+                                       params(6, 1001))
+    torch.cuda.synchronize()
+    check(not bool(zb.any()) and not bool(zw.any()),
+          "fused_relevance_aggregate: all-zero W gave nonzero output")
+    w, th = relevance(C), params(C, P_EDGE)
+    err = max(err, aggregate_err(w, th))
+    wn = REF.normalized_relevance_ref(w)
+    rows["fused_relevance_aggregate"] = dict(
+        max_abs_err=err,
+        bound=bound(4.0 * (2 * C * C + 2 * C * P_EDGE), 2.0 * C * C * P_EDGE,
+                    peak),
+        ms=time_ms(lambda: fused_relevance_aggregate(w, th)),
+        plain_ms=time_ms(lambda: REF.fused_relevance_aggregate_ref(w, th)),
+        library_ms=time_ms(lambda: torch.mm(wn, th)),
+        shape=[C, P_EDGE])
     return rows
 
 
@@ -469,9 +611,243 @@ def phase_parity(served, dev, card, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the federated round
+# ---------------------------------------------------------------------------
+
+
+class RecordingFedSTIL(FedSTIL):
+    """FedSTIL that keeps round 0's normalized relevance and its dispatched
+    bases (flattened) for the card-vs-CPU comparison."""
+
+    round0 = None
+
+    def server_round_stacked(self, rnd, upload):
+        dispatch = super().server_round_stacked(rnd, upload)
+        if rnd == 0:
+            self.round0 = (self.last_W.copy(),
+                           flatten_stacked(dispatch["B"])[0].cpu().numpy())
+        return dispatch
+
+
+ROUND_KERNELS = ("kl_similarity", "fused_relevance_aggregate",
+                 "batched_pairwise_dist")
+
+
+@contextlib.contextmanager
+def last_operands(names):
+    """Route ``ops.<name>`` through a pass-through that keeps a copy of the
+    last call's operands: yields {name: operands}, so each kernel can be held
+    against its plain version at the shapes and values the path gave it."""
+    seen, orig = {}, {n: getattr(ops, n) for n in names}
+
+    def keep(name):
+        def call(*args, **kw):
+            seen[name] = tuple(a.detach().clone() for a in args)
+            return orig[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, keep(n))
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
+def path_operand_errs(seen):
+    """Each round kernel against its plain version on the operands of its
+    last call in the card run (the last eval's (C, T Q, F) x (C, G_max, F)
+    distances, the last server round's relevance and aggregate)."""
+    errs = {"batched_pairwise_dist": dist_err(
+                "batched_pairwise_dist (round)", batched_pairwise_dist,
+                REF.batched_pairwise_dist_ref, *seen["batched_pairwise_dist"]),
+            "kl_similarity": kl_err(*seen["kl_similarity"]),
+            "fused_relevance_aggregate": aggregate_err(
+                *seen["fused_relevance_aggregate"])}
+    return {n: {"shapes": [list(a.shape) for a in seen[n]], "max_abs_err": e}
+            for n, e in errs.items()}
+
+
+def simulate(bench, device):
+    strategy = RecordingFedSTIL(EM.EdgeModelConfig(n_classes=bench.n_classes),
+                                n_clients=N_CLIENTS)
+    t0 = time.perf_counter()
+    res = run_simulation(strategy, bench, rounds=ROUNDS, seed=SEED,
+                         engine="stacked", eval_backend="device",
+                         device=device)
+    return strategy, res, time.perf_counter() - t0
+
+
+def summarize(values):
+    v = np.asarray(values, np.float64)
+    return {"median": float(np.median(v)), "max": float(v.max()),
+            "total": float(v.sum()), "round0": float(v[0])}
+
+
+def phase_round_fedstil(dev, card):
+    """The main path of the training slice, on the card and on the CPU.
+    Returns each kernel's launches during the card run and its error
+    against its plain version on the operands the run gave it."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    with last_operands(ROUND_KERNELS) as seen:
+        strat, res, wall_s = simulate(bench, dev)
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    on_path = path_operand_errs(seen)
+    strat_cpu, res_cpu, cpu_s = simulate(bench, "cpu")
+
+    keys = ("mAP", "R1", "R5", "forgetting_mAP")
+    n_eval = len(res.rounds)
+    check(n_eval == ROUNDS // 2 and len(res_cpu.rounds) == n_eval,
+          f"round_fedstil: {n_eval} eval rounds")
+    for r in res.rounds:
+        check(all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in keys),
+              f"round_fedstil: bad metrics in round {r['round']}: {r}")
+    deltas = {k: max(abs(a[k] - b[k]) for a, b in zip(res.rounds,
+                                                     res_cpu.rounds))
+              for k in keys}
+    final = {k: abs(res.rounds[-1][k] - res_cpu.rounds[-1][k])
+             for k in ("mAP", "R1")}
+    w_err = float(np.abs(strat.round0[0] - strat_cpu.round0[0]).max())
+    b_err = float(np.abs(strat.round0[1] - strat_cpu.round0[1]).max())
+    stages = sorted({k for s in res.stage_ms for k in s} - {"round"})
+    ROUND_OUT.parent.mkdir(parents=True, exist_ok=True)
+    ROUND_OUT.write_text(json.dumps({
+        "card": card, "rounds": res.rounds, "rounds_cpu": res_cpu.rounds,
+        "stage_ms": res.stage_ms, "stage_ms_cpu": res_cpu.stage_ms}))
+    emit({"phase": "round_fedstil", "card": card, "clients": N_CLIENTS,
+          "tasks": bench.n_tasks, "rounds": ROUNDS, "epochs": strat.epochs,
+          "batch": strat.batch, "params_per_client": int(
+              strat.round0[1].shape[1]),
+          "eval_rounds": [r["round"] for r in res.rounds],
+          **{k: [r[k] for r in res.rounds] for k in keys},
+          "c2s_bytes": res.comm.total_c2s, "s2c_bytes": res.comm.total_s2c,
+          "storage_bytes": res.storage_bytes,
+          "round_wall_ms": [s["wall_ms"] for s in res.stage_ms],
+          "stage_ms": {k: summarize([s.get(k, 0.0) for s in res.stage_ms])
+                       for k in stages},
+          "sim_wall_s": wall_s, "cpu_sim_wall_s": cpu_s,
+          "cpu_final": {k: res_cpu.rounds[-1][k] for k in keys},
+          "card_vs_cpu": {"round0_W_err": w_err, "round0_B_err": b_err,
+                          "final_abs_delta": final,
+                          "largest_per_round_delta": deltas},
+          "launches": {k: launches[k] for k in ROUND_KERNELS},
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(ROUND_OUT.relative_to(ROOT))})
+    emit({"phase": "round_fedstil_stages", "card": card,
+          "stage_ms_per_round": {k: [s.get(k, 0.0) for s in res.stage_ms]
+                                 for k in ("gather", "local_train", "server",
+                                           "apply", "eval")}})
+    check(w_err <= ROUND_W_TOL and b_err <= ROUND_B_TOL,
+          f"round 0 card vs CPU: W err {w_err} (<= {ROUND_W_TOL}), B err "
+          f"{b_err} (<= {ROUND_B_TOL})")
+    check(all(v <= ROUND_METRIC_TOL for v in final.values()),
+          f"final round card vs CPU: {final} > {ROUND_METRIC_TOL}")
+    check(res.comm.total_c2s == res_cpu.comm.total_c2s
+          and res.comm.total_s2c == res_cpu.comm.total_s2c
+          and res.storage_bytes == res_cpu.storage_bytes,
+          "round_fedstil: card and CPU byte accounting differ")
+    expect = {"kl_similarity": ROUNDS, "fused_relevance_aggregate": ROUNDS,
+              "batched_pairwise_dist": n_eval}
+    check(all(launches[k] == n for k, n in expect.items()),
+          f"round_fedstil launches {launches}, expected {expect}")
+    check(int(strat.round0[1].shape[1]) == P_ROUND,
+          f"round_fedstil: P = {strat.round0[1].shape[1]} != {P_ROUND}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
+def phase_round_profile(dev, card, n_rounds=6):
+    """Where the round's device time goes: ``n_rounds`` rounds (with their
+    evaluations) of the same simulation under torch.profiler, on a warm
+    card. The profiler's host-side recording slows the host, so the idle
+    share is an upper bound on the unprofiled run's."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    strategy = FedSTIL(EM.EdgeModelConfig(n_classes=bench.n_classes),
+                       n_clients=N_CLIENTS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_simulation(strategy, bench, rounds=n_rounds, seed=SEED,
+                             device=dev)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "round_profile", "card": card, "rounds": n_rounds,
+          "window_ms": window_ms,
+          "rounds_wall_ms": sum(s["wall_ms"] for s in res.stage_ms),
+          "device_events": len(on_card),
+          "device_events_per_round": len(on_card) / n_rounds,
+          "device_busy_ms": busy_ms if on_card else None,
+          "device_idle_share": (1.0 - busy_ms / window_ms) if on_card
+          else None,
+          "top_device_ms": [[name[:60], us / 1e3] for name, us in top]})
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the stacked server step at fleet sizes
+# ---------------------------------------------------------------------------
+
+
+def phase_server_scale(dev, card):
+    """ring push -> KL relevance -> flatten -> fused aggregate -> unflatten
+    at the C of BENCH_server_round.json / BENCH_mesh_round.json, with the
+    ring full (k rounds pushed). Device ms per stage (CUDA events), and the
+    host wall of a whole ``server_round_stacked`` call."""
+    cfg = EM.EdgeModelConfig()                 # 512 classes: P = 57664
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for C in SCALE_CLIENTS:
+        heads = EM.stack_heads([EM.init_adaptive_layers(cfg, gen)
+                                for _ in range(C)], dev)
+        strat = FedSTIL(cfg, n_clients=C, history_len=HIST_K)
+        walls = []
+        for rnd in range(HIST_K + 2):
+            up = {"theta": heads,
+                  "task_feature": task_features(gen, dev, C)}
+            t0 = time.perf_counter()
+            strat.server_round_stacked(rnd, up)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ring = strat._ring
+        check(bool(ring.valid.all()), "server_round_scale: ring not full")
+        feats = task_features(gen, dev, C)
+        mask = torch.ones((C,), device=dev)
+        W = ring_relevance(ring.buf, ring.valid, forgetting_ratio=0.5)
+        flat, meta = flatten_stacked(heads)
+        check(flat.shape == (C, P_EDGE), f"P = {flat.shape[1]} != {P_EDGE}")
+        B_flat, _ = fused_relevance_aggregate(W, flat)
+        emit({"phase": "server_round_scale", "card": card, "clients": C,
+              "params_per_client": P_EDGE, "history": HIST_K,
+              "feature_dim": CFG.proto_dim,
+              "ring_push_ms": time_ms(lambda: ring_push(
+                  ring.buf, ring.valid, ring.stale, feats, mask)),
+              "relevance_ms": time_ms(lambda: ring_relevance(
+                  ring.buf, ring.valid, forgetting_ratio=0.5)),
+              "kl_similarity_ms": time_ms(lambda: kl_similarity(
+                  ring.buf[:, 0].contiguous(),
+                  ring.buf.reshape(C * HIST_K, -1))),
+              "flatten_ms": time_ms(lambda: flatten_stacked(heads)),
+              "aggregate_ms": time_ms(lambda: fused_relevance_aggregate(
+                  W, flat)),
+              "unflatten_ms": time_ms(lambda: unflatten_stacked(B_flat,
+                                                                meta)),
+              "server_round_wall_ms": float(np.median(walls[2:])),
+              "server_round_wall_ms_first": walls[0]})
+        del heads, strat, flat, B_flat, W
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a card")
     dev = torch.device("cuda", 0)
@@ -492,28 +868,43 @@ def main():
 
     rows = phase_kernels(dev, peaks(kind), card)
 
+    # path 1: serving (counts zeroed just before, read just after)
     for spec in KERNELS.values():
         spec["fn"].launches = 0
     served = {"int8": phase_serve("int8", G_INT8, dev, card),
               "fp32": phase_serve("fp32", G_FP32, dev, card)}
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
-
-    phase_parity(served, dev, card, launches)
+    launches = {"serve": {name: spec["fn"].launches
+                          for name, spec in KERNELS.items()}}
+    phase_parity(served, dev, card,
+                 {name: n for name, n in launches["serve"].items()
+                  if "serve" in KERNELS[name]["paths"]})
     phase_breakdown(served, card)
+
+    # path 2: the federated round (counts zeroed inside, just before)
+    launches["round_fedstil"], path_errs = phase_round_fedstil(dev, card)
+    for name, err in path_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    phase_round_profile(dev, card)
+    phase_server_scale(dev, card)
 
     kernels = []
     for name, spec in KERNELS.items():
         r = rows[name]
+        by_path = {p: launches[p][name] for p in spec["paths"]}
+        check(all(n > 0 for n in by_path.values()),
+              f"{name} never launched on its path(s): {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[name],
+            "replaces": spec["replaces"], "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "launches_by_path": by_path,
             # aliases: the TPU site, the kernel time, the bound in microseconds
             "tpu": spec["replaces"], "kernel_ms": r["ms"],
             "bound_us": r["bound"][0] * 1e3,
             "shape": r["shape"], "card": card})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

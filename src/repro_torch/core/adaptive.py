@@ -1,0 +1,40 @@
+"""FedSTIL adaptive-layer parameterization (paper Eq. 2), over stacked heads:
+
+    theta_c = B_c ⊙ alpha_c + A_c
+
+``B_c`` carries the spatial-temporal knowledge the server dispatches,
+``alpha_c`` is a learnable attention over it and ``A_c`` the locally learnt
+residual; (alpha_c, A_c) train locally. The port of ``combine`` and
+``init_adaptive`` in ``repro/core/adaptive.py``, leaf-wise over the port's
+flat head dicts, so a leading client axis passes straight through.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+Theta = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class AdaptiveState:
+    B: Theta          # base (server-provided spatial-temporal knowledge)
+    alpha: Theta      # attention over B
+    A: Theta          # local residual
+
+    def trainable(self) -> Dict[str, Theta]:
+        return {"alpha": self.alpha, "A": self.A}
+
+
+def combine(B: Theta, alpha: Theta, A: Theta) -> Theta:
+    """theta = B ⊙ alpha + A, leaf-wise (paper Eq. 2)."""
+    return {k: B[k] * alpha[k] + A[k] for k in B}
+
+
+def init_adaptive(theta0: Theta) -> AdaptiveState:
+    """Start with theta == theta0: B = theta0, alpha = 1, A = 0."""
+    return AdaptiveState(B=theta0,
+                         alpha={k: torch.ones_like(v) for k, v in theta0.items()},
+                         A={k: torch.zeros_like(v) for k, v in theta0.items()})

@@ -46,3 +46,12 @@ def theta_to_jax(theta: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
             node = node.setdefault(p, {})
         node[leaf] = v
     return out
+
+
+def init_params_from_jax(g_params: Dict[str, Any], thetas0) -> Dict[str, Any]:
+    """The JAX package's initial weights -> the port's ``init_params`` of
+    ``federated.simulation.run_simulation``: the extraction params
+    (``{"w1", "w2"}``) and a list of C per-client heads (nested JAX
+    dicts), all as numpy, the heads under the port's dotted keys."""
+    return {"extraction": {k: np.array(v) for k, v in g_params.items()},
+            "theta0": [theta_numpy(theta_from_jax(t, "cpu")) for t in thetas0]}

@@ -1,11 +1,13 @@
-"""Edge-scale ReID model: the adaptive head, batched over clients.
+"""Edge-scale ReID model: frozen extraction layers + the adaptive head,
+batched over clients.
 
-The port of ``repro/core/edge_model.py``'s adaptive layers. A stacked head
-is a dict of ``(C, ...)`` tensors under the keys of the JAX ``theta``
-pytree, flattened with dots: ``l1.w`` (C, proto_dim, hidden), ``l1.b``
-(C, hidden), ``l2.w`` (C, hidden, feat_dim), ``l2.b`` (C, feat_dim),
-``bn.scale`` / ``bn.bias`` (C, feat_dim) and ``head.w`` (C, feat_dim,
-n_classes). The client axis is written out: every product is a
+The port of ``repro/core/edge_model.py``. The extraction layers ``G``
+(Eq. 1) are a frozen two-layer tanh trunk shared by every client. A
+stacked head is a dict of ``(C, ...)`` tensors under the keys of the JAX
+``theta`` pytree, flattened with dots: ``l1.w`` (C, proto_dim, hidden),
+``l1.b`` (C, hidden), ``l2.w`` (C, hidden, feat_dim), ``l2.b`` (C,
+feat_dim), ``bn.scale`` / ``bn.bias`` (C, feat_dim) and ``head.w`` (C,
+feat_dim, n_classes). The client axis is written out: every product is a
 ``torch.bmm`` over ``(C, N, .)`` batches where the reference vmaps.
 
 BN is the paper's masked BN, not ``torch.nn.BatchNorm``: statistics over
@@ -29,6 +31,25 @@ class EdgeModelConfig:
     hidden: int = 128          # adaptive-layer hidden
     feat_dim: int = 64         # retrieval feature size
     n_classes: int = 512       # global identity space
+
+
+def init_extraction(cfg: EdgeModelConfig,
+                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The frozen trunk ``{"w1": (img_dim, proto_dim), "w2": (proto_dim,
+    proto_dim)}``, drawn from ``generator`` with the reference's scales."""
+    dev = generator.device
+    return {
+        "w1": torch.randn((cfg.img_dim, cfg.proto_dim), generator=generator,
+                          device=dev) / math.sqrt(cfg.img_dim),
+        "w2": torch.randn((cfg.proto_dim, cfg.proto_dim), generator=generator,
+                          device=dev) / math.sqrt(cfg.proto_dim),
+    }
+
+
+def extract_prototypes(g_params, images: torch.Tensor) -> torch.Tensor:
+    """Eq. (1): P = G(X). images (..., img_dim) -> (..., proto_dim)."""
+    h = torch.tanh(images @ g_params["w1"])
+    return torch.tanh(h @ g_params["w2"])
 
 
 def init_adaptive_layers(cfg: EdgeModelConfig,
@@ -98,3 +119,31 @@ def adaptive_forward_frozen(theta: Theta, protos, mu, sd) -> torch.Tensor:
     client's gallery at index refresh, so a query's feature does not depend
     on the batch it rides in. Features only."""
     return adaptive_bn_apply(theta, adaptive_pre_bn(theta, protos), mu, sd)
+
+
+def adaptive_forward(theta: Theta, protos):
+    """(C, N, D) prototypes -> (features, logits), BN statistics over each
+    client's whole batch."""
+    return adaptive_forward_masked(theta, protos, protos.new_ones(
+        protos.shape[:2]))
+
+
+def adaptive_features_sets(theta: Theta, protos) -> torch.Tensor:
+    """Features of T separate batches per client: (C, T, Q, D) -> (C, T, Q,
+    feat_dim), each (c, t) set its own BN batch (the reference vmaps
+    ``adaptive_forward`` over the sets)."""
+    C, T, Q, D = protos.shape
+    f = adaptive_pre_bn(theta, protos.reshape(C, T * Q, D)).reshape(
+        C * T, Q, -1)
+    mu, sd = adaptive_bn_stats(f, f.new_ones((C * T, Q)))
+    fn = ((f - mu[:, None]) / sd[:, None]).reshape(C, T, Q, -1)
+    return (fn * theta["bn.scale"][:, None, None]
+            + theta["bn.bias"][:, None, None])
+
+
+def ce_loss(theta: Theta, protos, labels) -> torch.Tensor:
+    """Per-client cross-entropy: protos (C, B, D), labels (C, B) int64 ->
+    (C,) mean negative log-likelihood of each client's batch."""
+    _, logits = adaptive_forward(theta, protos)
+    logp = torch.log_softmax(logits, -1)
+    return -torch.mean(torch.gather(logp, 2, labels[:, :, None])[..., 0], 1)

@@ -1,0 +1,165 @@
+"""FedSTIL, the paper's method (Algorithm 1), on the stacked engine.
+
+The port of the stacked path of ``repro/core/fedstil.py``. Per round, for
+all C clients at once:
+
+  1. prototypes of the current task arrive (extraction layers frozen);
+  2. each client trains (alpha_c, A_c) of theta_c = B_c ⊙ alpha_c + A_c
+     (Eq. 2) on current prototypes plus rehearsal samples, with parameter
+     tying, then stores nearest-mean exemplar prototypes;
+  3. the server receives theta and the task feature (mean prototype,
+     Eq. 3), pushes the features into its (C, k, D) ring, computes KL task
+     similarity (Eq. 4, ``ops.kl_similarity``) and decayed relevance W
+     (Eq. 5), and in one fused step masks the diagonal, row-normalizes W
+     and forms the bases B = Wn Θ over the flattened (C, P) parameters
+     (Eq. 6, ``ops.fused_relevance_aggregate``);
+  4. clients whose row of Wn has mass take their new base; the others keep
+     theirs.
+
+Ablation switches (Table III): ``st_integration``, ``rehearsal``,
+``tying``; the similarity switch (Table VI): ``metric``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import StageTimes
+from repro_torch.common.pytree import (flatten_stacked, tree_bytes,
+                                       unflatten_stacked)
+from repro_torch.core import edge_model as EM
+from repro_torch.core.adaptive import combine, init_adaptive
+from repro_torch.core.rehearsal import PrototypeMemory
+from repro_torch.core.relevance import DeviceRingHistory
+from repro_torch.core.tying import tying_loss
+from repro_torch.federated.base import (ClientState, Strategy,
+                                        not_in_this_slice)
+from repro_torch.kernels import ops
+
+
+class FedSTIL(Strategy):
+    name = "fedstil"
+    uses_server = True
+    supports_stacked = True
+
+    def __init__(self, cfg, *, n_clients=5, metric="kl", forgetting_ratio=0.5,
+                 history_len=6, memory_size=2000, per_identity=8,
+                 lam_tie=1e-4, st_integration=True, rehearsal=True,
+                 tying=True, server_backend=None, **kw):
+        if server_backend is not None:
+            raise not_in_this_slice(
+                f"server_backend={server_backend!r} (the port dispatches "
+                "its kernels by tensor device; the loop reference is the "
+                "host engine's)", "the host-engine slice (5)")
+        super().__init__(cfg, **kw)
+        self.n_clients = n_clients
+        self.metric = metric
+        self.forgetting_ratio = forgetting_ratio
+        self.history_len = history_len
+        self.lam_tie = lam_tie
+        self.st_integration = st_integration
+        self.use_rehearsal = rehearsal
+        self.use_tying = tying
+        self.memory_size = memory_size
+        self.per_identity = per_identity
+        self._ring: Optional[DeviceRingHistory] = None
+        self.last_W: Optional[np.ndarray] = None
+
+    # ---- decomposition -------------------------------------------------------
+    def init_client(self, theta0) -> ClientState:
+        """One client from its initial head (flat dict, no client axis)."""
+        ad = init_adaptive(theta0)
+        return ClientState(theta=ad.trainable(), extras={
+            "reg_B": ad.B, "reg_prev_theta": theta0,
+            "memory": PrototypeMemory(capacity=self.memory_size,
+                                      per_identity=self.per_identity)})
+
+    def make_theta(self, trainable, extras):
+        return combine(extras["reg_B"], trainable["alpha"], trainable["A"])
+
+    def regularizer(self, trainable, extras):
+        if not self.use_tying:
+            return 0.0
+        return tying_loss(self.make_theta(trainable, extras),
+                          extras["reg_prev_theta"], lam_l1=self.lam_tie)
+
+    def eval_theta_stacked(self, stacked):
+        return combine(stacked.extras["reg_B"], stacked.trainable["alpha"],
+                       stacked.trainable["A"])
+
+    def storage_bytes(self, state: ClientState) -> int:
+        mem: PrototypeMemory = state.extras["memory"]
+        return (tree_bytes(state.theta) + tree_bytes(state.extras["reg_B"])
+                + mem.size_bytes)
+
+    # ---- local round ---------------------------------------------------------
+    def _gather_rehearsal(self, stacked, c):
+        if not self.use_rehearsal:
+            return None
+        mem: PrototypeMemory = stacked.host["memory"][c]
+        if not len(mem):
+            return None
+        return mem.sample(self.rng, self.batch)
+
+    def local_train_stacked(self, stacked, bx, by, protos_list, labels_list,
+                            rnd):
+        stacked, _ = super().local_train_stacked(stacked, bx, by,
+                                                 protos_list, labels_list, rnd)
+        theta = self.eval_theta_stacked(stacked)
+        stacked.extras["reg_prev_theta"] = theta
+        dev = bx.device
+        if self.use_rehearsal:
+            protos = torch.from_numpy(np.stack(protos_list)).to(dev)
+            with torch.no_grad():
+                outputs = EM.adaptive_forward(theta, protos)[0].cpu().numpy()
+            for c, mem in enumerate(stacked.host["memory"]):
+                mem.add_task(protos_list[c], labels_list[c], outputs[c],
+                             task_id=rnd)
+        # upload: the heads + the task feature (Eq. 3)
+        feats = np.stack([np.asarray(p, np.float32).mean(0)
+                          for p in protos_list])
+        return stacked, {"theta": theta,
+                         "task_feature": torch.from_numpy(feats).to(dev)}
+
+    # ---- server round (spatial-temporal integration) -------------------------
+    def server_round_stacked(self, rnd, upload):
+        """Eq. 4/5 -> Eq. 6 over the device-resident ring. The only host
+        readback is the (C, C) ``last_W``. Returns {"B": stacked bases,
+        "nz": (C,) bool rows with relevant neighbours}."""
+        if not self.st_integration:
+            return None
+        feats = upload["task_feature"]                       # (C, D)
+        C, D = feats.shape
+        clock = StageTimes(feats.device)
+        with torch.no_grad():
+            with clock.stage("relevance"):
+                if self._ring is None:
+                    self._ring = DeviceRingHistory(C, self.history_len, D,
+                                                   feats.device)
+                self._ring.push_all(feats)
+                W_raw = self._ring.raw_relevance(
+                    forgetting_ratio=self.forgetting_ratio, metric=self.metric)
+            with clock.stage("flatten"):
+                flat, meta = flatten_stacked(upload["theta"])  # (C, P)
+            with clock.stage("aggregate"):
+                B_flat, Wn = ops.fused_relevance_aggregate(W_raw, flat)
+            self.last_W = Wn.cpu().numpy()
+            # all-zero rows (no relevant neighbours yet) keep their old base
+            nz = torch.sum(Wn, 1) > 0
+            with clock.stage("unflatten"):
+                B = unflatten_stacked(B_flat, meta)
+        self.server_ms = dict(clock)
+        return {"B": B, "nz": nz}
+
+    def apply_dispatch_stacked(self, stacked, dispatch):
+        nz = dispatch["nz"]
+        stacked.extras["reg_B"] = {
+            k: torch.where(nz.reshape((-1,) + (1,) * (old.dim() - 1)),
+                           dispatch["B"][k].to(old.dtype), old)
+            for k, old in stacked.extras["reg_B"].items()}
+        return stacked
+
+    def stacked_dispatch_bytes(self, dispatch, n_clients: int) -> int:
+        return tree_bytes(dispatch["B"]) // max(n_clients, 1)

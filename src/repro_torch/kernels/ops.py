@@ -11,8 +11,11 @@ import torch
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
+from repro_torch.kernels.kl_similarity import kl_similarity as _kl
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist as _bpdist
 from repro_torch.kernels.quantize import batched_quantize as _bquant
+from repro_torch.kernels.relevance_aggregate import \
+    fused_relevance_aggregate as _fused_agg
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -45,3 +48,19 @@ def batched_quantize(x, *, chunk: int = 256):
     if _on_cuda(x):
         return _bquant(x, chunk=chunk)
     return REF.batched_quantize_ref(x, chunk=chunk)
+
+
+def kl_similarity(a, b):
+    """(N, D) x (M, D) -> (N, M) fp32 exp(-KL(softmax(a_i) || softmax(b_j)))."""
+    if _on_cuda(a, b):
+        return _kl(a, b)
+    return REF.kl_similarity_ref(a, b)
+
+
+def fused_relevance_aggregate(w, thetas):
+    """Raw relevance (C, C) + stacked parameters (C, P) -> (B = Wn @ Θ
+    (C, P), Wn (C, C) fp32): diagonal masked, rows normalized, zero rows
+    kept zero."""
+    if _on_cuda(w, thetas):
+        return _fused_agg(w, thetas)
+    return REF.fused_relevance_aggregate_ref(w, thetas)

@@ -7,6 +7,8 @@ package; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -49,3 +51,51 @@ def batched_quantize_ref(x, *, chunk: int = 256):
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(xc / scale), -127.0, 127.0).to(torch.int8)
     return q.reshape(C, nc * chunk)[:, :P].contiguous(), scale[..., 0]
+
+
+def kl_log_shift(D: int) -> float:
+    """fp32 log(D): the shift both versions add to log p and log q."""
+    return float(torch.tensor(math.log(D), dtype=torch.float32))
+
+
+def kl_similarity_ref(a, b):
+    """exp(-KL(softmax(a_i) || softmax(b_j))): (N, D) x (M, D) -> (N, M)
+    fp32, with h = sum(p log p) per row of ``a`` and the cross term
+    p . log q one fp32 product.
+
+    Both terms are taken over log p + log D and log q + log D: the shift
+    cancels exactly in cross - h (both weigh it by the same p), and it
+    centres the summands near 0 for near-uniform rows, where h and cross
+    would each be about -log D. Unshifted, their fp32 sums carry errors of
+    a few ulps of log D (~2e-6 in S at D = 128); shifted, about 2e-7."""
+    a = a.float()
+    b = b.float()
+    shift = kl_log_shift(a.shape[-1])
+    p = torch.softmax(a, -1)
+    logp = torch.log_softmax(a, -1)
+    logq = torch.log_softmax(b, -1)
+    h = torch.sum(p * (logp + shift), -1)                       # (N,)
+    cross = p @ (logq + shift).T                                # (N, M)
+    return torch.exp(-(h[:, None] - cross))
+
+
+def normalized_relevance_ref(w):
+    """Diagonal-masked, row-normalized relevance (C, C) fp32: the diagonal
+    is replaced (``where``, so junk there never leaks, NaN included), rows
+    are divided by their sums, and rows that do not sum above zero stay
+    zero."""
+    C = w.shape[0]
+    eye = torch.eye(C, dtype=torch.bool, device=w.device)
+    wm = torch.where(eye, torch.zeros((), device=w.device), w.float())
+    rows = torch.sum(wm, 1, keepdim=True)
+    pos = rows > 0
+    return torch.where(pos, wm / torch.where(pos, rows, torch.ones_like(rows)),
+                       torch.zeros((), device=w.device))
+
+
+def fused_relevance_aggregate_ref(w, thetas):
+    """FedSTIL's server tail (Eq. 5 post-processing + Eq. 6): raw relevance
+    w (C, C) and stacked parameters thetas (C, P) -> (B = Wn @ thetas in
+    thetas' dtype (fp32 sums), Wn (C, C) fp32)."""
+    wn = normalized_relevance_ref(w)
+    return (wn @ thetas.float()).to(thetas.dtype), wn

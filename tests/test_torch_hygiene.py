@@ -18,7 +18,9 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 WRAPPERS = [("quantize", "batched_quantize"),
             ("int8_dist", "batched_int8_pairwise_dist"),
-            ("pairwise_dist", "batched_pairwise_dist")]
+            ("pairwise_dist", "batched_pairwise_dist"),
+            ("kl_similarity", "kl_similarity"),
+            ("relevance_aggregate", "fused_relevance_aggregate")]
 
 
 def _port_files():

@@ -4,7 +4,12 @@ kernels on the same numpy inputs — its jnp ``ref`` path and its Pallas
 kernel in interpret mode.
 
 Tolerances: quantization is bit-exact (IEEE division, round half to even);
-distances agree to atol = rtol = 1e-5 (fp32 sums over F in another order).
+distances agree to atol = rtol = 1e-5 (fp32 sums over F in another order);
+KL similarities to atol 4e-6 against the JAX package (its fp32 h and
+cross term are each about -log D ~ -5, and it lies up to ~2e-6 from a
+float64 evaluation of S) and to atol 5e-7 against float64 (the port shifts
+both terms by log D, see ``ref.kl_similarity_ref``); the
+normalized relevance Wn to atol 1e-6 and the aggregate B to 1e-5.
 The CUDA kernels themselves run only on the card: chip_smoke.py holds each
 against these plain versions there.
 """
@@ -15,8 +20,10 @@ import torch
 from repro.kernels import ops as JOPS
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist
+from repro_torch.kernels.kl_similarity import kl_similarity
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist
 from repro_torch.kernels.quantize import batched_quantize
+from repro_torch.kernels.relevance_aggregate import fused_relevance_aggregate
 
 SHAPES = [(3, 4, 40, 64), (2, 16, 300, 64), (1, 1, 7, 32)]
 BACKENDS = ["ref", "interpret"]
@@ -112,6 +119,9 @@ KERNEL_CALLS = [
               torch.ones(1, 3), torch.zeros(1, 3))),
     (batched_pairwise_dist, lambda: (torch.zeros(1, 2, 8),
                                      torch.zeros(1, 3, 8))),
+    (kl_similarity, lambda: (torch.zeros(2, 8), torch.zeros(3, 8))),
+    (fused_relevance_aggregate, lambda: (torch.zeros(2, 2),
+                                         torch.zeros(2, 5))),
 ]
 
 
@@ -137,3 +147,92 @@ def test_ops_dispatch_cpu_to_plain_and_rejects_mixed_devices():
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         ops.batched_pairwise_dist(torch.randn(1, 2, 8),
                                   torch.randn(1, 3, 8, device="meta"))
+
+
+KL_SHAPES = [(5, 30, 128), (7, 41, 128), (3, 5, 37), (130, 200, 64)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("N,M,D", KL_SHAPES)
+def test_kl_similarity_matches_jax(N, M, D, backend):
+    """Ragged N and M (not multiples of any tile), task-feature-like and
+    standard-normal rows."""
+    rng = np.random.default_rng(N * M)
+    for a, b in ((np.tanh(rng.standard_normal((N, D))),
+                  np.tanh(rng.standard_normal((M, D)))),
+                 (rng.standard_normal((N, D)),
+                  rng.standard_normal((M, D)))):
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        st = ops.kl_similarity(torch.from_numpy(a), torch.from_numpy(b))
+        sj = JOPS.kl_similarity(a, b, backend=backend)
+        assert st.shape == (N, M) and bool(torch.isfinite(st).all())
+        np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=4e-6)
+        assert float(st.max()) <= 1.0 + 1e-6
+
+
+@pytest.mark.parametrize("kind", ["tanh", "normal"])
+def test_kl_similarity_close_to_float64(kind):
+    rng = np.random.default_rng(11)
+    a, b = rng.standard_normal((64, 128)), rng.standard_normal((384, 128))
+    if kind == "tanh":                         # task-feature-like rows
+        a, b = np.tanh(a), np.tanh(b)
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    la = a64 - a64.max(1, keepdims=True)
+    la -= np.log(np.exp(la).sum(1, keepdims=True))
+    lb = b64 - b64.max(1, keepdims=True)
+    lb -= np.log(np.exp(lb).sum(1, keepdims=True))
+    pa = np.exp(la)
+    exact = np.exp(pa @ lb.T - (pa * la).sum(1)[:, None])
+    st = ops.kl_similarity(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(st.numpy(), exact, atol=5e-7)
+
+
+def _relevance(rng, C, diag):
+    w = rng.random((C, C)).astype(np.float32)
+    np.fill_diagonal(w, diag)
+    return w
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("C,P", [(5, 1000), (7, 1001), (70, 333), (3, 1)])
+def test_fused_relevance_aggregate_matches_jax(C, P, backend):
+    """Ragged P, finite junk on the diagonal, a zero row, a row whose only
+    mass is on the diagonal (zero once masked)."""
+    rng = np.random.default_rng(C * P)
+    w = _relevance(rng, C, 123.0)
+    w[1] = 0.0
+    w[C - 1] = 0.0
+    w[C - 1, C - 1] = 5.0
+    th = rng.standard_normal((C, P)).astype(np.float32)
+    bt, wnt = ops.fused_relevance_aggregate(torch.from_numpy(w),
+                                            torch.from_numpy(th))
+    bj, wnj = JOPS.fused_relevance_aggregate(w, th, backend=backend)
+    np.testing.assert_allclose(wnt.numpy(), np.asarray(wnj), atol=1e-6)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-5)
+    assert not wnt[1].any() and not wnt[C - 1].any()
+    assert not bt[1].any() and not bt[C - 1].any()
+    assert not wnt.diagonal().any()
+    np.testing.assert_allclose(wnt.sum(1)[2:C - 1].numpy(), 1.0, atol=1e-6)
+
+
+def test_fused_relevance_aggregate_all_zero_and_nan_diagonal():
+    """An all-zero W gives zero bases and a zero Wn; NaN on the diagonal
+    never leaks (the kernel's ``where``). The JAX ``ref`` multiplies by
+    (1 - I) instead: NaN * 0 is NaN, its row sums are NaN and it zeroes
+    those rows, so there the interpret kernel is the oracle."""
+    rng = np.random.default_rng(9)
+    th = rng.standard_normal((4, 50)).astype(np.float32)
+    b, wn = ops.fused_relevance_aggregate(torch.zeros(4, 4),
+                                          torch.from_numpy(th))
+    assert not b.any() and not wn.any()
+    w = _relevance(rng, 4, np.nan)
+    bt, wnt = ops.fused_relevance_aggregate(torch.from_numpy(w),
+                                            torch.from_numpy(th))
+    assert bool(torch.isfinite(bt).all()) and bool(torch.isfinite(wnt).all())
+    bj, wnj = JOPS.fused_relevance_aggregate(w, th, backend="interpret")
+    np.testing.assert_allclose(wnt.numpy(), np.asarray(wnj), atol=1e-6)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-5)
+    assert not np.asarray(JOPS.fused_relevance_aggregate(
+        w, th, backend="ref")[1]).any()
+    assert bool((wnt.sum(1) > 0.99).all())
