@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch/CUDA port on one CUDA card: its two main
-paths, ReID retrieval serving (int8 and fp32 modes) and the FedSTIL
-federated round (stacked engine, device evaluation).
+"""On-card smoke of the PyTorch/CUDA port on one CUDA card: its main paths,
+ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, and the
+FedSTIL federated round (stacked engine, device evaluation).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -14,9 +14,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  card, at the main paths' shapes and at ragged ones:
                  quantize bit-identical, distances within 1e-5, KL
                  similarity within 2e-6, normalized relevance within 1e-6
-                 and aggregated bases within 2e-5; times (CUDA events,
-                 median of 30 launches after warmup), the relevance kernels
-                 at the C = 1000 server shapes
+                 and aggregated bases within 2e-5, IVF cluster distances and
+                 shortlist scores within 1e-5 (shortlist ids equal, ragged
+                 shapes with an empty bucket and an all-invalid client);
+                 times (CUDA events, median of 30 launches after warmup),
+                 the relevance kernels at the C = 1000 server shapes
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -27,6 +29,19 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  during phases 4-5 (counts are zeroed just before phase 4)
   7. serve_breakdown  device time of each stage of one full query launch
                  (featurize, score, rank, readback) beside its host wall time
+  7b. serve_ivf  the IVF shortlist path at C=4, G=131072 (nlist "auto" =
+                 512, bcap 384, nprobe 8): 512 closed-loop queries with a head
+                 update at mid-stream (QPS, p50, p99, the update's k-means
+                 refresh ms), kernel launches counted over it alone and each
+                 kernel held against its plain version on the operands of
+                 its last call; then (``serve_ivf_checks``) served answers vs
+                 an engine on the plain versions and vs the numpy oracle,
+                 recall@10 against the exact int8 path on the same index at
+                 nprobe 4 / 8 / 16 (>= 0.95 at 8, the serve bench's gate)
+                 and the QPS ratio to serve_int8, the
+                 ``ivf_metrics`` of one launch, two refreshes under one head
+                 bit-identical, and a full probe (nprobe = nlist) returning
+                 the exact int8 path's ids at G=8192; and its breakdown
   8. round_fedstil  the federated round: ``run_simulation(FedSTIL(C=5),
                  FederatedReIDBenchmark(), rounds=60)`` on the card (T=6
                  tasks, 5 epochs, batch 64, eval every 2 rounds), per-eval-
@@ -39,6 +54,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  round's stage ms (``round_fedstil_stages``). The full
                  per-round tables of both runs go to
                  ``build/round_fedstil.json``.
+     serve_round_heads: the round's final heads serve its evaluation
+                 galleries (``RetrievalEngine.from_eval_cache``, int8), 64
+                 queries per client, against the plain-version engine
      round_profile: six more rounds on the card under torch.profiler:
                  device kernels and copies per round, their summed device
                  time, and the device's idle share of the profiled window
@@ -76,6 +94,8 @@ from repro_torch.federated import run_simulation  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
+from repro_torch.kernels.ivf import (batched_cluster_dist,  # noqa: E402
+                                     batched_ivf_shortlist_scores)
 from repro_torch.kernels.kl_similarity import kl_similarity  # noqa: E402
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist  # noqa: E402
 from repro_torch.kernels.quantize import batched_quantize  # noqa: E402
@@ -84,8 +104,10 @@ from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
-                                 recall_at_k, run_closed_loop)
-from repro_torch.serving.engine import featurize, rank_topk  # noqa: E402
+                                 query_ivf, query_ivf_host, recall_at_k,
+                                 run_closed_loop)
+from repro_torch.serving.engine import (featurize, rank_shortlist,  # noqa: E402
+                                        rank_topk)
 from repro_torch.serving.index import index_features  # noqa: E402
 
 SEED = 0
@@ -98,6 +120,13 @@ G_FP32 = BUDGET_BYTES // (4 * F)         # 32768 fp32 rows
 N_PER_ID, ID_RANK, ID_RHO = 8, 16, 0.22  # clustered gallery recipe
 N_HOST = 32                              # queries per client vs numpy oracle
 N_MAP = 64                               # queries per client for the mAP delta
+NPROBE, NPROBE_SWEEP = 8, (4, 8, 16)     # IVF buckets scored per query
+IVF_MIN_RECALL = 0.95    # recall@10 vs exact int8 at NPROBE: the serve
+                         # bench's gate (benchmarks/serve_bench.py:71-74)
+N_RECALL = 128                           # queries per client, ivf recall@10
+G_FULL_PROBE = 8192                      # full probe vs exact int8 (time)
+N_ROUND_SERVE = 64                       # queries per client on round heads
+IVF_OPS = ("batched_cluster_assign", "batched_ivf_shortlist")
 
 DIST_TOL = 1e-5        # kernel vs plain: fp32 sums over F=64 in another order
 SERVE_DIST_TOL = 1e-4  # served distances vs plain engine / numpy oracle
@@ -126,7 +155,7 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 
 KERNELS = {
     "batched_quantize": {
-        "fn": batched_quantize, "paths": ("serve",),
+        "fn": batched_quantize, "paths": ("serve", "serve_ivf"),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:58"},
     "batched_int8_pairwise_dist": {
@@ -145,6 +174,14 @@ KERNELS = {
         "fn": fused_relevance_aggregate, "paths": ("round_fedstil",),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
+    "batched_cluster_dist": {
+        "fn": batched_cluster_dist, "paths": ("serve_ivf",),
+        "source": "src/repro_torch/kernels/csrc/cluster_dist.cu",
+        "replaces": "src/repro/kernels/ivf.py:70"},
+    "batched_ivf_shortlist_scores": {
+        "fn": batched_ivf_shortlist_scores, "paths": ("serve_ivf",),
+        "source": "src/repro_torch/kernels/csrc/ivf_shortlist.cu",
+        "replaces": "src/repro/kernels/ivf.py:126"},
 }
 
 
@@ -312,13 +349,14 @@ def phase_kernels(dev, peak, card):
         library_ms=time_ms(library), shape=[C, BATCH, G_FP32, F])
 
     rows.update(relevance_kernel_rows(gen, dev, peak))
+    rows.update(ivf_kernel_rows(gen, dev, peak))
 
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
               "shape": r["shape"], "max_abs_err": r["max_abs_err"],
               "ms": r["ms"], "plain_ms": r["plain_ms"],
               "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
-              "bound_by": r["bound"][1]})
+              "bound_by": r["bound"][1], **r.get("detail", {})})
     return rows
 
 
@@ -408,6 +446,104 @@ def relevance_kernel_rows(gen, dev, peak):
     return rows
 
 
+def shortlist_err(qf, probe, bq, pack):
+    dk, ik = batched_ivf_shortlist_scores(qf, probe, bq, pack)
+    dr, ir = REF.batched_ivf_shortlist_scores_ref(qf, probe, bq, pack)
+    torch.cuda.synchronize()
+    shape = tuple(dk.shape)
+    check(bool(torch.isfinite(dk).all()), f"shortlist {shape}: non-finite")
+    check(torch.equal(ik, ir), f"shortlist {shape}: row ids differ from the "
+          "plain version")
+    err = float((dk - dr).abs().max())
+    check(err <= DIST_TOL, f"shortlist {shape}: max_abs_err {err} > "
+          f"{DIST_TOL}")
+    return err
+
+
+def bucket_image(gen, dev, c, l, k, f, empty_frac, ragged=False):
+    """A bucket-major int8 image ((c, l, k, f) codes, (c, l, 3, k) sidecar)
+    of quantized unit rows, as the index holds, ``empty_frac`` of the
+    slots empty (codes 0, scale 1, norm 0, id -1); ``ragged`` empties
+    bucket 4 of client 1 and the whole last client."""
+    codes, scale, n2 = int8_gallery(unit_rows(gen, dev, c, l * k, f))
+    bids = torch.randint(0, 1 << 30, (c, l, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    u = torch.rand((c, l, k), generator=gen, device=dev)
+    if ragged:
+        u[1, 4] = -1.0
+        u[-1] = -1.0
+    present = u >= empty_frac
+    bids = torch.where(present, bids, -1)
+    codes = torch.where(present[..., None], codes.reshape(c, l, k, f), 0)
+    scale = torch.where(present, scale.reshape(c, l, k), 1.0)
+    n2 = torch.where(present, n2.reshape(c, l, k), 0.0)
+    pack = torch.stack([scale.view(torch.int32), n2.view(torch.int32), bids],
+                       dim=2).view(torch.float32)
+    return codes.to(torch.int8).contiguous(), pack
+
+
+def ivf_kernel_rows(gen, dev, peak):
+    """The IVF path's two kernels at its shapes (C=4, B=64, L=512, bcap=384,
+    nprobe 8, F=64) and at ragged ones: B and L off every tile, an empty
+    bucket, an all-invalid client, a feature width not a multiple of 16."""
+    rows = {}
+    L, Kc = 512, 384
+    name = "batched_cluster_dist"
+    err = 0.0
+    for (c, b, l, f) in ((3, 7, 130, 64), (2, 70, 100, 40), (1, 1, 3, 64)):
+        cent = unit_rows(gen, dev, c, l, f)
+        cent[-1] = 0.0                       # a client with no centroids
+        err = max(err, dist_err(name, batched_cluster_dist,
+                                REF.batched_cluster_dist_ref,
+                                unit_rows(gen, dev, c, b, f), cent,
+                                torch.sum(cent * cent, -1)))
+    q = unit_rows(gen, dev, C, BATCH, F)
+    cent = 0.9 * unit_rows(gen, dev, C, L, F)
+    cn2 = torch.sum(cent * cent, -1)
+    err = max(err, dist_err(name, batched_cluster_dist,
+                            REF.batched_cluster_dist_ref, q, cent, cn2))
+
+    def library():                   # one PyTorch call, norms included
+        qq = torch.sum(q * q, -1)[:, :, None]
+        return torch.baddbmm(qq + cn2[:, None, :], q, cent.transpose(1, 2),
+                             alpha=-2)
+
+    nbytes = 4.0 * (C * BATCH * F + C * L * F + C * L + C * BATCH * L)
+    rows[name] = dict(
+        max_abs_err=err, bound=bound(nbytes, 2.0 * C * BATCH * L * F, peak),
+        ms=time_ms(lambda: batched_cluster_dist(q, cent, cn2)),
+        plain_ms=time_ms(lambda: REF.batched_cluster_dist_ref(q, cent, cn2)),
+        library_ms=time_ms(library), shape=[C, BATCH, L, F])
+
+    name = "batched_ivf_shortlist_scores"
+    err = 0.0
+    for (c, b, p, l, k, f) in ((3, 7, 5, 6, 37, 64), (2, 5, 3, 9, 50, 40)):
+        bq, pack = bucket_image(gen, dev, c, l, k, f, 0.3, ragged=True)
+        probe = torch.randint(0, l, (c, b, p), generator=gen, device=dev,
+                              dtype=torch.int32)
+        probe[1, 0, 0] = 4
+        err = max(err, shortlist_err(unit_rows(gen, dev, c, b, f), probe, bq,
+                                     pack))
+    bq, pack = bucket_image(gen, dev, C, L, Kc, F, 1.0 / 3.0)
+    probe = torch.randint(0, L, (C, BATCH, NPROBE), generator=gen, device=dev,
+                          dtype=torch.int32)
+    err = max(err, shortlist_err(q, probe, bq, pack))
+    # the buckets these probes need, each read once, and the two outputs
+    distinct = int(torch.unique(probe + L * torch.arange(
+        C, device=dev)[:, None, None]).numel())
+    nbytes = (distinct * (Kc * F + 3 * Kc * 4) + C * BATCH * F * 4
+              + C * BATCH * NPROBE * 4 + 2 * C * BATCH * NPROBE * Kc * 4)
+    rows[name] = dict(
+        max_abs_err=err,
+        bound=bound(nbytes, 2.0 * C * BATCH * NPROBE * Kc * F, peak),
+        ms=time_ms(lambda: batched_ivf_shortlist_scores(q, probe, bq, pack)),
+        plain_ms=time_ms(lambda: REF.batched_ivf_shortlist_scores_ref(
+            q, probe, bq, pack)),
+        library_ms=None, shape=[C, BATCH, NPROBE, L, Kc, F],
+        detail={"distinct_buckets": distinct, "bound_bytes": nbytes})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
@@ -449,9 +585,10 @@ def phase_serve(mode, G, dev, card):
     protos, centers = zip(*(clustered_gallery(rng, G) for _ in range(C)))
     ids = [np.arange(G, dtype=np.int32) for _ in range(C)]
     t0 = time.perf_counter()
-    index = GalleryIndex(protos, ids, keep_fp32=(mode == "fp32"), device=dev)
+    index = GalleryIndex(protos, ids, keep_fp32=(mode == "fp32"),
+                         nlist="auto" if mode == "ivf" else 0, device=dev)
     engine = RetrievalEngine(index, stacked_heads(CFG, C, SEED, dev), k=K,
-                             mode=mode)
+                             mode=mode, nprobe=NPROBE)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     stream = []
@@ -476,14 +613,20 @@ def phase_serve(mode, G, dev, card):
               f"serve_{mode}: malformed answer for query {t.qid}")
     lat = np.array([t.latency for t in tickets]) * 1e3
     wall = r1["wall_s"] + r2["wall_s"]
-    emit({"phase": f"serve_{mode}", "card": card, "clients": C, "gallery": G,
-          "batch": BATCH, "k": K, "queries": len(tickets),
-          "qps": len(tickets) / wall, "p50_ms": float(np.percentile(lat, 50)),
-          "p99_ms": float(np.percentile(lat, 99)),
-          "qps_pre_update": r1["qps"], "qps_post_update": r2["qps"],
-          "refresh_ms": refresh_ms, "index_build_s": build_s,
-          "resident_mb": index.resident_bytes(mode) / 1e6})
-    return engine, stream, r2["tickets"], centers, rng
+    rec = {"phase": f"serve_{mode}", "card": card, "clients": C, "gallery": G,
+           "batch": BATCH, "k": K, "queries": len(tickets),
+           "qps": len(tickets) / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "qps_pre_update": r1["qps"], "qps_post_update": r2["qps"],
+           "refresh_ms": refresh_ms, "index_build_s": build_s,
+           "resident_mb": index.resident_bytes(mode) / 1e6}
+    if mode == "ivf":
+        rec.update(nlist=index.nlist, bcap=index.bcap, nprobe=engine.nprobe,
+                   ivf_iters=index.ivf_iters,
+                   ivf_train_cap=index.ivf_train_cap,
+                   ivf_balance=index.ivf_balance)
+    emit(rec)
+    return engine, stream, r2["tickets"], centers, rng, rec
 
 
 # ---------------------------------------------------------------------------
@@ -491,19 +634,44 @@ def phase_serve(mode, G, dev, card):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def patched_ops(new):
+    """Route ``ops.<name>`` to ``new[name]`` inside the block."""
+    orig = {n: getattr(ops, n) for n in new}
+    for n, fn in new.items():
+        setattr(ops, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
 def plain_query(engine, qp, qmask):
     """The engine's current state rebuilt and queried with the plain
     versions on the same device; the plain int8 image must equal the
-    served one bit for bit."""
+    served one bit for bit. The IVF image comes from the int8 codes by
+    plain gathers (and is bit-identical from refresh to refresh, see
+    serve_ivf_checks); ivf queries it through the plain probe selection
+    and shortlist."""
     ix = engine.index
     fn, mu, sd = index_features(engine.theta, ix.gp_dev, (ix.gids >= 0).float())
     Cn, G, Fn = fn.shape
-    qf = featurize(engine.theta, mu, sd, qp)
-    if engine.mode == "int8":
+    if engine.mode in ("int8", "ivf"):
         q8, s = REF.batched_quantize_ref(fn.reshape(Cn, G * Fn), chunk=Fn)
         gq = q8.reshape(Cn, G, Fn)
         check(torch.equal(gq, ix.gq) and torch.equal(s, ix.gscale),
               "plain int8 image differs from the served one")
+    if engine.mode == "ivf":
+        with patched_ops({
+                "batched_cluster_assign": REF.batched_cluster_assign_ref,
+                "batched_ivf_shortlist": REF.batched_ivf_shortlist_ref}):
+            ids, d = query_ivf(engine.theta, mu, sd, qp, qmask, ix.cent,
+                               ix.cn2, ix.bq, ix.pack, k=engine.k,
+                               nprobe=engine.nprobe)
+        return ids.cpu().numpy(), d.cpu().numpy()
+    qf = featurize(engine.theta, mu, sd, qp)
+    if engine.mode == "int8":
         gn2 = torch.sum(torch.square(gq.float()), -1) * torch.square(s)
         dist = REF.batched_int8_pairwise_dist_ref(qf, gq, s, gn2)
     else:
@@ -535,7 +703,7 @@ def phase_breakdown(served, card):
     """Where one full (C, 64) query launch spends its time, stage by stage
     (device times, as in phase 3), beside the host wall time of the whole
     ``query_batch`` call."""
-    for mode, (engine, stream, _, _, _) in served.items():
+    for mode, (engine, stream, _, _, _, _) in served.items():
         ix = engine.index
         qp_np = np.stack([np.stack([stream[(c * BATCH + b) % N_QUERIES][1]
                                     for b in range(BATCH)]) for c in range(C)])
@@ -543,13 +711,28 @@ def phase_breakdown(served, card):
         qp = torch.from_numpy(qp_np).to(ix.device)
         qmask = torch.from_numpy(qmask_np).to(ix.device)
         qf = featurize(engine.theta, ix.bn_mu, ix.bn_sd, qp)
-        if mode == "int8":
-            score = lambda: batched_int8_pairwise_dist(qf, ix.gq, ix.gscale,
-                                                       ix.gn2)
+        stages = {}
+        if mode == "ivf":
+            assign = lambda: ops.batched_cluster_assign(qf, ix.cent, ix.cn2,
+                                                        nprobe=engine.nprobe)
+            probe = assign()
+            score = lambda: batched_ivf_shortlist_scores(qf, probe, ix.bq,
+                                                         ix.pack)
+            d, sl_ids = ops.batched_ivf_shortlist(qf, probe, ix.bq, ix.pack)
+            rank = lambda: rank_shortlist(d, sl_ids, qf, qmask, K)
+            stages = {"assign_ms": time_ms(assign),
+                      "cluster_kernel_ms": time_ms(lambda: batched_cluster_dist(
+                          qf, ix.cent, ix.cn2)),
+                      "candidates_per_query": int(d.shape[-1])}
         else:
-            score = lambda: batched_pairwise_dist(qf, ix.gf)
-        dist = score()
-        ids, _ = rank_topk(dist, ix.gids, qmask, K)
+            if mode == "int8":
+                score = lambda: batched_int8_pairwise_dist(qf, ix.gq,
+                                                           ix.gscale, ix.gn2)
+            else:
+                score = lambda: batched_pairwise_dist(qf, ix.gf)
+            dist = score()
+            rank = lambda: rank_topk(dist, ix.gids, qmask, K)
+        ids = rank()[0]
         walls = []
         for _ in range(REPS):
             t0 = time.perf_counter()
@@ -559,8 +742,7 @@ def phase_breakdown(served, card):
               "gallery": ix.capacity, "queries": C * BATCH,
               "featurize_ms": time_ms(
                   lambda: featurize(engine.theta, ix.bn_mu, ix.bn_sd, qp)),
-              "score_ms": time_ms(score),
-              "rank_ms": time_ms(lambda: rank_topk(dist, ix.gids, qmask, K)),
+              **stages, "score_ms": time_ms(score), "rank_ms": time_ms(rank),
               "readback_ms": time_ms(lambda: ids.cpu()),
               "query_batch_wall_ms": float(np.median(walls))})
 
@@ -571,14 +753,14 @@ def persons(ids):
 
 def phase_parity(served, dev, card, launches):
     out = {"phase": "parity", "card": card}
-    for mode, (engine, stream, tickets, _, _) in served.items():
+    for mode, (engine, stream, tickets, _, _, _) in served.items():
         rec, derr = served_vs_plain(engine, stream, tickets, dev)
         out[f"{mode}_recall_vs_plain"] = rec
         out[f"{mode}_dist_err_vs_plain"] = derr
         check(rec >= MIN_RECALL and derr <= SERVE_DIST_TOL,
               f"{mode}: served vs plain engine recall {rec}, dist err {derr}")
 
-    engf, _, _, centers, rng = served["fp32"]
+    engf, _, _, centers, rng, _ = served["fp32"]
     qp, _ = query_set(rng, centers, N_HOST)
     qm = np.ones((C, N_HOST), np.float32)
     ids_d, d_d = engf.query_batch(qp, qm)
@@ -611,15 +793,131 @@ def phase_parity(served, dev, card, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: IVF shortlist serving
+# ---------------------------------------------------------------------------
+
+
+def ivf_path_errs(seen):
+    """Both IVF kernels against their plain versions on the operands of
+    their last call on the serve_ivf path (the post-update image)."""
+    qf, cent, cn2 = seen["batched_cluster_assign"]
+    return {"batched_cluster_dist": dist_err(
+                "batched_cluster_dist (serve_ivf)", batched_cluster_dist,
+                REF.batched_cluster_dist_ref, qf, cent, cn2),
+            "batched_ivf_shortlist_scores": shortlist_err(
+                *seen["batched_ivf_shortlist"])}
+
+
+def image_bits(ix):
+    """The IVF image as bit patterns (fp32 viewed as int32)."""
+    return {n: getattr(ix, n).view(torch.int32)
+            if getattr(ix, n).dtype == torch.float32 else getattr(ix, n)
+            for n in ("cent", "cn2", "bq", "pack", "binv")}
+
+
+def full_probe_vs_int8(dev):
+    """nprobe = nlist scores every bucket: the shortlist is the whole
+    gallery, so the ivf path must return the exact int8 path's ids (as sets:
+    the two sum |q|^2 + n2 - 2 q.g in another association, so rows within
+    an ulp may swap ranks) and its distances."""
+    rng = np.random.default_rng(SEED + 2)
+    protos, centers = zip(*(clustered_gallery(rng, G_FULL_PROBE)
+                            for _ in range(C)))
+    ids = [np.arange(G_FULL_PROBE, dtype=np.int32) for _ in range(C)]
+    index = GalleryIndex(protos, ids, keep_fp32=False, nlist="auto",
+                         device=dev)
+    engv = RetrievalEngine(index, stacked_heads(CFG, C, SEED, dev), k=K,
+                           mode="ivf", nprobe=index.nlist)
+    eng8 = RetrievalEngine(index, engv.theta, k=K, mode="int8", refresh=False)
+    qp, _ = query_set(rng, centers, BATCH)
+    qm = np.ones((C, BATCH), np.float32)
+    iv, dv = engv.query_batch(qp, qm)
+    i8, d8 = eng8.query_batch(qp, qm)
+    out = {"gallery": G_FULL_PROBE, "nlist": index.nlist, "bcap": index.bcap,
+           "recall": recall_at_k(iv, i8, qm),
+           "same_rank_order": float((iv == i8).mean()),
+           "dist_err": float(np.abs(dv - d8).max())}
+    check(out["recall"] == 1.0 and out["dist_err"] <= DIST_TOL,
+          f"full probe vs exact int8: {out}")
+    return out
+
+
+def phase_serve_ivf_checks(ivf, int8_rec, dev, card):
+    engine, stream, tickets, centers, rng, rec = ivf
+    ix = engine.index
+    out = {"phase": "serve_ivf_checks", "card": card}
+    r, derr = served_vs_plain(engine, stream, tickets, dev)
+    out.update(recall_vs_plain=r, dist_err_vs_plain=derr)
+    check(r >= MIN_RECALL and derr <= SERVE_DIST_TOL,
+          f"ivf: served vs plain engine recall {r}, dist err {derr}")
+
+    qp, _ = query_set(rng, centers, N_HOST)
+    qm = np.ones((C, N_HOST), np.float32)
+    ids_d, d_d = engine.query_batch(qp, qm)
+    ids_h, d_h = query_ivf_host(engine.theta, ix.bn_mu, ix.bn_sd, qp, qm,
+                                ix.cent, ix.cn2, ix.bq, ix.pack, k=K,
+                                nprobe=engine.nprobe)
+    r, derr = recall_at_k(ids_d, ids_h, qm), float(np.abs(d_d - d_h).max())
+    out.update(recall_vs_host=r, dist_err_vs_host=derr)
+    check(r >= MIN_RECALL and derr <= SERVE_DIST_TOL,
+          f"ivf vs numpy host oracle: recall {r}, dist err {derr}")
+
+    # fidelity: recall@10 against the exact int8 path on the same index
+    qp, _ = query_set(rng, centers, N_RECALL)
+    qm = np.ones((C, N_RECALL), np.float32)
+    eng8 = RetrievalEngine(ix, engine.theta, k=K, mode="int8", refresh=False)
+    i8, _ = eng8.query_batch(qp, qm)
+    out["recall_at_10_vs_int8"] = {
+        str(p): recall_at_k(RetrievalEngine(
+            ix, engine.theta, k=K, mode="ivf", nprobe=p,
+            refresh=False).query_batch(qp, qm)[0], i8, qm)
+        for p in NPROBE_SWEEP}
+    out["qps_ratio_to_serve_int8"] = rec["qps"] / int8_rec["qps"]
+    check(out["recall_at_10_vs_int8"][str(NPROBE)] >= IVF_MIN_RECALL,
+          f"ivf recall@10 vs exact int8 at nprobe {NPROBE}: "
+          f"{out['recall_at_10_vs_int8']} < {IVF_MIN_RECALL}")
+
+    qpt = torch.from_numpy(qp[:, :BATCH]).to(dev)
+    _, _, mets = query_ivf(engine.theta, ix.bn_mu, ix.bn_sd, qpt,
+                           torch.ones(qpt.shape[:2], device=dev), ix.cent,
+                           ix.cn2, ix.bq, ix.pack, k=K, nprobe=engine.nprobe,
+                           with_metrics=True)
+    out["ivf_metrics"] = {"queries_per_client": qpt.shape[1],
+                          "rows_scored": mets["rows_scored"].tolist(),
+                          "probe_hits": mets["probe_hits"].tolist()}
+
+    # the refresh is deterministic: one head, two refreshes, equal bits
+    refresh_ms = []
+    bits = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        engine.update(engine.theta)
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        bits.append({n: b.clone() for n, b in image_bits(ix).items()})
+    same = {n: bool(torch.equal(bits[0][n], bits[1][n])) for n in bits[0]}
+    out.update(refresh_ms_repeat=refresh_ms, refresh_bit_identical=same)
+    check(all(same.values()), f"two refreshes under one head differ: {same}")
+    out["full_probe"] = full_probe_vs_int8(dev)
+    emit(out)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the federated round
 # ---------------------------------------------------------------------------
 
 
 class RecordingFedSTIL(FedSTIL):
     """FedSTIL that keeps round 0's normalized relevance and its dispatched
-    bases (flattened) for the card-vs-CPU comparison."""
+    bases (flattened) for the card-vs-CPU comparison, and the heads of its
+    last evaluation."""
 
     round0 = None
+    last_eval_theta = None
+
+    def eval_theta_stacked(self, stacked):
+        self.last_eval_theta = super().eval_theta_stacked(stacked)
+        return self.last_eval_theta
 
     def server_round_stacked(self, rnd, upload):
         dispatch = super().server_round_stacked(rnd, upload)
@@ -634,25 +932,24 @@ ROUND_KERNELS = ("kl_similarity", "fused_relevance_aggregate",
 
 
 @contextlib.contextmanager
-def last_operands(names):
-    """Route ``ops.<name>`` through a pass-through that keeps a copy of the
-    last call's operands: yields {name: operands}, so each kernel can be held
-    against its plain version at the shapes and values the path gave it."""
+def last_operands(names, copy=True):
+    """Route ``ops.<name>`` through a pass-through that keeps the last
+    call's operands: yields {name: operands}, so each kernel can be held
+    against its plain version at the shapes and values the path gave it.
+    ``copy=False`` keeps references, for operands the path never writes in
+    place (the IVF image is replaced at refresh, not overwritten), so the
+    serving path's timing carries no copies."""
     seen, orig = {}, {n: getattr(ops, n) for n in names}
 
     def keep(name):
         def call(*args, **kw):
-            seen[name] = tuple(a.detach().clone() for a in args)
+            seen[name] = tuple(a.detach().clone() if copy else a
+                               for a in args)
             return orig[name](*args, **kw)
         return call
 
-    for n in names:
-        setattr(ops, n, keep(n))
-    try:
+    with patched_ops({n: keep(n) for n in names}):
         yield seen
-    finally:
-        for n, fn in orig.items():
-            setattr(ops, n, fn)
 
 
 def path_operand_errs(seen):
@@ -755,7 +1052,37 @@ def phase_round_fedstil(dev, card):
           f"round_fedstil launches {launches}, expected {expect}")
     check(int(strat.round0[1].shape[1]) == P_ROUND,
           f"round_fedstil: P = {strat.round0[1].shape[1]} != {P_ROUND}")
-    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+    return (launches, {n: r["max_abs_err"] for n, r in on_path.items()},
+            (strat, res))
+
+
+def phase_serve_round_heads(strat, res, dev, card):
+    """The heads the round trained serve its evaluation galleries on the
+    card: ``RetrievalEngine.from_eval_cache`` at the last task, int8, 64 of
+    each client's last-task queries, against the plain-version engine."""
+    cache = res.eval_cache
+    Cn, t = cache.bench.n_clients, cache.bench.n_tasks - 1
+    engine = RetrievalEngine.from_eval_cache(strat.last_eval_theta, cache, t,
+                                             k=K, mode="int8", device=dev)
+    qp = np.stack([cache.protos[(c, t)][2][:N_ROUND_SERVE]
+                   for c in range(Cn)]).astype(np.float32)
+    qids = np.stack([cache.protos[(c, t)][3][:N_ROUND_SERVE]
+                     for c in range(Cn)])
+    qm = np.ones(qp.shape[:2], np.float32)
+    ids, d = engine.query_batch(qp, qm)
+    check(ids.shape == (Cn, N_ROUND_SERVE, K) and bool((ids >= 0).all())
+          and bool(np.isfinite(d).all()), "serve_round_heads: bad answers")
+    ids_p, d_p = plain_query(engine, torch.from_numpy(qp).to(dev),
+                             torch.from_numpy(qm).to(dev))
+    r, derr = recall_at_k(ids, ids_p, qm), float(np.abs(d - d_p).max())
+    emit({"phase": "serve_round_heads", "card": card, "clients": Cn,
+          "task": t, "gallery": engine.index.capacity,
+          "gallery_fill": engine.index.fill,
+          "queries_per_client": N_ROUND_SERVE,
+          "recall_vs_plain": r, "dist_err_vs_plain": derr,
+          "rank1": float((ids[..., 0] == qids).mean())})
+    check(r >= MIN_RECALL and derr <= SERVE_DIST_TOL,
+          f"serve_round_heads: vs plain engine recall {r}, dist err {derr}")
 
 
 def phase_round_profile(dev, card, n_rounds=6):
@@ -880,10 +1207,29 @@ def main():
                   if "serve" in KERNELS[name]["paths"]})
     phase_breakdown(served, card)
 
-    # path 2: the federated round (counts zeroed inside, just before)
-    launches["round_fedstil"], path_errs = phase_round_fedstil(dev, card)
+    # path 2: IVF shortlist serving (counts zeroed just before, read just
+    # after)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    with last_operands(IVF_OPS, copy=False) as seen:
+        ivf = phase_serve("ivf", G_INT8, dev, card)
+    launches["serve_ivf"] = {name: spec["fn"].launches
+                             for name, spec in KERNELS.items()}
+    path_errs = ivf_path_errs(seen)
+    del seen
+    phase_serve_ivf_checks(ivf, served["int8"][5], dev, card)
+    phase_breakdown({"ivf": ivf}, card)
+    del ivf, served
+    torch.cuda.empty_cache()
+
+    # path 3: the federated round (counts zeroed inside, just before)
+    launches["round_fedstil"], round_errs, (strat, res) = phase_round_fedstil(
+        dev, card)
+    path_errs.update(round_errs)
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    phase_serve_round_heads(strat, res, dev, card)
+    del strat, res
     phase_round_profile(dev, card)
     phase_server_scale(dev, card)
 

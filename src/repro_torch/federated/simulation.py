@@ -52,6 +52,8 @@ class SimulationResult:
     rounds: List[Dict[str, float]]      # per-eval-round mean metrics
     server_time_s: float = 0.0          # wall time inside the server round
     stage_ms: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    # the run's evaluation galleries, to serve (RetrievalEngine.from_eval_cache)
+    eval_cache: Optional["_EvalCache"] = None
 
     def final(self, key="mAP") -> float:
         return self.rounds[-1][key] if self.rounds else 0.0
@@ -286,4 +288,5 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
     storage = max(strategy.storage_bytes(strategy.client_view(stacked, c))
                   for c in range(C))
     return SimulationResult(strategy.name, tracker, comm, storage, eval_rounds,
-                            server_time_s=server_s, stage_ms=stage_ms)
+                            server_time_s=server_s, stage_ms=stage_ms,
+                            eval_cache=cache)

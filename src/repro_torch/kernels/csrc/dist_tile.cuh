@@ -1,8 +1,10 @@
-// Shared tile body of the two squared-distance kernels (int8_dist.cu and
-// pairwise_dist.cu): for every client c, query row b and gallery row g,
+// Shared tile body of the three squared-distance kernels (pairwise_dist.cu,
+// cluster_dist.cu and int8_dist.cu): for every client c, query row b and
+// gallery row g,
 //
-//   fp32 gallery:  out[c, b, g] = |q_b|^2 + |g_g|^2 - 2 (q_b . g_g)
-//   int8 gallery:  out[c, b, g] = |q_b|^2 + n2[c, g] - 2 ((q_b . code_g) s[c, g])
+//   kFp32:       out[c, b, g] = |q_b|^2 + |g_g|^2 - 2 (q_b . g_g)
+//   kFp32Norms:  out[c, b, g] = |q_b|^2 + n2[c, g] - 2 (q_b . g_g)
+//   kInt8:       out[c, b, g] = |q_b|^2 + n2[c, g] - 2 ((q_b . code_g) s[c, g])
 //
 // Grid: (ceil(G / kTG), ceil(B / kTB), C). A block of 256 threads owns a
 // kTB x kTG output tile; thread (ty, tx) of the 16 x 16 layout owns the 4 x 4
@@ -12,8 +14,9 @@
 // a thread reads its 4 query values and its 4 gallery values as one float4
 // each, and accumulates 16 products with IEEE fp32 FMAs (no TF32, no tensor
 // cores: near-ties in the ranking depend on full fp32 sums). |q|^2, and for
-// the fp32 gallery |g|^2, are reduced from the same staged tiles, as the TPU
-// kernels reduce them from their VMEM blocks. The ragged B and G edges are
+// kFp32 |g|^2, are reduced from the same staged tiles, as the TPU kernels
+// reduce them from their VMEM blocks; kFp32Norms and kInt8 read the given
+// norms n2, as theirs do. The ragged B and G edges are
 // masked in the loads and the stores; the wrapper pads nothing.
 //
 // The epilogue writes each thread's 4 consecutive outputs of a row as one
@@ -32,10 +35,12 @@ constexpr int kTK = 32;       // feature columns staged per step
 constexpr int kPad = 4;       // row padding that keeps float4 alignment
 constexpr int kThreads = 256;
 
+enum Gallery { kFp32 = 0, kFp32Norms = 1, kInt8 = 2 };
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 
-template <typename GT, bool kInt8>
+template <typename GT, int kMode>
 __global__ void __launch_bounds__(kThreads)
 dist_tile_kernel(const float* __restrict__ q, const GT* __restrict__ g,
                  const float* __restrict__ gscale,
@@ -85,7 +90,7 @@ dist_tile_kernel(const float* __restrict__ q, const GT* __restrict__ g,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qq[i] = fmaf(a[i], a[i], qq[i]);
-        if (!kInt8) gg[i] = fmaf(v[i], v[i], gg[i]);
+        if (kMode == kFp32) gg[i] = fmaf(v[i], v[i], gg[i]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
       }
@@ -98,14 +103,9 @@ dist_tile_kernel(const float* __restrict__ q, const GT* __restrict__ g,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int gi = g0 + tx * 4 + j;
-    if (kInt8) {
-      const bool in = gi < G;
-      n2[j] = in ? gn2[(size_t)c * G + gi] : 0.f;
-      s[j] = in ? gscale[(size_t)c * G + gi] : 0.f;
-    } else {
-      n2[j] = gg[j];
-      s[j] = 1.f;
-    }
+    const bool in = gi < G;
+    n2[j] = kMode == kFp32 ? gg[j] : (in ? gn2[(size_t)c * G + gi] : 0.f);
+    s[j] = kMode == kInt8 && in ? gscale[(size_t)c * G + gi] : 1.f;
   }
 
   float* oc = out + (size_t)c * B * G;
@@ -118,8 +118,8 @@ dist_tile_kernel(const float* __restrict__ q, const GT* __restrict__ g,
     float r[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      r[j] = kInt8 ? qq[i] + n2[j] - 2.f * (acc[i][j] * s[j])
-                   : qq[i] + n2[j] - 2.f * acc[i][j];
+      r[j] = kMode == kInt8 ? qq[i] + n2[j] - 2.f * (acc[i][j] * s[j])
+                            : qq[i] + n2[j] - 2.f * acc[i][j];
     float* row = oc + (size_t)b * G + gcol;
     if (vec) {
       *reinterpret_cast<float4*>(row) = make_float4(r[0], r[1], r[2], r[3]);
@@ -131,13 +131,13 @@ dist_tile_kernel(const float* __restrict__ q, const GT* __restrict__ g,
   }
 }
 
-template <typename GT, bool kInt8>
+template <typename GT, int kMode>
 int launch_dist(const float* q, const GT* g, const float* gscale,
                 const float* gn2, float* out, int C, int B, int G, int F,
                 cudaStream_t stream) {
   if ((long long)C * B * G == 0) return 0;
   const dim3 grid((G + kTG - 1) / kTG, (B + kTB - 1) / kTB, C);
-  dist_tile_kernel<GT, kInt8><<<grid, kThreads, 0, stream>>>(
+  dist_tile_kernel<GT, kMode><<<grid, kThreads, 0, stream>>>(
       q, g, gscale, gn2, out, B, G, F);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@
 extern "C" int repro_batched_int8_pairwise_dist(
     const void* q, const void* gq, const void* gscale, const void* gn2,
     void* out, int C, int B, int G, int F, void* stream) {
-  return repro_dist::launch_dist<int8_t, true>(
+  return repro_dist::launch_dist<int8_t, repro_dist::kInt8>(
       (const float*)q, (const int8_t*)gq, (const float*)gscale,
       (const float*)gn2, (float*)out, C, B, G, F, (cudaStream_t)stream);
 }

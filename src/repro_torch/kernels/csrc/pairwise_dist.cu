@@ -22,7 +22,7 @@
 extern "C" int repro_batched_pairwise_dist(const void* q, const void* g,
                                            void* out, int C, int Q, int G,
                                            int D, void* stream) {
-  return repro_dist::launch_dist<float, false>(
+  return repro_dist::launch_dist<float, repro_dist::kFp32>(
       (const float*)q, (const float*)g, nullptr, nullptr, (float*)out, C, Q,
       G, D, (cudaStream_t)stream);
 }

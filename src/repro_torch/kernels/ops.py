@@ -11,6 +11,9 @@ import torch
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
+from repro_torch.kernels.ivf import batched_cluster_dist as _bcdist
+from repro_torch.kernels.ivf import \
+    batched_ivf_shortlist_scores as _bivfshort
 from repro_torch.kernels.kl_similarity import kl_similarity as _kl
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist as _bpdist
 from repro_torch.kernels.quantize import batched_quantize as _bquant
@@ -64,3 +67,24 @@ def fused_relevance_aggregate(w, thetas):
     if _on_cuda(w, thetas):
         return _fused_agg(w, thetas)
     return REF.fused_relevance_aggregate_ref(w, thetas)
+
+
+def batched_cluster_assign(qf, cent, cn2, *, nprobe: int):
+    """IVF coarse-quantizer stage: (C, B, F) fp32 queries x ((C, L, F)
+    centroids, (C, L) squared norms) -> (C, B, nprobe) int32 nearest bucket
+    ids, ties to the lowest id."""
+    if _on_cuda(qf, cent, cn2):
+        return REF.nearest_probes(_bcdist(qf, cent, cn2), nprobe)
+    return REF.batched_cluster_assign_ref(qf, cent, cn2, nprobe=nprobe)
+
+
+def batched_ivf_shortlist(qf, probe, bq, pack):
+    """IVF shortlist stage: score only the probed buckets of the
+    bucket-major int8 image. (C, B, F) queries + (C, B, P) probe ids x
+    ((C, L, K, F) int8 rows, (C, L, 3, K) packed sidecar) -> ((C, B, P*K)
+    partial squared distances, (C, B, P*K) row ids, -1 on empty slots)."""
+    if _on_cuda(qf, probe, bq, pack):
+        d, ids = _bivfshort(qf, probe, bq, pack)
+        C, B = d.shape[:2]
+        return d.reshape(C, B, -1), ids.reshape(C, B, -1)
+    return REF.batched_ivf_shortlist_ref(qf, probe, bq, pack)

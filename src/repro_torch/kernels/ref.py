@@ -99,3 +99,69 @@ def fused_relevance_aggregate_ref(w, thetas):
     thetas' dtype (fp32 sums), Wn (C, C) fp32)."""
     wn = normalized_relevance_ref(w)
     return (wn @ thetas.float()).to(thetas.dtype), wn
+
+
+def pairwise_dist_ref(q, g):
+    """Squared euclidean (Q, D) x (G, D) -> (Q, G), fp32: the 2-D plain
+    version the per-query baseline uses (``_naive_query_one`` in the
+    reference calls it with ``backend="ref"`` too)."""
+    q = q.float()
+    g = g.float()
+    qq = torch.sum(q * q, -1)[:, None]
+    gg = torch.sum(g * g, -1)[None, :]
+    return qq + gg - 2.0 * (q @ g.T)
+
+
+def batched_cluster_dist_ref(qf, cent, cn2):
+    """IVF coarse distances: (C, B, F) fp32 queries x ((C, L, F)
+    centroids, (C, L) their squared norms) -> (C, B, L) as
+    |q|^2 + cn2 - 2 q.c (the norms are given, not recomputed)."""
+    q = qf.float()
+    qq = torch.sum(q * q, -1)
+    return (qq[..., None] + cn2[:, None, :]
+            - 2.0 * torch.bmm(q, cent.float().transpose(1, 2)))
+
+
+def nearest_probes(dc, nprobe: int):
+    """(C, B, L) coarse distances -> (C, B, nprobe) int32 bucket ids,
+    nearest first, ties to the lowest id (``lax.top_k(-dc, nprobe)``'s
+    order; a stable ascending sort, since ``torch.topk`` promises none)."""
+    return torch.sort(dc, dim=-1, stable=True)[1][..., :nprobe].int(
+    ).contiguous()
+
+
+def batched_cluster_assign_ref(qf, cent, cn2, *, nprobe: int):
+    """IVF probe selection: (C, B, F) queries x ((C, L, F) centroids,
+    (C, L) squared norms) -> (C, B, nprobe) int32 nearest bucket ids."""
+    return nearest_probes(batched_cluster_dist_ref(qf, cent, cn2), nprobe)
+
+
+def pack_ids(pack):
+    """(C, L, 3, K) packed sidecar -> (C, L, K) int32 row ids (the third
+    row, bitcast back from fp32)."""
+    return pack[:, :, 2, :].contiguous().view(torch.int32)
+
+
+def batched_ivf_shortlist_scores_ref(qf, probe, bq, pack):
+    """Score the probed buckets of the bucket-major int8 image:
+    (C, B, F) queries + (C, B, P) probe ids x ((C, L, K, F) int8 rows,
+    (C, L, 3, K) [scale; |g|^2; id bitcast] sidecar) -> ((C, B, P, K)
+    partial squared distances |g|^2 - 2 (q.code) s, (C, B, P, K) int32
+    row ids, -1 on empty slots)."""
+    C = qf.shape[0]
+    cidx = torch.arange(C, device=qf.device)[:, None, None]
+    pl = probe.long()
+    blk = bq[cidx, pl].float()                               # (C, B, P, K, F)
+    pk = pack[cidx, pl]                                      # (C, B, P, 3, K)
+    dot = torch.matmul(blk, qf.float()[:, :, None, :, None])[..., 0]
+    d = pk[..., 1, :] - 2.0 * (dot * pk[..., 0, :])
+    return d, pack_ids(pack)[cidx, pl]
+
+
+def batched_ivf_shortlist_ref(qf, probe, bq, pack):
+    """``batched_ivf_shortlist_scores_ref`` flattened over the probes:
+    ((C, B, P*K) partial distances, (C, B, P*K) row ids). The caller adds
+    |q|^2 and masks ids < 0 before ranking."""
+    d, ids = batched_ivf_shortlist_scores_ref(qf, probe, bq, pack)
+    C, B = d.shape[:2]
+    return d.reshape(C, B, -1), ids.reshape(C, B, -1)

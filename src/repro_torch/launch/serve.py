@@ -1,11 +1,12 @@
-"""ReID retrieval serving launcher on the card: device-resident int8 (or
-fp32) gallery index + continuous query batching. Builds a synthetic fleet,
+"""ReID retrieval serving launcher on the card: device-resident int8 (fp32,
+or IVF shortlist) gallery index + continuous query batching. Builds a synthetic fleet,
 streams queries through the batcher at peak throughput, lands a mid-stream
 federated-round index update, and prints QPS / p50 / p99.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --clients 4 \
       --gallery 8192 --queries 512 --batch 64 --mode int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode ivf --nprobe 8
 
 Runs on the CUDA device and raises without one; ``--device cpu`` runs the
 plain PyTorch versions instead of the kernels.
@@ -37,7 +38,9 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=512)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--mode", choices=("int8", "fp32"), default="int8")
+    ap.add_argument("--mode", choices=("int8", "fp32", "ivf"), default="int8")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="coarse buckets scored per query (ivf mode)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -51,9 +54,11 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     index = GalleryIndex(protos, ids, keep_fp32=(args.mode == "fp32"),
+                         nlist="auto" if args.mode == "ivf" else 0,
                          device=args.device)
     theta = stacked_heads(cfg, C, args.seed, index.device)
-    engine = RetrievalEngine(index, theta, k=args.k, mode=args.mode)
+    engine = RetrievalEngine(index, theta, k=args.k, mode=args.mode,
+                             nprobe=args.nprobe)
     print(f"index: C={C} G={G} mode={args.mode} "
           f"resident={index.resident_bytes(args.mode) / 1e6:.1f} MB "
           f"built in {time.perf_counter() - t0:.2f}s")

@@ -1,5 +1,8 @@
-"""Host-side serving stats, copied from ``repro/obs/metrics.py`` (pure
-numpy there too; the port keeps its own copy rather than importing it).
+"""Serving metrics, ported from ``repro/obs/metrics.py``.
+
+``ivf_metrics`` is computed on the device from the tensors of the same IVF
+query launch. The host-side stats are copies (pure numpy there too; the
+port keeps its own rather than importing them):
 
 ``LatencyHistogram`` (fixed log-spaced buckets; exact p50/p99 *from the
 buckets*, i.e. the reported percentile is a bucket upper edge — a
@@ -16,6 +19,23 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
+
+
+def ivf_metrics(ids, qmask, idx, bcap: int, nprobe: int):
+    """IVF shortlist observables of one query launch: ``ids`` (C, B,
+    nprobe*bcap) shortlist row ids (-1 = empty slot), ``qmask`` (C, B),
+    ``idx`` (C, B, k) top-k positions into the shortlist -> rows scored per
+    client (C,) and the probe-rank histogram of the final top-k hits
+    (C, nprobe): hit mass at the last probe ranks means nprobe is too small
+    for the workload."""
+    m = qmask[:, :, None]
+    rows_scored = torch.sum((ids >= 0) & (m > 0), dim=(1, 2))
+    probe_of_hit = idx // bcap                                   # (C, B, k)
+    onehot = probe_of_hit[..., None] == torch.arange(nprobe,
+                                                     device=idx.device)
+    probe_hits = torch.sum(onehot * m[..., None], dim=(1, 2))    # (C, nprobe)
+    return {"rows_scored": rows_scored, "probe_hits": probe_hits}
 
 
 class LatencyHistogram:

@@ -1,8 +1,9 @@
 """Online retrieval engine: fixed-shape batched top-k over the resident index
-(the port of ``repro/serving/engine.py``, modes int8 and fp32).
+(the port of ``repro/serving/engine.py``, modes int8, fp32 and ivf).
 
 Query contract (shared by the int8 path, the fp32 path and the numpy host
-oracle):
+oracle; the ivf path scores only the rows of the ``nprobe`` nearest coarse
+buckets, ``query_ivf``):
 
   1. featurize: frozen-BN forward with the index's ``bn_mu``/``bn_sd`` +
      L2 normalization — how the gallery rows were featurized at refresh,
@@ -25,6 +26,8 @@ import torch
 from repro_torch.core import edge_model as EM
 from repro_torch.core.convert import theta_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as REF
+from repro_torch.obs.metrics import ivf_metrics
 from repro_torch.serving.index import GalleryIndex, l2n
 
 _PAD_DIST = 1e30
@@ -50,6 +53,101 @@ def rank_topk(dist, gids, qmask, k: int):
     return ids, d
 
 
+def query_ivf(theta, bn_mu, bn_sd, qp, qmask, cent, cn2, bq, pack, *,
+              k: int, nprobe: int, with_metrics: bool = False):
+    """The approximate serving path: featurize -> the ``nprobe`` nearest
+    coarse buckets (``batched_cluster_assign``) -> score only those
+    buckets' int8 rows (``batched_ivf_shortlist``) -> + |q|^2, empty slots
+    out of the race -> stable top-k over the shortlist -> invalid query
+    slots -1. Scores nprobe * bcap rows per query instead of G, with the
+    distances of the exact int8 path, so recall@k against that path is the
+    fidelity metric. ``with_metrics=True`` also returns ``ivf_metrics`` of
+    this launch (rows scored, the probe ranks of the top-k hits)."""
+    qf = featurize(theta, bn_mu, bn_sd, qp)
+    probe = ops.batched_cluster_assign(qf, cent, cn2, nprobe=nprobe)
+    d, ids = ops.batched_ivf_shortlist(qf, probe, bq, pack)
+    top, d, idx = rank_shortlist(d, ids, qf, qmask, k)
+    if not with_metrics:
+        return top, d
+    return top, d, ivf_metrics(ids, qmask, idx, bq.shape[2], nprobe)
+
+
+def rank_shortlist(d, ids, qf, qmask, k: int):
+    """(C, B, S) partial shortlist distances |g|^2 - 2 q.g and their row
+    ids -> ((C, B, k) ids, distances, positions in the shortlist): + |q|^2,
+    empty slots (ids < 0) out of the race, a stable ascending sort (ties to
+    the lowest shortlist position, as ``lax.top_k``), invalid query slots
+    -1."""
+    d = d + torch.sum(torch.square(qf), -1)[..., None]
+    d = torch.where(ids >= 0, d, _PAD_DIST)
+    d, idx = torch.sort(d, dim=-1, stable=True)
+    d, idx = d[..., :k], idx[..., :k]
+    top = torch.gather(ids, 2, idx)
+    return torch.where(qmask[..., None] > 0, top, -1), d, idx
+
+
+def _as_np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _host_features(t, c, qp_c, mu, sd):
+    """The numpy frozen-BN head of client c + L2 normalization."""
+    h = np.maximum(qp_c @ t["l1.w"][c] + t["l1.b"][c], 0.0)
+    f = h @ t["l2.w"][c] + t["l2.b"][c]
+    f = (f - mu) / sd * t["bn.scale"][c] + t["bn.bias"][c]
+    f = f / np.sqrt(np.maximum(np.sum(np.square(f), -1, keepdims=True),
+                               1e-12))
+    return f.astype(np.float32)
+
+
+def query_ivf_host(theta, bn_mu, bn_sd, qp, qmask, cent, cn2, bq, pack, *,
+                   k: int, nprobe: int):
+    """Numpy oracle for ``query_ivf``: same features, nearest nprobe
+    centroids by stable argsort, dequantized bucket rows scored exactly,
+    empty slots masked, stable top-k."""
+    t = theta_numpy(theta)
+    bn_mu, bn_sd = _as_np(bn_mu), _as_np(bn_sd)
+    qp, qmask = _as_np(qp).astype(np.float32), _as_np(qmask)
+    cent, cn2 = _as_np(cent).astype(np.float32), _as_np(cn2).astype(np.float32)
+    bq, pack = _as_np(bq), _as_np(pack).astype(np.float32)
+    C, B, _ = qp.shape
+    ids = np.full((C, B, k), -1, np.int32)
+    dd = np.full((C, B, k), _PAD_DIST, np.float32)
+    for c in range(C):
+        f = _host_features(t, c, qp[c], bn_mu[c], bn_sd[c])
+        qq = np.sum(np.square(f), -1)
+        dc = (qq[:, None] + cn2[c][None, :] - 2.0 * f @ cent[c].T)
+        probe = np.argsort(dc, axis=1, kind="stable")[:, :nprobe]
+        bids_c = pack[c, :, 2, :].view(np.int32)
+        for b in range(B):
+            if qmask[c, b] <= 0:
+                continue
+            sl_ids = bids_c[probe[b]].reshape(-1)
+            blk = bq[c][probe[b]].reshape(-1, bq.shape[-1]).astype(np.float32)
+            scale = pack[c, probe[b], 0, :].reshape(-1)
+            n2 = pack[c, probe[b], 1, :].reshape(-1)
+            d = qq[b] + n2 - 2.0 * (blk @ f[b]) * scale
+            d = np.where(sl_ids >= 0, d, _PAD_DIST).astype(np.float32)
+            order = np.argsort(d, kind="stable")[:k]
+            ids[c, b] = sl_ids[order]
+            dd[c, b] = d[order]
+    return ids, dd
+
+
+def naive_query_one(theta_c, mu, sd, proto, gf_c, gids_c, *, k: int):
+    """One query, one client, fp32: the per-query baseline the batched
+    paths are measured against, on the plain 2-D distance (the reference
+    calls it with ``backend="ref"`` too). ``theta_c`` is one client's head
+    with a leading axis of 1."""
+    qf = l2n(EM.adaptive_forward_frozen(theta_c, proto[None, None],
+                                        mu[None], sd[None]))[0]
+    dist = REF.pairwise_dist_ref(qf, gf_c)[0]
+    dist = torch.where(gids_c >= 0, dist, _PAD_DIST)
+    d, idx = torch.sort(dist, stable=True)
+    return gids_c[idx[:k]], d[:k]
+
+
 def recall_at_k(ids_approx: np.ndarray, ids_exact: np.ndarray,
                 qmask: Optional[np.ndarray] = None) -> float:
     """Fraction of the exact path's top-k ids that the approximate path
@@ -68,21 +166,14 @@ def query_host(theta, bn_mu, bn_sd, qp, qmask, gf, gids, *, k: int):
     exact squared distances to the valid fp32 gallery rows -> stable
     argsort -> top-k ids. Exact-match ground truth for the fp32 path."""
     t = theta_numpy(theta)
-    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-                       else np.asarray(a))
-    bn_mu, bn_sd = as_np(bn_mu), as_np(bn_sd)
-    qp, qmask = as_np(qp).astype(np.float32), as_np(qmask)
-    gf, gids = as_np(gf).astype(np.float32), as_np(gids)
+    bn_mu, bn_sd = _as_np(bn_mu), _as_np(bn_sd)
+    qp, qmask = _as_np(qp).astype(np.float32), _as_np(qmask)
+    gf, gids = _as_np(gf).astype(np.float32), _as_np(gids)
     C, B, _ = qp.shape
     ids = np.full((C, B, k), -1, np.int32)
     dd = np.full((C, B, k), _PAD_DIST, np.float32)
     for c in range(C):
-        h = np.maximum(qp[c] @ t["l1.w"][c] + t["l1.b"][c], 0.0)
-        f = h @ t["l2.w"][c] + t["l2.b"][c]
-        f = (f - bn_mu[c]) / bn_sd[c] * t["bn.scale"][c] + t["bn.bias"][c]
-        f = f / np.sqrt(np.maximum(np.sum(np.square(f), -1, keepdims=True),
-                                   1e-12))
-        f = f.astype(np.float32)
+        f = _host_features(t, c, qp[c], bn_mu[c], bn_sd[c])
         dist = (np.sum(np.square(f), -1)[:, None]
                 + np.sum(np.square(gf[c]), -1)[None, :]
                 - 2.0 * (f @ gf[c].T)).astype(np.float32)
@@ -124,25 +215,27 @@ class RetrievalEngine:
     """Online top-k retrieval over a ``GalleryIndex``.
 
     ``mode="int8"`` queries the quantized resident image; ``mode="fp32"``
-    queries the exact rows (needs ``keep_fp32=True`` on the index).
-    ``update(theta_stacked)`` is the federated integration point: a new
-    stacked head rebuilds the index in place — cached prototypes, no
-    re-extraction — and the next query sees it. Runs on the index's device.
+    queries the exact rows (needs ``keep_fp32=True`` on the index);
+    ``mode="ivf"`` queries only the ``nprobe`` nearest coarse buckets
+    (needs ``nlist > 0`` on the index; the int8 path over the same index
+    is its recall oracle). ``update(theta_stacked)`` is the federated
+    integration point: a new stacked head rebuilds the index in place —
+    cached prototypes, no re-extraction — and the next query sees it. Runs
+    on the index's device.
     """
 
     def __init__(self, index: GalleryIndex, theta_stacked, *, k: int = _K,
-                 mode: str = "int8", refresh: bool = True):
-        if mode == "ivf":
-            raise NotImplementedError(
-                "mode='ivf' is not ported yet: it comes with the IVF "
-                "serving slice")
-        if mode not in ("int8", "fp32"):
+                 mode: str = "int8", nprobe: int = 8, refresh: bool = True):
+        if mode not in ("int8", "fp32", "ivf"):
             raise ValueError(f"unknown serving mode {mode!r}")
         if mode == "fp32" and not index.keep_fp32:
             raise ValueError("fp32 mode needs keep_fp32=True on the index")
+        if mode == "ivf" and not index.nlist:
+            raise ValueError("ivf mode needs nlist > 0 on the index")
         self.index = index
         self.k = k
         self.mode = mode
+        self.nprobe = min(int(nprobe), index.nlist) if index.nlist else 0
         if refresh:
             self.update(theta_stacked)
         else:
@@ -152,9 +245,24 @@ class RetrievalEngine:
                 raise ValueError("refresh=False needs a refreshed index")
             self.theta = self._on_device(theta_stacked)
 
+    @classmethod
+    def from_eval_cache(cls, theta_stacked, cache, t: int, *,
+                        capacity: Optional[int] = None,
+                        keep_fp32: bool = True, device="cuda", **kw):
+        """Serve a simulation's evaluation galleries: per-client galleries
+        are the ``_EvalCache``'s prototype assembly for task horizon ``t``
+        (the eval path's galleries, never re-extracted)."""
+        protos, ids = zip(*(cache.host_gallery(c, t)
+                            for c in range(cache.bench.n_clients)))
+        index = GalleryIndex(protos, ids, capacity=capacity,
+                             keep_fp32=keep_fp32, device=device)
+        return cls(index, theta_stacked, **kw)
+
     def _on_device(self, theta):
+        # serving takes no gradients: a head straight from training is
+        # detached from its graph
         return {k: torch.as_tensor(v, dtype=torch.float32,
-                                   device=self.index.device)
+                                   device=self.index.device).detach()
                 for k, v in theta.items()}
 
     def update(self, theta_stacked):
@@ -174,6 +282,11 @@ class RetrievalEngine:
         ix = self.index
         qp = torch.as_tensor(qp, dtype=torch.float32, device=ix.device)
         qmask = torch.as_tensor(qmask, dtype=torch.float32, device=ix.device)
+        if self.mode == "ivf":
+            ids, d = query_ivf(self.theta, ix.bn_mu, ix.bn_sd, qp, qmask,
+                               ix.cent, ix.cn2, ix.bq, ix.pack, k=k,
+                               nprobe=self.nprobe)
+            return ids.cpu().numpy(), d.cpu().numpy()
         qf = featurize(self.theta, ix.bn_mu, ix.bn_sd, qp)
         if self.mode == "int8":
             dist = ops.batched_int8_pairwise_dist(qf, ix.gq, ix.gscale, ix.gn2)
@@ -189,3 +302,16 @@ class RetrievalEngine:
         return query_host(self.theta, self.index.bn_mu, self.index.bn_sd,
                           qp, qmask, self.index.gf, self.index.gids,
                           k=self.k if k is None else k)
+
+    def query_naive(self, client: int, proto, *, k: Optional[int] = None):
+        """The baseline: one fp32 query, one client, one pass."""
+        ix = self.index
+        if ix.gf is None:
+            raise ValueError("naive path needs keep_fp32=True on the index")
+        c = client
+        ids, d = naive_query_one(
+            {n: v[c:c + 1] for n, v in self.theta.items()}, ix.bn_mu[c],
+            ix.bn_sd[c], torch.as_tensor(proto, dtype=torch.float32,
+                                         device=ix.device),
+            ix.gf[c], ix.gids[c], k=self.k if k is None else k)
+        return ids.cpu().numpy(), d.cpu().numpy()

@@ -20,7 +20,12 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("int8_dist", "batched_int8_pairwise_dist"),
             ("pairwise_dist", "batched_pairwise_dist"),
             ("kl_similarity", "kl_similarity"),
-            ("relevance_aggregate", "fused_relevance_aggregate")]
+            ("relevance_aggregate", "fused_relevance_aggregate"),
+            ("ivf", "batched_cluster_dist"),
+            ("ivf", "batched_ivf_shortlist_scores")]
+# wrappers whose CUDA source is not named after their module
+SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
+             ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}
 
 
 def _port_files():
@@ -50,7 +55,8 @@ def test_kernel_wrappers_count_launches(module, name):
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     wrapper = getattr(mod, name)
     assert isinstance(wrapper.launches, int)
-    src = (PORT / "kernels" / "csrc" / f"{module}.cu").read_text()
+    source = SOURCE_OF.get((module, name), module)
+    src = (PORT / "kernels" / "csrc" / f"{source}.cu").read_text()
     assert f"src/repro/kernels/{module}.py:{name}" in src
     assert "extern \"C\" int repro_" in src
 

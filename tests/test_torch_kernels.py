@@ -20,6 +20,8 @@ import torch
 from repro.kernels import ops as JOPS
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist
+from repro_torch.kernels.ivf import (batched_cluster_dist,
+                                     batched_ivf_shortlist_scores)
 from repro_torch.kernels.kl_similarity import kl_similarity
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist
 from repro_torch.kernels.quantize import batched_quantize
@@ -122,6 +124,12 @@ KERNEL_CALLS = [
     (kl_similarity, lambda: (torch.zeros(2, 8), torch.zeros(3, 8))),
     (fused_relevance_aggregate, lambda: (torch.zeros(2, 2),
                                          torch.zeros(2, 5))),
+    (batched_cluster_dist, lambda: (torch.zeros(1, 2, 8), torch.zeros(1, 3, 8),
+                                    torch.zeros(1, 3))),
+    (batched_ivf_shortlist_scores,
+     lambda: (torch.zeros(1, 2, 8), torch.zeros(1, 2, 2, dtype=torch.int32),
+              torch.zeros(1, 3, 4, 8, dtype=torch.int8),
+              torch.zeros(1, 3, 3, 4))),
 ]
 
 

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from repro.core import edge_model as JEM
+from repro.data import FederatedReIDBenchmark as JBench
+from repro.federated.simulation import _EvalCache as JEvalCache
 from repro.serving import ContinuousBatcher as JBatcher
 from repro.serving import GalleryIndex as JIndex
 from repro.serving import RetrievalEngine as JEngine
@@ -26,6 +28,8 @@ from repro.serving.index import index_refresh_program
 from repro.serving.index import refresh_host as j_refresh_host
 from repro.obs.metrics import LatencyHistogram as JHistogram
 from repro_torch.core.convert import theta_from_jax
+from repro_torch.data import FederatedReIDBenchmark
+from repro_torch.federated.simulation import _EvalCache as EvalCache
 from repro_torch.launch import serve as serve_cli
 from repro_torch.obs.metrics import LatencyHistogram, ServeStats
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,
@@ -338,14 +342,84 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
         serve_cli.main(["--gallery", "8", "--queries", "2"])
 
 
-def test_ivf_not_ported_yet():
-    protos, ids, _ = _galleries(C=1, G=8)
-    with pytest.raises(NotImplementedError, match="IVF"):
-        GalleryIndex(protos, ids, nlist=4, device="cpu")
-    index = GalleryIndex(protos, ids, device="cpu")
-    with pytest.raises(NotImplementedError, match="IVF"):
-        RetrievalEngine(index, theta_from_jax(_jax_heads(1), "cpu"),
-                        mode="ivf")
+def test_ivf_builds_and_answers():
+    """nlist > 0 builds the IVF image and mode="ivf" answers; a full probe
+    returns the exact int8 answers (tests/test_torch_serving_ivf.py holds
+    the IVF path to the JAX package)."""
+    protos, ids, _ = _galleries(C=2, G=24)
+    index = GalleryIndex(protos, ids, nlist=4, device="cpu")
+    assert index.bcap == 32 and index.nlist * index.bcap >= index.capacity
+    theta = theta_from_jax(_jax_heads(2), "cpu")
+    engv = RetrievalEngine(index, theta, k=5, mode="ivf", nprobe=4)
+    assert index.has_ivf and engv.nprobe == 4
+    eng8 = RetrievalEngine(index, theta, k=5, mode="int8", refresh=False)
+    qp, qmask = _queries(2, 4, seed=20)
+    ids_v, d_v = engv.query_batch(qp, qmask)
+    ids_8, d_8 = eng8.query_batch(qp, qmask)
+    np.testing.assert_array_equal(ids_v, ids_8)
+    valid = qmask > 0
+    np.testing.assert_allclose(d_v[valid], d_8[valid], atol=1e-5)
+
+
+def test_query_naive_matches_jax_and_the_batched_path(served):
+    """The per-query fp32 baseline, on the plain 2-D distance in both
+    packages: ids equal, distances 1e-5; and the batched fp32 answer."""
+    jindex = JIndex(served.protos, served.ids, capacity=40, backend="ref")
+    jeng = JEngine(jindex, served.theta_np, k=5, mode="fp32", backend="ref")
+    qp, qmask = _queries(3, 4, seed=22)
+    ids_b, d_b = served.engf.query_batch(qp, np.ones_like(qmask))
+    for c in range(3):
+        for b in range(4):
+            ids_t, d_t = served.engf.query_naive(c, qp[c, b])
+            ids_j, d_j = jeng.query_naive(c, qp[c, b])
+            np.testing.assert_array_equal(ids_t, ids_j)
+            np.testing.assert_allclose(d_t, d_j, atol=1e-5)
+            np.testing.assert_array_equal(ids_t, ids_b[c, b])
+            np.testing.assert_allclose(d_t, d_b[c, b], atol=1e-5)
+    with pytest.raises(ValueError, match="keep_fp32"):
+        RetrievalEngine(GalleryIndex(served.protos, served.ids, keep_fp32=False,
+                                     device="cpu"),
+                        served.eng8.theta).query_naive(0, qp[0, 0])
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp32"])
+def test_from_eval_cache_matches_jax(mode):
+    """Serving a simulation's evaluation galleries (the eval cache's
+    per-client assembly of the other clients' query splits of tasks <= t):
+    the same galleries and the same answers as the JAX package's."""
+    kw = dict(n_clients=3, n_tasks=2, n_identities=40, ids_per_task=8,
+              samples_per_id=6)
+    bench, jbench = FederatedReIDBenchmark(**kw), JBench(**kw)
+    rng = np.random.default_rng(21)
+    protos = {}
+    for c in range(3):
+        for t in range(2):
+            task = bench.task(c, t)
+            protos[(c, t)] = (
+                rng.standard_normal((len(task.train_y), CFG.proto_dim)
+                                    ).astype(np.float32), task.train_y,
+                rng.standard_normal((len(task.query_y), CFG.proto_dim)
+                                    ).astype(np.float32), task.query_y)
+    theta_np = _jax_heads(3, seed=4)
+    eng = RetrievalEngine.from_eval_cache(
+        theta_from_jax(theta_np, "cpu"), EvalCache(bench, protos, "cpu"), 1,
+        k=5, mode=mode, device="cpu")
+    jeng = JEngine.from_eval_cache(theta_np, JEvalCache(jbench, protos,
+                                                        device=False), 1,
+                                   k=5, mode=mode, backend="ref")
+    np.testing.assert_array_equal(eng.index.gids_host, jeng.index.gids_host)
+    np.testing.assert_array_equal(eng.index.gp, jeng.index.gp)
+    qp = np.stack([protos[(c, 1)][2] for c in range(3)])
+    qmask = np.ones(qp.shape[:2], np.float32)
+    ids_t, d_t = eng.query_batch(qp, qmask)
+    ids_j, d_j = jeng.query_batch(qp, qmask)
+    np.testing.assert_allclose(d_t, d_j, atol=1e-5)
+    # ids equal, except that two rows whose distances lie within the fp32
+    # sum-order error (here 6e-7 apart) may swap ranks
+    for c, b, r in np.argwhere(ids_t != ids_j):
+        (pos,) = np.nonzero(ids_t[c, b] == ids_j[c, b, r])
+        assert len(pos) and abs(d_t[c, b, pos[0]] - d_j[c, b, r]) <= 1e-5
+    assert (ids_t != ids_j).mean() <= 0.01
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp32"])
