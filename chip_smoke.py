@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port on one CUDA card: its main paths,
-ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, and the
-FedSTIL federated round (stacked engine, device evaluation).
+ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
+FedSTIL federated round (stacked engine, device evaluation), and the same
+round with the ``delta+topk`` wire codec.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -17,8 +18,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  and aggregated bases within 2e-5, IVF cluster distances and
                  shortlist scores within 1e-5 (shortlist ids equal, ragged
                  shapes with an empty bucket and an all-invalid client);
+                 the codec's grouped top-k pack / unpack and index bit-pack
+                 / unpack equal to theirs (values under ==, indices and
+                 bytes bit for bit) at the round's, the fleet's and ragged
+                 shapes, with ties, zeros and an all-zero row;
                  times (CUDA events, median of 30 launches after warmup),
-                 the relevance kernels at the C = 1000 server shapes
+                 the relevance and codec kernels at the C = 1000 shapes
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -60,9 +65,28 @@ Phases, each printing one JSON line; any failure exits nonzero:
      round_profile: six more rounds on the card under torch.profiler:
                  device kernels and copies per round, their summed device
                  time, and the device's idle share of the profiled window
+     round_fedstil_codec: the same protocol with the ``delta+topk`` wire
+                 codec on both directions (``FedSTIL(..., codec=
+                 "delta+topk")``), on the card and on the CPU: per-eval-
+                 round metrics, card-vs-CPU final mAP / R1 (<= 0.03, beside
+                 the card run's own change under a one-ulp nudge of one
+                 initial weight) and per-round wire bytes (equal),
+                 ``comm_breakdown()`` totals
+                 wire against formula, the measured reduction and the mAP
+                 difference against round_fedstil (reported, not gated),
+                 the four codec kernels' launches (counts zeroed just
+                 before the card run; checked against the count the run's
+                 own comm rows give), each codec kernel against its plain
+                 version on its last on-path operands, and the
+                 encode_c2s / encode_s2c stage ms. Per-round tables go to
+                 ``build/round_fedstil_codec.json``.
   9. server_round_scale  the stacked server step alone (ring push, KL
                  relevance, flatten, fused aggregate, unflatten) at C=100
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
+ 10. wire_round_scale  ``BatchedCodec.roundtrip`` of a (C, 57664) payload
+                 under ``delta+topk`` at C=100 and C=1000 past the keyframe:
+                 device ms of each codec kernel and of the whole roundtrip,
+                 wire bytes a client against the dense 230656
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -84,6 +108,8 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.comm.batched import BatchedCodec  # noqa: E402
+from repro_torch.comm.codec import make_codec  # noqa: E402
 from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
                                        unflatten_stacked)
 from repro_torch.core import edge_model as EM  # noqa: E402
@@ -101,6 +127,10 @@ from repro_torch.kernels.pairwise_dist import batched_pairwise_dist  # noqa: E40
 from repro_torch.kernels.quantize import batched_quantize  # noqa: E402
 from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
     fused_relevance_aggregate)
+from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
+                                           batched_idx_bitunpack,
+                                           batched_topk_pack,
+                                           batched_topk_unpack)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
@@ -140,10 +170,20 @@ AGG_TOL = 2e-5         # bases B at standard-normal Theta, K = C fp32 sums
 ROUNDS, N_CLIENTS = 60, 5
 ROUND_W_TOL, ROUND_B_TOL = 1e-5, 1e-4   # card vs CPU, round 0
 ROUND_METRIC_TOL = 0.01                 # card vs CPU, final round mAP / R1
+# card vs CPU, final round mAP / R1 of the coded round: its trajectory
+# amplifies last-bit differences (a one-ulp nudge of one initial weight
+# moves the final mAP and R1 by ~0.01; the phase measures it on the card,
+# ``one_ulp_sensitivity``), so no two implementations that differ in the
+# last bit hold 0.01 there. 0.03 is the reference's own codec fidelity
+# margin (tests/test_comm_codec.py:236). ROADMAP, Queue 3.
+CODEC_METRIC_TOL = 0.03
 HIST_K, SCALE_CLIENTS = 6, (100, 1000)
 P_EDGE = 57664                          # EdgeModelConfig() head, 512 classes
 P_ROUND = 37696                         # the round's head: the bench's 200 ids
 ROUND_OUT = ROOT / "build" / "round_fedstil.json"
+CODEC = "delta+topk"                    # the wire codec of round_fedstil_codec
+CODEC_OUT = ROOT / "build" / "round_fedstil_codec.json"
+GROUP, KG = 8, 3                        # the codec's default grouped budget
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -163,15 +203,17 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/int8_dist.cu",
         "replaces": "src/repro/kernels/int8_dist.py:63"},
     "batched_pairwise_dist": {
-        "fn": batched_pairwise_dist, "paths": ("serve", "round_fedstil"),
+        "fn": batched_pairwise_dist,
+        "paths": ("serve", "round_fedstil", "round_fedstil_codec"),
         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
         "replaces": "src/repro/kernels/pairwise_dist.py:91"},
     "kl_similarity": {
-        "fn": kl_similarity, "paths": ("round_fedstil",),
+        "fn": kl_similarity, "paths": ("round_fedstil", "round_fedstil_codec"),
         "source": "src/repro_torch/kernels/csrc/kl_similarity.cu",
         "replaces": "src/repro/kernels/kl_similarity.py:53"},
     "fused_relevance_aggregate": {
-        "fn": fused_relevance_aggregate, "paths": ("round_fedstil",),
+        "fn": fused_relevance_aggregate,
+        "paths": ("round_fedstil", "round_fedstil_codec"),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
     "batched_cluster_dist": {
@@ -182,7 +224,25 @@ KERNELS = {
         "fn": batched_ivf_shortlist_scores, "paths": ("serve_ivf",),
         "source": "src/repro_torch/kernels/csrc/ivf_shortlist.cu",
         "replaces": "src/repro/kernels/ivf.py:126"},
+    "batched_topk_pack": {
+        "fn": batched_topk_pack, "paths": ("round_fedstil_codec",),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:78"},
+    "batched_topk_unpack": {
+        "fn": batched_topk_unpack, "paths": ("round_fedstil_codec",),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:207"},
+    "batched_idx_bitpack": {
+        "fn": batched_idx_bitpack, "paths": ("round_fedstil_codec",),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:128"},
+    "batched_idx_bitunpack": {
+        "fn": batched_idx_bitunpack, "paths": ("round_fedstil_codec",),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:161"},
 }
+CODEC_KERNELS = ("batched_topk_pack", "batched_topk_unpack",
+                 "batched_idx_bitpack", "batched_idx_bitunpack")
 
 
 def emit(obj) -> None:
@@ -350,6 +410,7 @@ def phase_kernels(dev, peak, card):
 
     rows.update(relevance_kernel_rows(gen, dev, peak))
     rows.update(ivf_kernel_rows(gen, dev, peak))
+    rows.update(topk_kernel_rows(gen, dev, peak))
 
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
@@ -541,6 +602,122 @@ def ivf_kernel_rows(gen, dev, peak):
             q, probe, bq, pack)),
         library_ms=None, shape=[C, BATCH, NPROBE, L, Kc, F],
         detail={"distinct_buckets": distinct, "bound_bytes": nbytes})
+    return rows
+
+
+def codec_rows(gen, dev, c, p, aligned=True):
+    """(c, p) payload rows as the codec sees them, with exact ties (row 0
+    rounded to halves, magnitudes repeated with both signs), two all-zero
+    groups, an all-zero row and a ragged tail of zeros; ``aligned=False``
+    puts the rows at a base 4 bytes off 16, so the pack takes its scalar
+    loads at a P where the vector loads would otherwise run."""
+    x = torch.randn((c, p), generator=gen, device=dev)
+    x[0] = torch.round(x[0] * 2.0) / 2.0
+    x[min(1, c - 1), :2 * GROUP] = 0.0
+    if c > 2:
+        x[2] = 0.0
+    x[-1, p - p % GROUP if p % GROUP else p - GROUP:] = 0.0
+    if aligned:
+        return x
+    out = torch.empty((c * p + 1,), device=dev)[1:].view(c, p)
+    out.copy_(x)
+    return out
+
+
+def topk_errs(x, kg):
+    """All four codec kernels on ``x`` against their plain versions: values
+    equal under ==, indices and packed bytes bit-identical. Returns the
+    largest absolute difference seen (0 when they agree)."""
+    C, P = x.shape
+    vk, ik = batched_topk_pack(x, group=GROUP, kg=kg)
+    vr, ir = REF.batched_topk_pack_ref(x, group=GROUP, kg=kg)
+    K = ik.shape[1]
+    dk = batched_topk_unpack(vr, ir, p=P, group=GROUP, kg=kg)
+    dr = REF.batched_topk_unpack_ref(vr, ir, p=P, group=GROUP, kg=kg)
+    pk = batched_idx_bitpack(ir, group=GROUP, kg=kg)
+    pr = REF.batched_idx_bitpack_ref(ir, group=GROUP, kg=kg)
+    bk = batched_idx_bitunpack(pr, k=K, group=GROUP, kg=kg)
+    torch.cuda.synchronize()
+    shape = f"C={C} P={P} kg={kg}"
+    check(torch.equal(vk, vr) and torch.equal(ik, ir),
+          f"batched_topk_pack {shape}: differs from the plain version")
+    check(torch.equal(dk, dr),
+          f"batched_topk_unpack {shape}: differs from the plain version")
+    check(torch.equal(pk, pr),
+          f"batched_idx_bitpack {shape}: differs from the plain version")
+    check(torch.equal(bk, ir),
+          f"batched_idx_bitunpack {shape}: does not give back the indices")
+    return {"batched_topk_pack": max(float((vk - vr).abs().max()),
+                                     float((ik - ir).abs().max())),
+            "batched_topk_unpack": float((dk - dr).abs().max()),
+            "batched_idx_bitpack": float((pk.int() - pr.int()).abs().max()),
+            "batched_idx_bitunpack": float((bk - ir).abs().max())}
+
+
+def topk_kernel_rows(gen, dev, peak):
+    """The codec's four kernels held against their plain versions at the
+    round's shape (C=5, P=37696), the fleet shape (C=1000, P=57664) and
+    ragged P with kg 1, 3 and 8 (the tail group selects pad slots at kg 8),
+    on rows with ties, zeros and an all-zero row; timed at the fleet shape."""
+    errs = dict.fromkeys(CODEC_KERNELS, 0.0)
+
+    def fold(e):
+        for n, v in e.items():
+            errs[n] = max(errs[n], v)
+
+    fold(topk_errs(codec_rows(gen, dev, N_CLIENTS, P_ROUND), KG))
+    fold(topk_errs(codec_rows(gen, dev, N_CLIENTS, P_ROUND, aligned=False),
+                   KG))
+    for p in (999, 8 * 2048 + 5):
+        for kg in (1, 3, 8):
+            fold(topk_errs(codec_rows(gen, dev, 3, p), kg))
+    C, P = SCALE_CLIENTS[-1], P_EDGE
+    x = codec_rows(gen, dev, C, P)
+    fold(topk_errs(x, KG))
+    nb = P // GROUP
+    K = nb * KG
+    kb = (K + 7) // 8
+    bits = (GROUP - 1).bit_length()
+    vals, idx = batched_topk_pack(x, group=GROUP, kg=KG)
+    packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
+    vec, ind, out, pk = 4.0 * C * K, 4.0 * C * K, 4.0 * C * P, C * bits * kb
+    # operations: the 8x8 compare and the kg one-hot sums of a group; a
+    # few shifts and masks per slot; all far below the bytes bound
+    n_groups = C * nb
+    specs = {
+        "batched_topk_pack": (
+            4.0 * C * P + vec + ind, n_groups * (GROUP * GROUP
+                                                 + 2 * GROUP * KG),
+            lambda: batched_topk_pack(x, group=GROUP, kg=KG),
+            lambda: REF.batched_topk_pack_ref(x, group=GROUP, kg=KG),
+            lambda: torch.topk(x.abs().view(C, nb, GROUP), KG, dim=-1)),
+        "batched_topk_unpack": (
+            vec + ind + out, n_groups * 2 * GROUP * KG,
+            lambda: batched_topk_unpack(vals, idx, p=P, group=GROUP, kg=KG),
+            lambda: REF.batched_topk_unpack_ref(vals, idx, p=P, group=GROUP,
+                                                kg=KG), None),
+        "batched_idx_bitpack": (
+            ind + pk, C * kb * 8 * (2 + 3 * bits),
+            lambda: batched_idx_bitpack(idx, group=GROUP, kg=KG),
+            lambda: REF.batched_idx_bitpack_ref(idx, group=GROUP, kg=KG),
+            None),
+        "batched_idx_bitunpack": (
+            pk + ind, C * K * (2 + 3 * bits),
+            lambda: batched_idx_bitunpack(packed, k=K, group=GROUP, kg=KG),
+            lambda: REF.batched_idx_bitunpack_ref(packed, k=K, group=GROUP,
+                                                  kg=KG), None),
+    }
+    rows = {}
+    for name, (nbytes, ops_, kernel, plain, library) in specs.items():
+        rows[name] = dict(
+            max_abs_err=errs[name], bound=bound(nbytes, ops_, peak),
+            ms=time_ms(kernel), plain_ms=time_ms(plain),
+            library_ms=time_ms(library) if library else None,
+            shape=[C, P, GROUP, KG],
+            detail={"bound_bytes": nbytes, "library": (
+                "torch.topk of |x| over groups: nearest call, indices "
+                "only, no tie promise, no value gather") if library
+                else "none"})
     return rows
 
 
@@ -966,14 +1143,29 @@ def path_operand_errs(seen):
             for n, e in errs.items()}
 
 
-def simulate(bench, device):
+def simulate(bench, device, codec=None, init_params=None):
     strategy = RecordingFedSTIL(EM.EdgeModelConfig(n_classes=bench.n_classes),
-                                n_clients=N_CLIENTS)
+                                n_clients=N_CLIENTS, codec=codec)
     t0 = time.perf_counter()
     res = run_simulation(strategy, bench, rounds=ROUNDS, seed=SEED,
                          engine="stacked", eval_backend="device",
-                         device=device)
+                         device=device, init_params=init_params)
     return strategy, res, time.perf_counter() - t0
+
+
+def nudged_init(bench):
+    """The initial weights ``run_simulation`` draws from SEED (a CPU torch
+    generator: the trunk, then one head per client), with the first weight
+    of client 0's first layer moved up by one ulp."""
+    cfg = EM.EdgeModelConfig(n_classes=bench.n_classes)
+    gen = torch.Generator().manual_seed(SEED)
+    to_np = lambda tree: {k: v.numpy().copy() for k, v in tree.items()}
+    init = {"extraction": to_np(EM.init_extraction(cfg, gen)),
+            "theta0": [to_np(EM.init_adaptive_layers(cfg, gen))
+                       for _ in range(N_CLIENTS)]}
+    w = init["theta0"][0]["l1.w"]
+    w.flat[0] = np.nextafter(w.flat[0], np.float32(np.inf))
+    return init
 
 
 def summarize(values):
@@ -1118,6 +1310,134 @@ def phase_round_profile(dev, card, n_rounds=6):
           "top_device_ms": [[name[:60], us / 1e3] for name, us in top]})
 
 
+def codec_path_errs(seen, prog):
+    """The codec's four kernels against their plain versions on the
+    operands of their last call in the card run (the last round's S2C
+    roundtrip), with the program's budget."""
+    g, kg = prog.group, prog.kg
+    (x,), (vals, idx), (ix,), (packed,) = (
+        seen[n] for n in CODEC_KERNELS)
+    pairs = {
+        "batched_topk_pack": (
+            batched_topk_pack(x, group=g, kg=kg),
+            REF.batched_topk_pack_ref(x, group=g, kg=kg)),
+        "batched_topk_unpack": (
+            batched_topk_unpack(vals, idx, p=prog.p, group=g, kg=kg),
+            REF.batched_topk_unpack_ref(vals, idx, p=prog.p, group=g, kg=kg)),
+        "batched_idx_bitpack": (
+            batched_idx_bitpack(ix, group=g, kg=kg),
+            REF.batched_idx_bitpack_ref(ix, group=g, kg=kg)),
+        "batched_idx_bitunpack": (
+            batched_idx_bitunpack(packed, k=prog.k, group=g, kg=kg),
+            REF.batched_idx_bitunpack_ref(packed, k=prog.k, group=g, kg=kg)),
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, (k_out, r_out) in pairs.items():
+        k_out = k_out if isinstance(k_out, tuple) else (k_out,)
+        r_out = r_out if isinstance(r_out, tuple) else (r_out,)
+        check(all(torch.equal(a, b) for a, b in zip(k_out, r_out)),
+              f"{name} (round_fedstil_codec): differs from the plain "
+              "version on its last operands")
+        out[name] = {"shapes": [list(a.shape) for a in seen[name]],
+                     "max_abs_err": max(float((a.double() - b.double())
+                                              .abs().max())
+                                        for a, b in zip(k_out, r_out))}
+    return out
+
+
+def phase_round_fedstil_codec(dev, card, uncoded):
+    """The round with the ``delta+topk`` wire codec on both directions, on
+    the card and on the CPU: the same protocol as round_fedstil. Returns
+    each kernel's launches during the card run and the codec kernels'
+    errors against their plain versions on their last on-path operands."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    with last_operands(ROUND_KERNELS + CODEC_KERNELS) as seen:
+        strat, res, wall_s = simulate(bench, dev, CODEC)
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    on_path = path_operand_errs(seen)
+    on_path.update(codec_path_errs(
+        seen, BatchedCodec(make_codec(CODEC), P_ROUND)))
+    strat_cpu, res_cpu, cpu_s = simulate(bench, "cpu", CODEC)
+    _, res_nudged, _ = simulate(bench, dev, CODEC, nudged_init(bench))
+
+    keys = ("mAP", "R1", "R5", "forgetting_mAP")
+    n_eval = len(res.rounds)
+    check(n_eval == ROUNDS // 2 and len(res_cpu.rounds) == n_eval,
+          f"round_fedstil_codec: {n_eval} eval rounds")
+    for r in res.rounds:
+        check(all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in keys),
+              f"round_fedstil_codec: bad metrics in round {r['round']}: {r}")
+    final = {k: abs(res.rounds[-1][k] - res_cpu.rounds[-1][k])
+             for k in ("mAP", "R1")}
+    deltas = {k: max(abs(a[k] - b[k]) for a, b in zip(res.rounds,
+                                                     res_cpu.rounds))
+              for k in ("mAP", "R1")}
+    nudge = {k: abs(res.rounds[-1][k] - res_nudged.rounds[-1][k])
+             for k in ("mAP", "R1")}
+    rows, rows_cpu = res.comm_breakdown(), res_cpu.comm_breakdown()
+    # every direction's first payload is a dense keyframe, every later one
+    # a sparse residual: one launch of each kernel per residual payload
+    n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
+    n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
+    expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
+    expect.update({"kl_similarity": ROUNDS,
+                   "fused_relevance_aggregate": ROUNDS,
+                   "batched_pairwise_dist": n_eval})
+    totals = {"c2s_wire": res.comm.total_c2s, "s2c_wire": res.comm.total_s2c,
+              "c2s_formula": res.comm.total_c2s_formula,
+              "s2c_formula": res.comm.total_s2c_formula}
+    stages = ("encode_c2s", "encode_s2c")
+    CODEC_OUT.parent.mkdir(parents=True, exist_ok=True)
+    CODEC_OUT.write_text(json.dumps({
+        "card": card, "codec": CODEC, "rounds": res.rounds,
+        "rounds_cpu": res_cpu.rounds, "comm_rows": rows,
+        "stage_ms": res.stage_ms, "stage_ms_cpu": res_cpu.stage_ms}))
+    emit({"phase": "round_fedstil_codec", "card": card, "codec": CODEC,
+          "clients": N_CLIENTS, "tasks": bench.n_tasks, "rounds": ROUNDS,
+          "epochs": strat.epochs, "batch": strat.batch,
+          "group": GROUP, "kg": KG,
+          "eval_rounds": [r["round"] for r in res.rounds],
+          **{k: [r[k] for r in res.rounds] for k in keys},
+          "comm_totals": totals,
+          "wire_over_formula": res.comm.total / res.comm.total_formula,
+          "round0_bytes": rows[0], "round1_bytes": rows[1],
+          "measured_reduction_vs_uncoded": 1.0 - (res.comm.total
+                                                  / uncoded.comm.total),
+          "uncoded_total_bytes": uncoded.comm.total,
+          "final_mAP_minus_uncoded": res.final("mAP") - uncoded.final("mAP"),
+          "final_R1_minus_uncoded": res.final("R1") - uncoded.final("R1"),
+          "round_wall_ms": summarize([s["wall_ms"] for s in res.stage_ms]),
+          "stage_ms": {k: summarize([s.get(k, 0.0) for s in res.stage_ms])
+                       for k in stages},
+          "sim_wall_s": wall_s, "cpu_sim_wall_s": cpu_s,
+          "cpu_final": {k: res_cpu.rounds[-1][k] for k in keys},
+          "card_vs_cpu": {"final_abs_delta": final,
+                          "largest_per_round_delta": deltas,
+                          "tolerance": CODEC_METRIC_TOL,
+                          "comm_rows_equal": rows == rows_cpu},
+          "one_ulp_sensitivity": nudge,
+          "launches": {k: launches[k] for k in expect},
+          "expected_launches": expect,
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(CODEC_OUT.relative_to(ROOT))})
+    check(res.comm.measured and res_cpu.comm.measured,
+          "round_fedstil_codec: no measured wire bytes")
+    check(rows == rows_cpu, "round_fedstil_codec: card and CPU wire bytes "
+          "differ")
+    check(all(r["c2s_wire"] <= r["c2s_formula"] for r in rows)
+          and res.comm.total < res.comm.total_formula,
+          "round_fedstil_codec: the wire is not below the formula")
+    check(all(v <= CODEC_METRIC_TOL for v in final.values()),
+          f"round_fedstil_codec final round card vs CPU: {final} > "
+          f"{CODEC_METRIC_TOL}")
+    check(all(launches[k] == n for k, n in expect.items()),
+          f"round_fedstil_codec launches {launches}, expected {expect}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the stacked server step at fleet sizes
 # ---------------------------------------------------------------------------
@@ -1167,6 +1487,43 @@ def phase_server_scale(dev, card):
               "server_round_wall_ms": float(np.median(walls[2:])),
               "server_round_wall_ms_first": walls[0]})
         del heads, strat, flat, B_flat, W
+        torch.cuda.empty_cache()
+
+
+def phase_wire_round_scale(dev, card):
+    """``BatchedCodec.roundtrip`` of a (C, 57664) payload under
+    ``delta+topk`` at C = 100 and 1000, past the keyframe: device ms of
+    each kernel on the steady-state operands and of the whole roundtrip
+    (CUDA events), and the wire bytes a client against the dense payload."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for C in SCALE_CLIENTS:
+        prog = BatchedCodec(make_codec(CODEC), P_EDGE)
+        base = torch.randn((C, P_EDGE), generator=gen, device=dev)
+        prog.roundtrip(base)                              # the keyframe
+        mat = base + 0.01 * torch.randn((C, P_EDGE), generator=gen,
+                                        device=dev)
+        recon, buffers = prog.roundtrip(mat)
+        check("idx_bits" in buffers, "wire_round_scale: no sparse payload")
+        r = mat - recon                  # the next roundtrip's residual
+        vals, idx = batched_topk_pack(r, group=GROUP, kg=KG)
+        packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
+        per_client = prog.per_client_bytes(buffers)
+        emit({"phase": "wire_round_scale", "card": card, "clients": C,
+              "params_per_client": P_EDGE, "codec": CODEC, "kg": KG,
+              "wire_bytes_per_client": per_client,
+              "dense_bytes_per_client": 4 * P_EDGE,
+              "wire_over_dense": per_client / (4 * P_EDGE),
+              "recon_max_abs_err": float((recon - mat).abs().max()),
+              "pack_ms": time_ms(lambda: batched_topk_pack(r, group=GROUP,
+                                                           kg=KG)),
+              "bitpack_ms": time_ms(lambda: batched_idx_bitpack(
+                  idx, group=GROUP, kg=KG)),
+              "bitunpack_ms": time_ms(lambda: batched_idx_bitunpack(
+                  packed, k=prog.k, group=GROUP, kg=KG)),
+              "unpack_ms": time_ms(lambda: batched_topk_unpack(
+                  vals, idx, p=P_EDGE, group=GROUP, kg=KG)),
+              "roundtrip_ms": time_ms(lambda: prog.roundtrip(mat))})
+        del prog, base, mat, recon, buffers, r, vals, idx, packed
         torch.cuda.empty_cache()
 
 
@@ -1226,12 +1583,19 @@ def main():
     launches["round_fedstil"], round_errs, (strat, res) = phase_round_fedstil(
         dev, card)
     path_errs.update(round_errs)
+    phase_serve_round_heads(strat, res, dev, card)
+
+    # path 4: the round with the wire codec (counts zeroed inside)
+    launches["round_fedstil_codec"], codec_errs = phase_round_fedstil_codec(
+        dev, card, res)
+    for name, err in codec_errs.items():
+        path_errs[name] = max(path_errs.get(name, 0.0), err)
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    phase_serve_round_heads(strat, res, dev, card)
     del strat, res
     phase_round_profile(dev, card)
     phase_server_scale(dev, card)
+    phase_wire_round_scale(dev, card)
 
     kernels = []
     for name, spec in KERNELS.items():

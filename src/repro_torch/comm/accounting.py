@@ -1,13 +1,12 @@
 """Communication-cost accounting: measured wire bytes + analytic formulas.
 
 A copy of ``repro/comm/accounting.py``; payload sizes come from the
-port's ``common.pytree.tree_bytes``. The port has no wire codec yet, so
-its wire ledger equals the formula ledger.
+port's ``common.pytree.tree_bytes``.
 
 Two parallel per-round ledgers per direction (S2C / C2S, paper Table II):
 
   * **wire** (``c2s`` / ``s2c``) — the bytes that actually move. When a
-    strategy carries wire codecs (``Strategy(codec="topk+int8")``), these
+    strategy carries wire codecs (``Strategy(codec="delta+topk")``), these
     are the MEASURED sizes of the encoded ``WirePayload`` buffers (plus any
     verbatim control tensors); without codecs they equal the formulas, so
     pre-codec callers see identical totals.

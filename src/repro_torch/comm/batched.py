@@ -1,0 +1,131 @@
+"""Device-resident batched wire codec for the stacked engine.
+
+The port of ``repro/comm/batched.py``. ``BatchedCodec`` runs the host
+``PipelineCodec``'s stage stack (delta -> grouped topk) over ALL C
+clients' flattened (C, P) payload rows at once, on the device that holds
+them: the sparsify and index stages are ``kernels.ops``' grouped top-k
+pack / unpack and index bit-pack / unpack (CUDA kernels for CUDA tensors,
+the plain versions for CPU tensors). Encoded buffers stay on the device;
+the measured per-client wire bytes follow from the buffer shapes, so a
+simulated round reads nothing back.
+
+Stage semantics are bit-identical to the host codec's (same top-k tie
+rule, same bit-plane layout). The reference's ``jax.jit`` programs become
+plain eager methods.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.comm.codec import PipelineCodec
+from repro_torch.kernels import ops
+
+Buffers = Dict[str, torch.Tensor]
+
+
+class BatchedCodec:
+    """One direction's (C, P) encode / decode program, built from the host
+    codec's stage parameters. Stateful only when delta is on (the encoder
+    and decoder references live on the device)."""
+
+    def __init__(self, like: PipelineCodec, p: int):
+        if like.topk and like.group is None:
+            raise ValueError(
+                "BatchedCodec needs the grouped top-k stage (group=N); "
+                "explicit-k global top-k is a host-codec-only mode")
+        self.delta = like.delta
+        self.topk = like.topk
+        self.group = like.group
+        self.kg = like.kg
+        self.p = int(p)
+        self.k = like.k_for(self.p) if like.topk else None
+        self._enc_ref: Optional[torch.Tensor] = None
+        self._dec_ref: Optional[torch.Tensor] = None
+        # the last encode's per-row telemetry, on the device (never read
+        # back here)
+        self.last_metrics: Optional[Dict[str, torch.Tensor]] = None
+
+    # ---- stages --------------------------------------------------------------
+    def _enc_metrics(self, x, vals) -> Dict[str, torch.Tensor]:
+        """Per-row residual norm (decoder-reference staleness), the share of
+        residual energy the wire kept, and the effective keep rate."""
+        r2 = torch.sum(torch.square(x), dim=1)
+        k2 = torch.sum(torch.square(vals), dim=1)
+        return {"residual_norm": torch.sqrt(r2),
+                "kept_energy": k2 / torch.clamp(r2, min=1e-12),
+                "keep_rate": torch.sum(vals != 0, dim=1) / self.p}
+
+    def _enc_sparse(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
+        vals, idx = ops.batched_topk_pack(x, group=self.group, kg=self.kg)
+        packed = ops.batched_idx_bitpack(idx, group=self.group, kg=self.kg)
+        return {"idx_bits": packed, "values": vals}, self._enc_metrics(x, vals)
+
+    def _enc_dense(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
+        x = x.float()
+        return {"values": x}, self._enc_metrics(x, x)
+
+    def _dec(self, buffers: Buffers) -> torch.Tensor:
+        if "idx_bits" not in buffers:
+            return buffers["values"].float()
+        idx = ops.batched_idx_bitunpack(buffers["idx_bits"], k=self.k,
+                                        group=self.group, kg=self.kg)
+        return ops.batched_topk_unpack(buffers["values"].float(), idx,
+                                       p=self.p, group=self.group, kg=self.kg)
+
+    # ---- wire ----------------------------------------------------------------
+    def _encode_residual(self, x):
+        """Apply the keyframe rule and encode; advances NO state. Returns
+        (buffers, delta reference or None) and keeps the encode's telemetry
+        in ``last_metrics``."""
+        if not self.delta:
+            buffers, mets = (self._enc_sparse(x) if self.topk
+                             else self._enc_dense(x))
+            self.last_metrics = mets
+            return buffers, None
+        keyframe = self._enc_ref is None
+        ref = torch.zeros_like(x) if keyframe else self._enc_ref
+        r = x - ref
+        buffers, mets = (self._enc_dense(r) if keyframe or not self.topk
+                         else self._enc_sparse(r))
+        self.last_metrics = mets
+        return buffers, ref
+
+    def encode(self, mat) -> Buffers:
+        """(C, P) stacked payload rows -> dict of device wire buffers. A
+        delta stream's first payload ships dense to establish the
+        reference; every later payload is a sparse residual."""
+        buffers, ref = self._encode_residual(mat.float())
+        if self.delta:
+            self._enc_ref = ref + self._dec(buffers)
+        return buffers
+
+    def decode(self, buffers: Buffers) -> torch.Tensor:
+        """Wire buffers -> reconstructed (C, P) fp32 rows."""
+        x = self._dec(buffers)
+        if self.delta:
+            x = x if self._dec_ref is None else self._dec_ref + x
+            self._dec_ref = x
+        return x
+
+    def roundtrip(self, mat):
+        """encode + decode in one pass: (reconstruction, buffers). The
+        encoder's error-feedback reference IS the decoder's reconstruction,
+        so the unpack runs once a round; both references advance exactly as
+        separate encode() / decode() calls would."""
+        buffers, ref = self._encode_residual(mat.float())
+        recon = self._dec(buffers)
+        if self.delta:
+            recon = ref + recon
+            self._enc_ref = recon
+            self._dec_ref = recon
+        return recon, buffers
+
+    # ---- accounting ----------------------------------------------------------
+    @staticmethod
+    def per_client_bytes(buffers: Buffers) -> int:
+        """Measured wire bytes per client (row), from the buffer shapes."""
+        return sum(math.prod(b.shape[1:]) * b.element_size()
+                   for b in buffers.values())

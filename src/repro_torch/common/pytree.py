@@ -29,6 +29,27 @@ def tree_leaves(tree) -> List[Any]:
     return [leaf for k in _order(tree) for leaf in tree_leaves(tree[k])]
 
 
+def leaf_paths(tree) -> List[Tuple[str, ...]]:
+    """The key path of every leaf, in ``tree_leaves`` order (a tree that
+    is a single leaf has the one path ``()``)."""
+    if not isinstance(tree, dict):
+        return [()]
+    return [(k,) + p for k in _order(tree) for p in leaf_paths(tree[k])]
+
+
+def tree_from_paths(paths, leaves):
+    """Inverse of (``leaf_paths``, ``tree_leaves``): nested dicts."""
+    if list(paths) == [()]:
+        return leaves[0]
+    out: Tree = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over corresponding leaves of trees of one structure."""
     if not isinstance(tree, dict):
@@ -42,29 +63,43 @@ def tree_bytes(tree) -> int:
                    else np.asarray(l).nbytes for l in tree_leaves(tree)))
 
 
-Meta = Tuple[List[str], List[Tuple[int, ...]], List[torch.dtype]]
+Meta = Tuple[List[Any], List[Tuple[int, ...]], List[torch.dtype]]
+
+
+def tree_flatten_stacked(tree):
+    """Tree of (C, ...) tensors -> ((C, P) fp32 matrix, meta), columns in
+    ``jax.tree.flatten`` order; meta holds each leaf's key path."""
+    paths = leaf_paths(tree)
+    leaves = tree_leaves(tree)
+    C = leaves[0].shape[0]
+    mat = torch.cat([leaf.reshape(C, -1).float() for leaf in leaves], 1)
+    return mat, (paths, [tuple(leaf.shape[1:]) for leaf in leaves],
+                 [leaf.dtype for leaf in leaves])
+
+
+def tree_unflatten_stacked(mat: torch.Tensor, meta: Meta):
+    """Inverse of ``tree_flatten_stacked``: (C, P) -> the tree of (C, ...)
+    tensors in their own dtypes (views into ``mat`` where the dtype is
+    already its own)."""
+    paths, shapes, dtypes = meta
+    C = mat.shape[0]
+    leaves, off = [], 0
+    for s, dt in zip(shapes, dtypes):
+        n = int(np.prod(s)) if s else 1
+        leaves.append(mat[:, off:off + n].reshape((C,) + s).to(dt))
+        off += n
+    return tree_from_paths(paths, leaves)
 
 
 def flatten_stacked(theta: Dict[str, torch.Tensor]):
     """Flat dict of (C, ...) tensors -> ((C, P) fp32 matrix, meta), columns
-    in ``jax.tree.flatten`` order."""
-    keys = _order(theta)
-    C = theta[keys[0]].shape[0]
-    mat = torch.cat([theta[k].reshape(C, -1).float() for k in keys], 1)
-    meta = (keys, [tuple(theta[k].shape[1:]) for k in keys],
-            [theta[k].dtype for k in keys])
-    return mat, meta
+    in ``jax.tree.flatten`` order; meta holds the keys."""
+    mat, (paths, shapes, dtypes) = tree_flatten_stacked(theta)
+    return mat, ([p[0] for p in paths], shapes, dtypes)
 
 
 def unflatten_stacked(mat: torch.Tensor, meta: Meta):
     """Inverse of ``flatten_stacked``: (C, P) -> flat dict of (C, ...)
-    tensors in their own dtypes (views into ``mat`` where the dtype is
-    already its own)."""
+    tensors in their own dtypes."""
     keys, shapes, dtypes = meta
-    C = mat.shape[0]
-    out, off = {}, 0
-    for k, s, dt in zip(keys, shapes, dtypes):
-        n = int(np.prod(s)) if s else 1
-        out[k] = mat[:, off:off + n].reshape((C,) + s).to(dt)
-        off += n
-    return out
+    return tree_unflatten_stacked(mat, ([(k,) for k in keys], shapes, dtypes))

@@ -153,6 +153,26 @@ class FedSTIL(Strategy):
         self.server_ms = dict(clock)
         return {"B": B, "nz": nz}
 
+    # ---- wire-codec payload split --------------------------------------------
+    # Uploads are (theta, task feature): theta is the bulk payload the codec
+    # compresses; the Eq. 3 task feature is the server's control plane for
+    # relevance (Eq. 4/5) and ships verbatim. Dispatches are (B, nz): only B
+    # is wire payload, the (C,) mask ships verbatim.
+
+    def split_upload_for_wire(self, upload):
+        return ({"theta": upload["theta"]},
+                {"task_feature": upload["task_feature"]})
+
+    def join_upload_from_wire(self, decoded, verbatim):
+        return {"theta": decoded["theta"], **verbatim}
+
+    def split_dispatch_for_wire(self, dispatch):
+        verbatim = {k: v for k, v in dispatch.items() if k != "B"}
+        return {"B": dispatch["B"]}, (verbatim or None)
+
+    def join_dispatch_from_wire(self, decoded, verbatim):
+        return {"B": decoded["B"], **(verbatim or {})}
+
     def apply_dispatch_stacked(self, stacked, dispatch):
         nz = dispatch["nz"]
         stacked.extras["reg_B"] = {

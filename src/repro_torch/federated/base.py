@@ -14,7 +14,9 @@ A round is:
     over all clients (``torch.bmm`` where the reference vmaps; autograd of
     the sum of the clients' losses, which do not interact), per-client
     clipping and one stacked Adam step;
-  * the strategy's server round and dispatch;
+  * the strategy's server round and dispatch, each direction optionally
+    through a wire codec (``codec=``): all C payload rows encoded and
+    decoded at once by a ``comm.batched.BatchedCodec``;
   * ``eval_round_stacked``: every (client, task) retrieval evaluation in
     one pass (``stacked_eval_program`` of the reference).
 """
@@ -26,7 +28,10 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import tree_bytes, tree_map
+from repro_torch.comm.batched import BatchedCodec
+from repro_torch.comm.codec import make_codec
+from repro_torch.common.pytree import (tree_bytes, tree_flatten_stacked,
+                                       tree_map, tree_unflatten_stacked)
 from repro_torch.core import edge_model as EM
 from repro_torch.evalreid.batched import _PAD_QID, batched_retrieval_metrics
 from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
@@ -101,8 +106,6 @@ class Strategy:
 
     def __init__(self, cfg: EM.EdgeModelConfig, *, lr=1e-3, weight_decay=1e-5,
                  epochs=5, batch=64, seed=0, codec=None, codec_opts=None):
-        if codec is not None or codec_opts:
-            raise not_in_this_slice("codec=", "the wire-codec slice (4)")
         self.cfg = cfg
         self.lr = lr
         self.epochs = epochs
@@ -112,6 +115,15 @@ class Strategy:
         # host wall ms of the last server round's stages (strategies with a
         # server fill it in)
         self.server_ms: Dict[str, float] = {}
+        # wire codecs (comm.codec): when set, the simulation encodes every
+        # upload and dispatch, logs the MEASURED buffer bytes (the formulas
+        # stay as the cross-check), and the receiver trains on the decoded,
+        # possibly lossy, payload. One codec per direction, so delta state
+        # never crosses streams.
+        opts = dict(codec_opts or {})
+        self.upload_codec = make_codec(codec, **opts)
+        self.dispatch_codec = make_codec(codec, **opts)
+        self._wire_programs: Dict[Tuple[str, int], BatchedCodec] = {}
 
     # ---- loss ----------------------------------------------------------------
     def make_theta(self, trainable, extras):
@@ -233,3 +245,58 @@ class Strategy:
         """Per-client C2S bytes (stacked leaves carry C copies)."""
         return tree_bytes(upload) // max(n_clients, 1)
 
+    # ---- wire codecs ---------------------------------------------------------
+    # What part of a payload goes through the (lossy) codec and what ships
+    # verbatim. Default: everything is codec traffic.
+
+    def split_upload_for_wire(self, upload) -> Tuple[Any, Any]:
+        """(codec subtree, verbatim subtree or None) of an upload."""
+        return upload, None
+
+    def join_upload_from_wire(self, decoded, verbatim):
+        return decoded
+
+    def split_dispatch_for_wire(self, dispatch) -> Tuple[Any, Any]:
+        return dispatch, None
+
+    def join_dispatch_from_wire(self, decoded, verbatim):
+        return decoded
+
+    def _stacked_wire_program(self, which: str, p: int) -> BatchedCodec:
+        """The device codec program of one direction at payload size p,
+        built once per simulation (p is fixed by the model)."""
+        key = (which, p)
+        if key not in self._wire_programs:
+            template = (self.upload_codec if which == "upload"
+                        else self.dispatch_codec)
+            self._wire_programs[key] = BatchedCodec(template, p)
+        return self._wire_programs[key]
+
+    def _wire_roundtrip_stacked(self, which, tree, split, join):
+        """All C clients' payload rows through one batched encode + decode;
+        per-client bytes come from the encoded buffers' shapes, plus the
+        verbatim subtree's share. Returns (the receiver-visible payload,
+        measured bytes per client)."""
+        lossy, verbatim = split(tree)
+        mat, meta = tree_flatten_stacked(lossy)
+        C = mat.shape[0]
+        prog = self._stacked_wire_program(which, int(mat.shape[1]))
+        with torch.no_grad():
+            recon, buffers = prog.roundtrip(mat)
+        per_client = prog.per_client_bytes(buffers)
+        if verbatim is not None:
+            per_client += tree_bytes(verbatim) // max(C, 1)
+        return join(tree_unflatten_stacked(recon, meta), verbatim), per_client
+
+    def wire_upload_stacked(self, upload):
+        """C2S: the stacked upload through the upload codec."""
+        return self._wire_roundtrip_stacked(
+            "upload", upload, self.split_upload_for_wire,
+            self.join_upload_from_wire)
+
+    def wire_dispatch_stacked(self, dispatch):
+        """S2C: the stacked dispatch through the dispatch codec (a broadcast
+        stream: all C rows every dispatch round)."""
+        return self._wire_roundtrip_stacked(
+            "dispatch", dispatch, self.split_dispatch_for_wire,
+            self.join_dispatch_from_wire)

@@ -8,7 +8,10 @@ trains 60 rounds over 6 tasks). Each round: gather minibatches -> local
 training of all clients -> upload -> server integration -> dispatch ->
 every ``eval_every`` rounds the batched retrieval evaluation (mAP/CMC,
 Eq. 7) and forgetting (Eq. 8), with the reference's S2C/C2S byte
-accounting.
+accounting. A strategy with wire codecs (``FedSTIL(..., codec=
+"delta+topk")``) sends the upload and the dispatch through them (stages
+``encode_c2s`` and ``encode_s2c``) and logs the measured wire bytes beside
+the formulas (``SimulationResult.comm_breakdown()``).
 
 Prototypes are extracted once up front (the extraction layers are frozen),
 and the evaluation inputs are cached: the (C, T, Q, D) query stacks stay on
@@ -254,7 +257,15 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
             stacked, upload = strategy.local_train_stacked(
                 stacked, bx, by, protos_list, labels_list, rnd)
         if upload is not None:
-            comm.log_c2s_many(rnd, strategy.stacked_upload_bytes(upload, C), C)
+            formula = strategy.stacked_upload_bytes(upload, C)
+            if strategy.upload_codec is not None:
+                # one batched encode + decode of all C rows; the server
+                # round consumes the decoded (lossy) upload
+                with clock.stage("encode_c2s"):
+                    upload, measured = strategy.wire_upload_stacked(upload)
+                comm.log_c2s_many(rnd, formula, C, measured=measured)
+            else:
+                comm.log_c2s_many(rnd, formula, C)
 
         if strategy.uses_server and upload is not None:
             t0 = time.perf_counter()
@@ -264,9 +275,21 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
             clock.update({f"server.{k}": v
                           for k, v in strategy.server_ms.items()})
             if dispatch is not None:
-                nz = dispatch["nz"].cpu().numpy()
-                comm.log_s2c_many(rnd, strategy.stacked_dispatch_bytes(
-                    dispatch, C), int(nz.sum()))
+                per_client = strategy.stacked_dispatch_bytes(dispatch, C)
+                n_nz = int(dispatch["nz"].sum())
+                if strategy.dispatch_codec is not None:
+                    # the stacked wire model is a BROADCAST stream: all C
+                    # rows are encoded (and the delta references advance)
+                    # every dispatch round, so all C are shipped and
+                    # counted; the formula keeps one dispatch per client
+                    # with relevant neighbours
+                    with clock.stage("encode_s2c"):
+                        dispatch, measured = strategy.wire_dispatch_stacked(
+                            dispatch)
+                    comm.log_s2c_many(rnd, per_client, C, measured=measured,
+                                      n_formula=n_nz)
+                else:
+                    comm.log_s2c_many(rnd, per_client, n_nz)
                 with clock.stage("apply"):
                     stacked = strategy.apply_dispatch_stacked(stacked,
                                                               dispatch)

@@ -19,6 +19,10 @@ from repro_torch.kernels.pairwise_dist import batched_pairwise_dist as _bpdist
 from repro_torch.kernels.quantize import batched_quantize as _bquant
 from repro_torch.kernels.relevance_aggregate import \
     fused_relevance_aggregate as _fused_agg
+from repro_torch.kernels.topk_pack import batched_idx_bitpack as _bidxpack
+from repro_torch.kernels.topk_pack import batched_idx_bitunpack as _bidxunpack
+from repro_torch.kernels.topk_pack import batched_topk_pack as _btopk
+from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -88,3 +92,37 @@ def batched_ivf_shortlist(qf, probe, bq, pack):
         C, B = d.shape[:2]
         return d.reshape(C, B, -1), ids.reshape(C, B, -1)
     return REF.batched_ivf_shortlist_ref(qf, probe, bq, pack)
+
+
+def batched_topk_pack(x, *, group: int = 8, kg: int):
+    """Wire-codec sparsify stage: (C, P) -> (values (C, ceil(P/group)*kg)
+    fp32, absolute indices int32): the kg largest magnitudes of every group
+    of ``group`` contiguous elements, ties to the lowest index."""
+    if _on_cuda(x):
+        return _btopk(x, group=group, kg=kg)
+    return REF.batched_topk_pack_ref(x, group=group, kg=kg)
+
+
+def batched_topk_unpack(vals, idx, *, p: int, group: int = 8, kg: int):
+    """Inverse of ``batched_topk_pack``: values + indices -> dense (C, p)
+    fp32, dropped entries zero."""
+    if _on_cuda(vals, idx):
+        return _buntopk(vals, idx, p=p, group=group, kg=kg)
+    return REF.batched_topk_unpack_ref(vals, idx, p=p, group=group, kg=kg)
+
+
+def batched_idx_bitpack(idx, *, group: int = 8, kg: int):
+    """Wire-codec index compression: (C, K) int32 grouped-pack indices ->
+    (C, bits*ceil(K/8)) uint8 bit-planes of the local in-group index (3
+    bits at group 8)."""
+    if _on_cuda(idx):
+        return _bidxpack(idx, group=group, kg=kg)
+    return REF.batched_idx_bitpack_ref(idx, group=group, kg=kg)
+
+
+def batched_idx_bitunpack(packed, *, k: int, group: int = 8, kg: int):
+    """Inverse of ``batched_idx_bitpack``: uint8 bit-planes -> (C, k) int32
+    absolute indices."""
+    if _on_cuda(packed):
+        return _bidxunpack(packed, k=k, group=group, kg=kg)
+    return REF.batched_idx_bitunpack_ref(packed, k=k, group=group, kg=kg)

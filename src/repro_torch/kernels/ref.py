@@ -165,3 +165,98 @@ def batched_ivf_shortlist_ref(qf, probe, bq, pack):
     d, ids = batched_ivf_shortlist_scores_ref(qf, probe, bq, pack)
     C, B = d.shape[:2]
     return d.reshape(C, B, -1), ids.reshape(C, B, -1)
+
+
+def grouped_topk_rank_ref(x, *, group: int):
+    """Exact within-group magnitude ranks of stacked rows: (C, P) (P a
+    multiple of ``group``) -> (C, P // group, group) int32, 0 = largest
+    magnitude. The rank of element i counts the j with |x_j| > |x_i|, or
+    |x_j| == |x_i| and j < i: ties go to the lowest index, so the ranks of
+    finite rows are a permutation of 0..group-1."""
+    C, P = x.shape
+    a = torch.abs(x.float()).reshape(C, P // group, group)
+    ai = a[..., :, None]                                     # rank of i ...
+    aj = a[..., None, :]                                     # ... vs every j
+    ii = torch.arange(group, device=x.device)
+    beats = (aj > ai) | ((aj == ai) & (ii[None, :] < ii[:, None]))
+    return torch.sum(beats, dim=-1, dtype=torch.int32)
+
+
+def batched_topk_pack_ref(x, *, group: int, kg: int):
+    """Grouped top-k sparsify + pack: (C, P) -> (values (C, nb*kg) fp32,
+    absolute indices (C, nb*kg) int32), nb = ceil(P / group). Every group
+    of ``group`` contiguous elements keeps its ``kg`` largest magnitudes
+    in rank order; the tail group reads zeros past P, which are selected
+    (value 0, index >= P) when it has fewer than kg real elements. Values
+    and indices are one-hot sums, as in the reference."""
+    C, P = x.shape
+    nb = (P + group - 1) // group
+    xp = F.pad(x.float(), (0, nb * group - P))
+    rank = grouped_topk_rank_ref(xp, group=group)            # (C, nb, G)
+    onehot = rank[..., None] == torch.arange(kg, device=x.device)
+    vals = torch.sum(xp.reshape(C, nb, group)[..., None] * onehot.float(),
+                     dim=2)                                  # (C, nb, kg)
+    gidx = (torch.arange(nb, dtype=torch.int32, device=x.device)[:, None]
+            * group + torch.arange(group, dtype=torch.int32,
+                                   device=x.device)[None, :])
+    idx = torch.sum(gidx[None, :, :, None] * onehot.int(), dim=2,
+                    dtype=torch.int32)
+    return vals.reshape(C, nb * kg), idx.reshape(C, nb * kg)
+
+
+def batched_topk_unpack_ref(vals, idx, *, p: int, group: int, kg: int):
+    """Inverse of ``batched_topk_pack_ref``: (C, nb*kg) values + absolute
+    indices -> dense (C, p) fp32. Slot s of group g adds its value at local
+    index idx - g*group; a local index outside 0..group-1 adds nothing and
+    duplicates sum."""
+    C, K = vals.shape
+    nb = K // kg
+    dev = vals.device
+    vb = vals.float().reshape(C, nb, kg)
+    li = (idx.reshape(C, nb, kg)
+          - (torch.arange(nb, dtype=torch.int32, device=dev)
+             * group)[None, :, None])
+    onehot = li[..., None] == torch.arange(group, dtype=torch.int32,
+                                           device=dev)
+    dense = torch.sum(vb[..., None] * onehot.float(), dim=2)
+    return dense.reshape(C, nb * group)[:, :p]
+
+
+def batched_idx_bitpack_ref(idx, *, group: int, kg: int):
+    """Bit-pack grouped top-k indices: (C, K) int32 absolute indices ->
+    (C, bits * ceil(K/8)) uint8, bits = (group-1).bit_length() (3 at
+    group 8). Slot s carries its local index li = idx - (s // kg) * group;
+    plane j, byte b holds bit j of li for slots 8b..8b+7 (slot s at bit
+    s % 8); slots past K pack 0. int32 shifts and masks, so a local index
+    outside 0..group-1 packs the same bits as in the reference."""
+    C, K = idx.shape
+    dev = idx.device
+    bits = (group - 1).bit_length()
+    kb = (K + 7) // 8
+    slot = torch.arange(K, dtype=torch.int32, device=dev)
+    li = idx.int() - (slot // kg)[None, :] * group
+    lib = F.pad(li, (0, kb * 8 - K)).reshape(C, kb, 8)
+    lane = torch.bitwise_left_shift(
+        torch.ones(8, dtype=torch.int32, device=dev),
+        torch.arange(8, dtype=torch.int32, device=dev))
+    planes = [torch.sum(((lib >> j) & 1) * lane, dim=2, dtype=torch.int32)
+              for j in range(bits)]
+    return torch.cat(planes, dim=1).to(torch.uint8)
+
+
+def batched_idx_bitunpack_ref(packed, *, k: int, group: int, kg: int):
+    """Inverse of ``batched_idx_bitpack_ref``: (C, bits * kb) uint8
+    bit-planes -> (C, k) int32 absolute indices (slot s: its group base
+    (s // kg) * group plus the unpacked local index)."""
+    C = packed.shape[0]
+    dev = packed.device
+    bits = (group - 1).bit_length()
+    kb = packed.shape[1] // bits
+    b = packed.reshape(C, bits, kb).int()
+    lanes = (b[..., None] >> torch.arange(8, dtype=torch.int32,
+                                          device=dev)) & 1
+    planes = lanes.reshape(C, bits, kb * 8)[:, :, :k]
+    shift = torch.arange(bits, dtype=torch.int32, device=dev)[None, :, None]
+    li = torch.sum(planes << shift, dim=1, dtype=torch.int32)
+    slot = torch.arange(k, dtype=torch.int32, device=dev)
+    return (slot // kg)[None, :] * group + li

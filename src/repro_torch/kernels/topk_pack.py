@@ -1,0 +1,171 @@
+"""CUDA kernel wrappers of the wire codec's grouped top-k and index
+bit-packing (``csrc/topk_pack.cu``; replace
+``repro/kernels/topk_pack.py:batched_topk_pack``, ``:batched_topk_unpack``,
+``:batched_idx_bitpack`` and ``:batched_idx_bitunpack``).
+
+    pack:       (C, P) fp32 -> the kg largest magnitudes of every group of
+                ``group`` contiguous elements, in rank order (ties to the
+                lowest index): values (C, nb*kg) fp32, absolute indices
+                (C, nb*kg) int32, nb = ceil(P / group)
+    unpack:     values + indices -> dense (C, p) fp32
+    bitpack:    (C, K) int32 indices -> (C, bits*ceil(K/8)) uint8 planes of
+                the local in-group index, bits = (group-1).bit_length()
+    bitunpack:  (C, bits*kb) uint8 -> (C, k) int32 absolute indices
+
+The pack and unpack kernels take 1 <= kg <= group <= 16; every kernel
+indexes its threads and slots in 32 bits, so a call needs fewer than 2^31
+of them. Take CUDA tensors only; the ``ops`` dispatchers send CPU tensors
+to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_GROUP = 16
+MAX_THREADS = 1 << 31
+_PACK_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
+              + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+_UNPACK_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
+                + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+_BITPACK_ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 2
+                 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+_BITUNPACK_ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 3
+                   + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+def _check_budget(group: int, kg: int) -> None:
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"group {group}: the CUDA kernels take 1..{MAX_GROUP}")
+    if not 1 <= kg <= group:
+        raise ValueError(f"kg {kg}: must lie in 1..group ({group})")
+
+
+def _check_size(n: int, what: str) -> None:
+    if n >= MAX_THREADS:
+        raise ValueError(f"{what}: {n} elements, the kernel indexes fewer "
+                         f"than 2^31")
+
+
+def _bits(group: int) -> int:
+    if group < 2:
+        raise ValueError(f"group {group}: bit-packing needs group >= 2")
+    return (group - 1).bit_length()
+
+
+def _launch(source_symbol, argtypes, what, dev, *args):
+    fn = _build.kernel("topk_pack", source_symbol, argtypes)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, stream)
+    _build.raise_on_error(what, rc)
+
+
+def batched_topk_pack(x, *, group: int = 8, kg: int):
+    """(C, P) fp32 -> (values (C, nb*kg) fp32, indices (C, nb*kg) int32)."""
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (C, P), got shape {tuple(x.shape)}")
+    _check_budget(group, kg)
+    C, P = x.shape
+    dev = x.device
+    _build.check_operand("x", x, torch.float32, (C, P), dev)
+    K = (P + group - 1) // group * kg
+    _check_size(max(C * K, P), "batched_topk_pack")
+    vals = torch.empty((C, K), dtype=torch.float32, device=dev)
+    idx = torch.empty((C, K), dtype=torch.int32, device=dev)
+    if C * K == 0:
+        return vals, idx
+    vec = int(P % 4 == 0 and x.data_ptr() % 16 == 0)
+    _launch("repro_batched_topk_pack", _PACK_ARGS, "batched_topk_pack", dev,
+            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), C, P, group, kg,
+            vec)
+    batched_topk_pack.launches += 1
+    return vals, idx
+
+
+batched_topk_pack.launches = 0
+
+
+def batched_topk_unpack(vals, idx, *, p: int, group: int = 8, kg: int):
+    """Values + absolute indices (C, ceil(p/group)*kg) -> dense (C, p)
+    fp32; a local index outside 0..group-1 adds nothing, duplicates sum."""
+    if vals.dim() != 2:
+        raise ValueError(f"vals: expected (C, K), got {tuple(vals.shape)}")
+    _check_budget(group, kg)
+    C, K = vals.shape
+    if K != (p + group - 1) // group * kg:
+        raise ValueError(f"vals: {K} slots, p={p} needs "
+                         f"{(p + group - 1) // group * kg}")
+    dev = vals.device
+    _build.check_operand("vals", vals, torch.float32, (C, K), dev)
+    _build.check_operand("idx", idx, torch.int32, (C, K), dev)
+    _check_size(C * ((p + group - 1) // group) * group, "batched_topk_unpack")
+    out = torch.empty((C, p), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    vec = int(p % 4 == 0 and out.data_ptr() % 16 == 0)
+    _launch("repro_batched_topk_unpack", _UNPACK_ARGS, "batched_topk_unpack",
+            dev, vals.data_ptr(), idx.data_ptr(), out.data_ptr(), C, p, group,
+            kg, vec)
+    batched_topk_unpack.launches += 1
+    return out
+
+
+batched_topk_unpack.launches = 0
+
+
+def batched_idx_bitpack(idx, *, group: int = 8, kg: int):
+    """(C, K) int32 absolute indices -> (C, bits*ceil(K/8)) uint8."""
+    if idx.dim() != 2:
+        raise ValueError(f"idx: expected (C, K), got {tuple(idx.shape)}")
+    if kg < 1:
+        raise ValueError(f"kg must be positive, got {kg}")
+    bits = _bits(group)
+    C, K = idx.shape
+    dev = idx.device
+    _build.check_operand("idx", idx, torch.int32, (C, K), dev)
+    kb = (K + 7) // 8
+    _check_size(C * kb * 8, "batched_idx_bitpack")
+    out = torch.empty((C, bits * kb), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    _launch("repro_batched_idx_bitpack", _BITPACK_ARGS, "batched_idx_bitpack",
+            dev, idx.data_ptr(), out.data_ptr(), C, K, group, kg, bits)
+    batched_idx_bitpack.launches += 1
+    return out
+
+
+batched_idx_bitpack.launches = 0
+
+
+def batched_idx_bitunpack(packed, *, k: int, group: int = 8, kg: int):
+    """(C, bits*kb) uint8 bit-planes -> (C, k) int32 absolute indices."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed: expected (C, bits*kb), got "
+                         f"{tuple(packed.shape)}")
+    if kg < 1:
+        raise ValueError(f"kg must be positive, got {kg}")
+    bits = _bits(group)
+    C, nbytes = packed.shape
+    if nbytes % bits or k > nbytes // bits * 8:
+        raise ValueError(f"packed: {nbytes} bytes a row do not hold {bits} "
+                         f"planes of {k} slots")
+    kb = nbytes // bits
+    dev = packed.device
+    _build.check_operand("packed", packed, torch.uint8, (C, nbytes), dev)
+    _check_size(C * kb * 8, "batched_idx_bitunpack")
+    out = torch.empty((C, k), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    vec = int(k % 4 == 0 and out.data_ptr() % 16 == 0)
+    _launch("repro_batched_idx_bitunpack", _BITUNPACK_ARGS,
+            "batched_idx_bitunpack", dev, packed.data_ptr(), out.data_ptr(),
+            C, k, kb, group, kg, bits, vec)
+    batched_idx_bitunpack.launches += 1
+    return out
+
+
+batched_idx_bitunpack.launches = 0

@@ -1,0 +1,371 @@
+"""The port's wire codec (repro_torch.comm, the grouped top-k kernels'
+plain versions) against the JAX package's (repro.comm, repro.kernels) on
+the same numpy inputs, on the CPU.
+
+Everything here is exact: the top-k ranks are integer counts, the values
+one-hot sums with a single nonzero term (a finite value comes out
+unchanged), the indices and bit-planes int32 shifts and masks, and the
+delta references advance by fp32 elementwise sums of equal operands. The
+kernels are compared with ``assert_array_equal`` (values as numbers, so
++0.0 and -0.0 are equal; indices and packed bytes bit for bit). The CUDA
+kernels run only on the card, where chip_smoke.py holds them against these
+plain versions.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import batched as JBATCHED
+from repro.comm import codec as JCODEC
+from repro.common.pytree import tree_flatten_stacked as j_tree_flatten_stacked
+from repro.kernels import ops as JOPS
+from repro.kernels import ref as JREF
+from repro_torch.comm import codec as CODEC
+from repro_torch.comm.batched import BatchedCodec
+from repro_torch.common.pytree import (tree_flatten_stacked,
+                                       tree_unflatten_stacked)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.topk_pack import (batched_idx_bitpack,
+                                           batched_idx_bitunpack,
+                                           batched_topk_pack,
+                                           batched_topk_unpack)
+
+BACKENDS = ["ref", "interpret"]
+GROUP = 8
+
+
+def _codec_input(rng, C, P, group=GROUP):
+    """Rows with ties (repeated magnitudes of both signs), zeros, an
+    all-zero row, and a tail group whose real elements are all zero."""
+    x = rng.standard_normal((C, P)).astype(np.float32)
+    x[0] = np.round(x[0] * 2.0) / 2.0               # many exact ties
+    x[0, 3:6] = [0.5, -0.5, 0.5]
+    x[1, :2 * group] = 0.0                           # two all-zero groups
+    x[2] = 0.0                                       # an all-zero row
+    x[3, P - P % group if P % group else P - group:] = 0.0
+    return x
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _jops(name, backend, *args, **kw):
+    return getattr(JOPS, name)(*args, backend=backend, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the four kernels' plain versions
+# ---------------------------------------------------------------------------
+
+KERNEL_CASES = [(P, GROUP, kg) for P in (8, 999, 2 * 2048 + 5)
+                for kg in (1, 3, 8)] + [(640, 16, 5), (37, 4, 2)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("P,group,kg", KERNEL_CASES)
+def test_topk_kernels_match_jax(P, group, kg, backend):
+    """Pack, unpack, bit-pack and bit-unpack against the JAX package's
+    ``ref`` path and its Pallas kernels in interpret mode; with kg = 8 the
+    ragged tail groups (999 and 4101 hold 7 and 5 real elements) select
+    pad positions, whose indices (>= P) ship on the wire."""
+    rng = np.random.default_rng(P * 31 + kg)
+    x = _codec_input(rng, 4, P, group)
+    vals, idx = ops.batched_topk_pack(torch.from_numpy(x), group=group, kg=kg)
+    jv, ji = _jops("batched_topk_pack", backend, x, group=group, kg=kg)
+    np.testing.assert_array_equal(_np(vals), np.asarray(jv))
+    np.testing.assert_array_equal(_np(idx), np.asarray(ji))
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    assert vals.shape == (4, -(-P // group) * kg)
+    if P % group and kg > P % group:
+        assert int(idx.max()) >= P                   # a pad slot selected
+
+    dense = ops.batched_topk_unpack(vals, idx, p=P, group=group, kg=kg)
+    jd = _jops("batched_topk_unpack", backend, jv, ji, p=P, group=group,
+               kg=kg)
+    np.testing.assert_array_equal(_np(dense), np.asarray(jd))
+    kept = _np(dense) != 0
+    np.testing.assert_array_equal(_np(dense)[kept], x[kept])
+
+    packed = ops.batched_idx_bitpack(idx, group=group, kg=kg)
+    jp = _jops("batched_idx_bitpack", backend, ji, group=group, kg=kg)
+    np.testing.assert_array_equal(_np(packed), np.asarray(jp))
+    bits = (group - 1).bit_length()
+    K = idx.shape[1]
+    assert packed.dtype == torch.uint8
+    assert packed.shape == (4, bits * ((K + 7) // 8))
+    back = ops.batched_idx_bitunpack(packed, k=K, group=group, kg=kg)
+    jb = _jops("batched_idx_bitunpack", backend, jp, k=K, group=group, kg=kg)
+    np.testing.assert_array_equal(_np(back), np.asarray(jb))
+    np.testing.assert_array_equal(_np(back), _np(idx))
+
+
+def test_topk_rank_is_a_permutation_with_ties_to_lowest_index():
+    x = torch.tensor([[1.0, -1.0, 0.0, 2.0, -2.0, 0.0, 1.0, 0.5]])
+    rank = ref.grouped_topk_rank_ref(x, group=8)
+    assert rank.tolist() == [[[2, 3, 6, 0, 1, 7, 4, 5]]]
+    np.testing.assert_array_equal(
+        rank.numpy(), np.asarray(JREF.grouped_topk_rank_ref(x.numpy(),
+                                                            group=8)))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_unpack_and_bitpack_of_malformed_indices_match_jax(backend):
+    """Local indices outside 0..7 add nothing on unpack and pack their
+    low bits; two slots on one local index sum."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 999)).astype(np.float32)
+    vals, idx = ops.batched_topk_pack(torch.from_numpy(x), kg=3)
+    bad = idx.clone()
+    bad[0, 0] = -1                          # before group 0
+    bad[0, 4] = 3 * GROUP + 9               # past group 1
+    bad[1, 7] = bad[1, 6]                   # a duplicate in group 2
+    bad[2, 10] = 1 << 20
+    dense = ops.batched_topk_unpack(vals, bad, p=999, kg=3)
+    jd = _jops("batched_topk_unpack", backend, vals.numpy(), bad.numpy(),
+               p=999, group=GROUP, kg=3)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(jd))
+    wild = torch.from_numpy(rng.integers(-40, 1 << 12, (3, 30))
+                            .astype(np.int32))
+    packed = ops.batched_idx_bitpack(wild, kg=3)
+    jp = _jops("batched_idx_bitpack", backend, wild.numpy(), group=GROUP,
+               kg=3)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jp))
+
+
+def test_pack_of_non_finite_rows_follows_the_reference():
+    """NaN and infinity: the one-hot sums spread x * 0 = NaN across the
+    group and a NaN never wins a comparison, exactly as in the reference
+    (the CUDA kernel mirrors the same arithmetic)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 24)).astype(np.float32)
+    x[0, 2], x[0, 9] = np.nan, np.inf
+    x[1, 3], x[1, 5], x[1, 17] = np.nan, np.nan, -np.inf
+    vals, idx = ops.batched_topk_pack(torch.from_numpy(x), kg=3)
+    jv, ji = JREF.batched_topk_pack_ref(x, group=GROUP, kg=3)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    assert np.isnan(vals.numpy()[0, :3]).all()
+
+
+CUDA_WRAPPERS = [
+    (batched_topk_pack, lambda: (torch.zeros(2, 16),), {"kg": 3}),
+    (batched_topk_unpack,
+     lambda: (torch.zeros(2, 6), torch.zeros(2, 6, dtype=torch.int32)),
+     {"p": 16, "kg": 3}),
+    (batched_idx_bitpack, lambda: (torch.zeros(2, 6, dtype=torch.int32),),
+     {"kg": 3}),
+    (batched_idx_bitunpack, lambda: (torch.zeros(2, 3, dtype=torch.uint8),),
+     {"k": 6, "kg": 3}),
+]
+
+
+@pytest.mark.parametrize("wrapper,args,kw", CUDA_WRAPPERS,
+                         ids=[w.__name__ for w, _, _ in CUDA_WRAPPERS])
+def test_topk_wrappers_refuse_cpu_tensors(wrapper, args, kw):
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        wrapper(*args(), **kw)
+    assert wrapper.launches == before
+
+
+def test_topk_wrappers_refuse_budgets_the_kernel_does_not_take():
+    for kw in ({"group": 17, "kg": 3}, {"group": 8, "kg": 9},
+               {"group": 8, "kg": 0}):
+        with pytest.raises(ValueError, match="group|kg"):
+            batched_topk_pack(torch.zeros(2, 16), **kw)
+    with pytest.raises(ValueError, match="slots"):
+        batched_topk_unpack(torch.zeros(2, 5), torch.zeros(2, 5,
+                                                           dtype=torch.int32),
+                            p=16, kg=3)
+    with pytest.raises(ValueError, match="planes"):
+        batched_idx_bitunpack(torch.zeros(2, 4, dtype=torch.uint8), k=6,
+                              kg=3)
+
+
+# ---------------------------------------------------------------------------
+# the numpy host codec copy
+# ---------------------------------------------------------------------------
+
+
+def _tree(rng, scale=1.0):
+    return {"a": {"w": rng.standard_normal((13, 7)).astype(np.float32) * scale,
+                  "b": rng.standard_normal((7,)).astype(np.float32)},
+            "c": rng.standard_normal((41,)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("P,group,kg", [(999, 8, 3), (64, 8, 8), (37, 4, 1)])
+def test_host_selection_and_index_packing_equal_jax(P, group, kg):
+    rng = np.random.default_rng(P)
+    x = _codec_input(rng, 4, P, group)[0]
+    v, i = CODEC.grouped_topk_select_host(x, group, kg)
+    jv, ji = JCODEC.grouped_topk_select_host(x, group, kg)
+    np.testing.assert_array_equal(v, jv)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_array_equal(
+        i, ref.batched_topk_pack_ref(torch.from_numpy(x[None]), group=group,
+                                     kg=kg)[1][0].numpy())
+    packed = CODEC.pack_group_indices_host(i, group, kg)
+    np.testing.assert_array_equal(packed,
+                                  JCODEC.pack_group_indices_host(i, group, kg))
+    np.testing.assert_array_equal(
+        CODEC.unpack_group_indices_host(packed, i.size, group, kg), i)
+    for k in (1, 17, P):
+        gv, gi = CODEC.topk_select_host(x, k)
+        jgv, jgi = JCODEC.topk_select_host(x, k)
+        np.testing.assert_array_equal(gv, jgv)
+        np.testing.assert_array_equal(gi, jgi)
+
+
+def test_host_quantize_copy_equals_jax():
+    rng = np.random.default_rng(4)
+    v = (rng.standard_normal(1000) * 3.0).astype(np.float32)
+    v[:256] = 0.0                                    # an all-zero chunk
+    q, s = CODEC.quantize_host(v, 256)
+    jq, js = JCODEC.quantize_host(v, 256)
+    np.testing.assert_array_equal(q, jq)
+    np.testing.assert_array_equal(s, js)
+    np.testing.assert_array_equal(CODEC.dequantize_host(q, s, 256),
+                                  JCODEC.dequantize_host(jq, js, 256))
+
+
+HOST_SPECS = [("raw", {}), ("delta", {}), ("topk", {}), ("delta+topk", {}),
+              ("topk", {"delta": False}), ("topk", {"k": 60, "delta": False}),
+              ("delta+topk", {"keep_frac": 0.25})]
+
+
+@pytest.mark.parametrize("spec,opts", HOST_SPECS,
+                         ids=[f"{s}-{o}" for s, o in HOST_SPECS])
+def test_host_codec_stream_equals_jax(spec, opts):
+    """Three payloads per peer through both packages' PipelineCodec
+    (encode + decode, and roundtrip): equal buffers, bytes and
+    reconstructions, delta state included."""
+    rng = np.random.default_rng(9)
+    port, jax_ = (CODEC.make_codec(spec, **opts),
+                  JCODEC.make_codec(spec, **opts))
+    port_rt, jax_rt = (CODEC.make_codec(spec, **opts),
+                       JCODEC.make_codec(spec, **opts))
+    for r in range(3):
+        for peer in (0, 1):
+            tree = _tree(rng, scale=1.0 + r)
+            p, j = port.encode(tree, peer=peer), jax_.encode(tree, peer=peer)
+            assert sorted(p.buffers) == sorted(j.buffers)
+            for name in p.buffers:
+                np.testing.assert_array_equal(p.buffers[name],
+                                              j.buffers[name])
+                assert p.buffers[name].dtype == j.buffers[name].dtype
+            assert p.nbytes == j.nbytes
+            assert p.schema["sparse"] == j.schema["sparse"]
+            dp, dj = port.decode(p, peer=peer), jax_.decode(j, peer=peer)
+            for a, b in zip(jax.tree.leaves(dj), (dp["a"]["b"], dp["a"]["w"],
+                                                  dp["c"])):
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == b.dtype and a.shape == b.shape
+            (rp, pp), (rj, pj) = (port_rt.roundtrip(tree, peer=peer),
+                                  jax_rt.roundtrip(tree, peer=peer))
+            assert pp.nbytes == pj.nbytes == p.nbytes
+            np.testing.assert_array_equal(rp["c"], rj["c"])
+            np.testing.assert_array_equal(rp["a"]["w"], rj["a"]["w"])
+
+
+def test_make_codec_parses_as_the_reference():
+    for spec in ("raw", "delta", "topk", "delta+topk", " topk + delta "):
+        p, j = CODEC.make_codec(spec), JCODEC.make_codec(spec)
+        assert (p.delta, p.topk, p.group, p.kg, p.quant) == (
+            j.delta, j.topk, j.group, j.kg, j.quant)
+    assert CODEC.make_codec(None) is None
+    stateless = CODEC.make_codec("topk", delta=False)
+    assert stateless.topk and not stateless.delta
+    assert CODEC.make_codec("topk", keep_frac=0.25).kg == 2
+    assert CODEC.make_codec("topk", k=10).group is None
+    assert CODEC.make_codec("topk").k_for(999) == JCODEC.make_codec(
+        "topk").k_for(999) == 125 * 3
+    with pytest.raises(ValueError, match="unknown codec stage"):
+        CODEC.make_codec("topk+gzip")
+    with pytest.raises(ValueError, match="at most one quantization"):
+        CODEC.make_codec("int8+bf16")
+    for spec in ("int8", "bf16", "topk+int8", "delta+topk+bf16"):
+        with pytest.raises(NotImplementedError, match="wire-codec slice 4b"):
+            CODEC.make_codec(spec)
+    with pytest.raises(ValueError, match="global top-k"):
+        BatchedCodec(CODEC.make_codec("topk", k=10), 100)
+
+
+# ---------------------------------------------------------------------------
+# the batched device codec
+# ---------------------------------------------------------------------------
+
+
+BATCHED_SPECS = [("delta+topk", {}), ("topk", {}), ("topk", {"delta": False}),
+                 ("delta", {}), ("raw", {})]
+
+
+@pytest.mark.parametrize("spec,opts", BATCHED_SPECS,
+                         ids=[f"{s}-{o}" for s, o in BATCHED_SPECS])
+def test_batched_codec_stream_matches_jax_and_host(spec, opts):
+    """A keyframe and two residual payloads of (C, P) rows: equal buffers,
+    bit-equal reconstructions and equal per-client bytes against the JAX
+    BatchedCodec; each row equal to the port's host codec, whose per-peer
+    delta stream it mirrors (``tests/test_comm_codec.py``'s parity, made
+    exact)."""
+    rng = np.random.default_rng(6)
+    C, P = 4, 999
+    port = BatchedCodec(CODEC.make_codec(spec, **opts), P)
+    jref = JBATCHED.BatchedCodec(JCODEC.make_codec(spec, **opts), P)
+    host = CODEC.make_codec(spec, **opts)
+    enc_only = BatchedCodec(CODEC.make_codec(spec, **opts), P)
+    for r in range(3):
+        mat = _codec_input(rng, C, P) * np.float32(1 + r)
+        recon, buffers = port.roundtrip(torch.from_numpy(mat))
+        jrecon, jbuf = jref.roundtrip(jnp.asarray(mat))
+        sparse = port.topk and (r > 0 or not port.delta)
+        assert ("idx_bits" in buffers) == sparse
+        assert sorted(buffers) == sorted(jbuf)
+        for name in buffers:
+            np.testing.assert_array_equal(_np(buffers[name]),
+                                          np.asarray(jbuf[name]))
+        np.testing.assert_array_equal(recon.numpy(), np.asarray(jrecon))
+        per_client = port.per_client_bytes(buffers)
+        assert per_client == jref.per_client_bytes(jbuf)
+        # encode() and decode() on their own advance the same references
+        np.testing.assert_array_equal(
+            enc_only.decode(enc_only.encode(torch.from_numpy(mat))).numpy(),
+            recon.numpy())
+        for c in range(C):
+            payload = host.encode({"w": mat[c]}, peer=c)
+            assert payload.nbytes == per_client
+            for name in buffers:
+                np.testing.assert_array_equal(payload.buffers[name],
+                                              _np(buffers[name][c]))
+            np.testing.assert_array_equal(host.decode(payload, peer=c)["w"],
+                                          recon[c].numpy())
+    assert set(port.last_metrics) == {"residual_norm", "kept_energy",
+                                      "keep_rate"}
+    for name, v in port.last_metrics.items():
+        np.testing.assert_allclose(v.numpy(),
+                                   np.asarray(jref.last_metrics[name]),
+                                   rtol=1e-6, atol=0, err_msg=name)
+
+
+def test_nested_stacked_flatten_matches_jax():
+    """The codec's (C, P) rows of a nested payload: the JAX package's
+    column order, and back to the same tree and dtypes."""
+    rng = np.random.default_rng(2)
+    tree = {"theta": {"l1.w": rng.standard_normal((3, 4, 5)),
+                      "bn.bias": rng.standard_normal((3, 5)),
+                      "head.w": rng.standard_normal((3, 5, 2))},
+            "task_feature": rng.standard_normal((3, 6))}
+    tree = jax.tree.map(lambda a: a.astype(np.float32), tree)
+    port = jax.tree.map(torch.from_numpy, tree)
+    port["theta"]["bn.bias"] = port["theta"]["bn.bias"].double()
+    mat, meta = tree_flatten_stacked(port)
+    jmat, _ = j_tree_flatten_stacked(tree)
+    np.testing.assert_array_equal(mat.numpy(), np.asarray(jmat))
+    back = tree_unflatten_stacked(mat, meta)
+    assert back["theta"]["bn.bias"].dtype == torch.float64
+    assert list(back) == ["task_feature", "theta"]
+    np.testing.assert_array_equal(back["theta"]["head.w"].numpy(),
+                                  tree["theta"]["head.w"])

@@ -22,7 +22,11 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("kl_similarity", "kl_similarity"),
             ("relevance_aggregate", "fused_relevance_aggregate"),
             ("ivf", "batched_cluster_dist"),
-            ("ivf", "batched_ivf_shortlist_scores")]
+            ("ivf", "batched_ivf_shortlist_scores"),
+            ("topk_pack", "batched_topk_pack"),
+            ("topk_pack", "batched_topk_unpack"),
+            ("topk_pack", "batched_idx_bitpack"),
+            ("topk_pack", "batched_idx_bitunpack")]
 # wrappers whose CUDA source is not named after their module
 SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
              ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}
