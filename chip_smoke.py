@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port on one CUDA card: its main paths,
 ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
-FedSTIL federated round (stacked engine, device evaluation), and the same
-round with the ``delta+topk`` wire codec.
+FedSTIL federated round (stacked engine, device evaluation), the same
+round with the ``delta+topk`` wire codec, on the host engine, and with the
+``topk+int8`` wire codec.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -21,9 +22,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the codec's grouped top-k pack / unpack and index bit-pack
                  / unpack equal to theirs (values under ==, indices and
                  bytes bit for bit) at the round's, the fleet's and ragged
-                 shapes, with ties, zeros and an all-zero row;
+                 shapes, with ties, zeros and an all-zero row; dequantize
+                 and the adaptive combine bit-identical, the host server's
+                 plain aggregate within 2e-5, the 2-D distances within
+                 1e-5 (the codec's K with its tail chunk, misaligned bases,
+                 ragged leaves and shapes);
                  times (CUDA events, median of 30 launches after warmup),
-                 the relevance and codec kernels at the C = 1000 shapes
+                 the relevance, codec, dequantize, aggregate and combine
+                 kernels at the C = 1000 shapes
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -80,13 +86,41 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  version on its last on-path operands, and the
                  encode_c2s / encode_s2c stage ms. Per-round tables go to
                  ``build/round_fedstil_codec.json``.
+     round_fedstil_host: round_fedstil's protocol and initial weights on
+                 the host engine (``engine="host"``, one client at a time,
+                 the relevance tracker, ``personalized_aggregate``): per-
+                 eval-round and final mAP / R1 against round_fedstil's card
+                 run (<= 0.01), equal bytes, round 0's normalized W within
+                 1e-5, the launches of its kernels (relevance_aggregate once
+                 a round with relevant rows, kl_similarity once a round,
+                 batched_pairwise_dist once an eval, adaptive_combine once
+                 a leaf per combine), each held against its plain version
+                 on its last on-path operands, and the stage ms
+     round_host_variants: four-round runs of the slice's other host paths on
+                 the card: FedSTIL with host evaluation against device
+                 evaluation, STL and FedAvg host against stacked, FedSTIL
+                 host with the numpy ``topk+int8`` codec against the CPU,
+                 and the stacked round under ``int8``, ``bf16``,
+                 ``delta+topk+bf16`` and FedAvg ``int8`` against the CPU
+                 (equal bytes, metrics within 0.03)
+     round_fedstil_codec_int8: round_fedstil's protocol with ``topk+int8``
+                 on the stacked engine on the card: wire bytes at the
+                 prediction from the shapes, batched_quantize and
+                 batched_dequantize once a payload (120), the four codec
+                 kernels once a residual payload (118), each kernel against
+                 its plain version on its last on-path operands, the coded
+                 minus the uncoded final mAP; then 30 rounds of the same on
+                 the card and on the CPU: equal wire bytes, final mAP / R1
+                 within 0.03; per-round tables in
+                 ``build/round_fedstil_codec_int8.json``
   9. server_round_scale  the stacked server step alone (ring push, KL
                  relevance, flatten, fused aggregate, unflatten) at C=100
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
  10. wire_round_scale  ``BatchedCodec.roundtrip`` of a (C, 57664) payload
-                 under ``delta+topk`` at C=100 and C=1000 past the keyframe:
-                 device ms of each codec kernel and of the whole roundtrip,
-                 wire bytes a client against the dense 230656
+                 under ``delta+topk`` and ``topk+int8`` at C=100 and C=1000
+                 past the keyframe: device ms of each codec kernel and of
+                 the whole roundtrip, wire bytes a client against the dense
+                 230656
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -116,22 +150,26 @@ from repro_torch.core import edge_model as EM  # noqa: E402
 from repro_torch.core.fedstil import FedSTIL  # noqa: E402
 from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
 from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
-from repro_torch.federated import run_simulation  # noqa: E402
+from repro_torch.federated import FedAvg, run_simulation  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
+from repro_torch.kernels.adaptive_combine import adaptive_combine  # noqa: E402
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
 from repro_torch.kernels.ivf import (batched_cluster_dist,  # noqa: E402
                                      batched_ivf_shortlist_scores)
 from repro_torch.kernels.kl_similarity import kl_similarity  # noqa: E402
-from repro_torch.kernels.pairwise_dist import batched_pairwise_dist  # noqa: E402
-from repro_torch.kernels.quantize import batched_quantize  # noqa: E402
+from repro_torch.kernels.pairwise_dist import (  # noqa: E402
+    batched_pairwise_dist, pairwise_dist)
+from repro_torch.kernels.quantize import (  # noqa: E402
+    batched_dequantize, batched_quantize)
 from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
-    fused_relevance_aggregate)
+    fused_relevance_aggregate, relevance_aggregate)
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_idx_bitunpack,
                                            batched_topk_pack,
                                            batched_topk_unpack)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
+from repro_torch.lifelong import STL  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
                                  query_ivf, query_ivf_host, recall_at_k,
@@ -184,6 +222,22 @@ ROUND_OUT = ROOT / "build" / "round_fedstil.json"
 CODEC = "delta+topk"                    # the wire codec of round_fedstil_codec
 CODEC_OUT = ROOT / "build" / "round_fedstil_codec.json"
 GROUP, KG = 8, 3                        # the codec's default grouped budget
+HOST_OUT = ROOT / "build" / "round_fedstil_host.json"
+CODEC_INT8 = "topk+int8"                # the codec of round_fedstil_codec_int8
+INT8_OUT = ROOT / "build" / "round_fedstil_codec_int8.json"
+# the wire bytes topk+int8 moves over the 60-round C=5 protocol, from the
+# shapes alone (P = 37696, kg 3 of 8, chunk 256, task feature 512 bytes):
+# keyframes 38800 C2S / 38289 S2C a client, then 20173 / 19662
+INT8_WIRE_BYTES = 12_136_770
+# a client's topk+int8 residual at P = 57664: 21624 codes, 85 scales, 3
+# bit-planes of 2703 bytes
+INT8_SCALE_WIRE = 30_073
+VARIANT_ROUNDS = 4                      # round_host_variants' runs
+# the card-vs-CPU comparison of round_fedstil_codec_int8 runs both at this
+# depth (its 60-round card run is held to the byte prediction): the CPU
+# rerun of the whole protocol took 20.5 s on the card's host, the largest
+# share of the script's time
+INT8_CPU_ROUNDS = 30
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -195,27 +249,52 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
 
 KERNELS = {
     "batched_quantize": {
-        "fn": batched_quantize, "paths": ("serve", "serve_ivf"),
+        "fn": batched_quantize,
+        "paths": ("serve", "serve_ivf", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:58"},
+    "batched_dequantize": {
+        "fn": batched_dequantize, "paths": ("round_fedstil_codec_int8",),
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:94"},
     "batched_int8_pairwise_dist": {
         "fn": batched_int8_pairwise_dist, "paths": ("serve",),
         "source": "src/repro_torch/kernels/csrc/int8_dist.cu",
         "replaces": "src/repro/kernels/int8_dist.py:63"},
     "batched_pairwise_dist": {
         "fn": batched_pairwise_dist,
-        "paths": ("serve", "round_fedstil", "round_fedstil_codec"),
+        "paths": ("serve", "round_fedstil", "round_fedstil_codec",
+                  "round_fedstil_host", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
         "replaces": "src/repro/kernels/pairwise_dist.py:91"},
+    # no main path of either package calls the 2-D form: the per-query
+    # baseline takes its plain version, as the reference's does
+    "pairwise_dist": {
+        "fn": pairwise_dist, "paths": (),
+        "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
+        "replaces": "src/repro/kernels/pairwise_dist.py:46"},
     "kl_similarity": {
-        "fn": kl_similarity, "paths": ("round_fedstil", "round_fedstil_codec"),
+        "fn": kl_similarity,
+        "paths": ("round_fedstil", "round_fedstil_codec",
+                  "round_fedstil_host", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/kl_similarity.cu",
         "replaces": "src/repro/kernels/kl_similarity.py:53"},
     "fused_relevance_aggregate": {
         "fn": fused_relevance_aggregate,
-        "paths": ("round_fedstil", "round_fedstil_codec"),
+        "paths": ("round_fedstil", "round_fedstil_codec",
+                  "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
+    "relevance_aggregate": {
+        "fn": relevance_aggregate, "paths": ("round_fedstil_host",),
+        "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
+        "replaces": "src/repro/kernels/relevance_aggregate.py:43"},
+    "adaptive_combine": {
+        "fn": adaptive_combine,
+        "paths": ("round_fedstil", "round_fedstil_codec",
+                  "round_fedstil_host", "round_fedstil_codec_int8"),
+        "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
+        "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
         "fn": batched_cluster_dist, "paths": ("serve_ivf",),
         "source": "src/repro_torch/kernels/csrc/cluster_dist.cu",
@@ -225,19 +304,23 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/ivf_shortlist.cu",
         "replaces": "src/repro/kernels/ivf.py:126"},
     "batched_topk_pack": {
-        "fn": batched_topk_pack, "paths": ("round_fedstil_codec",),
+        "fn": batched_topk_pack,
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:78"},
     "batched_topk_unpack": {
-        "fn": batched_topk_unpack, "paths": ("round_fedstil_codec",),
+        "fn": batched_topk_unpack,
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:207"},
     "batched_idx_bitpack": {
-        "fn": batched_idx_bitpack, "paths": ("round_fedstil_codec",),
+        "fn": batched_idx_bitpack,
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:128"},
     "batched_idx_bitunpack": {
-        "fn": batched_idx_bitunpack, "paths": ("round_fedstil_codec",),
+        "fn": batched_idx_bitunpack,
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:161"},
 }
@@ -411,6 +494,7 @@ def phase_kernels(dev, peak, card):
     rows.update(relevance_kernel_rows(gen, dev, peak))
     rows.update(ivf_kernel_rows(gen, dev, peak))
     rows.update(topk_kernel_rows(gen, dev, peak))
+    rows.update(new_kernel_rows(gen, dev, peak))
 
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
@@ -718,6 +802,155 @@ def topk_kernel_rows(gen, dev, peak):
                 "torch.topk of |x| over groups: nearest call, indices "
                 "only, no tie promise, no value gather") if library
                 else "none"})
+    return rows
+
+
+def offset_copy(x):
+    """``x`` copied to a base one element past an aligned boundary, so the
+    kernels take their scalar paths where the vector ones would run."""
+    out = torch.empty((x.numel() + 1,), dtype=x.dtype,
+                      device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def dequantize_err(q, s, chunk):
+    out_k = batched_dequantize(q, s, chunk=chunk)
+    out_r = REF.batched_dequantize_ref(q, s, chunk=chunk)
+    torch.cuda.synchronize()
+    bad = int((out_k.view(torch.int32) != out_r.view(torch.int32)).sum())
+    check(bad == 0, f"batched_dequantize {tuple(q.shape)} chunk={chunk}: "
+          f"{bad} values differ from the plain version")
+    return float((out_k - out_r).abs().max())
+
+
+def combine_err(b, al, a):
+    out_k = adaptive_combine(b, al, a)
+    out_r = REF.adaptive_combine_ref(b, al, a)
+    torch.cuda.synchronize()
+    bad = int((out_k.view(torch.int32) != out_r.view(torch.int32)).sum())
+    check(bad == 0, f"adaptive_combine {tuple(b.shape)}: {bad} values "
+          "differ from the plain version")
+    return float((out_k - out_r).abs().max())
+
+
+def plain_aggregate_err(w, th):
+    out_k = relevance_aggregate(w, th)
+    out_r = REF.relevance_aggregate_ref(w, th)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "relevance_aggregate: non-finite")
+    err = float((out_k - out_r).abs().max())
+    check(err <= AGG_TOL, f"relevance_aggregate R={w.shape[0]} C={w.shape[1]}"
+          f" P={th.shape[1]}: max_abs_err {err} > {AGG_TOL}")
+    return err
+
+
+def new_kernel_rows(gen, dev, peak):
+    """The four kernels of the host-engine slice at their path shapes and
+    ragged ones, timed at the fleet shapes: dequantize at C=1000 and the
+    codec's K = 21624 (P = 57664); the plain aggregate at R = C = 1000 (its
+    path shape, R <= 5 rows of C = 5, is launch-bound); the combine over a
+    (1000, 57664) leaf; the 2-D distances at 64 x 32768 x 64."""
+    rows = {}
+    Cf, P = SCALE_CLIENTS[-1], P_EDGE
+    K = P // GROUP * KG
+
+    # batched_dequantize: the round's dense keyframe and its residual K
+    # (a tail chunk of 56), an all-zero chunk, code extremes, a misaligned
+    # base, a chunk of 64 at a ragged P
+    err = 0.0
+    for c, p, chunk in ((N_CLIENTS, P_ROUND, 256),
+                        (N_CLIENTS, P_ROUND // GROUP * KG, 256),
+                        (3, 999, 256), (2, 37, 64)):
+        x = 2.0 * torch.randn((c, p), generator=gen, device=dev)
+        x[0, :chunk] = 0.0
+        q, sc = REF.batched_quantize_ref(x, chunk=chunk)
+        q[-1, :2] = torch.tensor([127, -127], dtype=torch.int8, device=dev)
+        err = max(err, dequantize_err(q, sc, chunk),
+                  dequantize_err(offset_copy(q), sc, chunk))
+    q, sc = batched_quantize(torch.randn((Cf, K), generator=gen, device=dev),
+                             chunk=256)
+    err = max(err, dequantize_err(q, sc, 256))
+    nc = sc.shape[1]
+    rows["batched_dequantize"] = dict(
+        max_abs_err=err,
+        bound=bound(Cf * K + 4.0 * Cf * nc + 4.0 * Cf * K, 1.0 * Cf * K,
+                    peak),
+        ms=time_ms(lambda: batched_dequantize(q, sc, chunk=256)),
+        plain_ms=time_ms(lambda: REF.batched_dequantize_ref(q, sc,
+                                                            chunk=256)),
+        library_ms=None, shape=[Cf, K, 256],
+        detail={"library": "none: no one PyTorch call dequantizes per "
+                "chunk"})
+
+    # relevance_aggregate: the host round's rows (R <= C = 5) and ragged
+    # R, C, P, at standard-normal parameters
+    def rows_of(r, c):
+        w = torch.rand((r, c), generator=gen, device=dev)
+        return w / w.sum(1, keepdim=True)
+
+    err = 0.0
+    for r, c, p in ((3, N_CLIENTS, P_ROUND), (N_CLIENTS, N_CLIENTS, P_EDGE),
+                    (1, 7, 1001), (70, 100, 333)):
+        err = max(err, plain_aggregate_err(
+            rows_of(r, c), torch.randn((c, p), generator=gen, device=dev)))
+    w = rows_of(Cf, Cf)
+    th = torch.randn((Cf, P), generator=gen, device=dev)
+    err = max(err, plain_aggregate_err(w, th))
+    rows["relevance_aggregate"] = dict(
+        max_abs_err=err,
+        bound=bound(4.0 * (Cf * Cf + 2 * Cf * P), 2.0 * Cf * Cf * P, peak),
+        ms=time_ms(lambda: relevance_aggregate(w, th)),
+        plain_ms=time_ms(lambda: REF.relevance_aggregate_ref(w, th)),
+        library_ms=time_ms(lambda: torch.mm(w, th)), shape=[Cf, Cf, P],
+        detail={"library": "torch.mm(W, Theta), TF32 off"})
+
+    # adaptive_combine: the round head's leaves, a ragged leaf on
+    # misaligned bases (the scalar path), a leaf of the fleet's size
+    err = 0.0
+    for shape in ((N_CLIENTS, CFG.proto_dim, CFG.hidden), (N_CLIENTS, 64),
+                  (CFG.feat_dim, 200), (1001,)):
+        b, al, a = (torch.randn(shape, generator=gen, device=dev)
+                    for _ in range(3))
+        err = max(err, combine_err(b, al, a),
+                  combine_err(offset_copy(b), al, offset_copy(a)))
+    b, al, a = (torch.randn((Cf, P), generator=gen, device=dev)
+                for _ in range(3))
+    err = max(err, combine_err(b, al, a))
+    n = Cf * P
+    rows["adaptive_combine"] = dict(
+        max_abs_err=err, bound=bound(16.0 * n, 2.0 * n, peak),
+        ms=time_ms(lambda: adaptive_combine(b, al, a)),
+        plain_ms=time_ms(lambda: REF.adaptive_combine_ref(b, al, a)),
+        library_ms=time_ms(lambda: torch.addcmul(a, b, al)), shape=[Cf, P],
+        detail={"library": "torch.addcmul(A, B, alpha)"})
+
+    # pairwise_dist (2-D): one client of the fp32 serving shape, ragged
+    # shapes
+    err = 0.0
+    for qn, gn, f in ((7, 1000, 64), (5, 333, 40), (1, 1, 64)):
+        err = max(err, dist_err("pairwise_dist", pairwise_dist,
+                                REF.pairwise_dist_ref,
+                                unit_rows(gen, dev, qn, f),
+                                unit_rows(gen, dev, gn, f)))
+    q = unit_rows(gen, dev, BATCH, F)
+    g = unit_rows(gen, dev, G_FP32, F)
+    err = max(err, dist_err("pairwise_dist", pairwise_dist,
+                            REF.pairwise_dist_ref, q, g))
+
+    def library():                   # one PyTorch call, norms included
+        qq = torch.sum(q * q, -1)[:, None]
+        gg = torch.sum(g * g, -1)[None, :]
+        return torch.addmm(qq + gg, q, g.T, alpha=-2)
+
+    rows["pairwise_dist"] = dict(
+        max_abs_err=err,
+        bound=bound(4.0 * (BATCH * F + G_FP32 * F + BATCH * G_FP32),
+                    2.0 * BATCH * G_FP32 * F, peak),
+        ms=time_ms(lambda: pairwise_dist(q, g)),
+        plain_ms=time_ms(lambda: REF.pairwise_dist_ref(q, g)),
+        library_ms=time_ms(library), shape=[BATCH, G_FP32, F],
+        detail={"library": "torch.addmm with the norms"})
     return rows
 
 
@@ -1085,12 +1318,21 @@ def phase_serve_ivf_checks(ivf, int8_rec, dev, card):
 
 
 class RecordingFedSTIL(FedSTIL):
-    """FedSTIL that keeps round 0's normalized relevance and its dispatched
-    bases (flattened) for the card-vs-CPU comparison, and the heads of its
-    last evaluation."""
+    """FedSTIL that keeps round 0's normalized relevance and (stacked
+    engine) its dispatched bases (flattened) for the card-vs-CPU
+    comparison, the heads of its last evaluation, and (host engine) the
+    number of server rounds that aggregated any rows."""
 
     round0 = None
     last_eval_theta = None
+    aggregated_rounds = 0
+
+    def server_round(self, rnd, uploads):
+        dispatches = super().server_round(rnd, uploads)
+        self.aggregated_rounds += any(dispatches.values())
+        if rnd == 0:
+            self.round0 = (self.last_W.copy(), None)
+        return dispatches
 
     def eval_theta_stacked(self, stacked):
         self.last_eval_theta = super().eval_theta_stacked(stacked)
@@ -1105,23 +1347,28 @@ class RecordingFedSTIL(FedSTIL):
 
 
 ROUND_KERNELS = ("kl_similarity", "fused_relevance_aggregate",
-                 "batched_pairwise_dist")
+                 "batched_pairwise_dist", "adaptive_combine")
+HOST_KERNELS = ("kl_similarity", "relevance_aggregate",
+                "batched_pairwise_dist", "adaptive_combine")
+# operands the round never writes in place (each step makes new heads), kept
+# by reference so the round's stage times carry no copies
+BY_REFERENCE = ("adaptive_combine",)
 
 
 @contextlib.contextmanager
-def last_operands(names, copy=True):
+def last_operands(names, by_reference=BY_REFERENCE):
     """Route ``ops.<name>`` through a pass-through that keeps the last
     call's operands: yields {name: operands}, so each kernel can be held
     against its plain version at the shapes and values the path gave it.
-    ``copy=False`` keeps references, for operands the path never writes in
-    place (the IVF image is replaced at refresh, not overwritten), so the
-    serving path's timing carries no copies."""
+    Names in ``by_reference`` keep references, for operands the path never
+    writes in place (the IVF image is replaced at refresh, not
+    overwritten), so the path's timing carries no copies."""
     seen, orig = {}, {n: getattr(ops, n) for n in names}
 
     def keep(name):
         def call(*args, **kw):
-            seen[name] = tuple(a.detach().clone() if copy else a
-                               for a in args)
+            seen[name] = tuple(a if name in by_reference
+                               else a.detach().clone() for a in args)
             return orig[name](*args, **kw)
         return call
 
@@ -1132,25 +1379,47 @@ def last_operands(names, copy=True):
 def path_operand_errs(seen):
     """Each round kernel against its plain version on the operands of its
     last call in the card run (the last eval's (C, T Q, F) x (C, G_max, F)
-    distances, the last server round's relevance and aggregate)."""
-    errs = {"batched_pairwise_dist": dist_err(
-                "batched_pairwise_dist (round)", batched_pairwise_dist,
-                REF.batched_pairwise_dist_ref, *seen["batched_pairwise_dist"]),
-            "kl_similarity": kl_err(*seen["kl_similarity"]),
-            "fused_relevance_aggregate": aggregate_err(
-                *seen["fused_relevance_aggregate"])}
-    return {n: {"shapes": [list(a.shape) for a in seen[n]], "max_abs_err": e}
-            for n, e in errs.items()}
+    distances, the last server round's relevance and aggregate, the last
+    combine's leaf)."""
+    checks = {
+        "batched_pairwise_dist": lambda *a: dist_err(
+            "batched_pairwise_dist (round)", batched_pairwise_dist,
+            REF.batched_pairwise_dist_ref, *a),
+        "kl_similarity": kl_err,
+        "fused_relevance_aggregate": aggregate_err,
+        "relevance_aggregate": plain_aggregate_err,
+        "adaptive_combine": lambda *a: combine_err(
+            *(t.detach().contiguous() for t in a)),
+        "batched_quantize": lambda x: quantize_err(x, 256),
+        "batched_dequantize": lambda q, sc: dequantize_err(q, sc, 256)}
+    return {n: {"shapes": [list(a.shape) for a in seen[n]],
+                "max_abs_err": checks[n](*seen[n])}
+            for n in checks if n in seen}
 
 
-def simulate(bench, device, codec=None, init_params=None):
-    strategy = RecordingFedSTIL(EM.EdgeModelConfig(n_classes=bench.n_classes),
-                                n_clients=N_CLIENTS, codec=codec)
+def simulate(bench, device, codec=None, init_params=None, engine="stacked",
+             eval_backend="device", strategy=None, rounds=None):
+    """One run of the protocol (FedSTIL by default, ROUNDS rounds) from
+    SEED's weights; returns (strategy, result, wall seconds)."""
+    if strategy is None:
+        strategy = RecordingFedSTIL(
+            EM.EdgeModelConfig(n_classes=bench.n_classes),
+            n_clients=N_CLIENTS, codec=codec)
     t0 = time.perf_counter()
-    res = run_simulation(strategy, bench, rounds=ROUNDS, seed=SEED,
-                         engine="stacked", eval_backend="device",
+    res = run_simulation(strategy, bench, rounds=rounds or ROUNDS, seed=SEED,
+                         engine=engine, eval_backend=eval_backend,
                          device=device, init_params=init_params)
     return strategy, res, time.perf_counter() - t0
+
+
+def combine_launches(strat, rounds, n_eval, clients):
+    """adaptive_combine launches a FedSTIL run makes: one a leaf for each
+    combine — the loss's and the tying term's heads every step, the head
+    after training every round, the eval heads every evaluation — times
+    the clients on the host engine, once for all on the stacked one."""
+    leaves = len(EM.init_adaptive_layers(strat.cfg, torch.Generator()))
+    per_round = (2 * strat.epochs + 1) * leaves * clients
+    return rounds * per_round + n_eval * leaves * clients
 
 
 def nudged_init(bench):
@@ -1239,7 +1508,8 @@ def phase_round_fedstil(dev, card):
           and res.storage_bytes == res_cpu.storage_bytes,
           "round_fedstil: card and CPU byte accounting differ")
     expect = {"kl_similarity": ROUNDS, "fused_relevance_aggregate": ROUNDS,
-              "batched_pairwise_dist": n_eval}
+              "batched_pairwise_dist": n_eval,
+              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval, 1)}
     check(all(launches[k] == n for k, n in expect.items()),
           f"round_fedstil launches {launches}, expected {expect}")
     check(int(strat.round0[1].shape[1]) == P_ROUND,
@@ -1290,7 +1560,7 @@ def phase_round_profile(dev, card, n_rounds=6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_simulation(strategy, bench, rounds=n_rounds, seed=SEED,
-                             device=dev)
+                             engine="stacked", device=dev)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1385,7 +1655,9 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
     expect.update({"kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
-                   "batched_pairwise_dist": n_eval})
+                   "batched_pairwise_dist": n_eval,
+                   "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
+                                                        1)})
     totals = {"c2s_wire": res.comm.total_c2s, "s2c_wire": res.comm.total_s2c,
               "c2s_formula": res.comm.total_c2s_formula,
               "s2c_formula": res.comm.total_s2c_formula}
@@ -1435,6 +1707,207 @@ def phase_round_fedstil_codec(dev, card, uncoded):
           f"{CODEC_METRIC_TOL}")
     check(all(launches[k] == n for k, n in expect.items()),
           f"round_fedstil_codec launches {launches}, expected {expect}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
+def metric_deltas(a_rounds, b_rounds, keys=("mAP", "R1")):
+    """(largest per-eval-round |delta|, final |delta|) of each key."""
+    check([r["round"] for r in a_rounds] == [r["round"] for r in b_rounds],
+          "eval rounds differ")
+    return ({k: max(abs(a[k] - b[k]) for a, b in zip(a_rounds, b_rounds))
+             for k in keys},
+            {k: abs(a_rounds[-1][k] - b_rounds[-1][k]) for k in keys})
+
+
+def phase_round_fedstil_host(dev, card, stacked):
+    """round_fedstil's protocol on the host engine, on the card, from the
+    same initial weights: against the stacked card run (metrics, bytes,
+    round 0's W), its kernels' launches and each kernel against its plain
+    version on its last on-path operands."""
+    strat_s, res_s = stacked
+    bench = FederatedReIDBenchmark(seed=SEED)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    with last_operands(HOST_KERNELS) as seen:
+        strat, res, wall_s = simulate(bench, dev, engine="host")
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    on_path = path_operand_errs(seen)
+    n_eval = len(res.rounds)
+    per_round, final = metric_deltas(res.rounds, res_s.rounds)
+    w_err = float(np.abs(strat.round0[0] - strat_s.round0[0]).max())
+    expect = {"kl_similarity": ROUNDS, "batched_pairwise_dist": n_eval,
+              "relevance_aggregate": strat.aggregated_rounds,
+              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
+                                                   N_CLIENTS)}
+    stages = sorted({k for st in res.stage_ms for k in st} - {"round"})
+    HOST_OUT.parent.mkdir(parents=True, exist_ok=True)
+    HOST_OUT.write_text(json.dumps({
+        "card": card, "rounds": res.rounds, "rounds_stacked": res_s.rounds,
+        "stage_ms": res.stage_ms}))
+    keys = ("mAP", "R1", "R5", "forgetting_mAP")
+    emit({"phase": "round_fedstil_host", "card": card, "engine": "host",
+          "clients": N_CLIENTS, "rounds": ROUNDS, "epochs": strat.epochs,
+          "eval_rounds": [r["round"] for r in res.rounds],
+          **{k: [r[k] for r in res.rounds] for k in keys},
+          "vs_stacked_card": {"largest_per_round_delta": per_round,
+                              "final_abs_delta": final,
+                              "round0_W_err": w_err,
+                              "tolerance": ROUND_METRIC_TOL},
+          "c2s_bytes": res.comm.total_c2s, "s2c_bytes": res.comm.total_s2c,
+          "storage_bytes": res.storage_bytes,
+          "aggregated_rounds": strat.aggregated_rounds,
+          "round_wall_ms": summarize([st["wall_ms"] for st in res.stage_ms]),
+          "stage_ms": {k: summarize([st.get(k, 0.0) for st in res.stage_ms])
+                       for k in stages},
+          "sim_wall_s": wall_s,
+          "launches": {k: launches[k] for k in expect},
+          "expected_launches": expect,
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(HOST_OUT.relative_to(ROOT))})
+    check(all(v <= ROUND_METRIC_TOL for d in (per_round, final)
+              for v in d.values()),
+          f"round_fedstil_host vs stacked: per round {per_round}, final "
+          f"{final} > {ROUND_METRIC_TOL}")
+    check(w_err <= ROUND_W_TOL, f"round_fedstil_host round 0 W err {w_err} "
+          f"> {ROUND_W_TOL}")
+    check(res.comm.total_c2s == res_s.comm.total_c2s
+          and res.comm.total_s2c == res_s.comm.total_s2c
+          and res.storage_bytes == res_s.storage_bytes,
+          "round_fedstil_host: bytes differ from the stacked run")
+    check(all(launches[k] == n for k, n in expect.items()),
+          f"round_fedstil_host launches {launches}, expected {expect}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
+def phase_round_host_variants(dev, card):
+    """The slice's other paths, four rounds each on the card: FedSTIL host
+    with host evaluation against device evaluation (one training, two
+    evaluations: features and rankings only), STL and FedAvg host against
+    stacked, the host engine with the numpy topk+int8 codec against the
+    same run on the CPU, and the stacked round under the other quantized
+    codecs against the CPU. Equal bytes; metrics within ROUND_METRIC_TOL
+    (same training) or CODEC_METRIC_TOL (card vs CPU through a codec)."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    cfg = EM.EdgeModelConfig(n_classes=bench.n_classes)
+    out = {}
+
+    def pair(name, a, b, tol, same_bytes=True):
+        (_, ra, _), (_, rb, _) = a, b
+        per_round, final = metric_deltas(ra.rounds, rb.rounds)
+        rows_equal = ra.comm_breakdown() == rb.comm_breakdown()
+        out[name] = {"largest_per_round_delta": per_round,
+                     "final_abs_delta": final, "tolerance": tol,
+                     "bytes_equal": rows_equal, "final_mAP": ra.final("mAP"),
+                     "wire_bytes": ra.comm.total,
+                     "formula_bytes": ra.comm.total_formula}
+        check(all(v <= tol for v in per_round.values()),
+              f"round_host_variants {name}: {per_round} > {tol}")
+        check(rows_equal or not same_bytes,
+              f"round_host_variants {name}: bytes differ")
+
+    def run(device, make, **kw):
+        return simulate(bench, device, strategy=make(), rounds=VARIANT_ROUNDS,
+                        **kw)
+
+    fedstil = lambda **kw: (lambda: FedSTIL(cfg, n_clients=N_CLIENTS, **kw))
+    pair("fedstil_host_eval_vs_device_eval",
+         run(dev, fedstil(), engine="host", eval_backend="host"),
+         run(dev, fedstil(), engine="host"), ROUND_METRIC_TOL)
+    for name, make in (("stl", lambda: STL(cfg)),
+                       ("fedavg", lambda: FedAvg(cfg))):
+        pair(f"{name}_host_vs_stacked", run(dev, make, engine="host"),
+             run(dev, make, engine="stacked"), ROUND_METRIC_TOL)
+    pair("fedstil_host_topk+int8_card_vs_cpu",
+         run(dev, fedstil(codec=CODEC_INT8), engine="host"),
+         run("cpu", fedstil(codec=CODEC_INT8), engine="host"),
+         CODEC_METRIC_TOL)
+    for codec in ("int8", "bf16", "delta+topk+bf16"):
+        pair(f"fedstil_stacked_{codec}_card_vs_cpu",
+             run(dev, fedstil(codec=codec), engine="stacked"),
+             run("cpu", fedstil(codec=codec), engine="stacked"),
+             CODEC_METRIC_TOL)
+    pair("fedavg_stacked_int8_card_vs_cpu",
+         run(dev, lambda: FedAvg(cfg, codec="int8"), engine="stacked"),
+         run("cpu", lambda: FedAvg(cfg, codec="int8"), engine="stacked"),
+         CODEC_METRIC_TOL)
+    emit({"phase": "round_host_variants", "card": card,
+          "rounds": VARIANT_ROUNDS, "clients": N_CLIENTS, "runs": out})
+
+
+def phase_round_fedstil_codec_int8(dev, card, uncoded):
+    """round_fedstil's protocol with topk+int8 on the stacked engine, on
+    the card and on the CPU: bytes, launches, card vs CPU, and the
+    quantize / dequantize / codec kernels against their plain versions on
+    their last on-path operands."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    names = (ROUND_KERNELS + CODEC_KERNELS
+             + ("batched_quantize", "batched_dequantize"))
+    with last_operands(names) as seen:
+        strat, res, wall_s = simulate(bench, dev, CODEC_INT8)
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    on_path = path_operand_errs(seen)
+    on_path.update(codec_path_errs(
+        seen, BatchedCodec(make_codec(CODEC_INT8), P_ROUND)))
+    _, res_short, _ = simulate(bench, dev, CODEC_INT8, rounds=INT8_CPU_ROUNDS)
+    _, res_cpu, cpu_s = simulate(bench, "cpu", CODEC_INT8,
+                                 rounds=INT8_CPU_ROUNDS)
+
+    n_eval = len(res.rounds)
+    per_round, final = metric_deltas(res_short.rounds, res_cpu.rounds)
+    rows = res.comm_breakdown()
+    rows_short, rows_cpu = res_short.comm_breakdown(), res_cpu.comm_breakdown()
+    n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
+    n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
+    expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
+    expect.update({"batched_quantize": n_c2s + n_s2c,
+                   "batched_dequantize": n_c2s + n_s2c,
+                   "kl_similarity": ROUNDS,
+                   "fused_relevance_aggregate": ROUNDS,
+                   "batched_pairwise_dist": n_eval,
+                   "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
+                                                        1)})
+    keys = ("mAP", "R1", "R5", "forgetting_mAP")
+    stages = ("encode_c2s", "encode_s2c")
+    INT8_OUT.parent.mkdir(parents=True, exist_ok=True)
+    INT8_OUT.write_text(json.dumps({
+        "card": card, "codec": CODEC_INT8, "rounds": res.rounds,
+        "rounds_cpu": res_cpu.rounds, "comm_rows": rows,
+        "stage_ms": res.stage_ms, "stage_ms_cpu": res_cpu.stage_ms}))
+    emit({"phase": "round_fedstil_codec_int8", "card": card,
+          "codec": CODEC_INT8, "clients": N_CLIENTS, "rounds": ROUNDS,
+          "eval_rounds": [r["round"] for r in res.rounds],
+          **{k: [r[k] for r in res.rounds] for k in keys},
+          "wire_bytes": res.comm.total, "predicted_wire_bytes":
+          INT8_WIRE_BYTES, "formula_bytes": res.comm.total_formula,
+          "wire_over_formula": res.comm.total / res.comm.total_formula,
+          "round0_bytes": rows[0], "round1_bytes": rows[1],
+          "final_mAP_minus_uncoded": res.final("mAP") - uncoded.final("mAP"),
+          "final_R1_minus_uncoded": res.final("R1") - uncoded.final("R1"),
+          "round_wall_ms": summarize([st["wall_ms"] for st in res.stage_ms]),
+          "stage_ms": {k: summarize([st.get(k, 0.0) for st in res.stage_ms])
+                       for k in stages},
+          "sim_wall_s": wall_s, "cpu_sim_wall_s": cpu_s,
+          "card_vs_cpu": {"rounds": INT8_CPU_ROUNDS,
+                          "final_abs_delta": final,
+                          "largest_per_round_delta": per_round,
+                          "tolerance": CODEC_METRIC_TOL,
+                          "comm_rows_equal": rows_short == rows_cpu},
+          "launches": {k: launches[k] for k in expect},
+          "expected_launches": expect,
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(INT8_OUT.relative_to(ROOT))})
+    check(rows_short == rows_cpu, "round_fedstil_codec_int8: card and CPU "
+          "wire bytes differ")
+    check(res.comm.total == INT8_WIRE_BYTES,
+          f"round_fedstil_codec_int8: {res.comm.total} wire bytes, predicted "
+          f"{INT8_WIRE_BYTES}")
+    check(all(v <= CODEC_METRIC_TOL for v in final.values()),
+          f"round_fedstil_codec_int8 final round card vs CPU: {final} > "
+          f"{CODEC_METRIC_TOL}")
+    check(all(launches[k] == n for k, n in expect.items()),
+          f"round_fedstil_codec_int8 launches {launches}, expected {expect}")
     return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
 
 
@@ -1492,39 +1965,54 @@ def phase_server_scale(dev, card):
 
 def phase_wire_round_scale(dev, card):
     """``BatchedCodec.roundtrip`` of a (C, 57664) payload under
-    ``delta+topk`` at C = 100 and 1000, past the keyframe: device ms of
-    each kernel on the steady-state operands and of the whole roundtrip
-    (CUDA events), and the wire bytes a client against the dense payload."""
+    ``delta+topk`` and ``topk+int8`` at C = 100 and 1000, past the
+    keyframe: device ms of each kernel on the steady-state operands and of
+    the whole roundtrip (CUDA events), and the wire bytes a client against
+    the dense payload (topk+int8: against the prediction from the
+    shapes)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for C in SCALE_CLIENTS:
-        prog = BatchedCodec(make_codec(CODEC), P_EDGE)
-        base = torch.randn((C, P_EDGE), generator=gen, device=dev)
-        prog.roundtrip(base)                              # the keyframe
-        mat = base + 0.01 * torch.randn((C, P_EDGE), generator=gen,
-                                        device=dev)
-        recon, buffers = prog.roundtrip(mat)
-        check("idx_bits" in buffers, "wire_round_scale: no sparse payload")
-        r = mat - recon                  # the next roundtrip's residual
-        vals, idx = batched_topk_pack(r, group=GROUP, kg=KG)
-        packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
-        per_client = prog.per_client_bytes(buffers)
-        emit({"phase": "wire_round_scale", "card": card, "clients": C,
-              "params_per_client": P_EDGE, "codec": CODEC, "kg": KG,
-              "wire_bytes_per_client": per_client,
-              "dense_bytes_per_client": 4 * P_EDGE,
-              "wire_over_dense": per_client / (4 * P_EDGE),
-              "recon_max_abs_err": float((recon - mat).abs().max()),
-              "pack_ms": time_ms(lambda: batched_topk_pack(r, group=GROUP,
-                                                           kg=KG)),
-              "bitpack_ms": time_ms(lambda: batched_idx_bitpack(
-                  idx, group=GROUP, kg=KG)),
-              "bitunpack_ms": time_ms(lambda: batched_idx_bitunpack(
-                  packed, k=prog.k, group=GROUP, kg=KG)),
-              "unpack_ms": time_ms(lambda: batched_topk_unpack(
-                  vals, idx, p=P_EDGE, group=GROUP, kg=KG)),
-              "roundtrip_ms": time_ms(lambda: prog.roundtrip(mat))})
-        del prog, base, mat, recon, buffers, r, vals, idx, packed
-        torch.cuda.empty_cache()
+    for codec in (CODEC, CODEC_INT8):
+        for C in SCALE_CLIENTS:
+            prog = BatchedCodec(make_codec(codec), P_EDGE)
+            base = torch.randn((C, P_EDGE), generator=gen, device=dev)
+            prog.roundtrip(base)                              # the keyframe
+            mat = base + 0.01 * torch.randn((C, P_EDGE), generator=gen,
+                                            device=dev)
+            recon, buffers = prog.roundtrip(mat)
+            check("idx_bits" in buffers, "wire_round_scale: no sparse payload")
+            r = mat - recon                  # the next roundtrip's residual
+            vals, idx = batched_topk_pack(r, group=GROUP, kg=KG)
+            packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
+            per_client = prog.per_client_bytes(buffers)
+            rec = {"phase": "wire_round_scale", "card": card, "clients": C,
+                   "params_per_client": P_EDGE, "codec": codec, "kg": KG,
+                   "wire_bytes_per_client": per_client,
+                   "dense_bytes_per_client": 4 * P_EDGE,
+                   "wire_over_dense": per_client / (4 * P_EDGE),
+                   "recon_max_abs_err": float((recon - mat).abs().max()),
+                   "pack_ms": time_ms(lambda: batched_topk_pack(
+                       r, group=GROUP, kg=KG)),
+                   "bitpack_ms": time_ms(lambda: batched_idx_bitpack(
+                       idx, group=GROUP, kg=KG)),
+                   "bitunpack_ms": time_ms(lambda: batched_idx_bitunpack(
+                       packed, k=prog.k, group=GROUP, kg=KG)),
+                   "unpack_ms": time_ms(lambda: batched_topk_unpack(
+                       vals, idx, p=P_EDGE, group=GROUP, kg=KG))}
+            if codec == CODEC_INT8:
+                q, sc = batched_quantize(vals, chunk=prog.chunk)
+                rec.update(
+                    predicted_wire_bytes_per_client=INT8_SCALE_WIRE,
+                    quantize_ms=time_ms(lambda: batched_quantize(
+                        vals, chunk=prog.chunk)),
+                    dequantize_ms=time_ms(lambda: batched_dequantize(
+                        q, sc, chunk=prog.chunk)))
+                check(per_client == INT8_SCALE_WIRE,
+                      f"wire_round_scale {codec}: {per_client} bytes a "
+                      f"client, predicted {INT8_SCALE_WIRE}")
+            rec["roundtrip_ms"] = time_ms(lambda: prog.roundtrip(mat))
+            emit(rec)
+            del prog, base, mat, recon, buffers, r, vals, idx, packed
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1568,7 +2056,7 @@ def main():
     # after)
     for spec in KERNELS.values():
         spec["fn"].launches = 0
-    with last_operands(IVF_OPS, copy=False) as seen:
+    with last_operands(IVF_OPS, by_reference=IVF_OPS) as seen:
         ivf = phase_serve("ivf", G_INT8, dev, card)
     launches["serve_ivf"] = {name: spec["fn"].launches
                              for name, spec in KERNELS.items()}
@@ -1585,11 +2073,24 @@ def main():
     path_errs.update(round_errs)
     phase_serve_round_heads(strat, res, dev, card)
 
+    def fold(errs):
+        for name, err in errs.items():
+            path_errs[name] = max(path_errs.get(name, 0.0), err)
+
     # path 4: the round with the wire codec (counts zeroed inside)
-    launches["round_fedstil_codec"], codec_errs = phase_round_fedstil_codec(
+    launches["round_fedstil_codec"], errs = phase_round_fedstil_codec(
         dev, card, res)
-    for name, err in codec_errs.items():
-        path_errs[name] = max(path_errs.get(name, 0.0), err)
+    fold(errs)
+    # path 5: the round on the host engine (counts zeroed inside), then the
+    # slice's other host and codec paths, shorter
+    launches["round_fedstil_host"], errs = phase_round_fedstil_host(
+        dev, card, (strat, res))
+    fold(errs)
+    phase_round_host_variants(dev, card)
+    # path 6: the round with the topk+int8 wire codec (counts zeroed inside)
+    launches["round_fedstil_codec_int8"], errs = \
+        phase_round_fedstil_codec_int8(dev, card, res)
+    fold(errs)
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     del strat, res

@@ -1,17 +1,20 @@
 """Device-resident batched wire codec for the stacked engine.
 
 The port of ``repro/comm/batched.py``. ``BatchedCodec`` runs the host
-``PipelineCodec``'s stage stack (delta -> grouped topk) over ALL C
-clients' flattened (C, P) payload rows at once, on the device that holds
-them: the sparsify and index stages are ``kernels.ops``' grouped top-k
-pack / unpack and index bit-pack / unpack (CUDA kernels for CUDA tensors,
-the plain versions for CPU tensors). Encoded buffers stay on the device;
-the measured per-client wire bytes follow from the buffer shapes, so a
-simulated round reads nothing back.
+``PipelineCodec``'s stage stack (delta -> grouped topk -> {int8|bf16}) over
+ALL C clients' flattened (C, P) payload rows at once, on the device that
+holds them: the sparsify, index and quantize stages are ``kernels.ops``'
+grouped top-k pack / unpack, index bit-pack / unpack and per-chunk
+quantize / dequantize (CUDA kernels for CUDA tensors, the plain versions
+for CPU tensors); bf16 is a cast to ``torch.bfloat16`` and back. Encoded
+buffers stay on the device; the measured per-client wire bytes follow from
+the buffer shapes, so a simulated round reads nothing back.
 
-Stage semantics are bit-identical to the host codec's (same top-k tie
-rule, same bit-plane layout). The reference's ``jax.jit`` programs become
-plain eager methods.
+Stage semantics are the host codec's (same top-k tie rule, same bit-plane
+layout, bf16 rounded to nearest even), with one difference the reference
+has too: the int8 scale is ``absmax * fl32(1/127)`` here, as the compiled
+kernel computes it, and a true division in the host codec. The reference's
+``jax.jit`` programs become plain eager methods.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ class BatchedCodec:
                 "explicit-k global top-k is a host-codec-only mode")
         self.delta = like.delta
         self.topk = like.topk
+        self.quant = like.quant
+        self.chunk = like.chunk
         self.group = like.group
         self.kg = like.kg
         self.p = int(p)
@@ -49,6 +54,24 @@ class BatchedCodec:
         self.last_metrics: Optional[Dict[str, torch.Tensor]] = None
 
     # ---- stages --------------------------------------------------------------
+    def _quant(self, vals, buffers: Buffers) -> Buffers:
+        if self.quant == "int8":
+            q, scales = ops.batched_quantize(vals, chunk=self.chunk)
+            buffers["values"] = q
+            buffers["scales"] = scales
+        elif self.quant == "bf16":
+            buffers["values"] = vals.to(torch.bfloat16)
+        else:
+            buffers["values"] = vals
+        return buffers
+
+    def _dequant(self, buffers: Buffers) -> torch.Tensor:
+        v = buffers["values"]
+        if self.quant == "int8":
+            return ops.batched_dequantize(v, buffers["scales"],
+                                          chunk=self.chunk)
+        return v.float()
+
     def _enc_metrics(self, x, vals) -> Dict[str, torch.Tensor]:
         """Per-row residual norm (decoder-reference staleness), the share of
         residual energy the wire kept, and the effective keep rate."""
@@ -61,18 +84,19 @@ class BatchedCodec:
     def _enc_sparse(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
         vals, idx = ops.batched_topk_pack(x, group=self.group, kg=self.kg)
         packed = ops.batched_idx_bitpack(idx, group=self.group, kg=self.kg)
-        return {"idx_bits": packed, "values": vals}, self._enc_metrics(x, vals)
+        return (self._quant(vals, {"idx_bits": packed}),
+                self._enc_metrics(x, vals))
 
     def _enc_dense(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
         x = x.float()
-        return {"values": x}, self._enc_metrics(x, x)
+        return self._quant(x, {}), self._enc_metrics(x, x)
 
     def _dec(self, buffers: Buffers) -> torch.Tensor:
         if "idx_bits" not in buffers:
-            return buffers["values"].float()
+            return self._dequant(buffers)
         idx = ops.batched_idx_bitunpack(buffers["idx_bits"], k=self.k,
                                         group=self.group, kg=self.kg)
-        return ops.batched_topk_unpack(buffers["values"].float(), idx,
+        return ops.batched_topk_unpack(self._dequant(buffers), idx,
                                        p=self.p, group=self.group, kg=self.kg)
 
     # ---- wire ----------------------------------------------------------------
@@ -95,8 +119,9 @@ class BatchedCodec:
 
     def encode(self, mat) -> Buffers:
         """(C, P) stacked payload rows -> dict of device wire buffers. A
-        delta stream's first payload ships dense to establish the
-        reference; every later payload is a sparse residual."""
+        delta stream's first payload ships dense (quantized only) to
+        establish the reference; every later payload is a sparse
+        residual."""
         buffers, ref = self._encode_residual(mat.float())
         if self.delta:
             self._enc_ref = ref + self._dec(buffers)

@@ -19,10 +19,15 @@ over the flattened fp32 payload vector:
              implement, see ``kernels/topk_pack.py``), whose indices ship
              BIT-PACKED (3 bits a slot at group 8); an explicit ``k``
              selects exact global top-k (host only, plain int32 indices,
-             what FedWeIT's sparse-bytes formula models).
+             what FedWeIT's sparse-bytes formula models);
+    int8 | bf16 — value quantization: per-chunk symmetric int8 with one
+             fp32 scale per ``chunk`` values (``quantize_host``, a true
+             division by 127 as the reference's numpy writes it), or
+             bfloat16 (round to nearest even). The bf16 buffer holds the
+             bfloat16 bit patterns as uint16 (``bf16_bits_host``): the same
+             bits and ``nbytes`` as the reference's ml_dtypes array, without
+             ml_dtypes.
 
-The quantization stages of the reference (``int8``, ``bf16``) come with
-the wire-codec slice 4b; ``make_codec`` and ``PipelineCodec`` refuse them.
 Trees are nested dicts of tensors or arrays, flattened in the port's leaf
 order (``common.pytree``), which is ``jax.tree.flatten``'s; leaves come
 back as numpy arrays. The stacked engine runs the same stages over all C
@@ -43,12 +48,6 @@ DEFAULT_CHUNK = 256
 DEFAULT_GROUP = 8
 
 _STAGES = ("raw", "delta", "topk", "int8", "bf16")
-
-
-def quant_not_in_this_slice(quant: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {quant} wire stage is not ported yet: it comes with the "
-        "wire-codec slice 4b (ROADMAP, Queue 1)")
 
 
 @dataclasses.dataclass
@@ -166,7 +165,10 @@ def unpack_group_indices_host(packed: np.ndarray, k: int, group: int,
 
 def quantize_host(v: np.ndarray, chunk: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per-chunk symmetric int8: (n,) fp32 -> ((n,) int8, per-chunk fp32
-    scales), round half to even. The int8 stage of slice 4b."""
+    scales), round half to even. The scale is ``absmax / 127`` divided in
+    numpy, as in the reference's host codec (the batched codec multiplies by
+    fl32(1/127) instead, as the reference's compiled kernel does: a scale
+    can differ by an ulp between the two, ROADMAP Queue 3)."""
     n = v.size
     nc = (n + chunk - 1) // chunk          # 0 chunks for an empty payload
     vp = np.zeros((nc * chunk,), np.float32)
@@ -190,6 +192,23 @@ def dequantize_host(q: np.ndarray, scales: np.ndarray,
     return out.reshape(-1)[:n]
 
 
+def bf16_bits_host(v: np.ndarray) -> np.ndarray:
+    """fp32 -> the bfloat16 bit patterns (uint16), rounded to nearest even
+    as ml_dtypes' cast does; a NaN becomes the quiet NaN 0x7FC0 with its
+    sign."""
+    b = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    rounded = (b + np.uint32(0x7FFF) + ((b >> 16) & 1)) >> 16
+    nan = (b & 0x7FFFFFFF) > 0x7F800000
+    return np.where(nan, ((b >> 16) & 0x8000) | 0x7FC0,
+                    rounded).astype(np.uint16)
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """Inverse of ``bf16_bits_host`` (exact: bf16 is fp32's top half)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
 class Codec:
     """Interface: one bidirectional wire format."""
 
@@ -203,7 +222,7 @@ class Codec:
 
 
 class PipelineCodec(Codec):
-    """The composable delta -> topk stack (any subset).
+    """The composable delta -> topk -> {int8|bf16} stack (any subset).
 
     ``keep_frac`` sizes the grouped budget as kg = round(keep_frac *
     group) kept entries per group (an explicit ``k`` switches to exact
@@ -218,8 +237,6 @@ class PipelineCodec(Codec):
                  quant: Optional[str] = None, chunk: int = DEFAULT_CHUNK):
         if quant not in (None, "int8", "bf16"):
             raise ValueError(f"unknown quant stage {quant!r}")
-        if quant is not None:
-            raise quant_not_in_this_slice(quant)
         self.spec = spec
         self.delta = delta
         self.topk = topk
@@ -277,7 +294,7 @@ class PipelineCodec(Codec):
         if self.delta:
             ref = self._enc_ref.get(peer)
             # keyframe: the stream's first payload establishes the
-            # reference DENSE; sparsifying an absolute payload drops
+            # reference DENSE (quantized only); sparsifying an absolute payload drops
             # uniformly important entries (BN scales) and the early-round
             # damage never heals (-33 mAP on the reference's synthetic
             # bench)
@@ -301,13 +318,26 @@ class PipelineCodec(Codec):
                 buffers["indices"] = idx
         else:
             vals = x.astype(np.float32)
-        buffers["values"] = vals
+        if self.quant == "int8":
+            q, scales = quantize_host(vals, self.chunk)
+            buffers["values"] = q
+            buffers["scales"] = scales
+        elif self.quant == "bf16":
+            buffers["values"] = bf16_bits_host(vals)
+        else:
+            buffers["values"] = vals
         return WirePayload(buffers, schema), ref
 
     # ---- decode --------------------------------------------------------------
     def _decode_residual(self, payload: WirePayload) -> np.ndarray:
         schema = payload.schema
-        v = np.asarray(payload.buffers["values"], np.float32)
+        v = payload.buffers["values"]
+        if self.quant == "int8":
+            v = dequantize_host(v, payload.buffers["scales"], schema["chunk"])
+        elif self.quant == "bf16":
+            v = bf16_bits_to_f32(v)
+        else:
+            v = np.asarray(v, np.float32)
         if schema["sparse"]:
             P = schema["P"]
             g = schema.get("group")
@@ -333,16 +363,15 @@ class PipelineCodec(Codec):
 
 
 def make_codec(spec: Optional[str], **overrides) -> Optional[Codec]:
-    """Parse a ``+``-joined stage spec ("raw", "delta", "topk",
-    "delta+topk", ...) into a fresh ``PipelineCodec`` (None -> None).
+    """Parse a ``+``-joined stage spec ("raw", "int8", "topk+int8",
+    "delta+topk+bf16", ...) into a fresh ``PipelineCodec`` (None -> None).
     ``overrides``: keep_frac, k, group, chunk, delta.
 
     ``topk`` implies ``delta`` (override with ``delta=False``): stateless
     top-k of absolute parameters shrinks every aggregate entry (-4.6 mAP
     at keep_frac 0.25 on the reference's bench), while top-k of the
     residual against the decoder-visible reconstruction corrects itself.
-    Same wire format either way. Specs with ``int8`` or ``bf16`` parse as
-    in the reference and then raise NotImplementedError (slice 4b).
+    Same wire format either way.
     """
     if spec is None:
         return None

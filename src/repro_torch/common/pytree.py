@@ -57,6 +57,30 @@ def tree_map(fn: Callable, tree, *rest):
     return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
 
 
+def device_of(tree) -> torch.device:
+    """The device of a tree's first tensor leaf (the CPU for none)."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def tree_stack(trees):
+    """Length-C list of trees of one structure -> one tree whose leaves
+    carry a leading C dim (the stacked-over-clients layout)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_slice(tree, i: int):
+    """Client ``i``'s slice of a stacked tree (leaves lose the C dim)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_unstack(tree, n: int):
+    """Inverse of ``tree_stack``: the leading dim back into a list."""
+    return [tree_slice(tree, i) for i in range(n)]
+
+
 def tree_bytes(tree) -> int:
     """Bytes of every leaf together (the communication accounting)."""
     return int(sum(l.numel() * l.element_size() if isinstance(l, torch.Tensor)
@@ -89,6 +113,21 @@ def tree_unflatten_stacked(mat: torch.Tensor, meta: Meta):
         leaves.append(mat[:, off:off + n].reshape((C,) + s).to(dt))
         off += n
     return tree_from_paths(paths, leaves)
+
+
+def tree_stack_flatten(trees):
+    """Length-C list of trees of one structure -> ((C, P) fp32 matrix,
+    meta): each tree's leaves flattened into one row, in ``tree_leaves``
+    order; meta keeps the paths, shapes and dtypes."""
+    return tree_flatten_stacked(tree_stack(trees))
+
+
+def tree_unstack_unflatten(mat: torch.Tensor, meta: Meta):
+    """(R, P) matrix -> length-R list of trees (inverse of
+    ``tree_stack_flatten``), each leaf its own contiguous tensor."""
+    return tree_unstack(tree_map(lambda x: x.contiguous(),
+                                 tree_unflatten_stacked(mat, meta)),
+                        mat.shape[0])
 
 
 def flatten_stacked(theta: Dict[str, torch.Tensor]):

@@ -1,12 +1,15 @@
-"""FedSTIL adaptive-layer parameterization (paper Eq. 2), over stacked heads:
+"""FedSTIL adaptive-layer parameterization (paper Eq. 2):
 
     theta_c = B_c ⊙ alpha_c + A_c
 
 ``B_c`` carries the spatial-temporal knowledge the server dispatches,
 ``alpha_c`` is a learnable attention over it and ``A_c`` the locally learnt
-residual; (alpha_c, A_c) train locally. The port of ``combine`` and
-``init_adaptive`` in ``repro/core/adaptive.py``, leaf-wise over the port's
-flat head dicts, so a leading client axis passes straight through.
+residual; (alpha_c, A_c) train locally. The port of ``AdaptiveState``,
+``combine`` and ``init_adaptive`` in ``repro/core/adaptive.py``, leaf-wise
+over the port's flat head dicts, so a leading client axis passes straight
+through. ``combine`` goes through ``kernels.ops.adaptive_combine`` (the
+CUDA kernel for CUDA tensors, one launch a leaf, differentiable), the form
+the reference names as its hot path.
 """
 from __future__ import annotations
 
@@ -15,22 +18,35 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import ops
+
 Theta = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass
 class AdaptiveState:
+    """Per-client decomposed adaptive parameters."""
+
     B: Theta          # base (server-provided spatial-temporal knowledge)
     alpha: Theta      # attention over B
     A: Theta          # local residual
 
+    def theta(self) -> Theta:
+        return combine(self.B, self.alpha, self.A)
+
     def trainable(self) -> Dict[str, Theta]:
         return {"alpha": self.alpha, "A": self.A}
+
+    def with_trainable(self, t) -> "AdaptiveState":
+        return AdaptiveState(B=self.B, alpha=t["alpha"], A=t["A"])
+
+    def with_base(self, B) -> "AdaptiveState":
+        return AdaptiveState(B=B, alpha=self.alpha, A=self.A)
 
 
 def combine(B: Theta, alpha: Theta, A: Theta) -> Theta:
     """theta = B ⊙ alpha + A, leaf-wise (paper Eq. 2)."""
-    return {k: B[k] * alpha[k] + A[k] for k in B}
+    return {k: ops.adaptive_combine(B[k], alpha[k], A[k]) for k in B}
 
 
 def init_adaptive(theta0: Theta) -> AdaptiveState:

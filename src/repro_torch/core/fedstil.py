@@ -1,7 +1,7 @@
-"""FedSTIL, the paper's method (Algorithm 1), on the stacked engine.
+"""FedSTIL, the paper's method (Algorithm 1), on both engines.
 
-The port of the stacked path of ``repro/core/fedstil.py``. Per round, for
-all C clients at once:
+The port of ``repro/core/fedstil.py``. Per round, for every client (the
+stacked engine: all C clients at once):
 
   1. prototypes of the current task arrive (extraction layers frozen);
   2. each client trains (alpha_c, A_c) of theta_c = B_c ⊙ alpha_c + A_c
@@ -16,6 +16,14 @@ all C clients at once:
   4. clients whose row of Wn has mass take their new base; the others keep
      theirs.
 
+The host engine's server round keeps its histories in a
+``RelevanceTracker`` (host lists mirrored into a device ring), normalizes
+the participating block of W and forms the bases of the rows with mass as
+one (|nz|, C) x (C, P) product (``core.aggregation.personalized_aggregate``,
+``ops.relevance_aggregate``). ``server_backend="loop"`` runs the tracker's
+per-pair loop and the per-leaf einsum aggregate instead, the reference's
+oracle; the stacked server ignores it, as the reference's does.
+
 Ablation switches (Table III): ``st_integration``, ``rehearsal``,
 ``tying``; the similarity switch (Table VI): ``metric``.
 """
@@ -27,15 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import StageTimes
-from repro_torch.common.pytree import (flatten_stacked, tree_bytes,
-                                       unflatten_stacked)
+from repro_torch.common.pytree import (device_of, flatten_stacked,
+                                       tree_bytes, unflatten_stacked)
 from repro_torch.core import edge_model as EM
 from repro_torch.core.adaptive import combine, init_adaptive
+from repro_torch.core.aggregation import personalized_aggregate
 from repro_torch.core.rehearsal import PrototypeMemory
-from repro_torch.core.relevance import DeviceRingHistory
+from repro_torch.core.relevance import (DeviceRingHistory, RelevanceTracker,
+                                        normalize_rows)
 from repro_torch.core.tying import tying_loss
-from repro_torch.federated.base import (ClientState, Strategy,
-                                        not_in_this_slice)
+from repro_torch.federated.base import ClientState, Strategy, forward_one
 from repro_torch.kernels import ops
 
 
@@ -48,11 +57,6 @@ class FedSTIL(Strategy):
                  history_len=6, memory_size=2000, per_identity=8,
                  lam_tie=1e-4, st_integration=True, rehearsal=True,
                  tying=True, server_backend=None, **kw):
-        if server_backend is not None:
-            raise not_in_this_slice(
-                f"server_backend={server_backend!r} (the port dispatches "
-                "its kernels by tensor device; the loop reference is the "
-                "host engine's)", "the host-engine slice (5)")
         super().__init__(cfg, **kw)
         self.n_clients = n_clients
         self.metric = metric
@@ -64,6 +68,14 @@ class FedSTIL(Strategy):
         self.use_tying = tying
         self.memory_size = memory_size
         self.per_identity = per_identity
+        # server_backend: None = kernels by tensor device, "loop" = the
+        # host server's per-pair relevance and per-leaf aggregate reference
+        self.server_backend = server_backend
+        self.tracker = RelevanceTracker(
+            n_clients, history_len=history_len,
+            forgetting_ratio=forgetting_ratio, metric=metric,
+            backend=server_backend)
+        # the stacked engine's own ring (the host tracker stays untouched)
         self._ring: Optional[DeviceRingHistory] = None
         self.last_W: Optional[np.ndarray] = None
 
@@ -85,6 +97,9 @@ class FedSTIL(Strategy):
         return tying_loss(self.make_theta(trainable, extras),
                           extras["reg_prev_theta"], lam_l1=self.lam_tie)
 
+    def _eval_theta(self, state):
+        return self.make_theta(state.theta, state.extras)
+
     def eval_theta_stacked(self, stacked):
         return combine(stacked.extras["reg_B"], stacked.trainable["alpha"],
                        stacked.trainable["A"])
@@ -94,7 +109,65 @@ class FedSTIL(Strategy):
         return (tree_bytes(state.theta) + tree_bytes(state.extras["reg_B"])
                 + mem.size_bytes)
 
-    # ---- local round ---------------------------------------------------------
+    # ---- host engine -----------------------------------------------------------
+    def local_train(self, client, state, protos, labels, rnd, **_):
+        rehearsal = None
+        mem: PrototypeMemory = state.extras["memory"]
+        if self.use_rehearsal and len(mem):
+            rehearsal = mem.sample(self.rng, self.batch)
+        state, _ = self._run_epochs(state, protos, labels, rehearsal)
+        theta = self._eval_theta(state)
+        state.extras["reg_prev_theta"] = theta
+        # store exemplar prototypes (nearest-mean, Fig. 4)
+        if self.use_rehearsal:
+            mem.add_task(protos, labels, forward_one(theta, protos),
+                         task_id=rnd)
+        # upload: the head + the task feature (Eq. 3)
+        task_feature = np.asarray(protos, np.float32).mean(0)
+        return state, {"theta": theta, "task_feature": task_feature}
+
+    def server_round(self, rnd, uploads):
+        """Eq. 4/5 over the tracker, then Eq. 6 for the participating
+        clients with relevant neighbours. Returns {client: {"B": base}},
+        {} for a client without relevant neighbours yet."""
+        if not self.st_integration or not uploads:
+            return {}
+        clients = sorted(uploads)
+        dev = device_of(uploads[clients[0]]["theta"])
+        self.tracker.device = dev
+        clock = StageTimes(dev)
+        with clock.stage("relevance"):
+            D = np.asarray(uploads[clients[0]]["task_feature"]).shape[-1]
+            feats = np.zeros((self.n_clients, D), np.float32)
+            mask = np.zeros((self.n_clients,), np.float32)
+            for c in clients:
+                feats[c] = uploads[c]["task_feature"]
+                mask[c] = 1.0
+            self.tracker.push_all(feats, mask)
+            W = self.tracker.relevance()
+        self.last_W = W
+        # only rows with relevant neighbours are aggregated; under partial
+        # participation the block of the clients that uploaded is
+        # renormalized, so Eq. 6 stays a convex combination
+        Wc = normalize_rows(W[np.ix_(clients, clients)])
+        nz = np.flatnonzero(Wc.sum(1) > 0)
+        out = {c: {} for c in clients}
+        if nz.size:
+            with clock.stage("aggregate"):
+                bases = personalized_aggregate(
+                    [uploads[c]["theta"] for c in clients], Wc[nz],
+                    backend=self.server_backend)
+            for row, base in zip(nz, bases):
+                out[clients[row]] = {"B": base}
+        self.server_ms = dict(clock)
+        return out
+
+    def apply_dispatch(self, state, dispatch):
+        if "B" in dispatch:
+            state.extras["reg_B"] = dispatch["B"]
+        return state
+
+    # ---- stacked engine: local round -----------------------------------------
     def _gather_rehearsal(self, stacked, c):
         if not self.use_rehearsal:
             return None
@@ -123,7 +196,7 @@ class FedSTIL(Strategy):
         return stacked, {"theta": theta,
                          "task_feature": torch.from_numpy(feats).to(dev)}
 
-    # ---- server round (spatial-temporal integration) -------------------------
+    # ---- stacked engine: server round ----------------------------------------
     def server_round_stacked(self, rnd, upload):
         """Eq. 4/5 -> Eq. 6 over the device-resident ring. The only host
         readback is the (C, C) ``last_W``. Returns {"B": stacked bases,

@@ -1,7 +1,6 @@
 """Knowledge relevance across the spatial-temporal dimension (paper Eq. 5).
 
-The port of the batched server path of ``repro/core/relevance.py``. The
-server keeps the last ``k`` rounds of task features of every client in a
+The port of ``repro/core/relevance.py``. The server keeps the last ``k`` rounds of task features of every client in a
 device-resident ``(C, k, D)`` ring (age-major: the newest at age 0) with a
 ``(C, k)`` validity mask, and the relevance of client i's newest task to
 client j is the decayed sum of similarities against j's history:
@@ -10,17 +9,24 @@ client j is the decayed sum of similarities against j's history:
 
 All pairs are one (C, C k) similarity matrix (``core.similarity``):
 ``metric="kl"`` goes through ``kernels.ops.kl_similarity`` (the CUDA kernel
-for CUDA tensors), cosine and euclidean through their plain forms. ``RelevanceTracker`` (the host
-engine's tracker and its loop oracle) belongs to the host-engine slice.
+for CUDA tensors), cosine and euclidean through their plain forms.
+
+``RelevanceTracker`` is the host engine's server state: per-client host
+lists of task features (the loop oracle's layout, ``backend="loop"``: one
+per-pair similarity at a time, KL with 1e-12 inside the logs) mirrored
+into a ``DeviceRingHistory`` on the run's device, from which the batched
+path computes all pairs at once. Rows are normalized over j != i, so Eq. 6
+is a convex combination of the neighbours' parameters.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.similarity import pairwise_similarity
+from repro_torch.core.similarity import SIMILARITY_FNS, pairwise_similarity
 
 
 def decayed_relevance(cur, hist, decay, valid=None, *, metric: str = "kl"):
@@ -103,3 +109,128 @@ class DeviceRingHistory:
         return ring_relevance(self.buf, self.valid,
                               forgetting_ratio=forgetting_ratio,
                               metric=metric)
+
+
+@dataclasses.dataclass
+class RelevanceTracker:
+    """The host server's task-feature histories and Eq. 4/5 relevance.
+
+    ``backend``: None = the batched path over the device ring (kernels by
+    the ring's device), ``"loop"`` = the per-pair reference. ``device`` is
+    where the ring lives (the run's device); the next ``push_all`` moves
+    the ring there when it changes."""
+
+    n_clients: int
+    history_len: int = 6           # k in Eq. (5)
+    forgetting_ratio: float = 0.5  # lambda_f
+    metric: str = "kl"
+    backend: Optional[str] = None
+    device: torch.device = torch.device("cpu")
+
+    def __post_init__(self):
+        if self.backend not in (None, "loop"):
+            raise ValueError(f"backend {self.backend!r}: None (kernels by "
+                             "device) or 'loop'")
+        # history[c]: task features, most recent last (the oracle layout)
+        self.history: List[list] = [[] for _ in range(self.n_clients)]
+        self._ring: Optional[DeviceRingHistory] = None
+        self._ring_dirty = False   # host lists diverged (per-client push)
+
+    def push(self, client: int, task_feature):
+        h = self.history[client]
+        h.append(np.asarray(task_feature, np.float32))
+        if len(h) > self.history_len:
+            h.pop(0)
+        self._ring_dirty = True
+
+    def push_all(self, feats, mask=None):
+        """feats (C, D) for all clients at once, mask an optional (C,)
+        participation indicator: one roll/scatter of the device ring and
+        the same push into the host lists."""
+        feats = np.asarray(feats, np.float32)
+        if mask is None:
+            mask = np.ones((self.n_clients,), np.float32)
+        mask = np.asarray(mask, np.float32)
+        if (self._ring is None or self._ring_dirty
+                or self._ring.device != torch.device(self.device)):
+            # (re)build the ring from the host lists, then go resident
+            self._ring = DeviceRingHistory(self.n_clients, self.history_len,
+                                           feats.shape[-1], self.device)
+            stacked = self.stacked_history()
+            if stacked is not None:
+                self._ring.buf = torch.from_numpy(stacked[0]).to(self.device)
+                self._ring.valid = torch.from_numpy(stacked[1]).to(
+                    self.device)
+            self._ring_dirty = False
+        self._ring.push_all(feats, mask)
+        for c in range(self.n_clients):
+            if mask[c] > 0:
+                h = self.history[c]
+                h.append(feats[c].copy())
+                if len(h) > self.history_len:
+                    h.pop(0)
+
+    def stacked_history(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Dense (C, k, D) age-major history (most recent at age 0) and the
+        (C, k) validity mask; None while every history is empty."""
+        C, k = self.n_clients, self.history_len
+        D = next((h[-1].shape[-1] for h in self.history if h), None)
+        if D is None:
+            return None
+        dense = np.zeros((C, k, D), np.float32)
+        valid = np.zeros((C, k), np.float32)
+        for j, h in enumerate(self.history):
+            for age, feat in enumerate(reversed(h)):
+                if age >= k:
+                    break
+                dense[j, age] = feat
+                valid[j, age] = 1.0
+        return dense, valid
+
+    def relevance(self, backend: Optional[str] = None) -> np.ndarray:
+        """W (C, C) numpy: row i = normalized relevance of neighbours j."""
+        b = backend if backend is not None else self.backend
+        if b == "loop":
+            return self._relevance_loop()
+        return self._relevance_batched()
+
+    def _relevance_batched(self) -> np.ndarray:
+        C, k = self.n_clients, self.history_len
+        if self._ring is not None and not self._ring_dirty:
+            dense, valid = self._ring.buf, self._ring.valid
+        else:
+            stacked = self.stacked_history()
+            if stacked is None:
+                return np.zeros((C, C), np.float32)
+            dense, valid = (torch.from_numpy(a).to(self.device)
+                            for a in stacked)
+        cur = dense[:, 0]                      # each client's newest feature
+        has_cur = valid[:, 0]                  # rows without history stay 0
+        decay = self.forgetting_ratio ** np.arange(k, dtype=np.float32)
+        W = decayed_relevance(cur, dense, torch.from_numpy(decay).to(
+            dense.device), valid, metric=self.metric)
+        # the diagonal is masked by multiplying with (1 - I), as the
+        # reference's host path does (the fused kernel selects instead)
+        W = W * has_cur[:, None] * (1.0 - torch.eye(C, device=W.device))
+        return normalize_rows(W.cpu().numpy())
+
+    def _relevance_loop(self) -> np.ndarray:
+        """The O(C^2 k) per-pair reference."""
+        C = self.n_clients
+        fn = SIMILARITY_FNS[self.metric]
+        W = np.zeros((C, C), np.float32)
+        for i in range(C):
+            if not self.history[i]:
+                continue
+            cur = torch.from_numpy(self.history[i][-1])
+            for j in range(C):
+                if i == j or not self.history[j]:
+                    continue
+                acc, hj = 0.0, self.history[j]
+                for age, feat in enumerate(reversed(hj)):
+                    if age >= self.history_len:
+                        break
+                    s = float(fn(cur, torch.from_numpy(feat)))
+                    acc += (self.forgetting_ratio ** age) * s
+                W[i, j] = acc
+        return normalize_rows(W)

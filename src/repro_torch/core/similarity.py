@@ -5,13 +5,22 @@ prototypes (Eq. 3); each function maps a pair of features to a relevance
 weight (higher = more relevant). ``pairwise_similarity`` is the all-pairs
 (N, D) x (M, D) -> (N, M) form. KL goes through ``kernels.ops.kl_similarity``
 (the CUDA kernel for CUDA tensors, its log-softmax plain version on the
-CPU); cosine and euclidean are plain PyTorch.
+CPU); cosine and euclidean are plain PyTorch. ``SIMILARITY_FNS`` holds the
+per-pair forms the relevance tracker's loop oracle calls, KL with the
+reference's 1e-12 inside its logs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+
+
+def kl_similarity(a, b):
+    """exp(-KL(a||b)) with softmax-normalised features, (..., D) each."""
+    p, q = torch.softmax(a.float(), -1), torch.softmax(b.float(), -1)
+    kl = torch.sum(p * (torch.log(p + 1e-12) - torch.log(q + 1e-12)), -1)
+    return torch.exp(-kl)
 
 
 def cosine_similarity(a, b):
@@ -28,6 +37,7 @@ def euclidean_similarity(a, b):
 
 
 SIMILARITY_FNS = {
+    "kl": kl_similarity,
     "cosine": cosine_similarity,
     "euclidean": euclidean_similarity,
 }

@@ -1,4 +1,5 @@
-"""The federated engine of the port (stacked over clients)."""
+"""The federated engines of the port (host and stacked) and FedAvg."""
 from repro_torch.federated.simulation import SimulationResult, run_simulation
+from repro_torch.federated.strategies import FedAvg
 
-__all__ = ["SimulationResult", "run_simulation"]
+__all__ = ["FedAvg", "SimulationResult", "run_simulation"]

@@ -1,10 +1,25 @@
-"""Shared machinery of the stacked federated engine.
+"""Shared machinery of the federated strategies, both engines.
 
-The port of the stacked API of ``repro/federated/base.py``. All C clients'
-trainable parameters, optimizer states and array extras live as one tree
-of ``(C, ...)`` tensors (``StackedClientState``); per-client objects that
-cannot be stacked (rehearsal memories) stay in per-client ``host`` lists.
-A round is:
+The port of ``repro/federated/base.py``. A strategy owns per-client state
+and three host-engine hooks:
+
+    local_train(client, state, protos, labels, rnd)  -> state, upload
+    server_round(rnd, uploads)                       -> dispatches
+    apply_dispatch(state, dispatch)                  -> state
+
+which the host engine (``run_simulation(engine="host")``, the reference's
+default) drives one client at a time: ``_run_epochs`` draws each epoch's
+minibatch (and rehearsal rows) from ``self.rng`` in the reference's order
+and takes one clipped Adam step on the client's head, run as a stack of
+one through the same batched forwards as the stacked engine; uploads and
+dispatches optionally cross a host wire codec (``comm.codec``, one peer per
+client and direction).
+
+Strategies with ``supports_stacked`` also implement the stacked engine:
+all C clients' trainable parameters, optimizer states and array extras
+live as one tree of ``(C, ...)`` tensors (``StackedClientState``);
+per-client objects that cannot be stacked (rehearsal memories) stay in
+per-client ``host`` lists. A stacked round is:
 
   * ``gather_round_batches``: every client's epoch minibatches drawn on the
     host from ``self.rng`` in the reference's exact order (client-major,
@@ -23,15 +38,17 @@ A round is:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.comm.batched import BatchedCodec
 from repro_torch.comm.codec import make_codec
-from repro_torch.common.pytree import (tree_bytes, tree_flatten_stacked,
-                                       tree_map, tree_unflatten_stacked)
+from repro_torch.common.pytree import (device_of, tree_bytes,
+                                       tree_flatten_stacked, tree_map,
+                                       tree_slice, tree_stack,
+                                       tree_unflatten_stacked)
 from repro_torch.core import edge_model as EM
 from repro_torch.evalreid.batched import _PAD_QID, batched_retrieval_metrics
 from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
@@ -39,9 +56,11 @@ from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
 
 @dataclasses.dataclass
 class ClientState:
-    """One client's state before stacking (and its view after)."""
+    """One client's state: the host engine's unit, the stacked engine's
+    input (and its view of one client)."""
 
     theta: Any                        # the trainable tree (strategy-defined)
+    opt_state: Any = None             # Adam's state, a stack of one (host)
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -61,9 +80,19 @@ def _is_stackable(value) -> bool:
     return isinstance(value, (dict, torch.Tensor))
 
 
-def stack_trees(trees: List[Any]):
-    """Length-C list of trees of one structure -> one tree of (C, ...)."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+def as_one(tree):
+    """A client's tree as a stack of one: every leaf gains a leading 1."""
+    return tree_map(lambda t: t[None], tree)
+
+
+def forward_one(theta, protos) -> np.ndarray:
+    """One client's head on (N, D) host prototypes -> (N, feat_dim) host
+    features, BN over the whole batch (``adaptive_forward`` of the
+    reference), run as a stack of one."""
+    dev = device_of(theta)
+    with torch.no_grad():
+        x = torch.from_numpy(np.asarray(protos, np.float32))[None].to(dev)
+        return EM.adaptive_forward(as_one(theta), x)[0][0].cpu().numpy()
 
 
 def eval_round_stacked(theta, qp, qids, task_mask, gp, gids, gmask, *,
@@ -96,13 +125,15 @@ def not_in_this_slice(what: str, where: str) -> NotImplementedError:
 
 
 class Strategy:
-    """Base: plain local training (STL) on the stacked engine. A strategy
-    with ``uses_server`` also defines ``server_round_stacked``,
-    ``apply_dispatch_stacked`` and ``stacked_dispatch_bytes``."""
+    """Base: plain local training (STL). A strategy with ``uses_server``
+    defines ``server_round`` and ``apply_dispatch`` (host engine) and, with
+    ``supports_stacked``, ``server_round_stacked`` and
+    ``apply_dispatch_stacked``."""
 
     name = "stl"
     uses_server = False
-    supports_stacked = True
+    # opt-in to run_simulation(engine="stacked")
+    supports_stacked = False
 
     def __init__(self, cfg: EM.EdgeModelConfig, *, lr=1e-3, weight_decay=1e-5,
                  epochs=5, batch=64, seed=0, codec=None, codec_opts=None):
@@ -139,22 +170,107 @@ class Strategy:
         """(C,) per-client penalties, or 0.0 for none."""
         return 0.0
 
-    # ---- state ---------------------------------------------------------------
+    def _train_step(self, trainable, opt_state, x, y, extras):
+        """One clipped Adam step of a stack of clients: x (C, B, D), y (C,
+        B). Each client's gradient is clipped to global norm 1.0 on its
+        own. Returns (trainable, opt_state, (C,) losses)."""
+        tr = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
+        losses = self.loss(tr, x, y, extras) + self.regularizer(tr, extras)
+        torch.sum(losses).backward()
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(tree_map(lambda t: t.grad, tr), 1.0)
+            updates, opt_state = self.opt.update(grads, opt_state, trainable)
+            trainable = apply_updates(trainable, updates)
+        return trainable, opt_state, losses.detach()
+
+    # ---- host engine: one client at a time -----------------------------------
+    def _loss_extras(self, state: ClientState):
+        """The client's ``reg_*`` extras as a stack of one (a zero
+        ``reg_dummy`` when it has none, as in the reference)."""
+        ex = {k: as_one(v) for k, v in state.extras.items()
+              if k.startswith("reg_")}
+        return ex if ex else {"reg_dummy": torch.zeros(
+            (1,), device=device_of(state.theta))}
+
+    def _run_epochs(self, state: ClientState, protos, labels,
+                    rehearsal: Optional[Tuple] = None):
+        """``epochs`` steps on one client: each epoch draws its minibatch
+        (then, with a rehearsal pool, its rehearsal rows) from ``self.rng``
+        in the reference's order. ``opt_state=None`` starts a fresh Adam.
+        Returns (state, the last step's loss as a (1,) tensor)."""
+        dev = device_of(state.theta)
+        trainable = as_one(state.theta)
+        opt_state = (self.opt.init(trainable) if state.opt_state is None
+                     else state.opt_state)
+        extras = self._loss_extras(state)
+        n = len(protos)
+        loss = None
+        for _ in range(self.epochs):
+            idx = self.rng.choice(n, size=min(self.batch, n),
+                                  replace=n < self.batch)
+            px, py = protos[idx], labels[idx]
+            if rehearsal is not None:
+                rx, ry = rehearsal
+                ridx = self.rng.choice(len(rx), size=self.batch // 2,
+                                       replace=True)
+                px = np.concatenate([px, rx[ridx]])
+                py = np.concatenate([py, ry[ridx]])
+            x = torch.from_numpy(px.astype(np.float32))[None].to(dev)
+            y = torch.from_numpy(py.astype(np.int64))[None].to(dev)
+            trainable, opt_state, loss = self._train_step(
+                trainable, opt_state, x, y, extras)
+        state.theta = tree_slice(trainable, 0)
+        state.opt_state = opt_state
+        return state, loss
+
     def init_client(self, theta0) -> ClientState:
+        """One client from its initial head (flat dict, no client axis)."""
         return ClientState(theta=theta0)
+
+    def local_train(self, client: int, state: ClientState, protos, labels,
+                    rnd: int, **_):
+        state, _ = self._run_epochs(state, protos, labels)
+        return state, None            # STL uploads nothing
+
+    def server_round(self, rnd: int, uploads: Dict[int, Any]) -> Dict[int, Any]:
+        return {}
+
+    def apply_dispatch(self, state: ClientState, dispatch) -> ClientState:
+        return state
+
+    def upload_bytes(self, upload) -> int:
+        return tree_bytes(upload)
+
+    def dispatch_bytes(self, dispatch) -> int:
+        return tree_bytes(dispatch)
+
+    def _eval_theta(self, state: ClientState):
+        """The client's eval-time head (identity here; FedSTIL combines)."""
+        return state.theta
+
+    def features(self, state: ClientState, protos) -> np.ndarray:
+        return forward_one(self._eval_theta(state), protos)
+
+    def stack_eval_thetas(self, states: Dict[int, ClientState]):
+        """All C clients' eval-time heads as one (C, ...) tree: the host
+        engine's entry to the batched evaluation."""
+        return tree_stack([self._eval_theta(states[c])
+                           for c in range(len(states))])
+
+    # ---- stacked engine: state -----------------------------------------------
 
     def stack_states(self, states: Dict[int, ClientState]) -> StackedClientState:
         """Stack C per-client states; array extras go to the device tree,
         everything else to per-client ``host`` lists."""
         C = len(states)
         ordered = [states[c] for c in range(C)]
-        trainable = stack_trees([s.theta for s in ordered])
+        trainable = tree_stack([s.theta for s in ordered])
         extras: Dict[str, Any] = {}
         host: Dict[str, List[Any]] = {}
         for k in ordered[0].extras:
             vals = [s.extras[k] for s in ordered]
             if _is_stackable(vals[0]):
-                extras[k] = stack_trees(vals)
+                extras[k] = tree_stack(vals)
             else:
                 host[k] = vals
         return StackedClientState(n_clients=C, trainable=trainable,
@@ -163,10 +279,10 @@ class Strategy:
 
     def client_view(self, stacked: StackedClientState, c: int) -> ClientState:
         """Client c's slice of the stacked state (storage accounting)."""
-        ex = {k: tree_map(lambda x: x[c], v) for k, v in stacked.extras.items()}
+        ex = {k: tree_slice(v, c) for k, v in stacked.extras.items()}
         for k, vals in stacked.host.items():
             ex[k] = vals[c]
-        return ClientState(theta=tree_map(lambda x: x[c], stacked.trainable),
+        return ClientState(theta=tree_slice(stacked.trainable, c),
                            extras=ex)
 
     def storage_bytes(self, state: ClientState) -> int:
@@ -212,26 +328,18 @@ class Strategy:
         by = torch.from_numpy(np.stack(bys).astype(np.int64))
         return bx.to(device), by.to(device)
 
-    def _loss_extras(self, stacked: StackedClientState):
+    def _stacked_loss_extras(self, stacked: StackedClientState):
         return {k: v for k, v in stacked.extras.items() if k.startswith("reg_")}
 
     def local_train_stacked(self, stacked: StackedClientState, bx, by,
                             protos_list, labels_list, rnd: int):
         """Train all C clients, one stacked step per epoch. Returns
         (stacked state, stacked upload or None)."""
-        extras = self._loss_extras(stacked)
+        extras = self._stacked_loss_extras(stacked)
         trainable, opt_state = stacked.trainable, stacked.opt_state
         for e in range(bx.shape[1]):
-            tr = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
-            total = torch.sum(self.loss(tr, bx[:, e], by[:, e], extras)
-                              + self.regularizer(tr, extras))
-            total.backward()
-            with torch.no_grad():
-                grads, _ = clip_by_global_norm(tree_map(lambda t: t.grad, tr),
-                                               1.0)
-                updates, opt_state = self.opt.update(grads, opt_state,
-                                                     trainable)
-                trainable = apply_updates(trainable, updates)
+            trainable, opt_state, _ = self._train_step(
+                trainable, opt_state, bx[:, e], by[:, e], extras)
         stacked.trainable = trainable
         stacked.opt_state = opt_state
         return stacked, None
@@ -244,6 +352,9 @@ class Strategy:
     def stacked_upload_bytes(self, upload, n_clients: int) -> int:
         """Per-client C2S bytes (stacked leaves carry C copies)."""
         return tree_bytes(upload) // max(n_clients, 1)
+
+    def stacked_dispatch_bytes(self, dispatch, n_clients: int) -> int:
+        return tree_bytes(dispatch) // max(n_clients, 1)
 
     # ---- wire codecs ---------------------------------------------------------
     # What part of a payload goes through the (lossy) codec and what ships
@@ -261,6 +372,32 @@ class Strategy:
 
     def join_dispatch_from_wire(self, decoded, verbatim):
         return decoded
+
+    def _wire_roundtrip(self, codec, tree, split, join, peer):
+        """One payload through a host codec (encode and decode in one
+        pass). The decoded leaves come back as tensors on the payload's
+        device. Returns (the receiver-visible payload, measured bytes, the
+        verbatim subtree's included)."""
+        lossy, verbatim = split(tree)
+        dev = device_of(lossy)
+        decoded, payload = codec.roundtrip(lossy, peer=peer)
+        measured = payload.nbytes
+        if verbatim is not None:
+            measured += tree_bytes(verbatim)
+        decoded = tree_map(lambda a: torch.from_numpy(a).to(dev), decoded)
+        return join(decoded, verbatim), measured
+
+    def wire_upload(self, upload, client: int):
+        """Host-engine C2S wire roundtrip of one client's upload."""
+        return self._wire_roundtrip(
+            self.upload_codec, upload, self.split_upload_for_wire,
+            self.join_upload_from_wire, ("c2s", client))
+
+    def wire_dispatch(self, dispatch, client: int):
+        """Host-engine S2C wire roundtrip of one client's dispatch."""
+        return self._wire_roundtrip(
+            self.dispatch_codec, dispatch, self.split_dispatch_for_wire,
+            self.join_dispatch_from_wire, ("s2c", client))
 
     def _stacked_wire_program(self, which: str, p: int) -> BatchedCodec:
         """The device codec program of one direction at payload size p,

@@ -1,17 +1,30 @@
-"""Federated lifelong simulation driver (paper §V protocol) on the stacked
-engine.
+"""Federated lifelong simulation driver (paper §V protocol).
 
-The port of ``run_simulation(..., engine="stacked", eval_backend="device")``
-of ``repro/federated/simulation.py``: C edge clients x T sequential tasks x
-R rounds (R/T rounds per task, ``epochs`` local epochs per round; the paper
-trains 60 rounds over 6 tasks). Each round: gather minibatches -> local
-training of all clients -> upload -> server integration -> dispatch ->
-every ``eval_every`` rounds the batched retrieval evaluation (mAP/CMC,
-Eq. 7) and forgetting (Eq. 8), with the reference's S2C/C2S byte
-accounting. A strategy with wire codecs (``FedSTIL(..., codec=
-"delta+topk")``) sends the upload and the dispatch through them (stages
-``encode_c2s`` and ``encode_s2c``) and logs the measured wire bytes beside
-the formulas (``SimulationResult.comm_breakdown()``).
+The port of ``run_simulation`` of ``repro/federated/simulation.py``: C edge
+clients x T sequential tasks x R rounds (R/T rounds per task, ``epochs``
+local epochs per round; the paper trains 60 rounds over 6 tasks). Each
+round: local training -> upload -> server integration -> dispatch -> every
+``eval_every`` rounds the retrieval evaluation (mAP/CMC, Eq. 7) and
+forgetting (Eq. 8), with the reference's S2C/C2S byte accounting. Two
+engines drive the rounds:
+
+  * ``engine="host"`` (the default, as in the reference): one client at a
+    time, per-client states, the server round over host lists of heads;
+    every strategy runs here.
+  * ``engine="stacked"``: strategies with ``supports_stacked`` keep all C
+    clients as one (C, ...) state, gather the round's minibatches up front
+    (the host engine's rng draw order, so both train on the same batches)
+    and train, serve and dispatch for all C at once.
+
+A strategy with wire codecs (``FedSTIL(..., codec="topk+int8")``) sends the
+upload and the dispatch through them (stages ``encode_c2s`` and
+``encode_s2c``; the host codec one client at a time on the host engine,
+``comm.batched.BatchedCodec`` over all C rows on the stacked one) and logs
+the measured wire bytes beside the formulas
+(``SimulationResult.comm_breakdown()``). Evaluation runs batched on the
+device (``eval_backend="device"``: every client's heads stacked, one pass)
+or, with ``"host"``, one client and task at a time through the numpy
+oracle (``evalreid.evaluate_retrieval``).
 
 Prototypes are extracted once up front (the extraction layers are frozen),
 and the evaluation inputs are cached: the (C, T, Q, D) query stacks stay on
@@ -26,6 +39,7 @@ waiting the round did not have.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -37,13 +51,13 @@ from repro_torch.common.device import StageTimes, resolve_device
 from repro_torch.core import edge_model as EM
 from repro_torch.data.synthetic import FederatedReIDBenchmark
 from repro_torch.evalreid.batched import max_match_bound
+from repro_torch.evalreid.retrieval import evaluate_retrieval
 from repro_torch.federated.base import (Strategy, eval_round_stacked,
                                         not_in_this_slice)
 from repro_torch.train.metrics import LifelongTracker
 
 EVAL_RANKS = (1, 3, 5)
-ENGINES_LATER = {"host": "the host-engine slice (5)",
-                 "sharded": "the scale-out slice (telemetry and scale-out)"}
+ENGINES_LATER = {"sharded": "the scale-out slice (telemetry and scale-out)"}
 
 
 @dataclasses.dataclass
@@ -68,45 +82,55 @@ class SimulationResult:
         return self.comm.round_breakdown()
 
 
-def _uniform(bench: FederatedReIDBenchmark):
+def _pre_extract_prototypes(bench: FederatedReIDBenchmark, g_params, device):
+    """Every task's train and query prototypes, computed once (the
+    extraction layers are frozen): one batched pass over the stacked
+    (C T, N, img_dim) images when every task has the same shapes (the
+    benchmark's default), task by task otherwise. Returns {(client, task):
+    (train protos, train labels, query protos, query labels)}, numpy (fp32
+    prototypes)."""
     tasks = [bench.task(c, t) for c in range(bench.n_clients)
              for t in range(bench.n_tasks)]
+
+    def extract(x):
+        with torch.no_grad():
+            return EM.extract_prototypes(
+                g_params, torch.from_numpy(x).to(device)).cpu().numpy()
+
     if len({(task.train_x.shape, task.query_x.shape) for task in tasks}) > 1:
-        raise not_in_this_slice(
-            "a benchmark with ragged task shapes (evaluated on the host)",
-            "the host-engine slice (5)")
-    return tasks
-
-
-def _pre_extract_prototypes(bench: FederatedReIDBenchmark, g_params, device):
-    """Every task's train and query prototypes, computed once in one
-    batched pass over the stacked (C T, N, img_dim) images. Returns
-    {(client, task): (train protos, train labels, query protos, query
-    labels)}, numpy (fp32 prototypes, int64 labels)."""
-    tasks = _uniform(bench)
+        return {(task.client, task.round): (
+            extract(task.train_x), task.train_y, extract(task.query_x),
+            task.query_y) for task in tasks}
     n_train = tasks[0].train_x.shape[0]
-    stacked = np.stack([np.concatenate([task.train_x, task.query_x])
-                        for task in tasks])
-    with torch.no_grad():
-        out = EM.extract_prototypes(
-            g_params, torch.from_numpy(stacked).to(device)).cpu().numpy()
+    out = extract(np.stack([np.concatenate([task.train_x, task.query_x])
+                            for task in tasks]))
     return {(task.client, task.round): (out[i, :n_train], task.train_y,
                                         out[i, n_train:], task.query_y)
             for i, task in enumerate(tasks)}
 
 
 class _EvalCache:
-    """Evaluation inputs, built once per simulation: the (C, T, Q, D) query
-    stacks and their ids on the device, the match bound, and each task's
-    padded (C, G_max, D) galleries (G_max = the last task's gallery size,
-    so the shapes never change; galleries of past tasks are dropped as t
-    advances)."""
+    """Evaluation inputs, built once per simulation: each (client, task)'s
+    host gallery, and for the batched evaluation (``stacks``, when every
+    query set has one shape) the (C, T, Q, D) query stacks and their ids on
+    the device, the match bound, and each task's padded (C, G_max, D)
+    galleries (G_max = the last task's gallery size, so the shapes never
+    change; galleries of past tasks are dropped as t advances)."""
 
-    def __init__(self, bench: FederatedReIDBenchmark, protos, device):
+    def __init__(self, bench: FederatedReIDBenchmark, protos, device,
+                 stacks: bool = True):
         self.bench = bench
         self.protos = protos
         self.device = device
         C, T = bench.n_clients, bench.n_tasks
+        self._dev_t: Optional[int] = None
+        self._dev_gal: Optional[Tuple[torch.Tensor, ...]] = None
+        self._host_gal: Dict[Tuple[int, int], Tuple[np.ndarray, ...]] = {}
+        qshapes = {protos[(c, t)][2].shape for c in range(C) for t in range(T)}
+        # a ragged benchmark cannot be stacked: it evaluates on the host
+        self.device_ready = stacks and len(qshapes) == 1
+        if not self.device_ready:
+            return
         qp = np.stack([np.stack([protos[(c, t)][2] for t in range(T)])
                        for c in range(C)]).astype(np.float32)
         qids = np.stack([np.stack([protos[(c, t)][3] for t in range(T)])
@@ -120,15 +144,19 @@ class _EvalCache:
             max_match_bound(qids[c][None], np.concatenate(
                 [protos[k][3] for k in bench.gallery_members(c, T - 1)])[None])
             for c in range(C))
-        self._dev_t: Optional[int] = None
-        self._dev_gal: Optional[Tuple[torch.Tensor, ...]] = None
 
     def host_gallery(self, c: int, t: int):
         """(gallery prototypes, ids) of client c at task t: the other
-        clients' query splits of tasks <= t."""
-        members = self.bench.gallery_members(c, t)
-        return (np.concatenate([self.protos[k][2] for k in members]),
+        clients' query splits of tasks <= t, built once per (c, t)."""
+        key = (c, t)
+        if key not in self._host_gal:
+            if self._host_gal and next(iter(self._host_gal))[1] != t:
+                self._host_gal.clear()       # t is monotone: drop old tasks
+            members = self.bench.gallery_members(c, t)
+            self._host_gal[key] = (
+                np.concatenate([self.protos[k][2] for k in members]),
                 np.concatenate([self.protos[k][3] for k in members]))
+        return self._host_gal[key]
 
     def device_gallery(self, t: int):
         """(C, G_max, D) prototypes, (C, G_max) ids (-1 = padding) and
@@ -163,6 +191,22 @@ def _round_summary(tracker, rnd):
     per_round["forgetting_mAP"] = tracker.mean_forgetting(rnd, "mAP")
     per_round["forgetting_R1"] = tracker.mean_forgetting(rnd, "R1")
     return per_round
+
+
+def _eval_round(strategy, get_state, cache, tracker, rnd, t):
+    """The host evaluation (Eq. 7/8), the oracle: per client and trained
+    task, features on the card (``strategy.features``) and the numpy
+    retrieval metrics. ``get_state(c)`` gives client c's state."""
+    for c in range(cache.bench.n_clients):
+        state = get_state(c)
+        gal_p, gal_y = cache.host_gallery(c, t)
+        gal_f = strategy.features(state, gal_p)
+        for tt in range(t + 1):
+            _, _, qx, qy = cache.protos[(c, tt)]
+            qf = strategy.features(state, qx)
+            m = evaluate_retrieval(qf, qy, gal_f, gal_y, ranks=EVAL_RANKS)
+            tracker.record(c, tt, rnd, m)
+    return _round_summary(tracker, rnd)
 
 
 def _eval_round_device(theta_stacked, cache, tracker, rnd, t):
@@ -200,56 +244,178 @@ def _initial_params(strategy, bench, seed, device, init_params):
                                            init_params["theta0"]]
 
 
+@dataclasses.dataclass
+class _Run:
+    """What both engines' round loops share."""
+
+    strategy: Strategy
+    bench: FederatedReIDBenchmark
+    protos: dict
+    cache: _EvalCache
+    g_params: dict
+    device: torch.device
+    rounds: int
+    eval_every: int
+    verbose: bool
+    tracker: LifelongTracker
+    comm: CommLog = dataclasses.field(default_factory=CommLog)
+    eval_rounds: List[Dict[str, float]] = dataclasses.field(
+        default_factory=list)
+    stage_ms: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    server_s: float = 0.0
+
+    @property
+    def rounds_per_task(self) -> int:
+        return max(1, self.rounds // self.bench.n_tasks)
+
+    def task(self, rnd: int) -> int:
+        return min(rnd // self.rounds_per_task, self.bench.n_tasks - 1)
+
+    def evaluate(self, clock, rnd, t, stacked_theta, get_state, engine):
+        """The round's evaluation when it is due: batched on the device
+        (``stacked_theta()``) or per client on the host (``get_state``)."""
+        if (rnd + 1) % self.eval_every and rnd != self.rounds - 1:
+            return
+        with clock.stage("eval"):
+            if self.cache.device_ready:
+                per_round = _eval_round_device(stacked_theta(), self.cache,
+                                               self.tracker, rnd, t)
+            else:
+                per_round = _eval_round(self.strategy, get_state, self.cache,
+                                        self.tracker, rnd, t)
+        self.eval_rounds.append(per_round)
+        if self.verbose:
+            print(f"  [{self.strategy.name}/{engine}/{self.device.type}] "
+                  f"round {rnd}: mAP={per_round['mAP']:.4f} "
+                  f"R1={per_round['R1']:.4f} "
+                  f"F={per_round['forgetting_mAP']:.4f}")
+
+
 def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
                    rounds: int = 12, eval_every: int = 2, seed: int = 0,
-                   verbose: bool = False, engine: str = "stacked",
+                   verbose: bool = False, engine: str = "host",
                    eval_backend: str = "device", device="cuda",
                    init_params: Optional[dict] = None) -> SimulationResult:
     """Drive ``rounds`` federated rounds of ``strategy`` over ``bench`` on
     ``device`` (the card by default; ``"cpu"`` runs the plain versions).
 
-    The engine is the stacked one (the only one ported); ``"host"`` and
-    ``"sharded"`` raise NotImplementedError, as does ``eval_backend="host"``.
-    ``init_params`` = {"extraction": {"w1", "w2"}, "theta0": [C flat head
-    dicts]} of numpy arrays starts from given weights instead of a CPU
-    torch generator seeded with ``seed`` (the reference draws from
-    ``jax.random``, which torch cannot reproduce).
+    ``engine``: ``"host"`` (the default, as in the reference) or
+    ``"stacked"`` (strategies with ``supports_stacked``); ``"sharded"``
+    raises NotImplementedError. ``eval_backend``: ``"device"`` (batched) or
+    ``"host"`` (per client, the numpy oracle). ``init_params`` =
+    {"extraction": {"w1", "w2"}, "theta0": [C flat head dicts]} of numpy
+    arrays starts from given weights instead of a CPU torch generator
+    seeded with ``seed`` (the reference draws from ``jax.random``, which
+    torch cannot reproduce).
     """
     if engine in ENGINES_LATER:
         raise not_in_this_slice(f"engine={engine!r}", ENGINES_LATER[engine])
-    if engine != "stacked":
+    if engine not in ("host", "stacked"):
         raise ValueError(f"unknown engine {engine!r}")
-    if eval_backend == "host":
-        raise not_in_this_slice("eval_backend='host'",
-                                "the host-engine slice (5)")
-    if eval_backend != "device":
+    if eval_backend not in ("device", "host"):
         raise ValueError(f"unknown eval_backend {eval_backend!r}")
-    if not strategy.supports_stacked:
+    if engine == "stacked" and not strategy.supports_stacked:
         raise ValueError(f"strategy {strategy.name!r} does not implement the "
-                         "stacked engine API")
+                         "stacked engine API; use engine='host'")
     dev = resolve_device(device)
-
-    C, T = bench.n_clients, bench.n_tasks
-    rounds_per_task = max(1, rounds // T)
     g_params, thetas0 = _initial_params(strategy, bench, seed, dev,
                                         init_params)
-    states = {c: strategy.init_client(thetas0[c]) for c in range(C)}
-    tracker = LifelongTracker(C)
-    comm = CommLog()
-    eval_rounds: List[Dict[str, float]] = []
-    stage_ms: List[Dict[str, float]] = []
-    server_s = 0.0
-
+    states = {c: strategy.init_client(thetas0[c])
+              for c in range(bench.n_clients)}
     protos = _pre_extract_prototypes(bench, g_params, dev)
-    cache = _EvalCache(bench, protos, dev)
-    stacked = strategy.stack_states(states)
+    run = _Run(strategy, bench, protos,
+               _EvalCache(bench, protos, dev, eval_backend == "device"),
+               g_params, dev, rounds, eval_every, verbose,
+               LifelongTracker(bench.n_clients))
+    storage = (_stacked_rounds(run, states) if engine == "stacked"
+               else _host_rounds(run, states))
+    return SimulationResult(strategy.name, run.tracker, run.comm, storage,
+                            run.eval_rounds, server_time_s=run.server_s,
+                            stage_ms=run.stage_ms, eval_cache=run.cache)
 
-    for rnd in range(rounds):
-        t = min(rnd // rounds_per_task, T - 1)
+
+def _host_rounds(run: _Run, states) -> int:
+    """The host engine: every round trains the clients one by one, sends
+    each upload (through the upload codec when there is one), runs the
+    server over the uploads and applies each non-empty dispatch (through
+    the dispatch codec). Returns the largest client storage."""
+    strategy, C, dev = run.strategy, run.bench.n_clients, run.device
+    accepts_raw = "raw_images" in inspect.signature(
+        strategy.local_train).parameters
+    for rnd in range(run.rounds):
+        t = run.task(rnd)
         clock = StageTimes(dev)
         t_round = time.perf_counter()
-        protos_list = [protos[(c, t)][0] for c in range(C)]
-        labels_list = [protos[(c, t)][1] for c in range(C)]
+        # EWC/MAS-style methods consolidate importance at task boundaries
+        consolidate = ((rnd + 1) % run.rounds_per_task == 0
+                       or rnd == run.rounds - 1)
+        uploads = {}
+        with clock.stage("local_train"):
+            for c in range(C):
+                px, py, _, _ = run.protos[(c, t)]
+                kw = {"consolidate": consolidate}
+                if accepts_raw:
+                    kw.update(raw_images=run.bench.task(c, t).train_x,
+                              g_params=run.g_params)
+                states[c], up = strategy.local_train(c, states[c], px, py,
+                                                     rnd, **kw)
+                if up is not None:
+                    uploads[c] = up
+        formulas = {c: strategy.upload_bytes(up) for c, up in uploads.items()}
+        if strategy.upload_codec is not None and uploads:
+            # the server integrates the DECODED (possibly lossy) uploads
+            with clock.stage("encode_c2s"):
+                for c in uploads:
+                    uploads[c], measured = strategy.wire_upload(uploads[c], c)
+                    run.comm.log_c2s(rnd, formulas[c], measured=measured)
+        else:
+            for c in uploads:
+                run.comm.log_c2s(rnd, formulas[c])
+
+        if strategy.uses_server and uploads:
+            t0 = time.perf_counter()
+            with clock.stage("server"):
+                dispatches = strategy.server_round(rnd, uploads)
+            run.server_s += time.perf_counter() - t0
+            clock.update({f"server.{k}": v
+                          for k, v in strategy.server_ms.items()})
+            dispatches = {c: d for c, d in dispatches.items() if d}
+            formulas = {c: strategy.dispatch_bytes(d)
+                        for c, d in dispatches.items()}
+            if strategy.dispatch_codec is not None and dispatches:
+                with clock.stage("encode_s2c"):
+                    for c in dispatches:
+                        dispatches[c], measured = strategy.wire_dispatch(
+                            dispatches[c], c)
+                        run.comm.log_s2c(rnd, formulas[c], measured=measured)
+            else:
+                for c in dispatches:
+                    run.comm.log_s2c(rnd, formulas[c])
+            with clock.stage("apply"):
+                for c, d in dispatches.items():
+                    states[c] = strategy.apply_dispatch(states[c], d)
+
+        run.evaluate(clock, rnd, t, lambda: strategy.stack_eval_thetas(states),
+                     lambda c: states[c], "host")
+        run.stage_ms.append({"round": rnd,
+                             "wall_ms": (time.perf_counter() - t_round) * 1e3,
+                             **clock})
+    return max(strategy.storage_bytes(states[c]) for c in range(C))
+
+
+def _stacked_rounds(run: _Run, states) -> int:
+    """The stacked engine: every round gathers all clients' minibatches,
+    trains them at once, and runs the upload codec, the server, the
+    dispatch codec and the dispatch over all C rows. Returns the largest
+    client storage."""
+    strategy, C, dev = run.strategy, run.bench.n_clients, run.device
+    stacked = strategy.stack_states(states)
+    for rnd in range(run.rounds):
+        t = run.task(rnd)
+        clock = StageTimes(dev)
+        t_round = time.perf_counter()
+        protos_list = [run.protos[(c, t)][0] for c in range(C)]
+        labels_list = [run.protos[(c, t)][1] for c in range(C)]
         with clock.stage("gather"):
             bx, by = strategy.gather_round_batches(stacked, protos_list,
                                                    labels_list, dev)
@@ -263,20 +429,20 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
                 # round consumes the decoded (lossy) upload
                 with clock.stage("encode_c2s"):
                     upload, measured = strategy.wire_upload_stacked(upload)
-                comm.log_c2s_many(rnd, formula, C, measured=measured)
+                run.comm.log_c2s_many(rnd, formula, C, measured=measured)
             else:
-                comm.log_c2s_many(rnd, formula, C)
+                run.comm.log_c2s_many(rnd, formula, C)
 
         if strategy.uses_server and upload is not None:
             t0 = time.perf_counter()
             with clock.stage("server"):
                 dispatch = strategy.server_round_stacked(rnd, upload)
-            server_s += time.perf_counter() - t0
+            run.server_s += time.perf_counter() - t0
             clock.update({f"server.{k}": v
                           for k, v in strategy.server_ms.items()})
             if dispatch is not None:
                 per_client = strategy.stacked_dispatch_bytes(dispatch, C)
-                n_nz = int(dispatch["nz"].sum())
+                n_nz = int(dispatch["nz"].sum()) if "nz" in dispatch else C
                 if strategy.dispatch_codec is not None:
                     # the stacked wire model is a BROADCAST stream: all C
                     # rows are encoded (and the delta references advance)
@@ -286,30 +452,19 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
                     with clock.stage("encode_s2c"):
                         dispatch, measured = strategy.wire_dispatch_stacked(
                             dispatch)
-                    comm.log_s2c_many(rnd, per_client, C, measured=measured,
-                                      n_formula=n_nz)
+                    run.comm.log_s2c_many(rnd, per_client, C,
+                                          measured=measured, n_formula=n_nz)
                 else:
-                    comm.log_s2c_many(rnd, per_client, n_nz)
+                    run.comm.log_s2c_many(rnd, per_client, n_nz)
                 with clock.stage("apply"):
                     stacked = strategy.apply_dispatch_stacked(stacked,
                                                               dispatch)
 
-        if (rnd + 1) % eval_every == 0 or rnd == rounds - 1:
-            with clock.stage("eval"):
-                per_round = _eval_round_device(
-                    strategy.eval_theta_stacked(stacked), cache, tracker, rnd,
-                    t)
-            eval_rounds.append(per_round)
-            if verbose:
-                print(f"  [{strategy.name}/stacked/{dev.type}] round {rnd}: "
-                      f"mAP={per_round['mAP']:.4f} R1={per_round['R1']:.4f} "
-                      f"F={per_round['forgetting_mAP']:.4f}")
-        stage_ms.append({"round": rnd,
-                         "wall_ms": (time.perf_counter() - t_round) * 1e3,
-                         **clock})
-
-    storage = max(strategy.storage_bytes(strategy.client_view(stacked, c))
-                  for c in range(C))
-    return SimulationResult(strategy.name, tracker, comm, storage, eval_rounds,
-                            server_time_s=server_s, stage_ms=stage_ms,
-                            eval_cache=cache)
+        run.evaluate(clock, rnd, t,
+                     lambda: strategy.eval_theta_stacked(stacked),
+                     lambda c: strategy.client_view(stacked, c), "stacked")
+        run.stage_ms.append({"round": rnd,
+                             "wall_ms": (time.perf_counter() - t_round) * 1e3,
+                             **clock})
+    return max(strategy.storage_bytes(strategy.client_view(stacked, c))
+               for c in range(C))

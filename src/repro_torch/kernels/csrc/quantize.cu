@@ -1,8 +1,9 @@
-// batched_quantize: per-chunk symmetric int8 quantization of stacked rows.
+// batched_quantize: per-chunk symmetric int8 quantization of stacked rows,
+// and batched_dequantize, its inverse.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/quantize.py:batched_quantize
-// (_quant_kernel). For every client row c and chunk j of `chunk` contiguous
-// elements:
+// batched_quantize replaces the Pallas TPU kernel
+// src/repro/kernels/quantize.py:batched_quantize (_quant_kernel). For every
+// client row c and chunk j of `chunk` contiguous elements:
 //
 //     scale[c, j] = max |x[c, j*chunk : (j+1)*chunk]| * fl(1/127)  (not > 0 -> 1.0)
 //     q[c, i]     = clip(rint(x[c, i] / scale), -127, 127)
@@ -28,6 +29,20 @@
 // x / scale is a true division, __fdiv_rn (correctly rounded whatever the
 // flags), and rounding is rintf, half to even like torch.round and
 // jnp.round. Never build this file with --use_fast_math.
+//
+// batched_dequantize replaces src/repro/kernels/quantize.py:batched_dequantize
+// (_dequant_kernel):
+//
+//     out[c, i] = float(q[c, i]) * scale[c, i / chunk]
+//
+// one IEEE product (__fmul_rn), so it is bit-identical to the plain version
+// and to the reference's ref and interpret paths. Bytes bound it: 1 byte in
+// and 4 out per element. Design: a thread per 4 codes (a 4-byte char4 load,
+// a 16-byte float4 store, the chunk's scale read once) when P and the chunk
+// are multiples of 4 and both bases are aligned (the wrapper decides);
+// otherwise a thread per code. The reference pads the tail chunk of a row
+// with zero codes and scale 1.0; here each thread stays inside its row, so
+// the tail chunk of a ragged P needs no padding.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +83,30 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) scales[c * nc + j] = s;
 }
 
+__global__ void __launch_bounds__(kThreads)
+dequantize_kernel(const int8_t* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  unsigned P, unsigned nc, unsigned chunk, unsigned n_items,
+                  bool vec) {
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_items) return;
+  if (vec) {
+    const unsigned per_row = P / 4;
+    const unsigned c = t / per_row;
+    const unsigned i = (t - c * per_row) * 4;
+    const float s = scales[(size_t)c * nc + i / chunk];
+    const size_t off = (size_t)c * P + i;
+    const char4 v = *reinterpret_cast<const char4*>(q + off);
+    *reinterpret_cast<float4*>(out + off) = make_float4(
+        __fmul_rn((float)v.x, s), __fmul_rn((float)v.y, s),
+        __fmul_rn((float)v.z, s), __fmul_rn((float)v.w, s));
+  } else {
+    const unsigned c = t / P;
+    const unsigned i = t - c * P;
+    out[t] = __fmul_rn((float)q[t], scales[(size_t)c * nc + i / chunk]);
+  }
+}
+
 }  // namespace
 
 // x: (C, P) fp32; q: (C, P) int8; scales: (C, ceil(P / chunk)) fp32.
@@ -81,5 +120,24 @@ extern "C" int repro_batched_quantize(const void* x, void* q, void* scales,
   const long long blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   quantize_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (int8_t*)q, (float*)scales, P, nc, n_chunks, chunk);
+  return (int)cudaGetLastError();
+}
+
+// q: (C, P) int8; scales: (C, ceil(P / chunk)) fp32; out: (C, P) fp32; C * P
+// < 2^31; vec = P % 4 == 0, chunk % 4 == 0 and the bases of q (4 bytes) and
+// out (16 bytes) aligned. All contiguous on the current device. Returns
+// cudaGetLastError().
+extern "C" int repro_batched_dequantize(const void* q, const void* scales,
+                                        void* out, long long C, long long P,
+                                        int chunk, int vec, void* stream) {
+  const long long n = C * P;
+  if (n == 0) return 0;
+  if (n >= (1LL << 31) || chunk < 1) return (int)cudaErrorInvalidValue;
+  const long long nc = (P + chunk - 1) / chunk;
+  const long long items = vec ? n / 4 : n;
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  dequantize_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (const float*)scales, (float*)out, (unsigned)P,
+      (unsigned)nc, (unsigned)chunk, (unsigned)items, vec != 0);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
-// fused_relevance_aggregate: the server round's Eq. 5 -> 6 tail.
+// The server's Eq. 6 aggregate, in two entry points over one tile product.
 //
-// Replaces the Pallas TPU kernel
+// fused_relevance_aggregate replaces the Pallas TPU kernel
 // src/repro/kernels/relevance_aggregate.py:fused_relevance_aggregate
-// (_fused_kernel):
+// (_fused_kernel), the stacked round's Eq. 5 -> 6 tail:
 //
 //   Wm = where(i == j, 0, W)          (no self-relevance; junk, even NaN,
 //                                      on the diagonal never leaks)
@@ -12,24 +12,31 @@
 // with W (C, C) raw decayed relevance and Theta (C, P) the stacked client
 // parameters, both fp32; outputs B (C, P) and Wn (C, C) fp32.
 //
-// What bounds it on an H100: B does 2 C^2 P FLOPs over about 8 C P bytes,
-// C/4 FLOP per byte, against the card's fp32 ridge of 67 TFLOP/s / 3.35
-// TB/s = 20 FLOP/B. At C = 5 it is bytes (0.7 us at P = 57 664); above
-// C ~ 80 it is fp32 FMAs (1.72 ms at C = 1000), not bandwidth.
+// relevance_aggregate replaces
+// src/repro/kernels/relevance_aggregate.py:relevance_aggregate (_agg_kernel),
+// the host server's plain product B = W @ Theta with W (R, C) already
+// normalized, R <= C (the rows of clients with relevant neighbours), B (R, P).
 //
-// Design: two launches on the caller's stream.
+// What bounds them on an H100: B does 2 R C P FLOPs over about 4 (R + C) P
+// bytes, about R/4 FLOP per byte at R = C, against the card's fp32 ridge of
+// 67 TFLOP/s / 3.35 TB/s = 20 FLOP/B. At C = 5 it is bytes (0.7 us at
+// P = 57 664); above C ~ 80 it is fp32 FMAs (1.72 ms at C = 1000), not
+// bandwidth.
+//
+// Design: the fused entry is two launches on the caller's stream, the plain
+// entry the second alone.
 //   1. The prologue normalizes W, one block per row: the diagonal is
 //      replaced by 0 (a select, as the TPU kernel's `where`), the row sum
 //      is reduced in the block, and each entry is divided by it with a
 //      correctly rounded __fdiv_rn; a row whose sum is not > 0 (all zero,
 //      or NaN off the diagonal) is written as zeros. Wn is written once.
-//   2. The product Wn Theta with K = C, in 64 x 64 output tiles (64 client
-//      rows x 64 parameter columns), 4 x 4 outputs per thread in
-//      registers, the Wn tile staged k-major and the Theta tile row-major
-//      in shared memory (one float4 read each per k), IEEE fp32 FMAs in
-//      ascending k (no TF32). Theta is read along P by neighbouring
-//      threads, so every load is coalesced; B is written once. Ragged C and
-//      P are masked in the loads and the stores.
+//   2. The product W Theta with K = C, in 64 x 64 output tiles (64 rows of
+//      W x 64 parameter columns), 4 x 4 outputs per thread in registers,
+//      the W tile staged k-major and the Theta tile row-major in shared
+//      memory (one float4 read each per k), IEEE fp32 FMAs in ascending k
+//      (no TF32). Theta is read along P by neighbouring threads, so every
+//      load is coalesced; B is written once. Ragged R, C and P are masked in
+//      the loads and the stores.
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,7 +77,7 @@ normalize_kernel(const float* __restrict__ w, float* __restrict__ wn, int C) {
 __global__ void __launch_bounds__(kThreads)
 aggregate_tile_kernel(const float* __restrict__ wn,
                       const float* __restrict__ theta, float* __restrict__ b,
-                      int C, long long P) {
+                      int R, int C, long long P) {
   __shared__ __align__(16) float ws[kTK][kTR + kPad];
   __shared__ __align__(16) float ts[kTK][kTP + kPad];
 
@@ -87,11 +94,11 @@ aggregate_tile_kernel(const float* __restrict__ wn,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < C; k0 += kTK) {
-    // Wn tile: neighbouring threads read neighbouring k of one row
+    // W tile: neighbouring threads read neighbouring k of one row
     for (int e = tid; e < kTR * kTK; e += kThreads) {
       const int r = e / kTK, k = e % kTK;
       const int row = r0 + r, kk = k0 + k;
-      ws[k][r] = (row < C && kk < C) ? wn[(size_t)row * C + kk] : 0.f;
+      ws[k][r] = (row < R && kk < C) ? wn[(size_t)row * C + kk] : 0.f;
     }
     // Theta tile: neighbouring threads read neighbouring parameters
     for (int e = tid; e < kTK * kTP; e += kThreads) {
@@ -120,7 +127,7 @@ aggregate_tile_kernel(const float* __restrict__ wn,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + ty * 4 + i;
-    if (row >= C) break;
+    if (row >= R) break;
     float* o = b + (size_t)row * P + col;
     if (vec) {
       *reinterpret_cast<float4*>(o) =
@@ -131,6 +138,15 @@ aggregate_tile_kernel(const float* __restrict__ wn,
         if (col + j < P) o[j] = acc[i][j];
     }
   }
+}
+
+int launch_product(const float* w, const float* theta, float* b, int R,
+                   int C, long long P, cudaStream_t s) {
+  if (R == 0 || P == 0) return 0;
+  const long long tiles = (P + kTP - 1) / kTP;
+  const dim3 grid((unsigned)tiles, (R + kTR - 1) / kTR);
+  aggregate_tile_kernel<<<grid, kThreads, 0, s>>>(w, theta, b, R, C, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -144,11 +160,17 @@ extern "C" int repro_fused_relevance_aggregate(const void* w,
   if (C == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   normalize_kernel<<<C, kThreads, 0, s>>>((const float*)w, (float*)wn, C);
-  int err = (int)cudaGetLastError();
-  if (err || P == 0) return err;
-  const long long tiles = (P + kTP - 1) / kTP;
-  const dim3 grid((unsigned)tiles, (C + kTR - 1) / kTR);
-  aggregate_tile_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)wn, (const float*)theta, (float*)b, C, P);
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_product((const float*)wn, (const float*)theta, (float*)b, C,
+                        C, P, s);
+}
+
+// w: (R, C), theta: (C, P), b: (R, P); all fp32, contiguous, on the current
+// device. Returns cudaGetLastError().
+extern "C" int repro_relevance_aggregate(const void* w, const void* theta,
+                                         void* b, int R, int C, long long P,
+                                         void* stream) {
+  return launch_product((const float*)w, (const float*)theta, (float*)b, R, C,
+                        P, (cudaStream_t)stream);
 }

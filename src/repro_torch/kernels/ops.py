@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as REF
+from repro_torch.kernels.adaptive_combine import adaptive_combine as _combine
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
 from repro_torch.kernels.ivf import batched_cluster_dist as _bcdist
@@ -16,9 +17,13 @@ from repro_torch.kernels.ivf import \
     batched_ivf_shortlist_scores as _bivfshort
 from repro_torch.kernels.kl_similarity import kl_similarity as _kl
 from repro_torch.kernels.pairwise_dist import batched_pairwise_dist as _bpdist
+from repro_torch.kernels.pairwise_dist import pairwise_dist as _pdist
+from repro_torch.kernels.quantize import batched_dequantize as _bdequant
 from repro_torch.kernels.quantize import batched_quantize as _bquant
 from repro_torch.kernels.relevance_aggregate import \
     fused_relevance_aggregate as _fused_agg
+from repro_torch.kernels.relevance_aggregate import \
+    relevance_aggregate as _agg
 from repro_torch.kernels.topk_pack import batched_idx_bitpack as _bidxpack
 from repro_torch.kernels.topk_pack import batched_idx_bitunpack as _bidxunpack
 from repro_torch.kernels.topk_pack import batched_topk_pack as _btopk
@@ -42,6 +47,13 @@ def batched_pairwise_dist(q, g):
     return REF.batched_pairwise_dist_ref(q, g)
 
 
+def pairwise_dist(q, g):
+    """(Q, D) x (G, D) -> (Q, G) fp32 squared distances."""
+    if _on_cuda(q, g):
+        return _pdist(q, g)
+    return REF.pairwise_dist_ref(q, g)
+
+
 def batched_int8_pairwise_dist(q, gq, gscale, gn2):
     """(C, B, F) fp32 queries x int8 resident gallery ((C, G, F) codes,
     (C, G) scales, (C, G) dequantized squared norms) -> (C, B, G)."""
@@ -55,6 +67,50 @@ def batched_quantize(x, *, chunk: int = 256):
     if _on_cuda(x):
         return _bquant(x, chunk=chunk)
     return REF.batched_quantize_ref(x, chunk=chunk)
+
+
+def batched_dequantize(q, scales, *, chunk: int = 256):
+    """Inverse of ``batched_quantize``: (C, P) int8 + (C, ceil(P/chunk))
+    fp32 scales -> (C, P) fp32."""
+    if _on_cuda(q, scales):
+        return _bdequant(q, scales, chunk=chunk)
+    return REF.batched_dequantize_ref(q, scales, chunk=chunk)
+
+
+class AdaptiveCombine(torch.autograd.Function):
+    """theta = B * alpha + A whose forward goes through the device dispatch
+    (the CUDA kernel for CUDA tensors, the plain version for CPU ones) and
+    whose backward forms the products autograd forms for the plain
+    expression: d alpha = g * B, d A = g, d B = g * alpha. The reference
+    has no backward kernel, so the backward is plain torch."""
+
+    @staticmethod
+    def forward(ctx, base, alpha, a):
+        ctx.save_for_backward(base, alpha)
+        if _on_cuda(base, alpha, a):
+            return _combine(base.contiguous(), alpha.contiguous(),
+                            a.contiguous())
+        return REF.adaptive_combine_ref(base, alpha, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        base, alpha = ctx.saved_tensors
+        need_b, need_alpha, need_a = ctx.needs_input_grad
+        return (g * alpha if need_b else None,
+                g * base if need_alpha else None,
+                g if need_a else None)
+
+
+def adaptive_combine(base, alpha, a):
+    """FedSTIL Eq. 2 over one leaf: base * alpha + a, differentiable."""
+    return AdaptiveCombine.apply(base, alpha, a)
+
+
+def relevance_aggregate(w, thetas):
+    """Eq. 6 over given rows: (R, C) fp32 relevance x (C, P) -> (R, P)."""
+    if _on_cuda(w, thetas):
+        return _agg(w, thetas)
+    return REF.relevance_aggregate_ref(w, thetas)
 
 
 def kl_similarity(a, b):

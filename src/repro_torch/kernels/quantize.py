@@ -1,12 +1,15 @@
-"""CUDA kernel wrapper: batched per-chunk int8 quantization
-(``csrc/quantize.cu``; replaces ``repro/kernels/quantize.py:batched_quantize``).
+"""CUDA kernel wrappers: batched per-chunk int8 quantization and its inverse
+(``csrc/quantize.cu``; replace ``repro/kernels/quantize.py:batched_quantize``
+and ``:batched_dequantize``).
 
     scale[c, j] = max(|x[c, j*chunk:(j+1)*chunk]|) * fl32(1/127)   (0 -> 1.0)
     q[c, i]     = clip(round_half_even(x[c, i] / scale), -127, 127)
+    out[c, i]   = q[c, i] * scale[c, i // chunk]                 (dequantize)
 
-The serving index calls it with ``chunk = feat_dim``: one scale per row.
-Takes CUDA tensors only; ``ops.batched_quantize`` sends CPU tensors to the
-plain version.
+The serving index quantizes with ``chunk = feat_dim``: one scale per row;
+the wire codec quantizes and dequantizes with chunk 256. Take CUDA tensors
+only; ``ops.batched_quantize`` / ``ops.batched_dequantize`` send CPU
+tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from repro_torch.kernels import _build
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+_DEQ_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
+             + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
 
 
 def batched_quantize(x: torch.Tensor, *, chunk: int = 256):
@@ -44,3 +49,36 @@ def batched_quantize(x: torch.Tensor, *, chunk: int = 256):
 
 
 batched_quantize.launches = 0
+
+
+def batched_dequantize(q: torch.Tensor, scales: torch.Tensor, *,
+                       chunk: int = 256):
+    """(C, P) int8 codes + (C, ceil(P/chunk)) fp32 scales -> (C, P) fp32."""
+    if q.dim() != 2:
+        raise ValueError(f"q: expected (C, P), got shape {tuple(q.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    C, P = q.shape
+    dev = q.device
+    nc = (P + chunk - 1) // chunk
+    _build.check_operand("q", q, torch.int8, (C, P), dev)
+    _build.check_operand("scales", scales, torch.float32, (C, nc), dev)
+    if C * P >= 1 << 31:
+        raise ValueError(f"batched_dequantize: {C * P} codes, the kernel "
+                         "indexes fewer than 2^31")
+    out = torch.empty((C, P), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    vec = int(P % 4 == 0 and chunk % 4 == 0 and q.data_ptr() % 4 == 0
+              and out.data_ptr() % 16 == 0)
+    fn = _build.kernel("quantize", "repro_batched_dequantize", _DEQ_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), C, P, chunk,
+                vec, stream)
+    _build.raise_on_error("batched_dequantize", rc)
+    batched_dequantize.launches += 1
+    return out
+
+
+batched_dequantize.launches = 0

@@ -53,6 +53,30 @@ def batched_quantize_ref(x, *, chunk: int = 256):
     return q.reshape(C, nc * chunk)[:, :P].contiguous(), scale[..., 0]
 
 
+def batched_dequantize_ref(q, scales, *, chunk: int = 256):
+    """Inverse of ``batched_quantize_ref``: (C, P) int8 codes x (C,
+    ceil(P/chunk)) per-chunk fp32 scales -> (C, P) fp32, one product per
+    element (the tail chunk of a ragged P is padded with zero codes, as in
+    the reference)."""
+    C, P = q.shape
+    nc = scales.shape[1]
+    qp = F.pad(q, (0, nc * chunk - P)).float()
+    out = qp.reshape(C, nc, chunk) * scales[..., None]
+    return out.reshape(C, nc * chunk)[:, :P]
+
+
+def adaptive_combine_ref(base, alpha, a):
+    """FedSTIL Eq. 2: theta = base * alpha + a, elementwise (the product
+    and the sum each rounded)."""
+    return base * alpha + a
+
+
+def relevance_aggregate_ref(w, thetas):
+    """FedSTIL Eq. 6 over given rows: (R, C) x (C, P) -> (R, P) in thetas'
+    dtype, fp32 sums."""
+    return (w.float() @ thetas.float()).to(thetas.dtype)
+
+
 def kl_log_shift(D: int) -> float:
     """fp32 log(D): the shift both versions add to log p and log q."""
     return float(torch.tensor(math.log(D), dtype=torch.float32))

@@ -4,12 +4,22 @@ the same numpy inputs, on the CPU.
 
 Everything here is exact: the top-k ranks are integer counts, the values
 one-hot sums with a single nonzero term (a finite value comes out
-unchanged), the indices and bit-planes int32 shifts and masks, and the
+unchanged), the indices and bit-planes int32 shifts and masks, the int8
+codes and scales and the bf16 bits the reference's arithmetic, and the
 delta references advance by fp32 elementwise sums of equal operands. The
 kernels are compared with ``assert_array_equal`` (values as numbers, so
-+0.0 and -0.0 are equal; indices and packed bytes bit for bit). The CUDA
-kernels run only on the card, where chip_smoke.py holds them against these
-plain versions.
++0.0 and -0.0 are equal; indices, codes and packed bytes bit for bit). A
+bf16 buffer is compared by its bits (``view(np.uint16)``) and ``nbytes``:
+the reference keeps an ml_dtypes array, the port's host codec the uint16
+bit patterns and its batched codec a ``torch.bfloat16`` tensor. One
+comparison is not exact, in either package: the host codec's int8 scale
+divides by 127 and the batched codec's multiplies by fl32(1/127), so a row
+of the batched stream and the host codec's payload of the same row may
+differ by an ulp in a scale (and then by one code at a rounding boundary);
+there the port's host codec is held to the JAX host codec bit for bit,
+and its difference from the port's batched stream to the reference's own
+(the same elements differ, by the same amounts). The CUDA kernels run only on the card, where chip_smoke.py holds them against
+these plain versions.
 """
 import jax
 import jax.numpy as jnp
@@ -55,6 +65,17 @@ def _np(t):
 
 def _jops(name, backend, *args, **kw):
     return getattr(JOPS, name)(*args, backend=backend, **kw)
+
+
+def _bits(a):
+    """A wire buffer as comparable numpy: bf16 (ml_dtypes or torch) as its
+    uint16 bits, anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.detach().cpu().numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +253,33 @@ def test_host_quantize_copy_equals_jax():
                                   JCODEC.dequantize_host(jq, js, 256))
 
 
+def test_bf16_bits_equal_ml_dtypes():
+    """The host codec's bf16 stage without ml_dtypes: the same bits as the
+    reference's ``np.asarray(v, dtype=jnp.bfloat16)`` for normal, subnormal,
+    halfway, infinite and NaN inputs (arbitrary fp32 bit patterns), and an
+    exact way back."""
+    rng = np.random.default_rng(12)
+    x = np.concatenate([
+        rng.standard_normal(4096).astype(np.float32),
+        rng.integers(0, 2 ** 32, 8192, dtype=np.uint64).astype(
+            np.uint32).view(np.float32),
+        np.array([np.inf, -np.inf, np.nan, -np.nan, 0.0, -0.0, 1.00390625,
+                  1.01171875, 3.4028235e38, 1e-45], np.float32)])
+    with np.errstate(invalid="ignore"):
+        ref_bits = np.asarray(x, dtype=jnp.bfloat16).view(np.uint16)
+    bits = CODEC.bf16_bits_host(x)
+    assert bits.dtype == np.uint16 and bits.nbytes == ref_bits.nbytes
+    np.testing.assert_array_equal(bits, ref_bits)
+    np.testing.assert_array_equal(
+        CODEC.bf16_bits_to_f32(bits).view(np.uint32),
+        np.asarray(ref_bits.view(jnp.bfloat16), np.float32).view(np.uint32))
+
+
 HOST_SPECS = [("raw", {}), ("delta", {}), ("topk", {}), ("delta+topk", {}),
               ("topk", {"delta": False}), ("topk", {"k": 60, "delta": False}),
-              ("delta+topk", {"keep_frac": 0.25})]
+              ("delta+topk", {"keep_frac": 0.25}), ("int8", {}), ("bf16", {}),
+              ("topk+int8", {}), ("delta+topk+bf16", {}),
+              ("topk+int8", {"delta": False})]
 
 
 @pytest.mark.parametrize("spec,opts", HOST_SPECS,
@@ -255,8 +300,9 @@ def test_host_codec_stream_equals_jax(spec, opts):
             assert sorted(p.buffers) == sorted(j.buffers)
             for name in p.buffers:
                 np.testing.assert_array_equal(p.buffers[name],
-                                              j.buffers[name])
-                assert p.buffers[name].dtype == j.buffers[name].dtype
+                                              _bits(j.buffers[name]))
+                assert p.buffers[name].dtype == _bits(j.buffers[name]).dtype
+                assert p.buffers[name].nbytes == j.buffers[name].nbytes
             assert p.nbytes == j.nbytes
             assert p.schema["sparse"] == j.schema["sparse"]
             dp, dj = port.decode(p, peer=peer), jax_.decode(j, peer=peer)
@@ -272,10 +318,11 @@ def test_host_codec_stream_equals_jax(spec, opts):
 
 
 def test_make_codec_parses_as_the_reference():
-    for spec in ("raw", "delta", "topk", "delta+topk", " topk + delta "):
+    for spec in ("raw", "delta", "topk", "delta+topk", " topk + delta ",
+                 "int8", "bf16", "topk+int8", "delta+topk+bf16"):
         p, j = CODEC.make_codec(spec), JCODEC.make_codec(spec)
-        assert (p.delta, p.topk, p.group, p.kg, p.quant) == (
-            j.delta, j.topk, j.group, j.kg, j.quant)
+        assert (p.delta, p.topk, p.group, p.kg, p.quant, p.chunk) == (
+            j.delta, j.topk, j.group, j.kg, j.quant, j.chunk)
     assert CODEC.make_codec(None) is None
     stateless = CODEC.make_codec("topk", delta=False)
     assert stateless.topk and not stateless.delta
@@ -287,9 +334,9 @@ def test_make_codec_parses_as_the_reference():
         CODEC.make_codec("topk+gzip")
     with pytest.raises(ValueError, match="at most one quantization"):
         CODEC.make_codec("int8+bf16")
-    for spec in ("int8", "bf16", "topk+int8", "delta+topk+bf16"):
-        with pytest.raises(NotImplementedError, match="wire-codec slice 4b"):
-            CODEC.make_codec(spec)
+    assert CODEC.make_codec("int8", chunk=64).chunk == 64
+    with pytest.raises(ValueError, match="unknown quant stage"):
+        CODEC.PipelineCodec("x", quant="fp8")
     with pytest.raises(ValueError, match="global top-k"):
         BatchedCodec(CODEC.make_codec("topk", k=10), 100)
 
@@ -300,7 +347,9 @@ def test_make_codec_parses_as_the_reference():
 
 
 BATCHED_SPECS = [("delta+topk", {}), ("topk", {}), ("topk", {"delta": False}),
-                 ("delta", {}), ("raw", {})]
+                 ("delta", {}), ("raw", {}), ("int8", {}), ("bf16", {}),
+                 ("topk+int8", {}), ("delta+topk+bf16", {}),
+                 ("topk+int8", {"delta": False})]
 
 
 @pytest.mark.parametrize("spec,opts", BATCHED_SPECS,
@@ -310,12 +359,14 @@ def test_batched_codec_stream_matches_jax_and_host(spec, opts):
     bit-equal reconstructions and equal per-client bytes against the JAX
     BatchedCodec; each row equal to the port's host codec, whose per-peer
     delta stream it mirrors (``tests/test_comm_codec.py``'s parity, made
-    exact)."""
+    exact; for int8 the host rows differ from the batched ones exactly
+    where the reference's do, module docstring)."""
     rng = np.random.default_rng(6)
     C, P = 4, 999
     port = BatchedCodec(CODEC.make_codec(spec, **opts), P)
     jref = JBATCHED.BatchedCodec(JCODEC.make_codec(spec, **opts), P)
     host = CODEC.make_codec(spec, **opts)
+    jhost = JCODEC.make_codec(spec, **opts)
     enc_only = BatchedCodec(CODEC.make_codec(spec, **opts), P)
     for r in range(3):
         mat = _codec_input(rng, C, P) * np.float32(1 + r)
@@ -325,8 +376,8 @@ def test_batched_codec_stream_matches_jax_and_host(spec, opts):
         assert ("idx_bits" in buffers) == sparse
         assert sorted(buffers) == sorted(jbuf)
         for name in buffers:
-            np.testing.assert_array_equal(_np(buffers[name]),
-                                          np.asarray(jbuf[name]))
+            np.testing.assert_array_equal(_bits(buffers[name]),
+                                          _bits(jbuf[name]))
         np.testing.assert_array_equal(recon.numpy(), np.asarray(jrecon))
         per_client = port.per_client_bytes(buffers)
         assert per_client == jref.per_client_bytes(jbuf)
@@ -337,11 +388,19 @@ def test_batched_codec_stream_matches_jax_and_host(spec, opts):
         for c in range(C):
             payload = host.encode({"w": mat[c]}, peer=c)
             assert payload.nbytes == per_client
+            decoded = host.decode(payload, peer=c)["w"]
+            if port.quant == "int8":
+                jdecoded = jhost.decode(jhost.encode({"w": mat[c]}, peer=c),
+                                        peer=c)["w"]
+                np.testing.assert_array_equal(decoded, jdecoded)
+                np.testing.assert_array_equal(
+                    decoded - recon[c].numpy(),
+                    jdecoded - np.asarray(jrecon[c]))
+                continue
             for name in buffers:
                 np.testing.assert_array_equal(payload.buffers[name],
-                                              _np(buffers[name][c]))
-            np.testing.assert_array_equal(host.decode(payload, peer=c)["w"],
-                                          recon[c].numpy())
+                                              _bits(buffers[name][c]))
+            np.testing.assert_array_equal(decoded, recon[c].numpy())
     assert set(port.last_metrics) == {"residual_norm", "kept_energy",
                                       "keep_rate"}
     for name, v in port.last_metrics.items():

@@ -26,7 +26,11 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("topk_pack", "batched_topk_pack"),
             ("topk_pack", "batched_topk_unpack"),
             ("topk_pack", "batched_idx_bitpack"),
-            ("topk_pack", "batched_idx_bitunpack")]
+            ("topk_pack", "batched_idx_bitunpack"),
+            ("quantize", "batched_dequantize"),
+            ("relevance_aggregate", "relevance_aggregate"),
+            ("adaptive_combine", "adaptive_combine"),
+            ("pairwise_dist", "pairwise_dist")]
 # wrappers whose CUDA source is not named after their module
 SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
              ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}

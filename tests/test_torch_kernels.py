@@ -5,6 +5,14 @@ kernel in interpret mode.
 
 Tolerances: quantization is bit-exact (IEEE division, round half to even);
 distances agree to atol = rtol = 1e-5 (fp32 sums over F in another order);
+the 2-D distances likewise; dequantization bit-exact (one IEEE product);
+the adaptive combine bit-exact against the reference's expression run
+eagerly (a product and a sum, each rounded; gradients equal to autograd's
+of ``B*alpha + A`` bit for bit) and, against its jitted ``ref`` and
+``interpret`` paths, which XLA contracts into one fused multiply-add on
+the CPU (ROADMAP Queue 3), within the product's rounding: half an ulp of
+B*alpha plus an ulp of the result; the plain
+relevance aggregate to atol 1e-6 (fp32 products over C <= 7 terms);
 KL similarities to atol 4e-6 against the JAX package (its fp32 h and
 cross term are each about -log D ~ -5, and it lies up to ~2e-6 from a
 float64 evaluation of S) and to atol 5e-7 against float64 (the port shifts
@@ -13,19 +21,24 @@ normalized relevance Wn to atol 1e-6 and the aggregate B to 1e-5.
 The CUDA kernels themselves run only on the card: chip_smoke.py holds each
 against these plain versions there.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as JOPS
+from repro.kernels import ref as JREF
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.adaptive_combine import adaptive_combine
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist
 from repro_torch.kernels.ivf import (batched_cluster_dist,
                                      batched_ivf_shortlist_scores)
 from repro_torch.kernels.kl_similarity import kl_similarity
-from repro_torch.kernels.pairwise_dist import batched_pairwise_dist
-from repro_torch.kernels.quantize import batched_quantize
-from repro_torch.kernels.relevance_aggregate import fused_relevance_aggregate
+from repro_torch.kernels.pairwise_dist import (batched_pairwise_dist,
+                                               pairwise_dist)
+from repro_torch.kernels.quantize import batched_dequantize, batched_quantize
+from repro_torch.kernels.relevance_aggregate import (fused_relevance_aggregate,
+                                                     relevance_aggregate)
 
 SHAPES = [(3, 4, 40, 64), (2, 16, 300, 64), (1, 1, 7, 32)]
 BACKENDS = ["ref", "interpret"]
@@ -114,6 +127,95 @@ def test_pairwise_dist_matches_jax(C, B, G, F, backend):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("P,chunk", [(999, 256), (14136, 256), (37, 64),
+                                     (4096, 256)])
+def test_dequantize_bit_exact(P, chunk, backend):
+    """Codes from the quantizer, a ragged P (the codec's K = 14136 has a
+    tail chunk of 56), an all-zero chunk (scale 1.0) and the code extremes:
+    one IEEE product each, bit for bit the JAX package's."""
+    rng = np.random.default_rng(P + chunk)
+    x = (rng.standard_normal((3, P)) * 2.0).astype(np.float32)
+    x[1, :chunk] = 0.0
+    q, s = ref.batched_quantize_ref(torch.from_numpy(x), chunk=chunk)
+    q[2, :3] = torch.tensor([127, -127, 0], dtype=torch.int8)
+    out = ops.batched_dequantize(q, s, chunk=chunk)
+    jout = JOPS.batched_dequantize(q.numpy(), s.numpy(), chunk=chunk,
+                                   backend=backend)
+    assert out.shape == (3, P) and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  np.asarray(jout).view(np.int32))
+    assert not out[1, :chunk].any()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("R,C,P", [(5, 5, 1000), (2, 5, 3001), (1, 7, 129),
+                                   (70, 70, 333)])
+def test_relevance_aggregate_matches_jax(R, C, P, backend):
+    """(R, C) normalized rows x (C, P): R < C (the host server skips rows
+    without relevant neighbours) and R = C, ragged P."""
+    rng = np.random.default_rng(R * C + P)
+    w = rng.random((R, C)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    th = rng.standard_normal((C, P)).astype(np.float32)
+    bt = ops.relevance_aggregate(torch.from_numpy(w), torch.from_numpy(th))
+    bj = JOPS.relevance_aggregate(w, th, backend=backend)
+    assert bt.shape == (R, P)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("shape", [(3, 128, 200), (64,), (5, 7), (1,)])
+def test_adaptive_combine_bit_exact_with_autograd_gradients(shape, backend):
+    """theta = B * alpha + A on leaves of several shapes: bit for bit the
+    reference's ``adaptive_combine_ref`` run eagerly (two roundings, as the
+    CUDA kernel's __fadd_rn(__fmul_rn(b, al), a)); the jitted ``ref`` and
+    ``interpret`` paths round once (XLA fuses the two into an FMA on the
+    CPU: equal to the float64-evaluated FMA here) and differ by the
+    product's rounding at most (half an ulp of B*alpha, plus an ulp of the
+    result).
+    The autograd.Function's gradients are bit for bit autograd's of the
+    plain expression, with and without B needing one."""
+    rng = np.random.default_rng(len(shape) * 7 + shape[0])
+    b, al, a = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(3))
+    out = ops.adaptive_combine(*map(torch.from_numpy, (b, al, a)))
+    eager = JREF.adaptive_combine_ref(*map(jnp.asarray, (b, al, a)))
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  np.asarray(eager).view(np.int32))
+    jout = np.asarray(JOPS.adaptive_combine(b, al, a, backend=backend))
+    fma = (b.astype(np.float64) * al + a).astype(np.float32)
+    np.testing.assert_array_equal(jout, fma)
+    prod = b * al
+    bound = 0.5 * np.spacing(np.abs(prod)) + np.spacing(np.abs(jout))
+    assert (np.abs(out.numpy() - jout) <= bound).all()
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    for b_grad in (True, False):
+        fn_in = [torch.from_numpy(v).requires_grad_(rg)
+                 for v, rg in ((b, b_grad), (al, True), (a, True))]
+        plain_in = [t.detach().clone().requires_grad_(t.requires_grad)
+                    for t in fn_in]
+        ops.adaptive_combine(*fn_in).backward(g)
+        (plain_in[0] * plain_in[1] + plain_in[2]).backward(g)
+        for t, u in zip(fn_in, plain_in):
+            assert (t.grad is None) == (u.grad is None)
+            if t.grad is not None:
+                assert torch.equal(t.grad, u.grad)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("Q,G,D", [(4, 40, 64), (16, 300, 64), (1, 7, 32)])
+def test_pairwise_dist_2d_matches_jax(Q, G, D, backend):
+    rng = np.random.default_rng(Q * G)
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    g = rng.standard_normal((G, D)).astype(np.float32)
+    dt = ops.pairwise_dist(torch.from_numpy(q), torch.from_numpy(g))
+    dj = JOPS.pairwise_dist(q, g, backend=backend)
+    assert dt.shape == (Q, G)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj),
+                               atol=1e-5, rtol=1e-5)
+
+
 KERNEL_CALLS = [
     (batched_quantize, lambda: (torch.zeros(2, 64),)),
     (batched_int8_pairwise_dist,
@@ -130,6 +232,11 @@ KERNEL_CALLS = [
      lambda: (torch.zeros(1, 2, 8), torch.zeros(1, 2, 2, dtype=torch.int32),
               torch.zeros(1, 3, 4, 8, dtype=torch.int8),
               torch.zeros(1, 3, 3, 4))),
+    (batched_dequantize, lambda: (torch.zeros(2, 64, dtype=torch.int8),
+                                  torch.ones(2, 1))),
+    (relevance_aggregate, lambda: (torch.zeros(1, 2), torch.zeros(2, 5))),
+    (adaptive_combine, lambda: (torch.zeros(3, 4),) * 3),
+    (pairwise_dist, lambda: (torch.zeros(2, 8), torch.zeros(3, 8))),
 ]
 
 

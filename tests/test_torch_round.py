@@ -202,7 +202,7 @@ def test_tied_loss_gradients_match_jax(cfg, trained):
                                 jnp.asarray(y), ex)
     tr = {p: {k: v.clone().requires_grad_(True) for k, v in d.items()}
           for p, d in pst.trainable.items()}
-    ext = pf._loss_extras(pst)
+    ext = pf._stacked_loss_extras(pst)
     torch.sum(pf.loss(tr, torch.from_numpy(x), torch.from_numpy(y), ext)
               + pf.regularizer(tr, ext)).backward()
     for part in ("alpha", "A"):
@@ -599,14 +599,16 @@ def test_codec_specs_run_the_round_as_jax(slice_setup, codec, opts, tol):
                eval_every=2, engine="stacked")
     pr = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1, rehearsal=False,
                                 codec=codec, codec_opts=opts), pb, rounds=2,
-                        eval_every=2, device="cpu", init_params=init)
+                        eval_every=2, engine="stacked", device="cpu",
+                        init_params=init)
     assert pr.comm.measured and pr.comm_breakdown() == jr.comm_breakdown()
     for key in METRICS:
         assert abs(jr.final(key) - pr.final(key)) < tol, key
     if codec in ("raw", "delta"):
         plain = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1,
                                        rehearsal=False), pb, rounds=2,
-                               eval_every=2, device="cpu", init_params=init)
+                               eval_every=2, engine="stacked", device="cpu",
+                               init_params=init)
         assert pr.rounds == plain.rounds
 
 
@@ -640,7 +642,7 @@ def test_stateless_topk_selection_flips_are_last_bit_ties(slice_setup,
               codec_opts={"delta": False})
     j_run(JFedSTIL(cfg, **kw), jb, rounds=1, eval_every=1, engine="stacked")
     run_simulation(FedSTIL(cfg, **kw), pb, rounds=1, eval_every=1,
-                   device="cpu", init_params=init)
+                   engine="stacked", device="cpu", init_params=init)
     jm, pm = seen["jax"][0], seen["port"][0]          # round 0's upload
     assert np.abs(jm - pm).max() < 1e-5
     js, ps = _kept_sets(jm), _kept_sets(pm)
@@ -654,23 +656,32 @@ def test_stateless_topk_selection_flips_are_last_bit_ties(slice_setup,
 
 
 def test_run_simulation_refuses_what_later_slices_bring(slice_setup):
-    _, pb, cfg, _ = slice_setup
-    for kw in ({"engine": "host"}, {"engine": "sharded"},
-               {"eval_backend": "host"}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            run_simulation(FedSTIL(cfg, n_clients=3), pb, rounds=1,
-                           device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="wire-codec slice"):
-        FedSTIL(cfg, n_clients=3, codec="topk+int8")
-    for codec in ("int8", "bf16"):
-        with pytest.raises(NotImplementedError, match="wire-codec slice 4b"):
-            FedSTIL(cfg, n_clients=3, codec=codec)
+    """Only the sharded engine is still refused (the scale-out slice); what
+    the host-engine slice brought runs: the host engine (the default, as
+    in the reference), host evaluation on both engines, the quantized
+    codecs and the loop server backend."""
+    _, pb, cfg, init = slice_setup
+    with pytest.raises(NotImplementedError, match="scale-out slice"):
+        run_simulation(FedSTIL(cfg, n_clients=3), pb, rounds=1, device="cpu",
+                       engine="sharded")
+    for kw in ({}, {"engine": "host", "eval_backend": "host"},
+               {"engine": "stacked", "eval_backend": "host"}):
+        res = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1), pb,
+                             rounds=1, device="cpu", init_params=init, **kw)
+        assert len(res.rounds) == 1
+        assert ("gather" in res.stage_ms[0]) == (kw.get("engine") == "stacked")
+    for codec, quant in (("topk+int8", "int8"), ("int8", "int8"),
+                         ("bf16", "bf16")):
+        st = FedSTIL(cfg, n_clients=3, codec=codec)
+        assert st.upload_codec.quant == st.dispatch_codec.quant == quant
+    assert FedSTIL(cfg, n_clients=3, server_backend="loop").tracker.backend \
+        == "loop"
+    with pytest.raises(ValueError, match="'loop'"):
+        FedSTIL(cfg, n_clients=3, server_backend="pallas")
     with pytest.raises(ValueError, match="global top-k"):
         run_simulation(FedSTIL(cfg, n_clients=3, epochs=1, codec="topk",
                                codec_opts={"k": 10}), pb, rounds=1,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="host-engine slice"):
-        FedSTIL(cfg, n_clients=3, server_backend="loop")
+                       engine="stacked", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         run_simulation(FedSTIL(cfg, n_clients=3), pb, engine="mesh",
                        device="cpu")
@@ -686,8 +697,8 @@ def test_ablation_switches_run(slice_setup, switch):
     jr = j_run(JFedSTIL(cfg, n_clients=3, epochs=1, **kw), jb, rounds=2,
                eval_every=2, engine="stacked")
     pr = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1, **kw), pb,
-                        rounds=2, eval_every=2, device="cpu",
-                        init_params=init)
+                        rounds=2, eval_every=2, engine="stacked",
+                        device="cpu", init_params=init)
     assert pr.comm.total_s2c == jr.comm.total_s2c
     assert pr.comm.total_c2s == jr.comm.total_c2s
     for key in METRICS:
