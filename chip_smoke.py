@@ -3,7 +3,8 @@
 ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
 FedSTIL federated round (stacked engine, device evaluation), the same
 round with the ``delta+topk`` wire codec, on the host engine, and with the
-``topk+int8`` wire codec.
+``topk+int8`` wire codec, and the dense LM's FedSTIL edge train step
+(qwen3-1.7b at full width).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -26,7 +27,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  and the adaptive combine bit-identical, the host server's
                  plain aggregate within 2e-5, the 2-D distances within
                  1e-5 (the codec's K with its tail chunk, misaligned bases,
-                 ragged leaves and shapes);
+                 ragged leaves and shapes), the bf16 combine bit-identical
+                 (the LM head's and MLP's leaves, misaligned); the four
+                 flash-attention kernels (forward, forward + logsumexp, dQ,
+                 dK/dV) in fp32 at edge shapes (S 16 / 1000 / ragged, hd 64
+                 and 128, R 1 and 2, non-causal Sq != Sk, a window: o 2e-5,
+                 lse 1e-5, grads 5e-4) and in bf16 at the train step's
+                 shape (2e-2 of the largest magnitude, lse 1e-4), timed
+                 there beside ``scaled_dot_product_attention``;
                  times (CUDA events, median of 30 launches after warmup),
                  the relevance, codec, dequantize, aggregate and combine
                  kernels at the C = 1000 shapes
@@ -121,6 +129,25 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  past the keyframe: device ms of each codec kernel and of
                  the whole roundtrip, wire bytes a client against the dense
                  230656
+ 11. lm_train    the FedSTIL split step of ``launch/train.py``
+                 (``make_train_step``, tie_lambda 1e-4, Adam with the cosine
+                 schedule) on qwen3-1.7b at full width (28 layers, d 2048,
+                 16 q / 8 kv heads, hd 128, bf16, seed-0 random weights),
+                 B=2 x S=4096 (train_4k's sequence; its global batch of 256
+                 cut to one card's 2): one warm-up and three timed steps
+                 (CUDA events: step ms, tokens/s, peak memory), flash
+                 launches checked at 27 / 1 / 1 / 1 a step (counts zeroed
+                 just before), the combine once a leaf a step, each flash
+                 kernel against its plain version on its last on-path
+                 operands, and the first step's loss and adaptive gradients
+                 with attention routed to the plain versions on the card
+                 (|loss delta| <= 2e-2, relative L2 <= 2e-2); one more step
+                 under torch.profiler: device ms by kernel group, idle
+                 share
+     lm_train_reduced: the GQA-reduced config (R = 2, hd 64, fp32) trained
+                 10 steps on the card and on the CPU, B=4 x S=200, per-step
+                 loss within 1e-4; then one full fine-tuning step on both
+                 (forward + lse, dQ and dK/dV on every layer)
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -128,6 +155,7 @@ then the script's wall time, the ``{"kernels": [...]}`` line, the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -145,15 +173,21 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.comm.batched import BatchedCodec  # noqa: E402
 from repro_torch.comm.codec import make_codec  # noqa: E402
 from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
+                                       leaf_paths, tree_leaves, tree_map,
                                        unflatten_stacked)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import edge_model as EM  # noqa: E402
 from repro_torch.core.fedstil import FedSTIL  # noqa: E402
 from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
 from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
+from repro_torch.data.tokens import synthetic_lm_batch  # noqa: E402
 from repro_torch.federated import FedAvg, run_simulation  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels.adaptive_combine import adaptive_combine  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+    flash_attention_fwd_lse)
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
 from repro_torch.kernels.ivf import (batched_cluster_dist,  # noqa: E402
                                      batched_ivf_shortlist_scores)
@@ -170,6 +204,7 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_topk_unpack)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.lifelong import STL  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
                                  query_ivf, query_ivf_host, recall_at_k,
@@ -177,6 +212,10 @@ from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
 from repro_torch.serving.engine import (featurize, rank_shortlist,  # noqa: E402
                                         rank_topk)
 from repro_torch.serving.index import index_features  # noqa: E402
+from repro_torch.train.optimizer import adam, cosine_schedule  # noqa: E402
+from repro_torch.train.trainer import (  # noqa: E402
+    adaptive_loss_and_grads, init_opt_state, init_train_state,
+    make_full_train_step, make_train_step, train_state_from_params)
 
 SEED = 0
 C, BATCH, K, N_QUERIES = 4, 64, 10, 512
@@ -243,9 +282,11 @@ SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
 
 # data-sheet peaks of the card: (name substring, HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores); the first match wins, the H100 SXM by default
-PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# outside the tensor cores, dense bf16 tensor-core FLOP/s); the first match
+# wins, the H100 SXM by default
+PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 
 KERNELS = {
     "batched_quantize": {
@@ -292,7 +333,8 @@ KERNELS = {
     "adaptive_combine": {
         "fn": adaptive_combine,
         "paths": ("round_fedstil", "round_fedstil_codec",
-                  "round_fedstil_host", "round_fedstil_codec_int8"),
+                  "round_fedstil_host", "round_fedstil_codec_int8",
+                  "lm_train"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
         "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
@@ -323,6 +365,22 @@ KERNELS = {
         "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:161"},
+    "flash_attention_fwd": {
+        "fn": flash_attention_fwd, "paths": ("lm_train",),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86"},
+    "flash_attention_fwd_lse": {
+        "fn": flash_attention_fwd_lse, "paths": ("lm_train",),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
+    "flash_attention_dq": {
+        "fn": flash_attention_dq, "paths": ("lm_train",),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:209"},
+    "flash_attention_dkv": {
+        "fn": flash_attention_dkv, "paths": ("lm_train",),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
 }
 CODEC_KERNELS = ("batched_topk_pack", "batched_topk_unpack",
                  "batched_idx_bitpack", "batched_idx_bitunpack")
@@ -367,10 +425,17 @@ def time_ms(fn) -> float:
 
 
 def peaks(kind: str):
-    for sub, bw, fl in PEAKS:
+    """(HBM bytes/s, fp32 FLOP/s, bf16 tensor FLOP/s) of the card."""
+    for sub, bw, fl, tc in PEAKS:
         if sub in kind:
-            return bw, fl
+            return bw, fl, tc
     return PEAKS[-1][1:]
+
+
+def tensor_peak(peak):
+    """The (bytes/s, FLOP/s) pair of ``bound`` for work the bf16 tensor
+    cores could do: the flash kernels' products at bf16."""
+    return peak[0], peak[2]
 
 
 def bound(nbytes: float, flops: float, peak):
@@ -495,6 +560,7 @@ def phase_kernels(dev, peak, card):
     rows.update(ivf_kernel_rows(gen, dev, peak))
     rows.update(topk_kernel_rows(gen, dev, peak))
     rows.update(new_kernel_rows(gen, dev, peak))
+    rows.update(flash_kernel_rows(gen, dev, peak))
 
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
@@ -828,7 +894,8 @@ def combine_err(b, al, a):
     out_k = adaptive_combine(b, al, a)
     out_r = REF.adaptive_combine_ref(b, al, a)
     torch.cuda.synchronize()
-    bad = int((out_k.view(torch.int32) != out_r.view(torch.int32)).sum())
+    bits = torch.int16 if b.dtype == torch.bfloat16 else torch.int32
+    bad = int((out_k.view(bits) != out_r.view(bits)).sum())
     check(bad == 0, f"adaptive_combine {tuple(b.shape)}: {bad} values "
           "differ from the plain version")
     return float((out_k - out_r).abs().max())
@@ -914,6 +981,13 @@ def new_kernel_rows(gen, dev, peak):
                     for _ in range(3))
         err = max(err, combine_err(b, al, a),
                   combine_err(offset_copy(b), al, offset_copy(a)))
+    # bf16 (the LM's adaptive leaves at full width): the head's leaf, an
+    # MLP leaf, a ragged leaf on misaligned bases
+    for shape in ((2048, 152064), (2048, 6144), (1001,)):
+        b, al, a = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                    for _ in range(3))
+        err = max(err, combine_err(b, al, a),
+                  combine_err(offset_copy(b), al, offset_copy(a)))
     b, al, a = (torch.randn((Cf, P), generator=gen, device=dev)
                 for _ in range(3))
     err = max(err, combine_err(b, al, a))
@@ -951,6 +1025,207 @@ def new_kernel_rows(gen, dev, peak):
         plain_ms=time_ms(lambda: REF.pairwise_dist_ref(q, g)),
         library_ms=time_ms(library), shape=[BATCH, G_FP32, F],
         detail={"library": "torch.addmm with the norms"})
+    return rows
+
+
+# the dense LM's edge train step (lm_train): qwen3-1.7b at full width, the
+# train_4k sequence (its global batch of 256 cut to 2 on one card)
+LM_ARCH, LM_BATCH, LM_SEQ = "qwen3-1.7b", 2, 4096
+LM_STEPS = 4                            # 1 warm-up + 3 timed
+LM_TIE = 1e-4                           # launch/train.py's tie_lambda
+FLASH_STAGES = ("flash_attention_fwd", "flash_attention_fwd_lse",
+                "flash_attention_dq", "flash_attention_dkv")
+FLASH_PLAIN = {"flash_attention_fwd": REF.flash_attention_ref,
+               "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref,
+               "flash_attention_dq": REF.flash_attention_dq_ref,
+               "flash_attention_dkv": REF.flash_attention_dkv_ref}
+# kernel vs plain: fp32 at the edge shapes, absolute (o and lse: online
+# softmax in another order; grads: sums over up to 1000 keys)
+FLASH_TOL = {"o": 2e-5, "lse": 1e-5, "grad": 5e-4}
+# bf16 (the path shape and the train step's own operands), element by
+# element: both sides round fp32 values that differ only in summation
+# order, so they may differ by one bf16 rounding, and a bf16 ulp is at
+# most 2^-7 |b|; a floor of 1e-3 of the output's rms covers fp32 order
+# differences near zero. Each output's relative L2 error is held too, at
+# 10x the largest reading on an H100 (1.03e-4; one rounding apart
+# everywhere would be about 2^-8). lse stays fp32: absolute.
+FLASH_BF16_ULP, FLASH_BF16_FLOOR, FLASH_BF16_REL_L2 = 2.0 ** -7, 1e-3, 1e-3
+FLASH_BF16_LSE_TOL = 1e-4
+# the step on the kernels vs the same step on the plain versions, on the
+# card: |loss delta|, and the relative L2 error of each adaptive gradient
+# leaf (the worst leaf is held, so the attention weights' gradients,
+# which dQ and dK/dV carry, are not drowned by the head's; the worst
+# reading on an H100 is 1.2e-2, alpha of qnorm)
+LM_SWAP_LOSS_TOL, LM_SWAP_GRAD_TOL = 2e-2, 2e-2
+# lm_train_reduced: the GQA-reduced config (fp32), card vs CPU per step
+LM_RED_STEPS, LM_RED_BATCH, LM_RED_SEQ, LM_RED_TOL = 10, 4, 200, 1e-4
+
+
+def flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd, dtype):
+    q, do = (torch.randn((B, hq, sq, hd), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, hkv, sk, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def flash_stats(q, k, v, do, kw):
+    """The backward stages' fp32 inputs from the plain forward: lse and
+    delta = rowsum(O dO)."""
+    o, lse = REF.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    return lse, torch.sum(o.float() * do.float(), -1)
+
+
+def flash_output_check(label, a, b, tol):
+    """Holds one flash kernel output ``a`` against the plain version's
+    ``b``: against the absolute bar ``tol``, or where ``tol`` is None
+    element by element against FLASH_BF16_ULP |b| + FLASH_BF16_FLOOR
+    rms(b) and by its relative L2 error. -> {max_abs_err, bar_share (the
+    largest share of a bar used, <= 1), and for bf16 elem_share and
+    rel_l2}."""
+    a, b = a.float(), b.float()
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite output")
+    diff = (a - b).abs()
+    out = {"max_abs_err": float(diff.max())}
+    if tol is not None:
+        out["bar_share"] = out["max_abs_err"] / tol
+    else:
+        rms = float(torch.sqrt(torch.mean(b * b)))
+        bar = FLASH_BF16_ULP * b.abs() + FLASH_BF16_FLOOR * rms
+        out["elem_share"] = float((diff / bar.clamp(min=1e-30)).max())
+        out["rel_l2"] = float(torch.linalg.vector_norm(diff)) / max(
+            float(torch.linalg.vector_norm(b)), 1e-30)
+        out["bar_share"] = max(out["elem_share"],
+                               out["rel_l2"] / FLASH_BF16_REL_L2)
+    check(out["bar_share"] <= 1.0, f"{label}: {out} over its bar")
+    return out
+
+
+def flash_outputs_check(label, name, got, want, bf16):
+    """Every output of one stage held by ``flash_output_check`` (lse
+    absolute); -> the worst of each reading over the outputs."""
+    worst = {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        is_lse = name == "flash_attention_fwd_lse" and i == 1
+        tol = FLASH_BF16_LSE_TOL if is_lse else None
+        if not bf16:
+            tol = FLASH_TOL["lse" if is_lse else (
+                "o" if name in FLASH_STAGES[:2] else "grad")]
+        for key, x in flash_output_check(f"{label} {name} output {i}", a, b,
+                                         tol).items():
+            worst[key] = max(worst.get(key, 0.0), x)
+    return worst
+
+
+def flash_errs(q, k, v, do, kw, bf16):
+    """Each of the four kernels against its plain version on one set of
+    operands, each output held to its bar (``flash_outputs_check``);
+    -> {stage: worst readings}."""
+    lse_r, delta = flash_stats(q, k, v, do, kw)
+    got = {"flash_attention_fwd": (flash_attention_fwd(q, k, v, **kw),),
+           "flash_attention_fwd_lse": flash_attention_fwd_lse(q, k, v, **kw),
+           "flash_attention_dq": (flash_attention_dq(
+               q, k, v, do, lse_r, delta, **kw),),
+           "flash_attention_dkv": flash_attention_dkv(
+               q, k, v, do, lse_r, delta, **kw)}
+    want = {"flash_attention_fwd": (REF.flash_attention_ref(q, k, v, **kw),),
+            "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref(
+                q, k, v, **kw),
+            "flash_attention_dq": (REF.flash_attention_dq_ref(
+                q, k, v, do, lse_r, delta, **kw),),
+            "flash_attention_dkv": REF.flash_attention_dkv_ref(
+                q, k, v, do, lse_r, delta, **kw)}
+    torch.cuda.synchronize()
+    label = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {kw}"
+    return {name: flash_outputs_check(label, name, got[name], want[name],
+                                      bf16)
+            for name in FLASH_STAGES}
+
+
+def flash_kernel_rows(gen, dev, peak):
+    """The four flash-attention kernels against their plain versions: fp32
+    at edge shapes (S 16 and 1000, ragged S, hd 64 and 128, R 1 and 2,
+    non-causal with Sq != Sk, a window), bf16 at the train step's shape
+    (B 2, 16 q / 8 kv heads, S 4096, hd 128, causal), where they are
+    timed beside their plain versions and PyTorch's
+    ``scaled_dot_product_attention`` (forward; its autograd backward for
+    dQ and dK/dV). Bounds at the bf16 tensor-core rate."""
+    errs = dict.fromkeys(FLASH_STAGES, 0.0)
+
+    def fold(e):
+        for n, r in e.items():
+            errs[n] = max(errs[n], r["max_abs_err"])
+
+    for B, hq, hkv, sq, sk, hd, causal, window in (
+            (1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
+            (1, 2, 2, 1000, 1000, 128, True, 0),
+            (2, 4, 2, 1000, 1000, 64, True, 37),
+            (1, 2, 1, 1000, 1000, 128, False, 0),
+            (1, 2, 2, 130, 77, 64, False, 0),
+            (1, 2, 1, 77, 130, 128, False, 5)):
+        q, k, v, do = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
+                                   torch.float32)
+        fold(flash_errs(q, k, v, do, dict(causal=causal, window=window),
+                        False))
+    fp32_errs = dict(errs)
+    hq, hkv, hd = 16, 8, 128
+    q, k, v, do = flash_inputs(gen, dev, LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ,
+                               hd, torch.bfloat16)
+    kw = dict(causal=True, window=0)
+    bf16_errs = flash_errs(q, k, v, do, kw, True)
+    fold(bf16_errs)
+    lse, delta = flash_stats(q, k, v, do, kw)
+
+    pairs = LM_BATCH * hq * LM_SEQ * (LM_SEQ + 1) / 2   # visible (q, k)
+    el_q, el_kv = q.numel(), k.numel()
+    stats = 4.0 * LM_BATCH * hq * LM_SEQ
+    work = {   # (bytes: inputs once, outputs once; flops)
+        "flash_attention_fwd": (2.0 * (2 * el_q + 2 * el_kv),
+                                4.0 * pairs * hd),
+        "flash_attention_fwd_lse": (2.0 * (2 * el_q + 2 * el_kv) + stats,
+                                    4.0 * pairs * hd),
+        "flash_attention_dq": (2.0 * (3 * el_q + 2 * el_kv) + 2 * stats,
+                               6.0 * pairs * hd),
+        "flash_attention_dkv": (2.0 * (2 * el_q + 4 * el_kv) + 2 * stats,
+                                8.0 * pairs * hd)}
+    calls = {
+        "flash_attention_fwd": (
+            lambda: flash_attention_fwd(q, k, v, **kw),
+            lambda: REF.flash_attention_ref(q, k, v, **kw)),
+        "flash_attention_fwd_lse": (
+            lambda: flash_attention_fwd_lse(q, k, v, **kw),
+            lambda: REF.flash_attention_fwd_lse_ref(q, k, v, **kw)),
+        "flash_attention_dq": (
+            lambda: flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda: REF.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                               **kw)),
+        "flash_attention_dkv": (
+            lambda: flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: REF.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                **kw))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    og = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                                   retain_graph=True))
+    del og, qg, kg, vg
+    rows = {}
+    for name in FLASH_STAGES:
+        fn, plain = calls[name]
+        rows[name] = dict(
+            max_abs_err=errs[name],
+            bound=bound(*work[name], tensor_peak(peak)),
+            ms=time_ms(fn), plain_ms=time_ms(plain),
+            library_ms=sdpa_fwd if name in FLASH_STAGES[:2] else sdpa_bwd,
+            shape=[LM_BATCH, hq, hkv, LM_SEQ, hd],
+            detail={"fp32_edge_abs_err": fp32_errs[name],
+                    "bf16_path_shape": bf16_errs[name],
+                    "library": (
+                "scaled_dot_product_attention(is_causal, enable_gqa)"
+                if name in FLASH_STAGES[:2] else
+                "its autograd backward (dQ, dK and dV together)"),
+                "bound_peak": "bf16 tensor cores"})
     return rows
 
 
@@ -2018,6 +2293,246 @@ def phase_wire_round_scale(dev, card):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the LM edge train step (slice 6a)
+# ---------------------------------------------------------------------------
+
+
+def lm_batches(rng, n, batch, seq, vocab, dev):
+    out = []
+    for _ in range(n):
+        toks, labels = synthetic_lm_batch(rng, batch, seq, vocab)
+        out.append({"tokens": torch.from_numpy(toks).to(dev),
+                    "labels": torch.from_numpy(labels).to(dev)})
+    return out
+
+
+def rel_l2_by_leaf(got, want):
+    """{leaf path: ||got - want|| / ||want||} over two trees, in fp32."""
+    return {"/".join(map(str, path)): float(torch.linalg.vector_norm(
+        a.float() - b.float())) / max(float(torch.linalg.vector_norm(
+            b.float())), 1e-30)
+        for path, a, b in zip(leaf_paths(want), tree_leaves(got),
+                              tree_leaves(want))}
+
+
+def flash_path_errs(seen):
+    """Each flash kernel against its plain version on the operands of its
+    last call in the train step (the path is causal, no window): the last
+    trunk layer's q, k, v for the forward, the adaptive layer's for the
+    rest."""
+    kw = dict(causal=True, window=0)
+    out = {}
+    for name in FLASH_STAGES:
+        args = tuple(a.detach() for a in seen[name])
+        with torch.no_grad():
+            got = KERNELS[name]["fn"](*args, **kw)
+            want = FLASH_PLAIN[name](*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        out[name] = {"shapes": [list(a.shape) for a in args],
+                     **flash_outputs_check("lm_train on its path operands:",
+                                           name, got, want, True)}
+    return out
+
+
+# kernel name substrings -> group, first match wins (cuBLAS's Hopper
+# matmuls are named nvjet_*)
+LM_KERNEL_GROUPS = (("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+                    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+                    ("combine", ("combine",)),
+                    ("copy", ("copy",)),
+                    ("elementwise", ("elementwise", "vectorized")),
+                    ("reduce", ("reduce",)))
+
+
+def lm_step_profile(step, st, batch):
+    """One more split step under torch.profiler: device ms by kernel
+    group (the flash kernels, cuBLAS matmuls, the combine, copies and
+    casts, other elementwise and reduction kernels, the rest) and the
+    device's idle share of the window (an upper bound: the profiler slows
+    the host)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(st.frozen, st.B, st.trainable, st.opt_state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_group, by_name = {}, {}
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in on_card:
+        us = e.time_range.elapsed_us()
+        group = next((g for g, keys in LM_KERNEL_GROUPS
+                      if any(k in e.name for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(by_group.values())
+    return {"window_ms": window_ms, "device_events": len(on_card),
+            "device_busy_ms": busy if on_card else None,
+            "device_idle_share": (1.0 - busy / window_ms) if on_card
+            else None, "device_ms_by_group": by_group,
+            "top_device_ms": [[n[:70], ms] for n, ms in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def phase_lm_train(dev, card):
+    """The dense LM's FedSTIL edge train step at full width on the card:
+    ``make_train_step(tie_lambda=1e-4)`` of ``launch/train.py`` on
+    qwen3-1.7b (all 28 layers, bf16, seed-0 weights), B=2 x S=4096: one
+    warm-up and three timed steps (CUDA events), the flash launches of each
+    step (27 forward for the frozen trunk; forward+lse, dQ and dK/dV for
+    the adaptive layer), each kernel against its plain version on its last
+    on-path operands, and the first step again with attention routed to
+    the plain versions on the card. Returns (launches, on-path errors)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    opt = adam(lr=1e-3, weight_decay=1e-5,
+               schedule=cosine_schedule(warmup=20, total=LM_STEPS))
+    t0 = time.perf_counter()
+    st = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                          optimizer=opt)
+    batches = lm_batches(np.random.default_rng(SEED), LM_STEPS, LM_BATCH,
+                         LM_SEQ, cfg.vocab_size, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(st.frozen)) + sum(
+        t.numel() for t in tree_leaves(st.B))
+    step = make_train_step(cfg, optimizer=opt, tie_lambda=LM_TIE)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    per_step, step_ms, losses = [], [], []
+    with last_operands(FLASH_STAGES, by_reference=FLASH_STAGES) as seen:
+        tr, os_ = st.trainable, st.opt_state
+        for b in batches:
+            before = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr, os_, m = step(st.frozen, st.B, tr, os_, b)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            per_step.append({n: KERNELS[n]["fn"].launches - before[n]
+                             for n in FLASH_STAGES})
+    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+    del tr, os_, m
+    on_path = flash_path_errs(seen)
+    del seen
+    profile_row = lm_step_profile(step, st, batches[0])
+
+    # the first step's objective and gradients, kernels vs plain versions
+    (loss_k, _, _), g_k = adaptive_loss_and_grads(
+        cfg, st.frozen, st.B, st.trainable, batches[0], tie_lambda=LM_TIE)
+    with patched_ops(FLASH_PLAIN):
+        (loss_p, _, _), g_p = adaptive_loss_and_grads(
+            cfg, st.frozen, st.B, st.trainable, batches[0],
+            tie_lambda=LM_TIE)
+    by_leaf = rel_l2_by_leaf(g_k, g_p)
+    swap = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "abs_loss_delta": abs(float(loss_k) - float(loss_p)),
+            "grad_rel_l2_worst_leaf": max(by_leaf.values()),
+            "grad_rel_l2_by_leaf": by_leaf}
+    del g_k, g_p
+
+    n_trunk = cfg.n_layers - cfg.n_adaptive_layers
+    expect_step = {"flash_attention_fwd": n_trunk,
+                   "flash_attention_fwd_lse": cfg.n_adaptive_layers,
+                   "flash_attention_dq": cfg.n_adaptive_layers,
+                   "flash_attention_dkv": cfg.n_adaptive_layers}
+    timed = step_ms[1:]
+    tokens = LM_BATCH * LM_SEQ
+    emit({"phase": "lm_train", "card": card, "arch": LM_ARCH,
+          "batch": LM_BATCH, "seq": LM_SEQ, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.hd, "params": n_params,
+          "adaptive_params": sum(t.numel() for t in tree_leaves(st.B)),
+          "dtype": cfg.param_dtype, "init_s": init_s,
+          "warmup_step_ms": step_ms[0], "step_ms": timed,
+          "median_step_ms": float(np.median(timed)),
+          "tokens_per_s": tokens / (float(np.median(timed)) / 1e3),
+          "peak_mem_bytes": peak_mem, "losses": losses,
+          "launches_per_step": per_step,
+          "launches": {n: launches[n] for n in FLASH_STAGES
+                       + ("adaptive_combine",)},
+          "kernel_vs_plain_on_path": on_path, "plain_attention_step": swap,
+          "profile": profile_row,
+          "phase_s": time.perf_counter() - t_phase})
+    check(all(np.isfinite(losses)), f"lm_train: losses {losses}")
+    check(all(p == expect_step for p in per_step),
+          f"lm_train launches a step {per_step}, expected {expect_step}")
+    n_leaves = len(tree_leaves(st.B))
+    check(launches["adaptive_combine"] == n_leaves * LM_STEPS,
+          f"lm_train: {launches['adaptive_combine']} combine launches, "
+          f"expected {n_leaves} a step")
+    check(swap["abs_loss_delta"] <= LM_SWAP_LOSS_TOL
+          and swap["grad_rel_l2_worst_leaf"] <= LM_SWAP_GRAD_TOL,
+          f"lm_train: kernels vs plain attention {swap}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
+def phase_lm_train_reduced(dev, card):
+    """The GQA-reduced config (qwen3-1.7b reduced with 2 kv heads: R = 2,
+    hd 64, fp32) trained 10 steps on the card and on the CPU from the same
+    weights and batches (S = 200: a ragged last tile), per-step loss
+    within 1e-4; then one full fine-tuning step on both, which runs
+    forward+lse, dQ and dK/dV on every layer."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), n_kv_heads=2)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(SEED))
+    host = lm_batches(np.random.default_rng(SEED), LM_RED_STEPS,
+                      LM_RED_BATCH, LM_RED_SEQ, cfg.vocab_size, "cpu")
+
+    def opt():
+        return adam(lr=1e-3, weight_decay=1e-5,
+                    schedule=cosine_schedule(warmup=20, total=LM_RED_STEPS))
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device), params)
+        bs = [tree_map(lambda t: t.to(device), b) for b in host]
+        o = opt()
+        st = train_state_from_params(cfg, p, o)
+        step = make_train_step(cfg, optimizer=o, tie_lambda=LM_TIE)
+        tr, os_, losses = st.trainable, st.opt_state, []
+        for b in bs:
+            tr, os_, m = step(st.frozen, st.B, tr, os_, b)
+            losses.append(float(m["loss"]))
+        o = opt()
+        _, _, m = make_full_train_step(cfg, optimizer=o)(
+            p, init_opt_state(o, p), bs[0])
+        return losses, float(m["loss"])
+
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    card_losses, card_full = run(dev)
+    launches = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
+    cpu_losses, cpu_full = run("cpu")
+    deltas = [abs(a - b) for a, b in zip(card_losses, cpu_losses)]
+    emit({"phase": "lm_train_reduced", "card": card, "config": cfg.name,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+          "batch": LM_RED_BATCH, "seq": LM_RED_SEQ,
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "max_step_delta": max(deltas), "full_step_loss": [card_full,
+                                                            cpu_full],
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    check(max(deltas) <= LM_RED_TOL and abs(card_full - cpu_full)
+          <= LM_RED_TOL, f"lm_train_reduced card vs CPU: step deltas "
+          f"{deltas}, full step {card_full} vs {cpu_full}")
+    n = cfg.n_layers
+    expect = {"flash_attention_fwd": LM_RED_STEPS,
+              "flash_attention_fwd_lse": LM_RED_STEPS + n,
+              "flash_attention_dq": LM_RED_STEPS + n,
+              "flash_attention_dkv": LM_RED_STEPS + n}
+    check(launches == expect,
+          f"lm_train_reduced launches {launches}, expected {expect}")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2097,6 +2612,13 @@ def main():
     phase_round_profile(dev, card)
     phase_server_scale(dev, card)
     phase_wire_round_scale(dev, card)
+    torch.cuda.empty_cache()
+    # path 7: the dense LM's edge train step (counts zeroed inside)
+    launches["lm_train"], errs = phase_lm_train(dev, card)
+    for name, err in errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    phase_lm_train_reduced(dev, card)
 
     kernels = []
     for name, spec in KERNELS.items():

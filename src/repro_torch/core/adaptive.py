@@ -18,6 +18,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ops
 
 Theta = Dict[str, torch.Tensor]
@@ -46,11 +47,30 @@ class AdaptiveState:
 
 def combine(B: Theta, alpha: Theta, A: Theta) -> Theta:
     """theta = B ⊙ alpha + A, leaf-wise (paper Eq. 2)."""
-    return {k: ops.adaptive_combine(B[k], alpha[k], A[k]) for k in B}
+    return tree_map(ops.adaptive_combine, B, alpha, A)
 
 
 def init_adaptive(theta0: Theta) -> AdaptiveState:
     """Start with theta == theta0: B = theta0, alpha = 1, A = 0."""
-    return AdaptiveState(B=theta0,
-                         alpha={k: torch.ones_like(v) for k, v in theta0.items()},
-                         A={k: torch.zeros_like(v) for k, v in theta0.items()})
+    return AdaptiveState(B=theta0, alpha=tree_map(torch.ones_like, theta0),
+                         A=tree_map(torch.zeros_like, theta0))
+
+
+# ---------------------------------------------------------------------------
+# model-level split: which sub-tree of a full LM is "adaptive"
+# ---------------------------------------------------------------------------
+
+_ADAPTIVE_KEYS = ("adaptive_layers", "shared_attn", "head", "final_norm")
+
+
+def split_params(cfg, params):
+    """(frozen extraction layers, adaptive layers) of an LM's params."""
+    adaptive = {k: params[k] for k in _ADAPTIVE_KEYS if k in params}
+    frozen = {k: v for k, v in params.items() if k not in adaptive}
+    return frozen, adaptive
+
+
+def merge_params(frozen, adaptive):
+    out = dict(frozen)
+    out.update(adaptive)
+    return out

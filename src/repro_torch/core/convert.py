@@ -2,7 +2,9 @@
 
 The JAX package keeps a stacked head as a nested dict of ``(C, ...)``
 arrays (``theta["l1"]["w"]``); the port keeps a flat dict under dotted keys
-(``theta["l1.w"]``). Values cross as numpy arrays, bit for bit.
+(``theta["l1.w"]``). Values cross as numpy arrays, bit for bit. An LM's
+parameters keep the reference's nested layout on both sides
+(``lm_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -55,3 +57,23 @@ def init_params_from_jax(g_params: Dict[str, Any], thetas0) -> Dict[str, Any]:
     dicts), all as numpy, the heads under the port's dotted keys."""
     return {"extraction": {k: np.array(v) for k, v in g_params.items()},
             "theta0": [theta_numpy(theta_from_jax(t, "cpu")) for t in thetas0]}
+
+
+def _tensor_from_numpy(x, device) -> torch.Tensor:
+    """One array -> a tensor on ``device``, bit for bit; bf16 (an
+    ml_dtypes array, dtype name ``bfloat16``) crosses as its 16 bits, so
+    nothing here needs ml_dtypes."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(params_np, device):
+    """The JAX package's LM parameter tree (nested dicts of arrays, layers
+    stacked on a leading L dim) -> the same tree of tensors on
+    ``device``, every leaf bit for bit in its own dtype."""
+    if isinstance(params_np, dict):
+        return {k: lm_params_from_jax(v, device) for k, v in params_np.items()}
+    return _tensor_from_numpy(params_np, device)

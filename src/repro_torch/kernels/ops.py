@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as REF
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.adaptive_combine import adaptive_combine as _combine
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
@@ -182,3 +183,84 @@ def batched_idx_bitunpack(packed, *, k: int, group: int = 8, kg: int):
     if _on_cuda(packed):
         return _bidxunpack(packed, k=k, group=group, kg=kg)
     return REF.batched_idx_bitunpack_ref(packed, k=k, group=group, kg=kg)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: four stages, each dispatched by device, and the
+# differentiable op over them
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
+    """Attention alone: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd) -> o
+    (B, Hq, Sq, hd). Causal aligned top-left (``ref.py``)."""
+    if _on_cuda(q, k, v):
+        return _flash.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    return REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_fwd_lse(q, k, v, *, causal: bool, window: int = 0):
+    """Attention and its fp32 logsumexp (B, Hq, Sq)."""
+    if _on_cuda(q, k, v):
+        return _flash.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                              window=window)
+    return REF.flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
+                       window: int = 0):
+    """dQ of attention, given dO, lse and delta = rowsum(O dO)."""
+    if _on_cuda(q, k, v, do, lse, delta):
+        return _flash.flash_attention_dq(q, k, v, do, lse, delta,
+                                         causal=causal, window=window)
+    return REF.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                      causal=causal, window=window)
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
+                        window: int = 0):
+    """(dK, dV) of attention, summed over each kv head's q heads."""
+    if _on_cuda(q, k, v, do, lse, delta):
+        return _flash.flash_attention_dkv(q, k, v, do, lse, delta,
+                                          causal=causal, window=window)
+    return REF.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                       causal=causal, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the forward + logsumexp stage and whose
+    backward is the dQ and dK/dV stages (the reference's ``custom_vjp``
+    in ``flash_attention_bwd.py``). delta = rowsum(O dO) in fp32 is taken
+    here, outside the kernels, as the reference takes it. The stages are
+    looked up on this module at call time, so a caller can reroute them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
+                                         window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = torch.sum(o.float() * do.float(), -1)
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        dq = flash_attention_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Attention over (B, Hq, Sq, hd) q and (B, Hkv, Sk, hd) k, v (Hq a
+    multiple of Hkv), softmax in fp32, output in q's dtype. With no
+    operand that needs a gradient it is the forward stage alone;
+    otherwise the differentiable ``FlashAttention``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)

@@ -284,3 +284,102 @@ def batched_idx_bitunpack_ref(packed, *, k: int, group: int, kg: int):
     li = torch.sum(planes << shift, dim=1, dtype=torch.int32)
     slot = torch.arange(k, dtype=torch.int32, device=dev)
     return (slot // kg)[None, :] * group + li
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward, forward + logsumexp, dQ, dK/dV
+# ---------------------------------------------------------------------------
+#
+# q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd) with Hq = Hkv * R: q head h
+# reads kv head h // R, the (KVg, R) order of the reference's
+# ``_project_qkv``. Softmax in fp32 with scale 1/sqrt(hd) applied to q (the
+# Pallas kernels' ``q * scale``); outputs in q's dtype, logsumexp in fp32.
+#
+# Causal convention: key kpos is visible from query qpos when kpos <= qpos,
+# aligned top-left, which is the Pallas kernels' rule
+# (``flash_attention.py:46``) and ``chunked_attention``'s with q0 = k0 = 0.
+# The JAX package's ``ref.flash_attention_ref`` aligns bottom-right
+# (kpos <= qpos + Sk - Sq); all three agree when Sq = Sk, the only case
+# ``attention_block`` sends. ``window > 0`` also hides kpos <= qpos -
+# window (``models/layers.py:344``), causal or not. Masked entries get
+# probability 0, so a row that sees no key at all comes out 0 (the Pallas
+# kernel would average v there); no row of a causal call is such a row.
+
+FLASH_NEG_INF = -1e30
+
+
+def flash_mask(sq: int, sk: int, *, causal: bool, window: int, device):
+    """(Sq, Sk) bool: which keys each query sees."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _per_q_head(kv, hq: int):
+    """(B, Hkv, S, hd) -> (B, Hq, S, hd) fp32, kv head g repeated R times."""
+    r = hq // kv.shape[1]
+    kv = kv.float()
+    return kv if r == 1 else kv.repeat_interleave(r, dim=1)
+
+
+def _flash_scores(q, k, *, causal, window):
+    """fp32 scores (q * scale) . k with masked entries at -1e30, and the
+    mask."""
+    hd = q.shape[-1]
+    s = (q.float() * (1.0 / math.sqrt(hd))) @ \
+        _per_q_head(k, q.shape[1]).transpose(-1, -2)
+    mask = flash_mask(q.shape[2], k.shape[2], causal=causal, window=window,
+                      device=q.device)
+    return torch.where(mask, s, FLASH_NEG_INF), mask
+
+
+def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool, window: int = 0):
+    """Attention and its fp32 logsumexp: -> (o (B, Hq, Sq, hd) in q's
+    dtype, lse (B, Hq, Sq) fp32 = m + log max(l, 1e-30))."""
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    m = torch.amax(s, -1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = torch.clamp(torch.sum(p, -1), min=1e-30)
+    o = (p @ _per_q_head(v, q.shape[1])) / l[..., None]
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0):
+    """Attention alone (the forward stage): o (B, Hq, Sq, hd), q's dtype."""
+    return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                       window=window)[0]
+
+
+def _flash_ds(q, k, v, do, lse, delta, *, causal, window):
+    """P = exp(s - lse) (0 where masked) and dS = P (dO V^T - delta) scale."""
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = do.float() @ _per_q_head(v, q.shape[1]).transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    return p, ds
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, *, causal: bool,
+                           window: int = 0):
+    """dQ = sum_k dS K with P = exp(s - lse), dS = P (dO V^T - delta)
+    scale; ``lse`` from the forward, delta = rowsum(O dO), both (B, Hq,
+    Sq) fp32. -> (B, Hq, Sq, hd) in q's dtype."""
+    _, ds = _flash_ds(q, k, v, do, lse, delta, causal=causal, window=window)
+    return (ds @ _per_q_head(k, q.shape[1])).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal: bool,
+                            window: int = 0):
+    """dK = dS^T Q and dV = P^T dO, summed over the R q heads of each kv
+    head: -> (dk, dv), each (B, Hkv, Sk, hd) in k's dtype."""
+    p, ds = _flash_ds(q, k, v, do, lse, delta, causal=causal, window=window)
+    B, hkv, sk, hd = k.shape
+    r = q.shape[1] // hkv
+    dv = (p.transpose(-1, -2) @ do.float()).reshape(B, hkv, r, sk, hd)
+    dk = (ds.transpose(-1, -2) @ q.float()).reshape(B, hkv, r, sk, hd)
+    return dk.sum(2).to(k.dtype), dv.sum(2).to(v.dtype)

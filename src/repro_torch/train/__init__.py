@@ -1,1 +1,2 @@
-"""Training helpers of the port: the stacked optimizer and the lifelong metrics."""
+"""Training helpers of the port: the stacked optimizer, the lifelong
+metrics and the LM trainer (``train.trainer``)."""

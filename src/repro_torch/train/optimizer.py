@@ -11,12 +11,20 @@ client is its own optimizer problem.
   * Clipping is per client: client c's norm runs over every leaf of its
     own row, with the reference's ``1e-9``. ``clip_grad_norm_`` over the
     stacked tensors would clip across clients.
+  * ``schedule`` (``cosine_schedule``) scales the learning rate by a
+    function of each client's step count, in fp32, as the reference's
+    ``adam(schedule=)``.
+
+The reference's unstacked Adam (one model: a scalar ``count``) is the
+same arithmetic on a stack of one: ``train/trainer.py`` runs the LM's
+adaptive slice that way.
 
 Trees are the nested dicts of ``common.pytree``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -33,7 +41,8 @@ def _per_client(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
+def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+         schedule: Optional[Callable] = None) -> Optimizer:
     def init(params):
         C = tree_leaves(params)[0].shape[0]
         dev = tree_leaves(params)[0].device
@@ -49,12 +58,14 @@ def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         c = count.float()
         bc1 = 1 - b1 ** c          # fp32 powers on the device, no host copy
         bc2 = 1 - b2 ** c
+        sched_lr = None if schedule is None else lr * schedule(count)
 
         def upd(mm, vv, p):
-            u = -lr * (mm / _per_client(bc1, mm)) / (
+            step_lr = lr if schedule is None else _per_client(sched_lr, mm)
+            u = -step_lr * (mm / _per_client(bc1, mm)) / (
                 torch.sqrt(vv / _per_client(bc2, vv)) + eps)
             if weight_decay:
-                u = u - lr * weight_decay * p
+                u = u - step_lr * weight_decay * p
             return u
 
         return tree_map(upd, m, v, params), {"m": m, "v": v, "count": count}
@@ -74,3 +85,15 @@ def clip_by_global_norm(grads, max_norm: float):
     gn = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * _per_client(scale, g), grads), gn
+
+
+def cosine_schedule(warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup to 1 over ``warmup`` steps, then a cosine decay to
+    ``floor`` at ``total``: step counts (any shape, integer) -> fp32."""
+    def fn(count):
+        c = count.float()
+        warm = c / max(warmup, 1)
+        prog = torch.clamp((c - warmup) / max(total - warmup, 1), 0, 1)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(c < warmup, warm, cos)
+    return fn

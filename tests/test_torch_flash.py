@@ -1,0 +1,237 @@
+"""Flash attention in the port: the plain versions of its four stages
+(``repro_torch.kernels.ref``) and ``ops.flash_attention``'s autograd
+Function on the CPU, against the JAX package's oracles on the same numpy
+inputs. The reference's Pallas flash kernels do not run on this JAX (they
+call ``pl.load``), so the oracles are ``repro.kernels.ref.
+flash_attention_ref`` with its ``jax.grad``, and the model path's
+``repro.models.layers.chunked_attention``.
+
+Tolerances: fp32 2e-5 and bf16 2e-2 for the output and the logsumexp
+(``tests/test_kernels.py``'s bars: fp32 softmax rows summed in another
+order; bf16 one rounding of the output), 5e-4 for gradients
+(``tests/test_kernels_bwd.py``'s bar), 2e-5 against ``chunked_attention``
+(fp32, its 1024-key chunks). The CUDA kernels run only on the card:
+``chip_smoke.py`` holds each against these plain versions there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as JREF
+from repro.models.layers import chunked_attention
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_TOL = 5e-4
+CHUNKED_TOL = 2e-5
+
+
+def _qkv(seed, B, H, sq, sk, hd, hkv=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, hkv or H, sk, hd)).astype(np.float32)
+    v = rng.standard_normal((B, hkv or H, sk, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _both(x, dtype):
+    """numpy fp32 -> (torch, jax) arrays of ``dtype``, rounded once."""
+    return (torch.from_numpy(x).to(getattr(torch, dtype)),
+            jnp.asarray(x).astype(dtype))
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _jax_lse(q, k, causal):
+    """The logsumexp of ``JREF.flash_attention_ref``'s masked logits."""
+    hd = q.shape[-1]
+    logits = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32),
+                        k.astype(jnp.float32)) / jnp.sqrt(hd).astype(
+                            jnp.float32)
+    if causal:
+        sq, sk = logits.shape[-2:]
+        mask = jnp.arange(sk)[None, :] <= jnp.arange(sq)[:, None] + sk - sq
+        logits = jnp.where(mask, logits, -1e30)
+    return jax.nn.logsumexp(logits, axis=-1)
+
+
+FWD_CASES = [(2, 4, 128, 128, 64, True), (2, 4, 128, 128, 64, False),
+             (1, 2, 96, 96, 128, True), (1, 2, 96, 96, 128, False),
+             (1, 3, 40, 72, 64, False), (1, 2, 72, 33, 128, False),
+             (2, 1, 1, 1, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,sq,sk,hd,causal", FWD_CASES)
+def test_forward_and_lse_match_jax_ref(B, H, sq, sk, hd, causal, dtype):
+    q, k, v = _qkv(sq * 7 + sk, B, H, sq, sk, hd)
+    (tq, jq), (tk, jk), (tv, jv) = (_both(x, dtype) for x in (q, k, v))
+    want = _np(JREF.flash_attention_ref(jq, jk, jv, causal=causal))
+    o = ops.flash_attention(tq, tk, tv, causal=causal)
+    o2, lse = ops.flash_attention_fwd_lse(tq, tk, tv, causal=causal)
+    assert o.dtype == tq.dtype and o2.dtype == tq.dtype
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, sq)
+    np.testing.assert_allclose(_np(o), want, atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(o, o2)
+    np.testing.assert_allclose(lse.numpy(), _np(_jax_lse(jq, jk, causal)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+GRAD_CASES = [(1, 2, 64, 64, 64, True), (1, 2, 64, 64, 64, False),
+              (2, 1, 50, 50, 128, True), (1, 2, 40, 56, 64, False)]
+
+
+def _jax_grads(q, k, v, do, causal):
+    f = lambda q, k, v: jnp.sum(JREF.flash_attention_ref(
+        q, k, v, causal=causal) * do)
+    return jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("B,H,sq,sk,hd,causal", GRAD_CASES)
+def test_autograd_function_grads_match_jax(B, H, sq, sk, hd, causal):
+    q, k, v = _qkv(sq + 3 * sk + hd, B, H, sq, sk, hd)
+    do = np.random.default_rng(1).standard_normal((B, H, sq, hd)).astype(
+        np.float32)
+    want = _jax_grads(*(jnp.asarray(x) for x in (q, k, v, do)), causal)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert o.grad_fn is not None and "FlashAttention" in type(
+        o.grad_fn).__name__
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("B,H,sq,sk,hd,causal", GRAD_CASES)
+def test_plain_dq_dkv_stages_match_jax(B, H, sq, sk, hd, causal):
+    """The plain dQ and dK/dV stages fed the forward's lse and delta =
+    rowsum(O dO), as the kernels are."""
+    q, k, v = _qkv(sq * 5 + sk, B, H, sq, sk, hd)
+    do = np.random.default_rng(2).standard_normal((B, H, sq, hd)).astype(
+        np.float32)
+    want = _jax_grads(*(jnp.asarray(x) for x in (q, k, v, do)), causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = ref.flash_attention_fwd_lse_ref(tq, tk, tv, causal=causal)
+    delta = torch.sum(o * tdo, -1)
+    dq = ref.flash_attention_dq_ref(tq, tk, tv, tdo, lse, delta,
+                                    causal=causal)
+    dk, dv = ref.flash_attention_dkv_ref(tq, tk, tv, tdo, lse, delta,
+                                         causal=causal)
+    for g, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("S", [16, 1000])
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_gqa_window_matches_chunked_attention(R, window, S):
+    """The model path's layout: q (B, S, KVg, R, hd) heads g * R + r read
+    kv head g; causal from q0 = k0 = 0, a sliding window."""
+    B, kvg, hd = 1, 2, 64
+    rng = np.random.default_rng(R * 100 + window * 10 + S)
+    q = rng.standard_normal((B, S, kvg, R, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, kvg, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, kvg, hd)).astype(np.float32)
+    want = np.asarray(chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, q0=0, k0=0))                       # (B, S, H, hd)
+    tq = torch.from_numpy(q).reshape(B, S, kvg * R, hd).transpose(1, 2)
+    tk, tv = (torch.from_numpy(x).transpose(1, 2) for x in (k, v))
+    o = ops.flash_attention(tq.contiguous(), tk.contiguous(),
+                            tv.contiguous(), causal=True, window=window)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(), want,
+                               atol=CHUNKED_TOL, rtol=CHUNKED_TOL)
+
+
+def test_gqa_grads_equal_grads_of_repeated_kv():
+    """dK/dV of a kv head sum over its R q heads: the same as attention
+    over kv repeated to every q head, then summed back."""
+    q, k, v = _qkv(11, 1, 4, 24, 24, 64, hkv=2)
+    do = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(tq, tk, tv, causal=True),
+                              (tq, tk, tv), torch.from_numpy(do))
+    want = _jax_grads(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=1),
+                      jnp.repeat(jnp.asarray(v), 2, axis=1), jnp.asarray(do),
+                      True)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=GRAD_TOL, rtol=GRAD_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        w = np.asarray(w).reshape(1, 2, 2, 24, 64).sum(2)
+        np.testing.assert_allclose(g.numpy(), w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_causal_convention_is_top_left():
+    """The port's causal mask is kpos <= qpos aligned top-left, the Pallas
+    kernels' rule and ``chunked_attention``'s with q0 = k0 = 0; the JAX
+    ref aligns bottom-right. With Sq = Sk, the case ``attention_block``
+    sends, all three agree; with Sq < Sk the JAX ref differs."""
+    B, H, hd = 1, 2, 64
+    for sq, sk in ((32, 32), (16, 48)):
+        q, k, v = _qkv(sq + sk, B, H, sq, sk, hd)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        o = ops.flash_attention(tq, tk, tv, causal=True).numpy()
+        top_left = np.asarray(chunked_attention(
+            jnp.asarray(q.transpose(0, 2, 1, 3)[:, :, :, None]),
+            jnp.asarray(k.transpose(0, 2, 1, 3)),
+            jnp.asarray(v.transpose(0, 2, 1, 3)),
+            causal=True, window=0, q0=0, k0=0)).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(o, top_left, atol=CHUNKED_TOL,
+                                   rtol=CHUNKED_TOL)
+        bottom_right = np.asarray(JREF.flash_attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+        if sq == sk:
+            np.testing.assert_allclose(o, bottom_right, atol=TOL["float32"],
+                                       rtol=TOL["float32"])
+        else:
+            assert np.abs(o - bottom_right).max() > 0.1
+    # the first query sees only key 0: its output is v[0] exactly
+    np.testing.assert_array_equal(o[:, :, 0], v[:, :, 0])
+
+
+def test_forward_stage_without_grad_and_function_with():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 2, 8, 8, 64))
+    assert ops.flash_attention(q, k, v, causal=True).grad_fn is None
+    with torch.no_grad():
+        qg = q.clone().requires_grad_()
+        assert ops.flash_attention(qg, k, v, causal=True).grad_fn is None
+    qg = q.clone().requires_grad_()
+    assert ops.flash_attention(qg, k, v, causal=True).grad_fn is not None
+
+
+def test_row_with_no_visible_key_is_zero():
+    """Non-causal with a window and Sq > Sk: the last queries see no key;
+    their output is 0 and lse -1e30 (the plain version and the kernels
+    alike; no causal call has such a row)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, 1, 1, 12, 4, 64))
+    o, lse = ops.flash_attention_fwd_lse(q, k, v, causal=False, window=3)
+    assert torch.all(o[0, 0, 6:] == 0) and torch.all(lse[0, 0, 6:] <= -1e29)
+    assert torch.all(o[0, 0, :6].abs().sum(-1) > 0)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """The CUDA wrappers check their operands before any build or launch:
+    CPU tensors, head dims other than 64 / 128, q heads that are not a
+    multiple of kv heads, mixed dtypes."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 4, 8, 8, 64, hkv=2))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_fwd(q, k, v, causal=True)
+    q96, k96, v96 = (torch.from_numpy(x) for x in _qkv(1, 1, 2, 8, 8, 96))
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_fwd_lse(q96, k96, v96, causal=True)
+    with pytest.raises(ValueError, match="multiple"):
+        FA.flash_attention_fwd(q[:, :3].contiguous(), k, v, causal=True)
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q.double(), k, v, causal=True)
+    lse = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_dkv(q, k, v, q, lse, lse, causal=True)
+    assert FA.flash_attention_fwd.launches == 0

@@ -3,7 +3,8 @@
   * src/repro_torch/ and chip_smoke.py import neither jax / jaxlib nor the
     JAX package ``repro`` (the port keeps its own copies);
   * every CUDA kernel wrapper carries an integer ``launches`` counter, and
-    its kernel module names the TPU kernel it replaces;
+    its kernel module names the TPU kernel it replaces (the four flash
+    attention stages among them);
   * no CUDA source asks for fast math (the quantizer's bit-exactness and
     the IEEE fp32 sums depend on it).
 """
@@ -30,10 +31,24 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("quantize", "batched_dequantize"),
             ("relevance_aggregate", "relevance_aggregate"),
             ("adaptive_combine", "adaptive_combine"),
-            ("pairwise_dist", "pairwise_dist")]
+            ("pairwise_dist", "pairwise_dist"),
+            ("flash_attention", "flash_attention_fwd"),
+            ("flash_attention", "flash_attention_fwd_lse"),
+            ("flash_attention", "flash_attention_dq"),
+            ("flash_attention", "flash_attention_dkv")]
 # wrappers whose CUDA source is not named after their module
 SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
              ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}
+# wrappers whose TPU kernel is not ``<module>.py:<wrapper name>``
+REPLACES = {
+    ("flash_attention", "flash_attention_fwd"):
+        "src/repro/kernels/flash_attention.py:flash_attention",
+    ("flash_attention", "flash_attention_fwd_lse"):
+        "src/repro/kernels/flash_attention_bwd.py:_fwd",
+    ("flash_attention", "flash_attention_dq"):
+        "src/repro/kernels/flash_attention_bwd.py:_dq_kernel",
+    ("flash_attention", "flash_attention_dkv"):
+        "src/repro/kernels/flash_attention_bwd.py:_dkv_kernel"}
 
 
 def _port_files():
@@ -65,7 +80,8 @@ def test_kernel_wrappers_count_launches(module, name):
     assert isinstance(wrapper.launches, int)
     source = SOURCE_OF.get((module, name), module)
     src = (PORT / "kernels" / "csrc" / f"{source}.cu").read_text()
-    assert f"src/repro/kernels/{module}.py:{name}" in src
+    assert REPLACES.get((module, name),
+                        f"src/repro/kernels/{module}.py:{name}") in src
     assert "extern \"C\" int repro_" in src
 
 
