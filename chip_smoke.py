@@ -33,8 +33,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  dK/dV) in fp32 at edge shapes (S 16 / 1000 / ragged, hd 64
                  and 128, R 1 and 2, non-causal Sq != Sk, a window: o 2e-5,
                  lse 1e-5, grads 5e-4) and in bf16 at the train step's
-                 shape (2e-2 of the largest magnitude, lse 1e-4), timed
-                 there beside ``scaled_dot_product_attention``;
+                 shape (each element within one bf16 rounding, relative L2
+                 1e-3, lse 1e-4), timed there beside
+                 ``scaled_dot_product_attention`` (whose own readings
+                 against the plain version are reported); the bf16
+                 forwards (the tensor-core kernel, HGMMA in its SASS) also
+                 at the edge shapes, rows that see no key 0 with lse -1e30;
                  times (CUDA events, median of 30 launches after warmup),
                  the relevance, codec, dequantize, aggregate and combine
                  kernels at the C = 1000 shapes
@@ -136,8 +140,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  B=2 x S=4096 (train_4k's sequence; its global batch of 256
                  cut to one card's 2): one warm-up and three timed steps
                  (CUDA events: step ms, tokens/s, peak memory), flash
-                 launches checked at 27 / 1 / 1 / 1 a step (counts zeroed
-                 just before), the combine once a leaf a step, each flash
+                 launches checked at 27 / 1 / 1 / 1 a step, the two
+                 forwards on the tensor cores (counts zeroed just before),
+                 the combine once a leaf a step, each flash
                  kernel against its plain version on its last on-path
                  operands, and the first step's loss and adaptive gradients
                  with attention routed to the plain versions on the card
@@ -146,8 +151,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  share
      lm_train_reduced: the GQA-reduced config (R = 2, hd 64, fp32) trained
                  10 steps on the card and on the CPU, B=4 x S=200, per-step
-                 loss within 1e-4; then one full fine-tuning step on both
-                 (forward + lse, dQ and dK/dV on every layer)
+                 loss within 1e-4, the forwards on the FMA kernel; then one
+                 full fine-tuning step on both (forward + lse, dQ and dK/dV
+                 on every layer)
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -157,6 +163,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -365,13 +372,18 @@ KERNELS = {
         "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:161"},
+    # the bf16 forwards run on the tensor-core kernel (counted in
+    # ``tc_launches``); fp32 keeps flash_attention.cu's FMA kernel
+    # (lm_train_reduced, phase 3's fp32 edge shapes)
     "flash_attention_fwd": {
         "fn": flash_attention_fwd, "paths": ("lm_train",),
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "counter": "tc_launches",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention_fwd_lse": {
         "fn": flash_attention_fwd_lse, "paths": ("lm_train",),
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "counter": "tc_launches",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
     "flash_attention_dq": {
         "fn": flash_attention_dq, "paths": ("lm_train",),
@@ -384,6 +396,21 @@ KERNELS = {
 }
 CODEC_KERNELS = ("batched_topk_pack", "batched_topk_unpack",
                  "batched_idx_bitpack", "batched_idx_bitunpack")
+
+
+def zero_counts() -> None:
+    """Every wrapper's launch counters to 0."""
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+        if hasattr(spec["fn"], "tc_launches"):
+            spec["fn"].tc_launches = 0
+
+
+def counts() -> dict:
+    """{kernel: its launches since the last ``zero_counts``}: the
+    tensor-core count where the row is the tensor-core kernel."""
+    return {name: getattr(spec["fn"], spec.get("counter", "launches"))
+            for name, spec in KERNELS.items()}
 
 
 def emit(obj) -> None:
@@ -1035,6 +1062,7 @@ LM_STEPS = 4                            # 1 warm-up + 3 timed
 LM_TIE = 1e-4                           # launch/train.py's tie_lambda
 FLASH_STAGES = ("flash_attention_fwd", "flash_attention_fwd_lse",
                 "flash_attention_dq", "flash_attention_dkv")
+FWD_STAGES = FLASH_STAGES[:2]           # bf16: the tensor-core kernel
 FLASH_PLAIN = {"flash_attention_fwd": REF.flash_attention_ref,
                "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref,
                "flash_attention_dq": REF.flash_attention_dq_ref,
@@ -1051,6 +1079,17 @@ FLASH_TOL = {"o": 2e-5, "lse": 1e-5, "grad": 5e-4}
 # everywhere would be about 2^-8). lse stays fp32: absolute.
 FLASH_BF16_ULP, FLASH_BF16_FLOOR, FLASH_BF16_REL_L2 = 2.0 ** -7, 1e-3, 1e-3
 FLASH_BF16_LSE_TOL = 1e-4
+# the bf16 forwards' edge shapes (B, Hq, Hkv, Sq, Sk, hd, causal, window):
+# the fp32 list, a causal R = 2 at hd 128, and rows that see no key (Sq >
+# Sk, non-causal, window 5: qpos >= Sk + window - 1; it stays last)
+BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
+              (1, 2, 2, 1000, 1000, 128, True, 0),
+              (1, 4, 2, 1000, 1000, 128, True, 0),
+              (2, 4, 2, 1000, 1000, 64, True, 37),
+              (1, 2, 1, 1000, 1000, 128, False, 0),
+              (1, 2, 2, 130, 77, 64, False, 0),
+              (1, 2, 1, 77, 130, 128, False, 5),
+              (1, 4, 2, 130, 77, 128, False, 5))
 # the step on the kernels vs the same step on the plain versions, on the
 # card: |loss delta|, and the relative L2 error of each adaptive gradient
 # leaf (the worst leaf is held, so the attention weights' gradients,
@@ -1076,15 +1115,13 @@ def flash_stats(q, k, v, do, kw):
     return lse, torch.sum(o.float() * do.float(), -1)
 
 
-def flash_output_check(label, a, b, tol):
-    """Holds one flash kernel output ``a`` against the plain version's
-    ``b``: against the absolute bar ``tol``, or where ``tol`` is None
-    element by element against FLASH_BF16_ULP |b| + FLASH_BF16_FLOOR
-    rms(b) and by its relative L2 error. -> {max_abs_err, bar_share (the
-    largest share of a bar used, <= 1), and for bf16 elem_share and
-    rel_l2}."""
+def flash_readings(a, b, tol):
+    """One flash output ``a`` against the plain version's ``b``: against
+    the absolute bar ``tol``, or where ``tol`` is None element by element
+    against FLASH_BF16_ULP |b| + FLASH_BF16_FLOOR rms(b) and by its
+    relative L2 error. -> {max_abs_err, bar_share (the largest share of a
+    bar used), and for bf16 elem_share and rel_l2}."""
     a, b = a.float(), b.float()
-    check(bool(torch.isfinite(a).all()), f"{label}: non-finite output")
     diff = (a - b).abs()
     out = {"max_abs_err": float(diff.max())}
     if tol is not None:
@@ -1097,6 +1134,13 @@ def flash_output_check(label, a, b, tol):
             float(torch.linalg.vector_norm(b)), 1e-30)
         out["bar_share"] = max(out["elem_share"],
                                out["rel_l2"] / FLASH_BF16_REL_L2)
+    return out
+
+
+def flash_output_check(label, a, b, tol):
+    """``flash_readings``, held: finite and every bar_share <= 1."""
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite output")
+    out = flash_readings(a, b, tol)
     check(out["bar_share"] <= 1.0, f"{label}: {out} over its bar")
     return out
 
@@ -1142,12 +1186,46 @@ def flash_errs(q, k, v, do, kw, bf16):
             for name in FLASH_STAGES}
 
 
+def flash_fwd_bf16_errs(q, k, v, kw):
+    """The two bf16 forwards (the tensor-core kernel) against their plain
+    versions at the bf16 bars; -> ({stage: worst readings}, the kernel's
+    (o, lse))."""
+    got = {"flash_attention_fwd": (flash_attention_fwd(q, k, v, **kw),),
+           "flash_attention_fwd_lse": flash_attention_fwd_lse(q, k, v, **kw)}
+    want = {"flash_attention_fwd": (REF.flash_attention_ref(q, k, v, **kw),),
+            "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref(
+                q, k, v, **kw)}
+    torch.cuda.synchronize()
+    label = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {kw}"
+    return ({name: flash_outputs_check(label, name, got[name], want[name],
+                                       True) for name in FWD_STAGES},
+            got["flash_attention_fwd_lse"])
+
+
+def sass_report(source):
+    """What ``cuobjdump`` reads in csrc/<source>.cu's library: the HGMMA
+    (wgmma) instructions in its SASS, and the most registers and local
+    memory (spills) of any of its kernels."""
+    def dump(flag):
+        return subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
+             str(_build.build_dir() / f"lib{source}.so")],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+    usage = dump("-res-usage")
+    regs, local = (list(map(int, re.findall(rf"{k}:(\d+)", usage)))
+                   for k in ("REG", "LOCAL"))
+    check(bool(regs and local), f"{source}: no resource usage in {usage}")
+    return {"hgmma": dump("-sass").count("HGMMA"), "registers": max(regs),
+            "local_bytes": max(local)}
+
+
 def flash_kernel_rows(gen, dev, peak):
     """The four flash-attention kernels against their plain versions: fp32
     at edge shapes (S 16 and 1000, ragged S, hd 64 and 128, R 1 and 2,
-    non-causal with Sq != Sk, a window), bf16 at the train step's shape
-    (B 2, 16 q / 8 kv heads, S 4096, hd 128, causal), where they are
-    timed beside their plain versions and PyTorch's
+    non-causal with Sq != Sk, a window), the bf16 forwards (the
+    tensor-core kernel) at ``BF16_EDGES``, all four in bf16 at the train
+    step's shape (B 2, 16 q / 8 kv heads, S 4096, hd 128, causal), where
+    they are timed beside their plain versions and PyTorch's
     ``scaled_dot_product_attention`` (forward; its autograd backward for
     dQ and dK/dV). Bounds at the bf16 tensor-core rate."""
     errs = dict.fromkeys(FLASH_STAGES, 0.0)
@@ -1168,6 +1246,25 @@ def flash_kernel_rows(gen, dev, peak):
         fold(flash_errs(q, k, v, do, dict(causal=causal, window=window),
                         False))
     fp32_errs = dict(errs)
+    # the bf16 forwards (the tensor-core kernel) at the edge shapes, at the
+    # bf16 bars; the last case has rows that see no key (qpos >= 81)
+    sass = sass_report("flash_fwd_sm90")
+    check(sass["hgmma"] > 0, f"flash_fwd_sm90: no HGMMA in its SASS {sass}")
+    bf16_edge = {}
+    for B, hq, hkv, sq, sk, hd, causal, window in BF16_EDGES:
+        q, k, v, _ = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
+                                  torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+        e, (o, lse) = flash_fwd_bf16_errs(q, k, v, kw)
+        for n, r in e.items():
+            errs[n] = max(errs[n], r["max_abs_err"])
+            bf16_edge[n] = {key: max(bf16_edge.get(n, {}).get(key, 0.0), x)
+                            for key, x in r.items()}
+    blind = slice(sk + window - 1, None)     # the last case's blind rows
+    check(bool((o[:, :, blind] == 0).all())
+          and bool((lse[:, :, blind] == REF.FLASH_NEG_INF).all())
+          and bool((o[:, :, :blind.start].abs().sum(-1) > 0).all()),
+          "flash_fwd_sm90: rows that see no key are not 0 with lse -1e30")
     hq, hkv, hd = 16, 8, 128
     q, k, v, do = flash_inputs(gen, dev, LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ,
                                hd, torch.bfloat16)
@@ -1205,6 +1302,10 @@ def flash_kernel_rows(gen, dev, peak):
                                                 **kw))}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    # SDPA (single-rounded P) against the plain version: reported, not held
+    sdpa_vs_plain = flash_readings(
+        sdpa(q, k, v, is_causal=True, enable_gqa=True),
+        REF.flash_attention_ref(q, k, v, **kw), None)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     og = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
@@ -1221,6 +1322,14 @@ def flash_kernel_rows(gen, dev, peak):
             shape=[LM_BATCH, hq, hkv, LM_SEQ, hd],
             detail={"fp32_edge_abs_err": fp32_errs[name],
                     "bf16_path_shape": bf16_errs[name],
+                    **({"kernel": "tensor cores (flash_fwd_sm90.cu) in "
+                        "bf16, FMA (flash_attention.cu) in fp32",
+                        "bf16_edge": bf16_edge[name], "sass": sass,
+                        # P split in two bf16 products: 1.5x the bound's
+                        "design_floor_ms": 1.5 * bound(
+                            *work[name], tensor_peak(peak))[0],
+                        "sdpa_vs_plain": sdpa_vs_plain}
+                       if name in FWD_STAGES else {}),
                     "library": (
                 "scaled_dot_product_attention(is_causal, enable_gqa)"
                 if name in FLASH_STAGES[:2] else
@@ -1723,11 +1832,10 @@ def phase_round_fedstil(dev, card):
     Returns each kernel's launches during the card run and its error
     against its plain version on the operands the run gave it."""
     bench = FederatedReIDBenchmark(seed=SEED)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     with last_operands(ROUND_KERNELS) as seen:
         strat, res, wall_s = simulate(bench, dev)
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = counts()
     on_path = path_operand_errs(seen)
     strat_cpu, res_cpu, cpu_s = simulate(bench, "cpu")
 
@@ -1897,11 +2005,10 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     each kernel's launches during the card run and the codec kernels'
     errors against their plain versions on their last on-path operands."""
     bench = FederatedReIDBenchmark(seed=SEED)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     with last_operands(ROUND_KERNELS + CODEC_KERNELS) as seen:
         strat, res, wall_s = simulate(bench, dev, CODEC)
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = counts()
     on_path = path_operand_errs(seen)
     on_path.update(codec_path_errs(
         seen, BatchedCodec(make_codec(CODEC), P_ROUND)))
@@ -2001,11 +2108,10 @@ def phase_round_fedstil_host(dev, card, stacked):
     version on its last on-path operands."""
     strat_s, res_s = stacked
     bench = FederatedReIDBenchmark(seed=SEED)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     with last_operands(HOST_KERNELS) as seen:
         strat, res, wall_s = simulate(bench, dev, engine="host")
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = counts()
     on_path = path_operand_errs(seen)
     n_eval = len(res.rounds)
     per_round, final = metric_deltas(res.rounds, res_s.rounds)
@@ -2115,13 +2221,12 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
     quantize / dequantize / codec kernels against their plain versions on
     their last on-path operands."""
     bench = FederatedReIDBenchmark(seed=SEED)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     names = (ROUND_KERNELS + CODEC_KERNELS
              + ("batched_quantize", "batched_dequantize"))
     with last_operands(names) as seen:
         strat, res, wall_s = simulate(bench, dev, CODEC_INT8)
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = counts()
     on_path = path_operand_errs(seen)
     on_path.update(codec_path_errs(
         seen, BatchedCodec(make_codec(CODEC_INT8), P_ROUND)))
@@ -2339,7 +2444,8 @@ def flash_path_errs(seen):
 
 # kernel name substrings -> group, first match wins (cuBLAS's Hopper
 # matmuls are named nvjet_*)
-LM_KERNEL_GROUPS = (("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+LM_KERNEL_GROUPS = (("flash_fwd_tensor_cores", ("fwd_kernel_sm90",)),
+                    ("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
                     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
                     ("combine", ("combine",)),
                     ("copy", ("copy",)),
@@ -2349,7 +2455,8 @@ LM_KERNEL_GROUPS = (("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
 
 def lm_step_profile(step, st, batch):
     """One more split step under torch.profiler: device ms by kernel
-    group (the flash kernels, cuBLAS matmuls, the combine, copies and
+    group (the tensor-core flash forward, the FMA flash kernels, cuBLAS
+    matmuls, the combine, copies and
     casts, other elementwise and reduction kernels, the rest) and the
     device's idle share of the window (an upper bound: the profiler slows
     the host)."""
@@ -2403,13 +2510,13 @@ def phase_lm_train(dev, card):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
-    per_step, step_ms, losses = [], [], []
+    zero_counts()
+    per_step, tc_step, step_ms, losses = [], [], [], []
     with last_operands(FLASH_STAGES, by_reference=FLASH_STAGES) as seen:
         tr, os_ = st.trainable, st.opt_state
         for b in batches:
             before = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
+            before_tc = {n: KERNELS[n]["fn"].tc_launches for n in FWD_STAGES}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2420,7 +2527,9 @@ def phase_lm_train(dev, card):
             losses.append(float(m["loss"]))
             per_step.append({n: KERNELS[n]["fn"].launches - before[n]
                              for n in FLASH_STAGES})
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+            tc_step.append({n: KERNELS[n]["fn"].tc_launches - before_tc[n]
+                            for n in FWD_STAGES})
+    launches = counts()
     peak_mem = torch.cuda.max_memory_allocated(dev)
     del tr, os_, m
     on_path = flash_path_errs(seen)
@@ -2459,6 +2568,7 @@ def phase_lm_train(dev, card):
           "tokens_per_s": tokens / (float(np.median(timed)) / 1e3),
           "peak_mem_bytes": peak_mem, "losses": losses,
           "launches_per_step": per_step,
+          "tensor_core_launches_per_step": tc_step,
           "launches": {n: launches[n] for n in FLASH_STAGES
                        + ("adaptive_combine",)},
           "kernel_vs_plain_on_path": on_path, "plain_attention_step": swap,
@@ -2467,6 +2577,10 @@ def phase_lm_train(dev, card):
     check(all(np.isfinite(losses)), f"lm_train: losses {losses}")
     check(all(p == expect_step for p in per_step),
           f"lm_train launches a step {per_step}, expected {expect_step}")
+    expect_tc = {n: expect_step[n] for n in FWD_STAGES}
+    check(all(p == expect_tc for p in tc_step),
+          f"lm_train tensor-core forwards a step {tc_step}, expected "
+          f"{expect_tc}")
     n_leaves = len(tree_leaves(st.B))
     check(launches["adaptive_combine"] == n_leaves * LM_STEPS,
           f"lm_train: {launches['adaptive_combine']} combine launches, "
@@ -2508,10 +2622,10 @@ def phase_lm_train_reduced(dev, card):
             p, init_opt_state(o, p), bs[0])
         return losses, float(m["loss"])
 
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     card_losses, card_full = run(dev)
     launches = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
+    tc = {n: KERNELS[n]["fn"].tc_launches for n in FWD_STAGES}
     cpu_losses, cpu_full = run("cpu")
     deltas = [abs(a - b) for a, b in zip(card_losses, cpu_losses)]
     emit({"phase": "lm_train_reduced", "card": card, "config": cfg.name,
@@ -2520,7 +2634,8 @@ def phase_lm_train_reduced(dev, card):
           "card_losses": card_losses, "cpu_losses": cpu_losses,
           "max_step_delta": max(deltas), "full_step_loss": [card_full,
                                                             cpu_full],
-          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+          "launches": launches, "tensor_core_launches": tc,
+          "phase_s": time.perf_counter() - t_phase})
     check(max(deltas) <= LM_RED_TOL and abs(card_full - cpu_full)
           <= LM_RED_TOL, f"lm_train_reduced card vs CPU: step deltas "
           f"{deltas}, full step {card_full} vs {cpu_full}")
@@ -2531,6 +2646,8 @@ def phase_lm_train_reduced(dev, card):
               "flash_attention_dkv": LM_RED_STEPS + n}
     check(launches == expect,
           f"lm_train_reduced launches {launches}, expected {expect}")
+    check(not any(tc.values()), f"lm_train_reduced (fp32) ran the bf16 "
+          f"tensor-core forward: {tc}; fp32 takes the FMA kernel")
 
 
 def main():
@@ -2551,13 +2668,13 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "dir": str(_build.build_dir().relative_to(ROOT))})
+          "dir": str(_build.build_dir().relative_to(ROOT)),
+          "nvcc_s_by_source": _build.build_seconds})
 
     rows = phase_kernels(dev, peaks(kind), card)
 
     # path 1: serving (counts zeroed just before, read just after)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     served = {"int8": phase_serve("int8", G_INT8, dev, card),
               "fp32": phase_serve("fp32", G_FP32, dev, card)}
     launches = {"serve": {name: spec["fn"].launches
@@ -2569,8 +2686,7 @@ def main():
 
     # path 2: IVF shortlist serving (counts zeroed just before, read just
     # after)
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    zero_counts()
     with last_operands(IVF_OPS, by_reference=IVF_OPS) as seen:
         ivf = phase_serve("ivf", G_INT8, dev, card)
     launches["serve_ivf"] = {name: spec["fn"].launches

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -26,12 +27,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("quantize", "int8_dist", "pairwise_dist", "kl_similarity",
            "relevance_aggregate", "cluster_dist", "ivf_shortlist",
-           "topk_pack", "adaptive_combine", "flash_attention")
+           "topk_pack", "adaptive_combine", "flash_attention",
+           "flash_fwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# seconds from the start of the last build to each source's nvcc exit
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -59,21 +63,30 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in SOURCES:
         so = out / f"lib{name}.so"
         if so.exists():
             continue
         tmp = out / f".lib{name}.{os.getpid()}.so"
+        log = out / f".{name}.{os.getpid()}.log"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp, so)
+        with open(log, "wb") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           tmp, so, log)
     errors = []
-    for name, (proc, tmp, so) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            errors.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, so)          # atomic: a reader never sees a half file
+    while procs:                         # each source's exit, as it comes
+        for name in [n for n, p in procs.items() if p[0].poll() is not None]:
+            proc, tmp, so, log = procs.pop(name)
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode:
+                errors.append(f"{name}.cu (exit {proc.returncode}):\n"
+                              + log.read_text(errors="replace"))
+            else:
+                os.replace(tmp, so)  # atomic: no reader sees a half file
+            log.unlink()
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     for name in SOURCES:

@@ -19,8 +19,9 @@
 //
 // Layout: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd), contiguous, Hq =
 // Hkv * R; q head h reads kv head h / R (the reference's (KVg, R) order).
-// fp32 or bf16 operands, fp32 arithmetic, outputs in the operands' type
-// (lse fp32). hd 64 or 128, any S: the ragged edge of the last tile is
+// fp32 or bf16 operands (the forwards fp32 only: bf16 forwards run on the
+// tensor cores, flash_fwd_sm90.cu), fp32 arithmetic, outputs in the
+// operands' type (lse fp32). hd 64 or 128, any S: the ragged edge of the last tile is
 // masked here. Visibility of key kpos from query qpos: kpos < Sk, causal
 // -> kpos <= qpos (aligned top-left, the Pallas rule), window > 0 ->
 // kpos > qpos - window (models/layers.py:344). Masked entries get
@@ -33,8 +34,10 @@
 // card's ridge, so the floor is the bf16 tensor-core rate.
 //
 // Design (first, simple version): fp32 FMAs on CUDA cores, no wgmma or
-// TMA, so the kernels run far from that floor; a later change moves the
-// products to tensor cores. One block of 256 threads per 64-row tile:
+// TMA, so the kernels run far from that floor. The bf16 forwards have
+// moved to the tensor cores (flash_fwd_sm90.cu); dQ and dK/dV in both
+// types, and the fp32 forwards (TF32 would miss their bars), stay here
+// until their own redesign. One block of 256 threads per 64-row tile:
 // the forward and dQ walk the kv tiles of one q tile (causal tiles past
 // the diagonal and window tiles before it skipped), dK/dV walk the q
 // tiles of one kv tile for each of the R q heads of its group. Tiles are
@@ -501,16 +504,15 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout,
 // 0/1, window 0 for none. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape the kernels do not take).
 
+// The forwards take fp32 only (bf16: repro_flash_fwd_sm90).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq,
                                int Sk, int hd, int causal, int window,
                                float scale, int bf16, void* stream) {
   const Dims d{B, Hq, Hkv, Sq, Sk, causal, window, scale};
   if (int rc = check_dims(d, hd)) return rc;
+  if (bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return hd == 64 ? run_fwd<__nv_bfloat16, 64>(q, k, v, o, nullptr, d, st)
-                    : run_fwd<__nv_bfloat16, 128>(q, k, v, o, nullptr, d, st);
   return hd == 64 ? run_fwd<float, 64>(q, k, v, o, nullptr, d, st)
                   : run_fwd<float, 128>(q, k, v, o, nullptr, d, st);
 }
@@ -522,12 +524,9 @@ extern "C" int repro_flash_fwd_lse(const void* q, const void* k,
                                    int bf16, void* stream) {
   const Dims d{B, Hq, Hkv, Sq, Sk, causal, window, scale};
   if (int rc = check_dims(d, hd)) return rc;
-  if (!lse) return (int)cudaErrorInvalidValue;
+  if (!lse || bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (bf16)
-    return hd == 64 ? run_fwd<__nv_bfloat16, 64>(q, k, v, o, l, d, st)
-                    : run_fwd<__nv_bfloat16, 128>(q, k, v, o, l, d, st);
   return hd == 64 ? run_fwd<float, 64>(q, k, v, o, l, d, st)
                   : run_fwd<float, 128>(q, k, v, o, l, d, st);
 }

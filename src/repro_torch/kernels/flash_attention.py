@@ -1,5 +1,6 @@
 """CUDA kernel wrappers: flash attention's four stages
-(``csrc/flash_attention.cu``), each replacing a Pallas TPU kernel:
+(``csrc/flash_attention.cu``; the bf16 forwards ``csrc/flash_fwd_sm90.cu``),
+each replacing a Pallas TPU kernel:
 
   * ``flash_attention_fwd``     o                      (replaces
     ``repro/kernels/flash_attention.py:flash_attention``)
@@ -13,6 +14,12 @@ CUDA device; hd 64 or 128. Outputs in the operands' dtype, lse and delta
 fp32 (B, Hq, Sq). The causal mask is aligned top-left (``ref.py`` states
 the convention). Takes CUDA tensors only; ``ops`` sends CPU tensors to
 the plain versions in ``ref``.
+
+The two forwards pick their kernel by dtype: bf16 runs on the tensor
+cores (wgmma + TMA, ``flash_fwd_sm90.cu``), fp32 on the FMA kernel of
+``flash_attention.cu`` (TF32 products would miss the fp32 bars). Each
+counts every launch in ``launches`` and the tensor-core ones also in
+``tc_launches``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # B Hq Hkv Sq Sk hd causal window, scale, bf16, stream
 _DIMS = (_I,) * 8 + (ctypes.c_float, _I, _P)
 _DTYPES = (torch.float32, torch.bfloat16)
+# q k v o lse (null: the forward alone), B .. window, scale, stream
+_TC_ARGS = (_P,) * 5 + (_I,) * 8 + (ctypes.c_float, _P)
 
 
 def _dims(q, k, v, *, causal, window):
@@ -67,30 +76,49 @@ def _stats(q, name, t):
     _build.check_operand(name, t, torch.float32, (B, hq, sq), q.device)
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
-    """Attention alone: -> o (B, Hq, Sq, hd)."""
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """The forwards' rule by dtype: bf16 on the tensor-core kernel, fp32
+    on the FMA kernel."""
+    return dtype == torch.bfloat16
+
+
+def _forward(name, q, k, v, *, causal, window, with_lse):
+    """Launch the forward of q's dtype -> (o, lse or None)."""
     dims = _dims(q, k, v, causal=causal, window=window)
     o = torch.empty_like(q)
-    fn = _build.kernel("flash_attention", "repro_flash_fwd",
-                       (_P,) * 4 + _DIMS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dims,
-            _stream(q.device))
-    _build.raise_on_error("flash_attention_fwd", rc)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    lse_ptr = () if lse is None else (lse.data_ptr(),)
+    if uses_tensor_cores(q.dtype):
+        fn = _build.kernel("flash_fwd_sm90", "repro_flash_fwd_sm90",
+                           _TC_ARGS)
+        rc = fn(*ptrs, lse_ptr[0] if lse_ptr else None, *dims[:-1],
+                _stream(q.device))
+    else:
+        fn = _build.kernel("flash_attention", "repro_flash_fwd_lse"
+                           if with_lse else "repro_flash_fwd",
+                           (_P,) * (4 + len(lse_ptr)) + _DIMS)
+        rc = fn(*ptrs, *lse_ptr, *dims, _stream(q.device))
+    _build.raise_on_error(name, rc)
+    return o, lse
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
+    """Attention alone: -> o (B, Hq, Sq, hd)."""
+    o, _ = _forward("flash_attention_fwd", q, k, v, causal=causal,
+                    window=window, with_lse=False)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tc_launches += uses_tensor_cores(q.dtype)
     return o
 
 
 def flash_attention_fwd_lse(q, k, v, *, causal: bool, window: int = 0):
     """Attention and its logsumexp: -> (o, lse (B, Hq, Sq) fp32)."""
-    dims = _dims(q, k, v, causal=causal, window=window)
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    fn = _build.kernel("flash_attention", "repro_flash_fwd_lse",
-                       (_P,) * 5 + _DIMS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *dims, _stream(q.device))
-    _build.raise_on_error("flash_attention_fwd_lse", rc)
+    o, lse = _forward("flash_attention_fwd_lse", q, k, v, causal=causal,
+                      window=window, with_lse=True)
     flash_attention_fwd_lse.launches += 1
+    flash_attention_fwd_lse.tc_launches += uses_tensor_cores(q.dtype)
     return o, lse
 
 
@@ -132,6 +160,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 flash_attention_fwd_lse.launches = 0
+flash_attention_fwd_lse.tc_launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0

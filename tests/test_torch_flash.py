@@ -11,7 +11,9 @@ Tolerances: fp32 2e-5 and bf16 2e-2 for the output and the logsumexp
 order; bf16 one rounding of the output), 5e-4 for gradients
 (``tests/test_kernels_bwd.py``'s bar), 2e-5 against ``chunked_attention``
 (fp32, its 1024-key chunks). The CUDA kernels run only on the card:
-``chip_smoke.py`` holds each against these plain versions there.
+``chip_smoke.py`` holds each against these plain versions there. The
+bf16 forward's tensor-core arithmetic (``csrc/flash_fwd_sm90.cu``) is
+emulated here and held to the plain version at the card's bf16 bars.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,9 @@ from repro.models.layers import chunked_attention
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# chip_smoke.py's bf16 bars: each element within one bf16 rounding of the
+# plain version's (2^-7 |b|, floor 1e-3 rms(b)), relative L2, lse absolute
+BF16_ULP, BF16_FLOOR, BF16_REL_L2, BF16_LSE_TOL = 2.0 ** -7, 1e-3, 1e-3, 1e-4
 GRAD_TOL = 5e-4
 CHUNKED_TOL = 2e-5
 
@@ -235,3 +240,106 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_dkv(q, k, v, q, lse, lse, causal=True)
     assert FA.flash_attention_fwd.launches == 0
+
+
+def _emulate_tc_forward(q, k, v, *, causal, window, split=True, bk=128):
+    """The tensor-core forward's arithmetic in PyTorch on the CPU: bf16 q,
+    k, v; S in fp32 from the exact bf16 products, the scale applied after
+    the product (with log2 e, ahead of exp2); an online softmax over kv
+    tiles of ``bk``; P split into bf16 hi + lo (``split``) or rounded once;
+    fp32 accumulation; l summed from the unrounded P. -> (o bf16, lse)."""
+    B, hq, sq, hd = q.shape
+    sk, r = k.shape[2], hq // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(r, 1) for x in (k, v))
+    c2 = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32) * \
+        torch.tensor(np.log2(np.e), dtype=torch.float32)
+    mask = ref.flash_mask(sq, sk, causal=causal, window=window,
+                          device=q.device)
+    m = torch.full((B, hq, sq), ref.FLASH_NEG_INF)
+    l = torch.zeros((B, hq, sq))
+    acc = torch.zeros((B, hq, sq, hd))
+    for k0 in range(0, sk, bk):
+        vis = mask[:, k0:k0 + bk]
+        s = torch.where(vis, q.float() @ kf[:, :, k0:k0 + bk].transpose(
+            -1, -2), -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1) * c2)
+        p = torch.where(vis, torch.exp2(s * c2 - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vf[:, :, k0:k0 + bk]
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    lc = l.clamp(min=1e-30)
+    lse = torch.where(l > 0, m * float(np.log(2.0)) + torch.log(lc),
+                      ref.FLASH_NEG_INF)
+    return (acc / lc[..., None]).to(torch.bfloat16), lse
+
+
+def _bf16_readings(a, b):
+    """(largest share of the element bar, relative L2) of ``a`` against
+    ``b``."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    bar = BF16_ULP * b.abs() + BF16_FLOOR * torch.sqrt(torch.mean(b * b))
+    return (float((diff / bar).max()),
+            float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(b)))
+
+
+TC_CASES = [(1, 2, 1, 200, 200, 64, True, 0),      # R 2, ragged
+            (1, 2, 2, 200, 200, 128, True, 0),     # R 1, ragged
+            (1, 2, 2, 300, 300, 128, True, 37),    # causal window
+            (1, 4, 2, 130, 77, 128, False, 0),     # Sq != Sk
+            (1, 2, 1, 130, 77, 64, False, 5),      # rows that see no key
+            (1, 2, 1, 77, 130, 128, False, 5),
+            (1, 2, 1, 256, 256, 64, False, 0)]
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,hd,causal,window", TC_CASES)
+def test_tensor_core_forward_arithmetic_meets_the_bf16_bars(
+        B, hq, hkv, sq, sk, hd, causal, window):
+    """P split into bf16 hi + lo keeps the tensor-core forward within one
+    bf16 rounding of the fp32 plain version, element by element."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(
+        sq * 3 + sk + hd + window, B, hq, sq, sk, hd, hkv=hkv))
+    o, lse = _emulate_tc_forward(q, k, v, causal=causal, window=window)
+    o_ref, lse_ref = ref.flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                                     window=window)
+    elem, rel_l2 = _bf16_readings(o, o_ref)
+    assert elem <= 1.0 and rel_l2 <= BF16_REL_L2, (elem, rel_l2)
+    assert float((lse - lse_ref).abs().max()) <= BF16_LSE_TOL
+    blind = ref.flash_mask(sq, sk, causal=causal, window=window,
+                           device="cpu").sum(-1) == 0
+    assert torch.all(o[:, :, blind] == 0)
+    assert torch.all(lse[:, :, blind] == ref.FLASH_NEG_INF)
+
+
+def test_single_rounded_p_misses_the_element_bar():
+    """Why the kernel splits P: at S 1024, hd 128, causal, P rounded once
+    to bf16 (FA2, FA3, SDPA) lands several bf16 roundings away from the
+    plain version somewhere; the split stays within one."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(17, 1, 4, 1024, 1024, 128))
+    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+    split = _bf16_readings(_emulate_tc_forward(q, k, v, causal=True,
+                                               window=0)[0], o_ref)
+    once = _bf16_readings(_emulate_tc_forward(q, k, v, causal=True, window=0,
+                                              split=False)[0], o_ref)
+    assert split[0] <= 1.0 and split[1] <= BF16_REL_L2, split
+    assert once[0] > 1.0, once
+
+
+def test_forwards_pick_their_kernel_by_dtype():
+    """bf16 goes to the tensor-core kernel, fp32 to the FMA kernel; both
+    refuse CPU tensors before any build, counting nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    assert FA.uses_tensor_cores(torch.bfloat16)
+    assert not FA.uses_tensor_cores(torch.float32)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(2, 1, 2, 8, 8, 128))
+    for fn in (FA.flash_attention_fwd, FA.flash_attention_fwd_lse):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, v, causal=True)
+        assert fn.launches == 0 and fn.tc_launches == 0

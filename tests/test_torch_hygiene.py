@@ -4,7 +4,8 @@
     JAX package ``repro`` (the port keeps its own copies);
   * every CUDA kernel wrapper carries an integer ``launches`` counter, and
     its kernel module names the TPU kernel it replaces (the four flash
-    attention stages among them);
+    attention stages among them); the two forwards also count their
+    tensor-core launches, and that kernel's source names both TPU kernels;
   * no CUDA source asks for fast math (the quantizer's bit-exactness and
     the IEEE fp32 sums depend on it).
 """
@@ -49,6 +50,10 @@ REPLACES = {
         "src/repro/kernels/flash_attention_bwd.py:_dq_kernel",
     ("flash_attention", "flash_attention_dkv"):
         "src/repro/kernels/flash_attention_bwd.py:_dkv_kernel"}
+# the bf16 forwards' tensor-core kernel replaces both forward TPU kernels
+TC_SOURCE = "flash_fwd_sm90"
+TC_REPLACES = ("src/repro/kernels/flash_attention.py:flash_attention",
+               "src/repro/kernels/flash_attention_bwd.py:_fwd")
 
 
 def _port_files():
@@ -90,3 +95,20 @@ def test_no_fast_math_in_kernel_builds():
     assert not any("fast_math" in f or "ftz" in f or "prec-div" in f
                    for f in flags)
     assert "arch=compute_90a,code=sm_90a" in flags
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_fwd_lse"])
+def test_tensor_core_forwards_count_launches_and_name_their_kernels(name):
+    build = importlib.import_module("repro_torch.kernels._build")
+    wrapper = getattr(importlib.import_module(
+        "repro_torch.kernels.flash_attention"), name)
+    assert isinstance(wrapper.launches, int)
+    assert isinstance(wrapper.tc_launches, int)
+    assert TC_SOURCE in build.SOURCES
+    src = (PORT / "kernels" / "csrc" / f"{TC_SOURCE}.cu").read_text()
+    assert all(r in src for r in TC_REPLACES)
+    assert f"extern \"C\" int repro_{TC_SOURCE}(" in src
+    assert not any(f"{fast}(" in src for fast in
+                   ("__expf", "__exp10f", "__logf", "__fdividef"))
+    assert not any("fast_math" in f for f in build.NVCC_FLAGS)
