@@ -35,10 +35,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  lse 1e-5, grads 5e-4) and in bf16 at the train step's
                  shape (each element within one bf16 rounding, relative L2
                  1e-3, lse 1e-4), timed there beside
-                 ``scaled_dot_product_attention`` (whose own readings
-                 against the plain version are reported); the bf16
-                 forwards (the tensor-core kernel, HGMMA in its SASS) also
-                 at the edge shapes, rows that see no key 0 with lse -1e30;
+                 ``scaled_dot_product_attention`` and its backward (whose
+                 own readings against the plain versions are reported); all
+                 four in bf16 (the tensor-core kernels, HGMMA in their
+                 SASS) also at the edge shapes, rows that see no key o = dQ
+                 = 0 with lse -1e30, kv rows that no query sees dK = dV = 0;
                  times (CUDA events, median of 30 launches after warmup),
                  the relevance, codec, dequantize, aggregate and combine
                  kernels at the C = 1000 shapes
@@ -140,8 +141,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  B=2 x S=4096 (train_4k's sequence; its global batch of 256
                  cut to one card's 2): one warm-up and three timed steps
                  (CUDA events: step ms, tokens/s, peak memory), flash
-                 launches checked at 27 / 1 / 1 / 1 a step, the two
-                 forwards on the tensor cores (counts zeroed just before),
+                 launches checked at 27 / 1 / 1 / 1 a step, all on the
+                 tensor cores (counts zeroed just before),
                  the combine once a leaf a step, each flash
                  kernel against its plain version on its last on-path
                  operands, and the first step's loss and adaptive gradients
@@ -151,7 +152,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  share
      lm_train_reduced: the GQA-reduced config (R = 2, hd 64, fp32) trained
                  10 steps on the card and on the CPU, B=4 x S=200, per-step
-                 loss within 1e-4, the forwards on the FMA kernel; then one
+                 loss within 1e-4, every stage on the FMA kernels; then one
                  full fine-tuning step on both (forward + lse, dQ and dK/dV
                  on every layer)
 
@@ -372,8 +373,8 @@ KERNELS = {
         "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:161"},
-    # the bf16 forwards run on the tensor-core kernel (counted in
-    # ``tc_launches``); fp32 keeps flash_attention.cu's FMA kernel
+    # every bf16 stage runs on a tensor-core kernel (counted in
+    # ``tc_launches``); fp32 keeps flash_attention.cu's FMA kernels
     # (lm_train_reduced, phase 3's fp32 edge shapes)
     "flash_attention_fwd": {
         "fn": flash_attention_fwd, "paths": ("lm_train",),
@@ -387,11 +388,13 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
     "flash_attention_dq": {
         "fn": flash_attention_dq, "paths": ("lm_train",),
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "counter": "tc_launches",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:209"},
     "flash_attention_dkv": {
         "fn": flash_attention_dkv, "paths": ("lm_train",),
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "counter": "tc_launches",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
 }
 CODEC_KERNELS = ("batched_topk_pack", "batched_topk_unpack",
@@ -1062,7 +1065,17 @@ LM_STEPS = 4                            # 1 warm-up + 3 timed
 LM_TIE = 1e-4                           # launch/train.py's tie_lambda
 FLASH_STAGES = ("flash_attention_fwd", "flash_attention_fwd_lse",
                 "flash_attention_dq", "flash_attention_dkv")
-FWD_STAGES = FLASH_STAGES[:2]           # bf16: the tensor-core kernel
+FWD_STAGES = FLASH_STAGES[:2]
+# each stage's bf16 tensor-core source, and its design floor over the
+# bound: the split products over the bound's (forwards S, P_hi V, P_lo V
+# against 2; dQ S, dP, dS_hi K, dS_lo K against 3; dK/dV S, dP, two for
+# dV and two for dK against 4)
+TC_SOURCE = {"flash_attention_fwd": "flash_fwd_sm90",
+             "flash_attention_fwd_lse": "flash_fwd_sm90",
+             "flash_attention_dq": "flash_bwd_sm90",
+             "flash_attention_dkv": "flash_bwd_sm90"}
+DESIGN_FLOOR = {"flash_attention_fwd": 1.5, "flash_attention_fwd_lse": 1.5,
+                "flash_attention_dq": 4 / 3, "flash_attention_dkv": 1.5}
 FLASH_PLAIN = {"flash_attention_fwd": REF.flash_attention_ref,
                "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref,
                "flash_attention_dq": REF.flash_attention_dq_ref,
@@ -1079,9 +1092,10 @@ FLASH_TOL = {"o": 2e-5, "lse": 1e-5, "grad": 5e-4}
 # everywhere would be about 2^-8). lse stays fp32: absolute.
 FLASH_BF16_ULP, FLASH_BF16_FLOOR, FLASH_BF16_REL_L2 = 2.0 ** -7, 1e-3, 1e-3
 FLASH_BF16_LSE_TOL = 1e-4
-# the bf16 forwards' edge shapes (B, Hq, Hkv, Sq, Sk, hd, causal, window):
-# the fp32 list, a causal R = 2 at hd 128, and rows that see no key (Sq >
-# Sk, non-causal, window 5: qpos >= Sk + window - 1; it stays last)
+# the bf16 edge shapes of all four stages (B, Hq, Hkv, Sq, Sk, hd, causal,
+# window): the fp32 list, a causal R = 2 at hd 128, kv rows that no query
+# sees (causal, Sq < Sk: kpos >= Sq), and rows that see no key (Sq > Sk,
+# non-causal, window 5: qpos >= Sk + window - 1)
 BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
               (1, 2, 2, 1000, 1000, 128, True, 0),
               (1, 4, 2, 1000, 1000, 128, True, 0),
@@ -1089,6 +1103,7 @@ BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
               (1, 2, 1, 1000, 1000, 128, False, 0),
               (1, 2, 2, 130, 77, 64, False, 0),
               (1, 2, 1, 77, 130, 128, False, 5),
+              (1, 4, 2, 77, 130, 64, True, 0),
               (1, 4, 2, 130, 77, 128, False, 5))
 # the step on the kernels vs the same step on the plain versions, on the
 # card: |loss delta|, and the relative L2 error of each adaptive gradient
@@ -1164,7 +1179,7 @@ def flash_outputs_check(label, name, got, want, bf16):
 def flash_errs(q, k, v, do, kw, bf16):
     """Each of the four kernels against its plain version on one set of
     operands, each output held to its bar (``flash_outputs_check``);
-    -> {stage: worst readings}."""
+    -> ({stage: worst readings}, {stage: the kernel's outputs})."""
     lse_r, delta = flash_stats(q, k, v, do, kw)
     got = {"flash_attention_fwd": (flash_attention_fwd(q, k, v, **kw),),
            "flash_attention_fwd_lse": flash_attention_fwd_lse(q, k, v, **kw),
@@ -1181,53 +1196,60 @@ def flash_errs(q, k, v, do, kw, bf16):
                 q, k, v, do, lse_r, delta, **kw)}
     torch.cuda.synchronize()
     label = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {kw}"
-    return {name: flash_outputs_check(label, name, got[name], want[name],
-                                      bf16)
-            for name in FLASH_STAGES}
-
-
-def flash_fwd_bf16_errs(q, k, v, kw):
-    """The two bf16 forwards (the tensor-core kernel) against their plain
-    versions at the bf16 bars; -> ({stage: worst readings}, the kernel's
-    (o, lse))."""
-    got = {"flash_attention_fwd": (flash_attention_fwd(q, k, v, **kw),),
-           "flash_attention_fwd_lse": flash_attention_fwd_lse(q, k, v, **kw)}
-    want = {"flash_attention_fwd": (REF.flash_attention_ref(q, k, v, **kw),),
-            "flash_attention_fwd_lse": REF.flash_attention_fwd_lse_ref(
-                q, k, v, **kw)}
-    torch.cuda.synchronize()
-    label = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {kw}"
     return ({name: flash_outputs_check(label, name, got[name], want[name],
-                                       True) for name in FWD_STAGES},
-            got["flash_attention_fwd_lse"])
+                                       bf16) for name in FLASH_STAGES}, got)
+
+
+def blind_rows_check(got, sq, sk, kw):
+    """The bf16 kernels' outputs where the mask leaves nothing: a q row
+    that sees no key has o and dQ 0 and lse -1e30, a kv row that no query
+    sees dK and dV 0, exactly; a row that sees a key has o not 0."""
+    mask = REF.flash_mask(sq, sk, device=got["flash_attention_dq"][0].device,
+                          **kw)
+    blind, unseen = mask.sum(-1) == 0, mask.sum(0) == 0
+    o, lse = got["flash_attention_fwd_lse"]
+    dq, = got["flash_attention_dq"]
+    dk, dv = got["flash_attention_dkv"]
+    check(bool((o[:, :, blind] == 0).all())
+          and bool((lse[:, :, blind] == REF.FLASH_NEG_INF).all())
+          and bool((dq[:, :, blind] == 0).all())
+          and bool((o[:, :, ~blind].abs().sum(-1) > 0).all()),
+          f"bf16 flash at Sq {sq}, Sk {sk} {kw}: rows that see no key are "
+          "not o = dQ = 0 with lse -1e30")
+    check(bool((dk[:, :, unseen] == 0).all())
+          and bool((dv[:, :, unseen] == 0).all()),
+          f"bf16 flash at Sq {sq}, Sk {sk} {kw}: kv rows that no query sees "
+          "have dK or dV not 0")
+    return int(blind.sum()), int(unseen.sum())
 
 
 def sass_report(source):
     """What ``cuobjdump`` reads in csrc/<source>.cu's library: the HGMMA
-    (wgmma) instructions in its SASS, and the most registers and local
-    memory (spills) of any of its kernels."""
+    (wgmma) instructions in its SASS, and the most registers, local
+    memory and stack (ptxas's spills) of any of its kernels (registers
+    are those a thread has at launch, before any setmaxnreg)."""
     def dump(flag):
         return subprocess.run(
             [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
              str(_build.build_dir() / f"lib{source}.so")],
             capture_output=True, text=True, timeout=300, check=True).stdout
     usage = dump("-res-usage")
-    regs, local = (list(map(int, re.findall(rf"{k}:(\d+)", usage)))
-                   for k in ("REG", "LOCAL"))
+    regs, local, stack = (list(map(int, re.findall(rf"{k}:(\d+)", usage)))
+                          for k in ("REG", "LOCAL", "STACK"))
     check(bool(regs and local), f"{source}: no resource usage in {usage}")
     return {"hgmma": dump("-sass").count("HGMMA"), "registers": max(regs),
-            "local_bytes": max(local)}
+            "local_bytes": max(local), "stack_bytes": max(stack, default=0)}
 
 
 def flash_kernel_rows(gen, dev, peak):
     """The four flash-attention kernels against their plain versions: fp32
     at edge shapes (S 16 and 1000, ragged S, hd 64 and 128, R 1 and 2,
-    non-causal with Sq != Sk, a window), the bf16 forwards (the
-    tensor-core kernel) at ``BF16_EDGES``, all four in bf16 at the train
-    step's shape (B 2, 16 q / 8 kv heads, S 4096, hd 128, causal), where
-    they are timed beside their plain versions and PyTorch's
-    ``scaled_dot_product_attention`` (forward; its autograd backward for
-    dQ and dK/dV). Bounds at the bf16 tensor-core rate."""
+    non-causal with Sq != Sk, a window), all four in bf16 (the tensor-core
+    kernels) at ``BF16_EDGES`` and at the train step's shape (B 2, 16 q /
+    8 kv heads, S 4096, hd 128, causal), where they are timed beside their
+    plain versions and PyTorch's ``scaled_dot_product_attention``
+    (forward; its autograd backward for dQ and dK/dV). Bounds at the bf16
+    tensor-core rate."""
     errs = dict.fromkeys(FLASH_STAGES, 0.0)
 
     def fold(e):
@@ -1244,32 +1266,33 @@ def flash_kernel_rows(gen, dev, peak):
         q, k, v, do = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
                                    torch.float32)
         fold(flash_errs(q, k, v, do, dict(causal=causal, window=window),
-                        False))
+                        False)[0])
     fp32_errs = dict(errs)
-    # the bf16 forwards (the tensor-core kernel) at the edge shapes, at the
-    # bf16 bars; the last case has rows that see no key (qpos >= 81)
-    sass = sass_report("flash_fwd_sm90")
-    check(sass["hgmma"] > 0, f"flash_fwd_sm90: no HGMMA in its SASS {sass}")
-    bf16_edge = {}
+    # all four in bf16 (the tensor-core kernels) at the edge shapes, at
+    # the bf16 bars, with rows that see no key and kv rows that no query
+    # sees
+    sass = {src: sass_report(src) for src in sorted(set(TC_SOURCE.values()))}
+    for src, r in sass.items():
+        check(r["hgmma"] > 0, f"{src}: no HGMMA in its SASS {r}")
+    bf16_edge, masked = {}, [0, 0]
     for B, hq, hkv, sq, sk, hd, causal, window in BF16_EDGES:
-        q, k, v, _ = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
-                                  torch.bfloat16)
+        q, k, v, do = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
+                                   torch.bfloat16)
         kw = dict(causal=causal, window=window)
-        e, (o, lse) = flash_fwd_bf16_errs(q, k, v, kw)
+        e, got = flash_errs(q, k, v, do, kw, True)
+        fold(e)
         for n, r in e.items():
-            errs[n] = max(errs[n], r["max_abs_err"])
             bf16_edge[n] = {key: max(bf16_edge.get(n, {}).get(key, 0.0), x)
                             for key, x in r.items()}
-    blind = slice(sk + window - 1, None)     # the last case's blind rows
-    check(bool((o[:, :, blind] == 0).all())
-          and bool((lse[:, :, blind] == REF.FLASH_NEG_INF).all())
-          and bool((o[:, :, :blind.start].abs().sum(-1) > 0).all()),
-          "flash_fwd_sm90: rows that see no key are not 0 with lse -1e30")
+        masked = [a + b for a, b in zip(masked,
+                                        blind_rows_check(got, sq, sk, kw))]
+    check(all(masked), f"BF16_EDGES hold no blind q row or no unseen kv "
+          f"row: {masked}")
     hq, hkv, hd = 16, 8, 128
     q, k, v, do = flash_inputs(gen, dev, LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ,
                                hd, torch.bfloat16)
     kw = dict(causal=True, window=0)
-    bf16_errs = flash_errs(q, k, v, do, kw, True)
+    bf16_errs = flash_errs(q, k, v, do, kw, True)[0]
     fold(bf16_errs)
     lse, delta = flash_stats(q, k, v, do, kw)
 
@@ -1302,7 +1325,8 @@ def flash_kernel_rows(gen, dev, peak):
                                                 **kw))}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    # SDPA (single-rounded P) against the plain version: reported, not held
+    # SDPA (single-rounded P and dS) against the plain versions: reported,
+    # not held
     sdpa_vs_plain = flash_readings(
         sdpa(q, k, v, is_causal=True, enable_gqa=True),
         REF.flash_attention_ref(q, k, v, **kw), None)
@@ -1310,31 +1334,40 @@ def flash_kernel_rows(gen, dev, peak):
     og = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
                                                    retain_graph=True))
-    del og, qg, kg, vg
+    sdpa_grads = torch.autograd.grad(og, (qg, kg, vg), do)
+    plain_dk, plain_dv = REF.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                     **kw)
+    sdpa_bwd_vs_plain = {
+        "flash_attention_dq": {"dq": flash_readings(
+            sdpa_grads[0], REF.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                                      **kw), None)},
+        "flash_attention_dkv": {
+            "dk": flash_readings(sdpa_grads[1], plain_dk, None),
+            "dv": flash_readings(sdpa_grads[2], plain_dv, None)}}
+    del og, qg, kg, vg, sdpa_grads, plain_dk, plain_dv
     rows = {}
     for name in FLASH_STAGES:
         fn, plain = calls[name]
+        b = bound(*work[name], tensor_peak(peak))
         rows[name] = dict(
-            max_abs_err=errs[name],
-            bound=bound(*work[name], tensor_peak(peak)),
+            max_abs_err=errs[name], bound=b,
             ms=time_ms(fn), plain_ms=time_ms(plain),
-            library_ms=sdpa_fwd if name in FLASH_STAGES[:2] else sdpa_bwd,
+            library_ms=sdpa_fwd if name in FWD_STAGES else sdpa_bwd,
             shape=[LM_BATCH, hq, hkv, LM_SEQ, hd],
             detail={"fp32_edge_abs_err": fp32_errs[name],
                     "bf16_path_shape": bf16_errs[name],
-                    **({"kernel": "tensor cores (flash_fwd_sm90.cu) in "
-                        "bf16, FMA (flash_attention.cu) in fp32",
-                        "bf16_edge": bf16_edge[name], "sass": sass,
-                        # P split in two bf16 products: 1.5x the bound's
-                        "design_floor_ms": 1.5 * bound(
-                            *work[name], tensor_peak(peak))[0],
-                        "sdpa_vs_plain": sdpa_vs_plain}
-                       if name in FWD_STAGES else {}),
+                    "kernel": f"tensor cores ({TC_SOURCE[name]}.cu) in bf16, "
+                              "FMA (flash_attention.cu) in fp32",
+                    "bf16_edge": bf16_edge[name],
+                    "sass": sass[TC_SOURCE[name]],
+                    "design_floor_ms": DESIGN_FLOOR[name] * b[0],
+                    "sdpa_vs_plain": sdpa_vs_plain if name in FWD_STAGES
+                    else sdpa_bwd_vs_plain[name],
                     "library": (
                 "scaled_dot_product_attention(is_causal, enable_gqa)"
-                if name in FLASH_STAGES[:2] else
+                if name in FWD_STAGES else
                 "its autograd backward (dQ, dK and dV together)"),
-                "bound_peak": "bf16 tensor cores"})
+                    "bound_peak": "bf16 tensor cores"})
     return rows
 
 
@@ -2445,6 +2478,8 @@ def flash_path_errs(seen):
 # kernel name substrings -> group, first match wins (cuBLAS's Hopper
 # matmuls are named nvjet_*)
 LM_KERNEL_GROUPS = (("flash_fwd_tensor_cores", ("fwd_kernel_sm90",)),
+                    ("flash_bwd_tensor_cores", ("dq_kernel_sm90",
+                                                "dkv_kernel_sm90")),
                     ("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
                     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
                     ("combine", ("combine",)),
@@ -2455,8 +2490,8 @@ LM_KERNEL_GROUPS = (("flash_fwd_tensor_cores", ("fwd_kernel_sm90",)),
 
 def lm_step_profile(step, st, batch):
     """One more split step under torch.profiler: device ms by kernel
-    group (the tensor-core flash forward, the FMA flash kernels, cuBLAS
-    matmuls, the combine, copies and
+    group (the tensor-core flash forward, the tensor-core flash dQ and
+    dK/dV, the FMA flash kernels, cuBLAS matmuls, the combine, copies and
     casts, other elementwise and reduction kernels, the rest) and the
     device's idle share of the window (an upper bound: the profiler slows
     the host)."""
@@ -2490,8 +2525,8 @@ def phase_lm_train(dev, card):
     qwen3-1.7b (all 28 layers, bf16, seed-0 weights), B=2 x S=4096: one
     warm-up and three timed steps (CUDA events), the flash launches of each
     step (27 forward for the frozen trunk; forward+lse, dQ and dK/dV for
-    the adaptive layer), each kernel against its plain version on its last
-    on-path operands, and the first step again with attention routed to
+    the adaptive layer; all on the tensor cores), each kernel against its
+    plain version on its last on-path operands, and the first step again with attention routed to
     the plain versions on the card. Returns (launches, on-path errors)."""
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
@@ -2516,7 +2551,8 @@ def phase_lm_train(dev, card):
         tr, os_ = st.trainable, st.opt_state
         for b in batches:
             before = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
-            before_tc = {n: KERNELS[n]["fn"].tc_launches for n in FWD_STAGES}
+            before_tc = {n: KERNELS[n]["fn"].tc_launches
+                         for n in FLASH_STAGES}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2528,7 +2564,7 @@ def phase_lm_train(dev, card):
             per_step.append({n: KERNELS[n]["fn"].launches - before[n]
                              for n in FLASH_STAGES})
             tc_step.append({n: KERNELS[n]["fn"].tc_launches - before_tc[n]
-                            for n in FWD_STAGES})
+                            for n in FLASH_STAGES})
     launches = counts()
     peak_mem = torch.cuda.max_memory_allocated(dev)
     del tr, os_, m
@@ -2577,10 +2613,9 @@ def phase_lm_train(dev, card):
     check(all(np.isfinite(losses)), f"lm_train: losses {losses}")
     check(all(p == expect_step for p in per_step),
           f"lm_train launches a step {per_step}, expected {expect_step}")
-    expect_tc = {n: expect_step[n] for n in FWD_STAGES}
-    check(all(p == expect_tc for p in tc_step),
-          f"lm_train tensor-core forwards a step {tc_step}, expected "
-          f"{expect_tc}")
+    check(all(p == expect_step for p in tc_step),
+          f"lm_train tensor-core launches a step {tc_step}, expected "
+          f"{expect_step}")
     n_leaves = len(tree_leaves(st.B))
     check(launches["adaptive_combine"] == n_leaves * LM_STEPS,
           f"lm_train: {launches['adaptive_combine']} combine launches, "
@@ -2595,8 +2630,9 @@ def phase_lm_train_reduced(dev, card):
     """The GQA-reduced config (qwen3-1.7b reduced with 2 kv heads: R = 2,
     hd 64, fp32) trained 10 steps on the card and on the CPU from the same
     weights and batches (S = 200: a ragged last tile), per-step loss
-    within 1e-4; then one full fine-tuning step on both, which runs
-    forward+lse, dQ and dK/dV on every layer."""
+    within 1e-4, no stage on a tensor-core kernel; then one full
+    fine-tuning step on both, which runs forward+lse, dQ and dK/dV on
+    every layer."""
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), n_kv_heads=2)
     params = lm.init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -2625,7 +2661,7 @@ def phase_lm_train_reduced(dev, card):
     zero_counts()
     card_losses, card_full = run(dev)
     launches = {n: KERNELS[n]["fn"].launches for n in FLASH_STAGES}
-    tc = {n: KERNELS[n]["fn"].tc_launches for n in FWD_STAGES}
+    tc = {n: KERNELS[n]["fn"].tc_launches for n in FLASH_STAGES}
     cpu_losses, cpu_full = run("cpu")
     deltas = [abs(a - b) for a, b in zip(card_losses, cpu_losses)]
     emit({"phase": "lm_train_reduced", "card": card, "config": cfg.name,
@@ -2646,8 +2682,8 @@ def phase_lm_train_reduced(dev, card):
               "flash_attention_dkv": LM_RED_STEPS + n}
     check(launches == expect,
           f"lm_train_reduced launches {launches}, expected {expect}")
-    check(not any(tc.values()), f"lm_train_reduced (fp32) ran the bf16 "
-          f"tensor-core forward: {tc}; fp32 takes the FMA kernel")
+    check(not any(tc.values()), f"lm_train_reduced (fp32) ran a bf16 "
+          f"tensor-core kernel: {tc}; fp32 takes the FMA kernels")
 
 
 def main():

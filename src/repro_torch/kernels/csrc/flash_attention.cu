@@ -19,12 +19,12 @@
 //
 // Layout: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd), contiguous, Hq =
 // Hkv * R; q head h reads kv head h / R (the reference's (KVg, R) order).
-// fp32 or bf16 operands (the forwards fp32 only: bf16 forwards run on the
-// tensor cores, flash_fwd_sm90.cu), fp32 arithmetic, outputs in the
-// operands' type (lse fp32). hd 64 or 128, any S: the ragged edge of the last tile is
-// masked here. Visibility of key kpos from query qpos: kpos < Sk, causal
-// -> kpos <= qpos (aligned top-left, the Pallas rule), window > 0 ->
-// kpos > qpos - window (models/layers.py:344). Masked entries get
+// fp32 operands only (bf16 runs on the tensor cores: the forwards in
+// flash_fwd_sm90.cu, dQ and dK/dV in flash_bwd_sm90.cu), fp32 arithmetic
+// and outputs (lse fp32). hd 64 or 128, any S: the ragged edge of the
+// last tile is masked here. Visibility of key kpos from query qpos: kpos
+// < Sk, causal -> kpos <= qpos (aligned top-left, the Pallas rule),
+// window > 0 -> kpos > qpos - window (models/layers.py:344). Masked entries get
 // probability 0; a q row that sees no key comes out 0 with lse -1e30.
 //
 // What bounds it on an H100: operations. At the train step's shapes
@@ -34,10 +34,9 @@
 // card's ridge, so the floor is the bf16 tensor-core rate.
 //
 // Design (first, simple version): fp32 FMAs on CUDA cores, no wgmma or
-// TMA, so the kernels run far from that floor. The bf16 forwards have
-// moved to the tensor cores (flash_fwd_sm90.cu); dQ and dK/dV in both
-// types, and the fp32 forwards (TF32 would miss their bars), stay here
-// until their own redesign. One block of 256 threads per 64-row tile:
+// TMA, so the kernels run far from that floor. Every bf16 stage has moved
+// to the tensor cores; the fp32 stages stay here, since TF32 products
+// would miss their bars. One block of 256 threads per 64-row tile:
 // the forward and dQ walk the kv tiles of one q tile (causal tiles past
 // the diagonal and window tiles before it skipped), dK/dV walk the q
 // tiles of one kv tile for each of the R q heads of its group. Tiles are
@@ -49,7 +48,6 @@
 // kernels' q * scale); dK/dV then takes dk = sum P (dp - delta) (q *
 // scale), which is dS^T q. No --use_fast_math: expf and logf are the
 // accurate ones.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -64,15 +62,6 @@ struct Dims {
   int B, Hq, Hkv, Sq, Sk, causal, window;
   float scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, const Dims& d) {
   return qpos < d.Sq && kpos < d.Sk && (!d.causal || kpos <= qpos) &&
@@ -93,13 +82,14 @@ __device__ __forceinline__ float sum16(float x) {
 
 // rows [r0, r0 + 64) of one head's (S, HD) slice -> shared [64][HD + 1]
 // fp32, each times mul; rows past S are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
                                           int r0, int S, float mul) {
   for (int e = threadIdx.x; e < 64 * HD; e += kThreads) {
     const int r = e / HD, c = e % HD;
     dst[r * (HD + 1) + c] =
-        (r0 + r < S) ? to_f(src[(size_t)(r0 + r) * HD + c]) * mul : 0.f;
+        (r0 + r < S) ? src[(size_t)(r0 + r) * HD + c] * mul : 0.f;
   }
 }
 
@@ -113,10 +103,10 @@ __device__ __forceinline__ void kv_tiles(int q0, const Dims& d, int& t_lo,
   t_hi = hi > lo ? (hi + kBK - 1) / kBK : t_lo;
 }
 
-template <typename T, int HD, bool kLse>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, Dims d) {
   constexpr int LD = HD + 1, NC = HD / 16;
   extern __shared__ float smem[];
@@ -129,7 +119,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = h / (d.Hq / d.Hkv);
   const int q0 = blockIdx.x * kBQ;
   const size_t kv_off = (size_t)(b * d.Hkv + g) * d.Sk * HD;
-  load_rows<T, HD>(Qs, q + (size_t)bh * d.Sq * HD, q0, d.Sq, d.scale);
+  load_rows<HD>(Qs, q + (size_t)bh * d.Sq * HD, q0, d.Sq, d.scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -144,8 +134,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kBK;
     __syncthreads();                 // the previous tile's reads are done
-    load_rows<T, HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
-    load_rows<T, HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
+    load_rows<HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
+    load_rows<HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
     __syncthreads();
     float s[4][4] = {};
 #pragma unroll 8
@@ -204,19 +194,19 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= d.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * d.Sq + qpos) * HD;
+    float* orow = o + ((size_t)bh * d.Sq + qpos) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + tx + 16 * c, acc[i][c] / lc);
+    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / lc;
     if (kLse && tx == 0) lse[(size_t)bh * d.Sq + qpos] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, Dims d) {
+          float* __restrict__ dq, Dims d) {
   constexpr int LD = HD + 1, NC = HD / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -230,8 +220,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const size_t kv_off = (size_t)(b * d.Hkv + g) * d.Sk * HD;
   const size_t q_off = (size_t)bh * d.Sq * HD;
-  load_rows<T, HD>(Qs, q + q_off, q0, d.Sq, d.scale);
-  load_rows<T, HD>(Os, dout + q_off, q0, d.Sq, 1.f);
+  load_rows<HD>(Qs, q + q_off, q0, d.Sq, d.scale);
+  load_rows<HD>(Os, dout + q_off, q0, d.Sq, 1.f);
   float lr[4], dr[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -246,8 +236,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kBK;
     __syncthreads();
-    load_rows<T, HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
-    load_rows<T, HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
+    load_rows<HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
+    load_rows<HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
 #pragma unroll 4
@@ -300,18 +290,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= d.Sq) continue;
-    T* row = dq + ((size_t)bh * d.Sq + qpos) * HD;
+    float* row = dq + ((size_t)bh * d.Sq + qpos) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(row + tx + 16 * c, acc[i][c]);
+    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[i][c];
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dk, T* __restrict__ dv, Dims d) {
+           float* __restrict__ dk, float* __restrict__ dv, Dims d) {
   constexpr int LD = HD + 1, NC = HD / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -327,8 +317,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int R = d.Hq / d.Hkv;
   const int k0 = blockIdx.x * kBK;
   const size_t kv_off = (size_t)bg * d.Sk * HD;
-  load_rows<T, HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
-  load_rows<T, HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
+  load_rows<HD>(Ks, k + kv_off, k0, d.Sk, 1.f);
+  load_rows<HD>(Vs, v + kv_off, k0, d.Sk, 1.f);
   float dka[4][NC], dva[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -346,8 +336,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = t_lo; t < t_hi; ++t) {
       const int q0 = t * kBQ;
       __syncthreads();
-      load_rows<T, HD>(Qs, q + q_off, q0, d.Sq, d.scale);
-      load_rows<T, HD>(Os, dout + q_off, q0, d.Sq, 1.f);
+      load_rows<HD>(Qs, q + q_off, q0, d.Sq, d.scale);
+      load_rows<HD>(Os, dout + q_off, q0, d.Sq, 1.f);
       for (int e = threadIdx.x; e < kBQ; e += kThreads) {
         const int qpos = q0 + e;
         Ls[e] = qpos < d.Sq ? lse[(size_t)bh * d.Sq + qpos] : 0.f;
@@ -417,8 +407,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = ((size_t)bg * d.Sk + kpos) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      store(dk + row + tx + 16 * c, dka[i][c]);
-      store(dv + row + tx + 16 * c, dva[i][c]);
+      dk[row + tx + 16 * c] = dka[i][c];
+      dv[row + tx + 16 * c] = dva[i][c];
     }
   }
 }
@@ -449,62 +439,62 @@ int check_dims(const Dims& d, int hd) {
   return 0;
 }
 
-template <typename T, int HD>
+template <int HD>
 int run_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
             const Dims& d, cudaStream_t stream) {
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v;
   const size_t smem = fwd_smem(HD);
   const dim3 grid((d.Sq + kBQ - 1) / kBQ, d.B * d.Hq);
   if (lse) {
-    auto kern = fwd_kernel<T, HD, true>;
+    auto kern = fwd_kernel<HD, true>;
     if (int rc = allow_smem(kern, smem)) return rc;
-    kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, d);
+    kern<<<grid, kThreads, smem, stream>>>(qf, kf, vf, (float*)o, lse, d);
   } else {
-    auto kern = fwd_kernel<T, HD, false>;
+    auto kern = fwd_kernel<HD, false>;
     if (int rc = allow_smem(kern, smem)) return rc;
-    kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, nullptr, d);
+    kern<<<grid, kThreads, smem, stream>>>(qf, kf, vf, (float*)o, nullptr,
+                                           d);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 int run_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, const Dims& d,
            cudaStream_t stream) {
   const size_t smem = dq_smem(HD);
   const dim3 grid((d.Sq + kBQ - 1) / kBQ, d.B * d.Hq);
-  auto kern = dq_kernel<T, HD>;
+  auto kern = dq_kernel<HD>;
   if (int rc = allow_smem(kern, smem)) return rc;
   kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, d);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dq, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 int run_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv,
             const Dims& d, cudaStream_t stream) {
   const size_t smem = dkv_smem(HD);
   const dim3 grid((d.Sk + kBK - 1) / kBK, d.B * d.Hkv);
-  auto kern = dkv_kernel<T, HD>;
+  auto kern = dkv_kernel<HD>;
   if (int rc = allow_smem(kern, smem)) return rc;
   kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, d);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dk, (float*)dv, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Every entry point: contiguous tensors on the current device as laid out
-// above, bf16 = 1 for __nv_bfloat16 operands and outputs (0: float), scale
-// the softmax scale (1/sqrt(hd), rounded to fp32 by the caller), causal
-// 0/1, window 0 for none. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape the kernels do not take).
-
-// The forwards take fp32 only (bf16: repro_flash_fwd_sm90).
+// Every entry point: contiguous fp32 tensors on the current device as laid
+// out above, scale the softmax scale (1/sqrt(hd), rounded to fp32 by the
+// caller), causal 0/1, window 0 for none; bf16 must be 0 (bf16 operands
+// run on the tensor cores: repro_flash_fwd_sm90, repro_flash_dq_sm90,
+// repro_flash_dkv_sm90). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or dtype the kernels do not take).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq,
                                int Sk, int hd, int causal, int window,
@@ -513,8 +503,8 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   if (int rc = check_dims(d, hd)) return rc;
   if (bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return hd == 64 ? run_fwd<float, 64>(q, k, v, o, nullptr, d, st)
-                  : run_fwd<float, 128>(q, k, v, o, nullptr, d, st);
+  return hd == 64 ? run_fwd<64>(q, k, v, o, nullptr, d, st)
+                  : run_fwd<128>(q, k, v, o, nullptr, d, st);
 }
 
 extern "C" int repro_flash_fwd_lse(const void* q, const void* k,
@@ -527,8 +517,8 @@ extern "C" int repro_flash_fwd_lse(const void* q, const void* k,
   if (!lse || bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  return hd == 64 ? run_fwd<float, 64>(q, k, v, o, l, d, st)
-                  : run_fwd<float, 128>(q, k, v, o, l, d, st);
+  return hd == 64 ? run_fwd<64>(q, k, v, o, l, d, st)
+                  : run_fwd<128>(q, k, v, o, l, d, st);
 }
 
 extern "C" int repro_flash_dq(const void* q, const void* k, const void* v,
@@ -539,15 +529,12 @@ extern "C" int repro_flash_dq(const void* q, const void* k, const void* v,
                               void* stream) {
   const Dims d{B, Hq, Hkv, Sq, Sk, causal, window, scale};
   if (int rc = check_dims(d, hd)) return rc;
+  if (bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (bf16)
-    return hd == 64
-               ? run_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, d, st)
-               : run_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, d, st);
-  return hd == 64 ? run_dq<float, 64>(q, k, v, dout, l, dl, dq, d, st)
-                  : run_dq<float, 128>(q, k, v, dout, l, dl, dq, d, st);
+  return hd == 64 ? run_dq<64>(q, k, v, dout, l, dl, dq, d, st)
+                  : run_dq<128>(q, k, v, dout, l, dl, dq, d, st);
 }
 
 extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v,
@@ -558,15 +545,10 @@ extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v,
                                void* stream) {
   const Dims d{B, Hq, Hkv, Sq, Sk, causal, window, scale};
   if (int rc = check_dims(d, hd)) return rc;
+  if (bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (bf16)
-    return hd == 64 ? run_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dk,
-                                                 dv, d, st)
-                    : run_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk,
-                                                  dv, d, st);
-  return hd == 64
-             ? run_dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, d, st)
-             : run_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, d, st);
+  return hd == 64 ? run_dkv<64>(q, k, v, dout, l, dl, dk, dv, d, st)
+                  : run_dkv<128>(q, k, v, dout, l, dl, dk, dv, d, st);
 }

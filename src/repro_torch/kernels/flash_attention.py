@@ -1,6 +1,6 @@
 """CUDA kernel wrappers: flash attention's four stages
-(``csrc/flash_attention.cu``; the bf16 forwards ``csrc/flash_fwd_sm90.cu``),
-each replacing a Pallas TPU kernel:
+(``csrc/flash_attention.cu``; in bf16 ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_bwd_sm90.cu``), each replacing a Pallas TPU kernel:
 
   * ``flash_attention_fwd``     o                      (replaces
     ``repro/kernels/flash_attention.py:flash_attention``)
@@ -15,11 +15,11 @@ fp32 (B, Hq, Sq). The causal mask is aligned top-left (``ref.py`` states
 the convention). Takes CUDA tensors only; ``ops`` sends CPU tensors to
 the plain versions in ``ref``.
 
-The two forwards pick their kernel by dtype: bf16 runs on the tensor
-cores (wgmma + TMA, ``flash_fwd_sm90.cu``), fp32 on the FMA kernel of
-``flash_attention.cu`` (TF32 products would miss the fp32 bars). Each
-counts every launch in ``launches`` and the tensor-core ones also in
-``tc_launches``.
+Every stage picks its kernel by dtype: bf16 runs on the tensor cores
+(wgmma + TMA: the forwards in ``flash_fwd_sm90.cu``, dQ and dK/dV in
+``flash_bwd_sm90.cu``), fp32 on the FMA kernels of ``flash_attention.cu``
+(TF32 products would miss the fp32 bars). Each wrapper counts every launch
+in ``launches`` and the tensor-core ones also in ``tc_launches``.
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # B Hq Hkv Sq Sk hd causal window, scale, bf16, stream
 _DIMS = (_I,) * 8 + (ctypes.c_float, _I, _P)
 _DTYPES = (torch.float32, torch.bfloat16)
-# q k v o lse (null: the forward alone), B .. window, scale, stream
-_TC_ARGS = (_P,) * 5 + (_I,) * 8 + (ctypes.c_float, _P)
+# the tensor-core kernels: pointers, then B .. window, scale, stream
+_TC_DIMS = (_I,) * 8 + (ctypes.c_float, _P)
 
 
 def _dims(q, k, v, *, causal, window):
@@ -77,9 +77,22 @@ def _stats(q, name, t):
 
 
 def uses_tensor_cores(dtype: torch.dtype) -> bool:
-    """The forwards' rule by dtype: bf16 on the tensor-core kernel, fp32
-    on the FMA kernel."""
+    """Every stage's rule by dtype: bf16 on the tensor-core kernels, fp32
+    on the FMA kernels."""
     return dtype == torch.bfloat16
+
+
+def _launch(name, q, ptrs, dims, tc, fma):
+    """Launch stage ``name`` on pointers ``ptrs`` (None: a null pointer)
+    and the int arguments ``dims``: bf16 on the tensor-core kernel ``tc``
+    = (source, symbol), fp32 on ``flash_attention.cu``'s ``fma``."""
+    if uses_tensor_cores(q.dtype):
+        fn = _build.kernel(*tc, (_P,) * len(ptrs) + _TC_DIMS)
+        rc = fn(*ptrs, *dims[:-1], _stream(q.device))
+    else:
+        fn = _build.kernel("flash_attention", fma, (_P,) * len(ptrs) + _DIMS)
+        rc = fn(*ptrs, *dims, _stream(q.device))
+    _build.raise_on_error(name, rc)
 
 
 def _forward(name, q, k, v, *, causal, window, with_lse):
@@ -89,18 +102,12 @@ def _forward(name, q, k, v, *, causal, window, with_lse):
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    lse_ptr = () if lse is None else (lse.data_ptr(),)
-    if uses_tensor_cores(q.dtype):
-        fn = _build.kernel("flash_fwd_sm90", "repro_flash_fwd_sm90",
-                           _TC_ARGS)
-        rc = fn(*ptrs, lse_ptr[0] if lse_ptr else None, *dims[:-1],
-                _stream(q.device))
-    else:
-        fn = _build.kernel("flash_attention", "repro_flash_fwd_lse"
-                           if with_lse else "repro_flash_fwd",
-                           (_P,) * (4 + len(lse_ptr)) + _DIMS)
-        rc = fn(*ptrs, *lse_ptr, *dims, _stream(q.device))
-    _build.raise_on_error(name, rc)
+    if uses_tensor_cores(q.dtype):      # one kernel; a null lse: o alone
+        ptrs += (None if lse is None else lse.data_ptr(),)
+    elif lse is not None:
+        ptrs += (lse.data_ptr(),)
+    _launch(name, q, ptrs, dims, ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
+            "repro_flash_fwd_lse" if with_lse else "repro_flash_fwd")
     return o, lse
 
 
@@ -122,40 +129,45 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool, window: int = 0):
     return o, lse
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
-                       window: int = 0):
-    """dQ from dO, the forward's lse and delta = rowsum(O dO)."""
+def _backward_operands(q, k, v, do, lse, delta, *, causal, window):
+    """Check the backward stages' operands -> the kernels' int
+    arguments."""
     dims = _dims(q, k, v, causal=causal, window=window)
     _build.check_operand("do", do, q.dtype, tuple(q.shape), q.device)
     _stats(q, "lse", lse)
     _stats(q, "delta", delta)
+    return dims
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
+                       window: int = 0):
+    """dQ from dO, the forward's lse and delta = rowsum(O dO)."""
+    dims = _backward_operands(q, k, v, do, lse, delta, causal=causal,
+                              window=window)
     dq = torch.empty_like(q)
-    fn = _build.kernel("flash_attention", "repro_flash_dq",
-                       (_P,) * 7 + _DIMS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-            _stream(q.device))
-    _build.raise_on_error("flash_attention_dq", rc)
+    _launch("flash_attention_dq", q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()), dims,
+            ("flash_bwd_sm90", "repro_flash_dq_sm90"), "repro_flash_dq")
     flash_attention_dq.launches += 1
+    flash_attention_dq.tc_launches += uses_tensor_cores(q.dtype)
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
                         window: int = 0):
     """(dK, dV), each summed over the R q heads of its kv head."""
-    dims = _dims(q, k, v, causal=causal, window=window)
-    _build.check_operand("do", do, q.dtype, tuple(q.shape), q.device)
-    _stats(q, "lse", lse)
-    _stats(q, "delta", delta)
+    dims = _backward_operands(q, k, v, do, lse, delta, causal=causal,
+                              window=window)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.kernel("flash_attention", "repro_flash_dkv",
-                       (_P,) * 8 + _DIMS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dims, _stream(q.device))
-    _build.raise_on_error("flash_attention_dkv", rc)
+    _launch("flash_attention_dkv", q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            dims, ("flash_bwd_sm90", "repro_flash_dkv_sm90"),
+            "repro_flash_dkv")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.tc_launches += uses_tensor_cores(q.dtype)
     return dk, dv
 
 
@@ -164,4 +176,6 @@ flash_attention_fwd.tc_launches = 0
 flash_attention_fwd_lse.launches = 0
 flash_attention_fwd_lse.tc_launches = 0
 flash_attention_dq.launches = 0
+flash_attention_dq.tc_launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_dkv.tc_launches = 0

@@ -12,8 +12,9 @@ order; bf16 one rounding of the output), 5e-4 for gradients
 (``tests/test_kernels_bwd.py``'s bar), 2e-5 against ``chunked_attention``
 (fp32, its 1024-key chunks). The CUDA kernels run only on the card:
 ``chip_smoke.py`` holds each against these plain versions there. The
-bf16 forward's tensor-core arithmetic (``csrc/flash_fwd_sm90.cu``) is
-emulated here and held to the plain version at the card's bf16 bars.
+bf16 tensor-core arithmetic of the forward (``csrc/flash_fwd_sm90.cu``)
+and of dQ and dK/dV (``csrc/flash_bwd_sm90.cu``) is emulated here and
+held to the plain versions at the card's bf16 bars.
 """
 import jax
 import jax.numpy as jnp
@@ -239,7 +240,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     lse = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_dkv(q, k, v, q, lse, lse, causal=True)
-    assert FA.flash_attention_fwd.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_dq(q, k, v, q, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_dq(q96, k96, v96, q96, lse[:, :2], lse[:, :2],
+                              causal=True)
+    for fn in (FA.flash_attention_fwd, FA.flash_attention_fwd_lse,
+               FA.flash_attention_dq, FA.flash_attention_dkv):
+        assert fn.launches == 0 and fn.tc_launches == 0
 
 
 def _emulate_tc_forward(q, k, v, *, causal, window, split=True, bk=128):
@@ -294,7 +302,8 @@ TC_CASES = [(1, 2, 1, 200, 200, 64, True, 0),      # R 2, ragged
             (1, 4, 2, 130, 77, 128, False, 0),     # Sq != Sk
             (1, 2, 1, 130, 77, 64, False, 5),      # rows that see no key
             (1, 2, 1, 77, 130, 128, False, 5),
-            (1, 2, 1, 256, 256, 64, False, 0)]
+            (1, 2, 1, 256, 256, 64, False, 0),
+            (1, 2, 1, 77, 130, 64, True, 0)]      # kv rows no query sees
 
 
 @pytest.mark.parametrize("B,hq,hkv,sq,sk,hd,causal,window", TC_CASES)
@@ -332,14 +341,117 @@ def test_single_rounded_p_misses_the_element_bar():
 
 
 def test_forwards_pick_their_kernel_by_dtype():
-    """bf16 goes to the tensor-core kernel, fp32 to the FMA kernel; both
-    refuse CPU tensors before any build, counting nothing."""
+    """bf16 goes to the tensor-core kernels, fp32 to the FMA kernels, for
+    the forwards and for dQ and dK/dV alike; all four refuse CPU tensors
+    before any build, counting nothing."""
     from repro_torch.kernels import flash_attention as FA
     assert FA.uses_tensor_cores(torch.bfloat16)
     assert not FA.uses_tensor_cores(torch.float32)
-    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
-               for x in _qkv(2, 1, 2, 8, 8, 128))
-    for fn in (FA.flash_attention_fwd, FA.flash_attention_fwd_lse):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(q, k, v, causal=True)
-        assert fn.launches == 0 and fn.tc_launches == 0
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(x).to(dtype)
+                   for x in _qkv(2, 1, 2, 8, 8, 128))
+        for fn in (FA.flash_attention_fwd, FA.flash_attention_fwd_lse):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(q, k, v, causal=True)
+            assert fn.launches == 0 and fn.tc_launches == 0
+        lse = torch.zeros((1, 2, 8))
+        for fn in (FA.flash_attention_dq, FA.flash_attention_dkv):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(q, k, v, q, lse, lse, causal=True)
+            assert fn.launches == 0 and fn.tc_launches == 0
+
+
+def _emulate_tc_backward(q, k, v, do, lse, delta, *, causal, window,
+                         split=True, tile=64):
+    """The tensor-core dQ and dK/dV arithmetic in PyTorch on the CPU: bf16
+    q, k, v, dO; S and dP in fp32 from the exact bf16 products; P =
+    exp2(S scale log2 e - lse log2 e) (the scale after the product) and dS
+    = P (dP - delta) scale, each 0 where the pair is masked (a select:
+    a row that sees no key has lse -1e30); P and dS split into bf16 hi +
+    lo (``split``) or rounded once; fp32 accumulation tile by tile (dQ
+    over kv tiles of ``tile``; dK and dV over the R q heads in turn, q
+    tiles of ``tile`` each). -> (dq, dk, dv) bf16."""
+    B, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    r = hq // hkv
+    kf, vf = (x.float().repeat_interleave(r, 1) for x in (k, v))
+    log2e = torch.tensor(np.log2(np.e), dtype=torch.float32)
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    mask = ref.flash_mask(sq, sk, causal=causal, window=window,
+                          device=q.device)
+    s = q.float() @ kf.transpose(-1, -2)
+    p = torch.where(mask, torch.exp2(s * (scale * log2e)
+                                     - (lse * log2e)[..., None]), 0.0)
+    dp = do.float() @ vf.transpose(-1, -2)
+    ds = torch.where(mask, p * (dp - delta[..., None]) * scale, 0.0)
+
+    def parts(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    dq = torch.zeros((B, hq, sq, hd))
+    for k0 in range(0, sk, tile):
+        for part in parts(ds[..., k0:k0 + tile]):
+            dq = dq + part @ kf[:, :, k0:k0 + tile]
+    pg, dsg, qg, dog = (x.reshape(B, hkv, r, *x.shape[2:])
+                        for x in (p, ds, q.float(), do.float()))
+    dk = torch.zeros((B, hkv, sk, hd))
+    dv = torch.zeros((B, hkv, sk, hd))
+    for i in range(r):
+        for q0 in range(0, sq, tile):
+            rows = slice(q0, q0 + tile)
+            for part in parts(pg[:, :, i, rows]):
+                dv = dv + part.transpose(-1, -2) @ dog[:, :, i, rows]
+            for part in parts(dsg[:, :, i, rows]):
+                dk = dk + part.transpose(-1, -2) @ qg[:, :, i, rows]
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _backward_case(seed, B, hq, hkv, sq, sk, hd, causal, window):
+    """bf16 q, k, v, dO from ``seed``, the plain forward's lse and delta =
+    rowsum(O dO), and the plain dQ, dK, dV on them."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(
+        seed, B, hq, sq, sk, hd, hkv=hkv))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    o, lse = ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    delta = torch.sum(o.float() * do.float(), -1)
+    want = (ref.flash_attention_dq_ref(q, k, v, do, lse, delta, **kw),
+            *ref.flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw))
+    return (q, k, v, do, lse, delta), want
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,hd,causal,window", TC_CASES)
+def test_tensor_core_backward_arithmetic_meets_the_bf16_bars(
+        B, hq, hkv, sq, sk, hd, causal, window):
+    """P and dS split into bf16 hi + lo keep the tensor-core dQ, dK and dV
+    within one bf16 rounding of the fp32 plain versions, element by
+    element; rows that see no key get dQ 0 and kv rows that no query sees
+    dK and dV 0, exactly."""
+    args, want = _backward_case(sq * 5 + sk + hd + window, B, hq, hkv, sq,
+                                sk, hd, causal, window)
+    got = _emulate_tc_backward(*args, causal=causal, window=window)
+    for a, b in zip(got, want):
+        elem, rel_l2 = _bf16_readings(a, b)
+        assert elem <= 1.0 and rel_l2 <= BF16_REL_L2, (elem, rel_l2)
+    mask = ref.flash_mask(sq, sk, causal=causal, window=window, device="cpu")
+    dq, dk, dv = got
+    assert torch.all(dq[:, :, mask.sum(-1) == 0] == 0)
+    unseen = mask.sum(0) == 0
+    assert torch.all(dk[:, :, unseen] == 0) and torch.all(dv[:, :, unseen] == 0)
+
+
+def test_single_rounded_p_and_ds_miss_the_element_bar():
+    """Why the backward splits P and dS: at S 1024, hd 128, causal, P and
+    dS rounded once to bf16 (FA2, FA3, SDPA) land several bf16 roundings
+    away from the plain versions somewhere in dQ, dK and dV; the split
+    stays within one."""
+    args, want = _backward_case(19, 1, 4, 2, 1024, 1024, 128, True, 0)
+    split = _emulate_tc_backward(*args, causal=True, window=0)
+    once = _emulate_tc_backward(*args, causal=True, window=0, split=False)
+    for a, b in zip(split, want):
+        elem, rel_l2 = _bf16_readings(a, b)
+        assert elem <= 1.0 and rel_l2 <= BF16_REL_L2, (elem, rel_l2)
+    for a, b in zip(once, want):
+        assert _bf16_readings(a, b)[0] > 1.0

@@ -5,7 +5,8 @@
   * every CUDA kernel wrapper carries an integer ``launches`` counter, and
     its kernel module names the TPU kernel it replaces (the four flash
     attention stages among them); the two forwards also count their
-    tensor-core launches, and that kernel's source names both TPU kernels;
+    the four flash stages also count their tensor-core launches, and each
+    tensor-core source names the TPU kernels it replaces;
   * no CUDA source asks for fast math (the quantizer's bit-exactness and
     the IEEE fp32 sums depend on it).
 """
@@ -50,10 +51,19 @@ REPLACES = {
         "src/repro/kernels/flash_attention_bwd.py:_dq_kernel",
     ("flash_attention", "flash_attention_dkv"):
         "src/repro/kernels/flash_attention_bwd.py:_dkv_kernel"}
-# the bf16 forwards' tensor-core kernel replaces both forward TPU kernels
-TC_SOURCE = "flash_fwd_sm90"
-TC_REPLACES = ("src/repro/kernels/flash_attention.py:flash_attention",
-               "src/repro/kernels/flash_attention_bwd.py:_fwd")
+# the bf16 tensor-core sources, each with the TPU kernels it replaces,
+# and each flash stage's (source, C entry point) in bf16
+TC_SOURCES = {
+    "flash_fwd_sm90": ("src/repro/kernels/flash_attention.py:flash_attention",
+                       "src/repro/kernels/flash_attention_bwd.py:_fwd"),
+    "flash_bwd_sm90": ("src/repro/kernels/flash_attention_bwd.py:_dq_kernel",
+                       "src/repro/kernels/flash_attention_bwd.py:_dkv_kernel")}
+TC_KERNEL = {"flash_attention_fwd": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
+             "flash_attention_fwd_lse": ("flash_fwd_sm90",
+                                         "repro_flash_fwd_sm90"),
+             "flash_attention_dq": ("flash_bwd_sm90", "repro_flash_dq_sm90"),
+             "flash_attention_dkv": ("flash_bwd_sm90",
+                                     "repro_flash_dkv_sm90")}
 
 
 def _port_files():
@@ -98,17 +108,22 @@ def test_no_fast_math_in_kernel_builds():
 
 
 @pytest.mark.parametrize("name", ["flash_attention_fwd",
-                                  "flash_attention_fwd_lse"])
+                                  "flash_attention_fwd_lse",
+                                  "flash_attention_dq",
+                                  "flash_attention_dkv"])
 def test_tensor_core_forwards_count_launches_and_name_their_kernels(name):
     build = importlib.import_module("repro_torch.kernels._build")
     wrapper = getattr(importlib.import_module(
         "repro_torch.kernels.flash_attention"), name)
     assert isinstance(wrapper.launches, int)
     assert isinstance(wrapper.tc_launches, int)
-    assert TC_SOURCE in build.SOURCES
-    src = (PORT / "kernels" / "csrc" / f"{TC_SOURCE}.cu").read_text()
-    assert all(r in src for r in TC_REPLACES)
-    assert f"extern \"C\" int repro_{TC_SOURCE}(" in src
-    assert not any(f"{fast}(" in src for fast in
+    source, symbol = TC_KERNEL[name]
+    assert source in build.SOURCES
+    src = (PORT / "kernels" / "csrc" / f"{source}.cu").read_text()
+    assert all(r in src for r in TC_SOURCES[source])
+    assert f"extern \"C\" int {symbol}(" in src
+    assert '#include "sm90_common.cuh"' in src
+    shared = (PORT / "kernels" / "csrc" / "sm90_common.cuh").read_text()
+    assert not any(f"{fast}(" in text for text in (src, shared) for fast in
                    ("__expf", "__exp10f", "__logf", "__fdividef"))
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
