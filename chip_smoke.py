@@ -17,7 +17,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  card, at the main paths' shapes and at ragged ones:
                  quantize bit-identical, distances within 1e-5, KL
                  similarity within 2e-6, normalized relevance within 1e-6
-                 and aggregated bases within 2e-5, IVF cluster distances and
+                 and aggregated bases within 2e-5 (both aggregate entries at
+                 the round's and the fleet's shapes, R of 1, 127, 129 and
+                 1001, K = C off the 32-deep step, ragged P, misaligned
+                 bases: all three variants, skinny, tiled and ragged; an
+                 all-zero W and a NaN diagonal at C = 6 and 1000; their
+                 tile kernels spill nothing), IVF cluster distances and
                  shortlist scores within 1e-5 (shortlist ids equal, ragged
                  shapes with an empty bucket and an all-invalid client);
                  the codec's grouped top-k pack / unpack and index bit-pack
@@ -42,7 +47,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  = 0 with lse -1e30, kv rows that no query sees dK = dV = 0;
                  times (CUDA events, median of 30 launches after warmup),
                  the relevance, codec, dequantize, aggregate and combine
-                 kernels at the C = 1000 shapes
+                 kernels at the C = 1000 shapes; both aggregates also at
+                 the round's shapes (fused C = 5 at P = 37696 and 57664,
+                 plain R = 3 and 5 of C = 5) and the fused one at C = 100,
+                 each beside torch.mm and its bound, and both forced onto
+                 the skinny and the tiled variant at C = 5 to 32 (the sweep
+                 that sets the skinny one's largest C)
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -204,6 +214,7 @@ from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     batched_pairwise_dist, pairwise_dist)
 from repro_torch.kernels.quantize import (  # noqa: E402
     batched_dequantize, batched_quantize)
+from repro_torch.kernels import relevance_aggregate as RA  # noqa: E402
 from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
     fused_relevance_aggregate, relevance_aggregate)
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
@@ -265,6 +276,20 @@ CODEC_METRIC_TOL = 0.03
 HIST_K, SCALE_CLIENTS = 6, (100, 1000)
 P_EDGE = 57664                          # EdgeModelConfig() head, 512 classes
 P_ROUND = 37696                         # the round's head: the bench's 200 ids
+# the aggregates' edges for correctness (fused (C, P), plain (R, C, P)):
+# the path shapes, R of 1, 127, 129 and 1001 around the 128-row tile, K =
+# C off the 32-deep k step, ragged P (1001, 333), each aligned P again on a
+# misaligned base; and their timed shapes (the round's, the edge model's
+# head, the fleet's C = 100 and 1000)
+AGG_FUSED_EDGES = ((5, P_EDGE), (5, P_ROUND), (100, P_EDGE), (7, 1001),
+                   (32, 1000), (33, 1000), (33, 1001), (127, 333),
+                   (129, P_ROUND), (1001, 1000))
+AGG_PLAIN_EDGES = ((3, 5, P_ROUND), (5, 5, P_EDGE), (1, 7, 1001),
+                   (20, 30, 1000), (70, 100, 333), (1, 100, P_EDGE),
+                   (127, 200, 1000), (129, 129, 333), (1001, 1001, P_ROUND))
+AGG_FUSED_TIMED = ((5, 5, P_ROUND), (5, 5, P_EDGE), (100, 100, P_EDGE),
+                   (1000, 1000, P_EDGE))
+AGG_PLAIN_TIMED = ((3, 5, P_ROUND), (5, 5, P_ROUND), (1000, 1000, P_EDGE))
 ROUND_OUT = ROOT / "build" / "round_fedstil.json"
 CODEC = "delta+topk"                    # the wire codec of round_fedstil_codec
 CODEC_OUT = ROOT / "build" / "round_fedstil_codec.json"
@@ -663,28 +688,108 @@ def relevance_kernel_rows(gen, dev, peak):
         return torch.randn((c, p), generator=gen, device=dev)
 
     err = 0.0
-    for c, p in ((5, P_EDGE), (5, P_ROUND), (100, P_EDGE), (7, 1001)):
+    for c, p in AGG_FUSED_EDGES:
         w = relevance(c)
         w.fill_diagonal_(7.5)                 # finite junk on the diagonal
         w[1] = 0.0                            # an all-zero row
-        err = max(err, aggregate_err(w, params(c, p)))
-    zb, zw = fused_relevance_aggregate(torch.zeros((6, 6), device=dev),
-                                       params(6, 1001))
-    torch.cuda.synchronize()
-    check(not bool(zb.any()) and not bool(zw.any()),
-          "fused_relevance_aggregate: all-zero W gave nonzero output")
+        th = params(c, p)
+        err = max(err, aggregate_err(w, th))
+        if p % 4 == 0:                        # a misaligned base: ragged
+            err = max(err, aggregate_err(w, offset_copy(th)))
+    for c, p in ((6, 1000), (6, 1001), (SCALE_CLIENTS[-1], 1000),
+                 (SCALE_CLIENTS[-1], 1001)):
+        th = params(c, p)
+        zb, zw = fused_relevance_aggregate(torch.zeros((c, c), device=dev),
+                                           th)
+        torch.cuda.synchronize()
+        check(not bool(zb.any()) and not bool(zw.any()),
+              f"fused_relevance_aggregate C={c}: all-zero W gave nonzero "
+              "output")
+        w = relevance(c)
+        w.fill_diagonal_(float("nan"))        # NaN on the diagonal
+        err = max(err, aggregate_err(w, th))
     w, th = relevance(C), params(C, P_EDGE)
     err = max(err, aggregate_err(w, th))
     wn = REF.normalized_relevance_ref(w)
     rows["fused_relevance_aggregate"] = dict(
         max_abs_err=err,
-        bound=bound(4.0 * (2 * C * C + 2 * C * P_EDGE), 2.0 * C * C * P_EDGE,
-                    peak),
+        bound=bound(*aggregate_work(C, C, P_EDGE, True), peak),
         ms=time_ms(lambda: fused_relevance_aggregate(w, th)),
         plain_ms=time_ms(lambda: REF.fused_relevance_aggregate_ref(w, th)),
         library_ms=time_ms(lambda: torch.mm(wn, th)),
-        shape=[C, P_EDGE])
+        shape=[C, P_EDGE],
+        detail={"library": "torch.mm(Wn, Theta), TF32 off",
+                "by_shape": aggregate_timings(gen, dev, peak, True),
+                "skinny_vs_tiled": skinny_vs_tiled(gen, dev),
+                "sass": aggregate_sass()})
     return rows
+
+
+def aggregate_sass():
+    """The aggregate library's SASS report; its tile kernels (the tiled and
+    ragged variants) must not spill."""
+    sass = sass_report("relevance_aggregate")
+    tiles = {k: u for k, u in sass["by_kernel"].items() if "tile_" in k}
+    check(len(tiles) == 2 and not any(u["local_bytes"] or u["stack_bytes"]
+                                      for u in tiles.values()),
+          f"relevance_aggregate: tile kernels {tiles} (want two, no spills)")
+    check(sass["ffma"] > 0, f"relevance_aggregate: no FFMA in {sass}")
+    return sass
+
+
+def skinny_vs_tiled(gen, dev):
+    """Both entries (R = C) forced onto the skinny and onto the tiled
+    variant at C up to the skinny one's largest, P = 57664: the times that
+    set ``SKINNY_MAX_C`` (launches outside the wrappers: not counted)."""
+    out = []
+    for c in (5, 8, 16, 24, 32):
+        w = torch.rand((c, c), generator=gen, device=dev)
+        wn = REF.normalized_relevance_ref(w)
+        th = torch.randn((c, P_EDGE), generator=gen, device=dev)
+        row = {"C": c}
+        for variant, most in (("skinny", RA.SKINNY_MAX_C), ("tiled", 0)):
+            plan = RA._plan(c, c, P_EDGE, True, skinny_max_c=most)
+            check(plan.variant == variant, f"{plan} is not {variant}")
+            row[f"fused_{variant}_ms"] = time_ms(lambda: RA._fused(w, th,
+                                                                   plan))
+            row[f"plain_{variant}_ms"] = time_ms(lambda: RA._plain(wn, th,
+                                                                   plan))
+        out.append(row)
+    return out
+
+
+def aggregate_work(r, c, p, fused):
+    """(bytes, FLOPs) of B = W Theta, W (r, c), Theta (c, p): W and Theta
+    read once, B written once, and the fused entry's Wn (c, c) written."""
+    nbytes = 4.0 * (r * c + c * p + r * p) + (4.0 * c * c if fused else 0.0)
+    return nbytes, 2.0 * r * c * p
+
+
+def aggregate_timings(gen, dev, peak, fused):
+    """Both aggregate entries timed at ``AGG_FUSED_TIMED`` /
+    ``AGG_PLAIN_TIMED`` beside their plain versions and ``torch.mm`` of the
+    normalized rows (TF32 off), each with its bound and its share of it."""
+    out = []
+    for r, c, p in AGG_FUSED_TIMED if fused else AGG_PLAIN_TIMED:
+        th = torch.randn((c, p), generator=gen, device=dev)
+        w = torch.rand((r, c), generator=gen, device=dev)
+        if fused:
+            wn = REF.normalized_relevance_ref(w)
+            kern = lambda: fused_relevance_aggregate(w, th)  # noqa: E731
+            plain = lambda: REF.fused_relevance_aggregate_ref(w, th)  # noqa: E731,E501
+        else:
+            w = wn = w / w.sum(1, keepdim=True)
+            kern = lambda: relevance_aggregate(w, th)  # noqa: E731
+            plain = lambda: REF.relevance_aggregate_ref(w, th)  # noqa: E731
+        b = bound(*aggregate_work(r, c, p, fused), peak)
+        ms = time_ms(kern)
+        out.append({"shape": [r, c, p],
+                    "variant": RA._plan(r, c, p, True).variant, "ms": ms,
+                    "plain_ms": time_ms(plain),
+                    "library_ms": time_ms(lambda: torch.mm(wn, th)),
+                    "bound_ms": b[0], "bound_by": b[1],
+                    "bound_share": b[0] / ms})
+    return out
 
 
 def shortlist_err(qf, probe, bq, pack):
@@ -987,20 +1092,23 @@ def new_kernel_rows(gen, dev, peak):
         return w / w.sum(1, keepdim=True)
 
     err = 0.0
-    for r, c, p in ((3, N_CLIENTS, P_ROUND), (N_CLIENTS, N_CLIENTS, P_EDGE),
-                    (1, 7, 1001), (70, 100, 333)):
-        err = max(err, plain_aggregate_err(
-            rows_of(r, c), torch.randn((c, p), generator=gen, device=dev)))
+    for r, c, p in AGG_PLAIN_EDGES:
+        w = rows_of(r, c)
+        th = torch.randn((c, p), generator=gen, device=dev)
+        err = max(err, plain_aggregate_err(w, th))
+        if p % 4 == 0:                        # a misaligned base: ragged
+            err = max(err, plain_aggregate_err(w, offset_copy(th)))
     w = rows_of(Cf, Cf)
     th = torch.randn((Cf, P), generator=gen, device=dev)
     err = max(err, plain_aggregate_err(w, th))
     rows["relevance_aggregate"] = dict(
         max_abs_err=err,
-        bound=bound(4.0 * (Cf * Cf + 2 * Cf * P), 2.0 * Cf * Cf * P, peak),
+        bound=bound(*aggregate_work(Cf, Cf, P, False), peak),
         ms=time_ms(lambda: relevance_aggregate(w, th)),
         plain_ms=time_ms(lambda: REF.relevance_aggregate_ref(w, th)),
         library_ms=time_ms(lambda: torch.mm(w, th)), shape=[Cf, Cf, P],
-        detail={"library": "torch.mm(W, Theta), TF32 off"})
+        detail={"library": "torch.mm(W, Theta), TF32 off",
+                "by_shape": aggregate_timings(gen, dev, peak, False)})
 
     # adaptive_combine: the round head's leaves, a ragged leaf on
     # misaligned bases (the scalar path), a leaf of the fleet's size
@@ -1225,9 +1333,10 @@ def blind_rows_check(got, sq, sk, kw):
 
 def sass_report(source):
     """What ``cuobjdump`` reads in csrc/<source>.cu's library: the HGMMA
-    (wgmma) instructions in its SASS, and the most registers, local
-    memory and stack (ptxas's spills) of any of its kernels (registers
-    are those a thread has at launch, before any setmaxnreg)."""
+    (wgmma) and FFMA instructions in its SASS, and the most registers,
+    local memory and stack (ptxas's spills) of any of its kernels, then
+    each kernel's (registers are those a thread has at launch, before any
+    setmaxnreg)."""
     def dump(flag):
         return subprocess.run(
             [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
@@ -1237,8 +1346,15 @@ def sass_report(source):
     regs, local, stack = (list(map(int, re.findall(rf"{k}:(\d+)", usage)))
                           for k in ("REG", "LOCAL", "STACK"))
     check(bool(regs and local), f"{source}: no resource usage in {usage}")
-    return {"hgmma": dump("-sass").count("HGMMA"), "registers": max(regs),
-            "local_bytes": max(local), "stack_bytes": max(stack, default=0)}
+    sass = dump("-sass")
+    by_kernel = {m[0]: {"registers": int(m[1]), "stack_bytes": int(m[2]),
+                        "local_bytes": int(m[3])}
+                 for m in re.findall(r"Function ([^\s:]+):\s*REG:(\d+) "
+                                     r"STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+                                     usage)}
+    return {"hgmma": sass.count("HGMMA"), "ffma": sass.count("FFMA"),
+            "registers": max(regs), "local_bytes": max(local),
+            "stack_bytes": max(stack, default=0), "by_kernel": by_kernel}
 
 
 def flash_kernel_rows(gen, dev, peak):

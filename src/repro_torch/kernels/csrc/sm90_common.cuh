@@ -2,7 +2,8 @@
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA loads and their
 // tensor maps, register reallocation between warpgroups, wgmma
 // shared-memory descriptors and the bf16 products of a 64-row warpgroup
-// tile. sm_90a only.
+// tile. relevance_aggregate.cu takes the mbarriers, the TMA load and the
+// fp32 2-D map. sm_90a only.
 //
 // Accumulator fragment of a warpgroup's m64nN product, per thread:
 // element 4 j + e sits at row 16 w + lane / 4 + 8 (e >> 1) of the
@@ -321,6 +322,31 @@ int make_map_1d(CUtensorMap* map, const void* ptr, long long n, int len) {
                           CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_NONE,
                           CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the map (cols, rows, 1) of a row-major fp32 (rows, cols) array whose rows
+// start `ld` values apart (ld a multiple of 4: TMA strides are multiples of
+// 16 bytes), boxes of box_cols x box_rows x 1 (load at z = 0), no swizzle,
+// zeros past cols and rows
+int make_map_2d(CUtensorMap* map, const void* ptr, long long cols,
+                long long rows, long long ld, int box_cols, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 4 || cols < 1 ||
+      rows < 1 || cols > ld || cols >= (1ll << 32) || rows >= (1ll << 32))
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
+                                 (cuuint64_t)ld * 4 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                          const_cast<void*>(ptr), dims, strides, box, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -8,19 +8,97 @@
     plain:  B = W @ Theta, W (R, C) rows already normalized, R <= C
                                             (the host server round)
 
+Both entries run one of three variants of the product, which ``_plan``
+picks from the shapes and Theta's alignment: ``skinny`` (C at most
+``SKINNY_MAX_C``: one launch streams Theta), ``tiled`` (128 x 128 output
+tiles fed by TMA from a k-major copy of W's rows in scratch) and
+``ragged`` (the same tile fed by 4-byte copies, where P % 4 != 0 or Theta's
+base is off 16 bytes and no TMA map can be encoded).
+
 Take CUDA tensors only; ``ops.fused_relevance_aggregate`` and
 ``ops.relevance_aggregate`` send CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_void_p)
+VARIANTS = ("skinny", "tiled", "ragged")     # the .cu's Variant codes
+# the skinny variant's largest R and C: its shared memory holds W up to 32
+# x 32, and it beat the tile at every C <= 32 on an H100 (chip_smoke's
+# ``skinny_vs_tiled`` sweep times both at P = 57664)
+SKINNY_MAX_C = 32
+TILE_M = TILE_N = 128                        # output rows x columns a tile
+SKINNY_THREADS = 128                         # one float4 column a thread
+SKINNY_ROWS = 8                              # rows of B a skinny block
+
+
+class Plan(NamedTuple):
+    variant: str                             # one of VARIANTS
+    grid: int                                # blocks of the product launch
+    scratch: Optional[Tuple[int, int]]       # (C, ld): W's rows k-major
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(R: int, C: int, P: int, aligned: bool,
+          skinny_max_c: int = SKINNY_MAX_C) -> Plan:
+    """The variant, product grid and scratch shape for B (R, P) = W (R, C)
+    @ Theta (C, P); ``aligned``: Theta's base is 16-byte aligned. The
+    skinny variant keeps R <= ``skinny_max_c`` rows in registers. ld, the
+    scratch's row length, is R rounded up to 4 (TMA strides are multiples
+    of 16 bytes)."""
+    aligned = aligned and P % 4 == 0
+    if aligned and max(R, C) <= skinny_max_c:
+        return Plan("skinny", max(1, _cdiv(P // 4, SKINNY_THREADS))
+                    * _cdiv(R, SKINNY_ROWS), None)
+    return Plan("tiled" if aligned else "ragged",
+                _cdiv(R, TILE_M) * _cdiv(P, TILE_N), (C, _cdiv(R, 4) * 4))
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _scratch(plan: Plan, dev):
+    """(tensor, ld) of a fresh scratch for the plan, (None, 0) for none.
+    It may be freed as soon as the launch is queued: the caching allocator
+    hands its memory only to later work on the same stream."""
+    if plan.scratch is None:
+        return None, 0
+    wt = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+    return wt, plan.scratch[1]
+
+
+_FUSED_ARGS = (ctypes.c_void_p,) * 5 + (
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p)
+
+
+def _fused(w, thetas, plan: Plan):
+    """Launch the fused entry under ``plan``: (B, Wn)."""
+    C, P = thetas.shape
+    dev = thetas.device
+    b = torch.empty((C, P), dtype=torch.float32, device=dev)
+    wn = torch.empty((C, C), dtype=torch.float32, device=dev)
+    if C == 0:
+        return b, wn
+    wt, ld = _scratch(plan, dev)
+    fn = _build.kernel("relevance_aggregate",
+                       "repro_fused_relevance_aggregate", _FUSED_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(w.data_ptr(), thetas.data_ptr(), b.data_ptr(), wn.data_ptr(),
+                None if wt is None else wt.data_ptr(), C, P,
+                VARIANTS.index(plan.variant), ld, plan.grid, stream)
+    _build.raise_on_error("fused_relevance_aggregate", rc)
+    return b, wn
 
 
 def fused_relevance_aggregate(w, thetas):
@@ -33,26 +111,38 @@ def fused_relevance_aggregate(w, thetas):
     dev = thetas.device
     _build.check_operand("w", w, torch.float32, (C, C), dev)
     _build.check_operand("thetas", thetas, torch.float32, (C, P), dev)
-    b = torch.empty((C, P), dtype=torch.float32, device=dev)
-    wn = torch.empty((C, C), dtype=torch.float32, device=dev)
-    if C == 0:
-        return b, wn
-    fn = _build.kernel("relevance_aggregate",
-                       "repro_fused_relevance_aggregate", _ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(w.data_ptr(), thetas.data_ptr(), b.data_ptr(), wn.data_ptr(),
-                C, P, stream)
-    _build.raise_on_error("fused_relevance_aggregate", rc)
-    fused_relevance_aggregate.launches += 1
-    return b, wn
+    out = _fused(w, thetas, _plan(C, C, P, _aligned(thetas)))
+    if C:
+        fused_relevance_aggregate.launches += 1
+    return out
 
 
 fused_relevance_aggregate.launches = 0
 
 
-_PLAIN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (
-    ctypes.c_longlong, ctypes.c_void_p)
+_PLAIN_ARGS = (ctypes.c_void_p,) * 4 + (
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p)
+
+
+def _plain(w, thetas, plan: Plan):
+    """Launch the plain entry under ``plan``: B."""
+    C, P = thetas.shape
+    R = w.shape[0]
+    dev = thetas.device
+    b = torch.empty((R, P), dtype=torch.float32, device=dev)
+    if b.numel() == 0:
+        return b
+    wt, ld = _scratch(plan, dev)
+    fn = _build.kernel("relevance_aggregate", "repro_relevance_aggregate",
+                       _PLAIN_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(w.data_ptr(), thetas.data_ptr(), b.data_ptr(),
+                None if wt is None else wt.data_ptr(), R, C, P,
+                VARIANTS.index(plan.variant), ld, plan.grid, stream)
+    _build.raise_on_error("relevance_aggregate", rc)
+    return b
 
 
 def relevance_aggregate(w, thetas):
@@ -65,17 +155,9 @@ def relevance_aggregate(w, thetas):
     dev = thetas.device
     _build.check_operand("w", w, torch.float32, (R, C), dev)
     _build.check_operand("thetas", thetas, torch.float32, (C, P), dev)
-    b = torch.empty((R, P), dtype=torch.float32, device=dev)
-    if b.numel() == 0:
-        return b
-    fn = _build.kernel("relevance_aggregate", "repro_relevance_aggregate",
-                       _PLAIN_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(w.data_ptr(), thetas.data_ptr(), b.data_ptr(), R, C, P,
-                stream)
-    _build.raise_on_error("relevance_aggregate", rc)
-    relevance_aggregate.launches += 1
+    b = _plain(w, thetas, _plan(R, C, P, _aligned(thetas)))
+    if b.numel():
+        relevance_aggregate.launches += 1
     return b
 
 

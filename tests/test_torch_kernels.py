@@ -37,7 +37,9 @@ from repro_torch.kernels.kl_similarity import kl_similarity
 from repro_torch.kernels.pairwise_dist import (batched_pairwise_dist,
                                                pairwise_dist)
 from repro_torch.kernels.quantize import batched_dequantize, batched_quantize
-from repro_torch.kernels.relevance_aggregate import (fused_relevance_aggregate,
+from repro_torch.kernels.relevance_aggregate import (SKINNY_MAX_C, Plan,
+                                                     _plan,
+                                                     fused_relevance_aggregate,
                                                      relevance_aggregate)
 
 SHAPES = [(3, 4, 40, 64), (2, 16, 300, 64), (1, 1, 7, 32)]
@@ -150,10 +152,12 @@ def test_dequantize_bit_exact(P, chunk, backend):
 
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("R,C,P", [(5, 5, 1000), (2, 5, 3001), (1, 7, 129),
-                                   (70, 70, 333)])
+                                   (70, 70, 333), (129, 129, 333),
+                                   (5, 33, 1000)])
 def test_relevance_aggregate_matches_jax(R, C, P, backend):
     """(R, C) normalized rows x (C, P): R < C (the host server skips rows
-    without relevant neighbours) and R = C, ragged P."""
+    without relevant neighbours) and R = C, ragged P; R = 129 one past the
+    kernel's 128-row tile, C = 33 one past the skinny variant's largest."""
     rng = np.random.default_rng(R * C + P)
     w = rng.random((R, C)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
@@ -310,10 +314,12 @@ def _relevance(rng, C, diag):
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
-@pytest.mark.parametrize("C,P", [(5, 1000), (7, 1001), (70, 333), (3, 1)])
+@pytest.mark.parametrize("C,P", [(5, 1000), (7, 1001), (70, 333), (3, 1),
+                                 (33, 1000), (129, 333)])
 def test_fused_relevance_aggregate_matches_jax(C, P, backend):
     """Ragged P, finite junk on the diagonal, a zero row, a row whose only
-    mass is on the diagonal (zero once masked)."""
+    mass is on the diagonal (zero once masked); C = 33 one past the skinny
+    variant's largest, 129 one past the tile's 128 rows."""
     rng = np.random.default_rng(C * P)
     w = _relevance(rng, C, 123.0)
     w[1] = 0.0
@@ -351,3 +357,76 @@ def test_fused_relevance_aggregate_all_zero_and_nan_diagonal():
     assert not np.asarray(JOPS.fused_relevance_aggregate(
         w, th, backend="ref")[1]).any()
     assert bool((wnt.sum(1) > 0.99).all())
+
+
+# (R, C, P, aligned) -> the plan: the round's shapes (fused C = 5 at the
+# round's and the edge model's P; the host rows R <= 5 of C = 5), the
+# fleet's C = 100 and 1000, R of 1, 127, 129 and 1001 around the 128-row
+# tile (scratch rows rounded up to 4 for TMA's 16-byte strides), the
+# skinny variant's edge, ragged P and misaligned bases (ragged), P = 0
+PLANS = [
+    ((5, 5, 37696, True), Plan("skinny", 74, None)),
+    ((5, 5, 57664, True), Plan("skinny", 113, None)),
+    ((3, 5, 37696, True), Plan("skinny", 74, None)),
+    ((32, 32, 1000, True), Plan("skinny", 8, None)),
+    ((9, 9, 1000, True), Plan("skinny", 4, None)),
+    ((33, 33, 1000, True), Plan("tiled", 8, (33, 36))),
+    ((100, 100, 57664, True), Plan("tiled", 451, (100, 100))),
+    ((1000, 1000, 57664, True), Plan("tiled", 3608, (1000, 1000))),
+    ((1, 100, 57664, True), Plan("tiled", 451, (100, 4))),
+    ((127, 200, 1000, True), Plan("tiled", 8, (200, 128))),
+    ((129, 129, 37696, True), Plan("tiled", 590, (129, 132))),
+    ((1001, 1001, 1000, True), Plan("tiled", 64, (1001, 1004))),
+    ((5, 5, 37696, False), Plan("ragged", 295, (5, 8))),
+    ((7, 7, 1001, True), Plan("ragged", 8, (7, 8))),
+    ((1001, 1001, 333, True), Plan("ragged", 24, (1001, 1004))),
+    ((5, 5, 0, True), Plan("skinny", 1, None)),
+]
+
+
+@pytest.mark.parametrize("args,plan", PLANS, ids=[
+    "-".join(map(str, a)) for a, _ in PLANS])
+def test_aggregate_plan(args, plan):
+    """The variant, product grid and scratch shape the aggregate wrappers
+    hand the CUDA entry points: tiles of 128 x 128 outputs, the row tiles
+    of one column slab neighbours (grid = row tiles x column tiles), the
+    skinny variant's blocks of 128 float4 columns x 8 rows, a scratch (C,
+    ld) with ld = R rounded up to 4."""
+    got = _plan(*args)
+    assert got == plan
+    R, C, P, aligned = args
+    if got.scratch is not None:
+        assert got.scratch[0] == C and got.scratch[1] % 4 == 0
+        assert R <= got.scratch[1] < R + 4
+    assert (got.variant == "skinny") == (aligned and P % 4 == 0
+                                         and max(R, C) <= SKINNY_MAX_C)
+
+
+AGG_TOL = 2e-5   # chip_smoke.py's bar for the kernels against torch.mm
+
+
+def test_tile_summation_order_has_margin_at_the_fleet_shape():
+    """The kernels sum each output by fp32 FMAs in ascending k from 0. That
+    chain, emulated at C = 1000 (normalized relevance rows x 64
+    standard-normal columns; each step's product and sum taken in float64,
+    the float64 product of two fp32 values exact, then rounded to fp32),
+    and the plain version's torch.mm on the CPU each lie within 1e-6 of
+    float64, so the two together stay at a fiftieth of AGG_TOL or less
+    (1.7e-7 apart): the bar has margin at the fleet's shape."""
+    rng = np.random.default_rng(19)
+    C, P = 1000, 64
+    w = rng.random((C, C)).astype(np.float32)
+    np.fill_diagonal(w, 0.0)
+    wn = ref.normalized_relevance_ref(torch.from_numpy(w)).numpy()
+    th = rng.standard_normal((C, P)).astype(np.float32)
+    acc = np.zeros((C, P), np.float32)
+    for k in range(C):
+        acc = (np.outer(wn[:, k].astype(np.float64), th[k].astype(np.float64))
+               + acc.astype(np.float64)).astype(np.float32)
+    exact = wn.astype(np.float64) @ th.astype(np.float64)
+    plain = ref.relevance_aggregate_ref(torch.from_numpy(wn),
+                                        torch.from_numpy(th)).numpy()
+    e_chain = np.abs(acc - exact).max()
+    e_plain = np.abs(plain - exact).max()
+    assert e_chain <= 1e-6 and e_plain <= 1e-6
+    assert np.abs(acc - plain).max() <= e_chain + e_plain <= AGG_TOL / 50
