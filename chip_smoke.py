@@ -52,7 +52,16 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  plain R = 3 and 5 of C = 5) and the fused one at C = 100,
                  each beside torch.mm and its bound, and both forced onto
                  the skinny and the tiled variant at C = 5 to 32 (the sweep
-                 that sets the skinny one's largest C)
+                 that sets the skinny one's largest C); kl_similarity at
+                 its edges (D 37 / 128 / 130, N 1 / 129, M 767, misaligned
+                 bases), both its variants forced at C = 5, 100 and 1000
+                 (outputs equal bit for bit; timed: the sweep that sets
+                 SPLIT_MIN_TILES), one device kernel for a call at C = 5
+                 (torch.profiler), timed at C = 5 and 100 beside its bound;
+                 the quantizer at its edges (chunks 16 to 1024, K = 14136
+                 and 21624, P % 4 != 0, misaligned bases; each edge's
+                 variant reported) and timed at the codec's path shapes;
+                 neither library spills
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -209,9 +218,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
 from repro_torch.kernels.ivf import (batched_cluster_dist,  # noqa: E402
                                      batched_ivf_shortlist_scores)
+from repro_torch.kernels import kl_similarity as KLM  # noqa: E402
 from repro_torch.kernels.kl_similarity import kl_similarity  # noqa: E402
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     batched_pairwise_dist, pairwise_dist)
+from repro_torch.kernels import quantize as QZ  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402
     batched_dequantize, batched_quantize)
 from repro_torch.kernels import relevance_aggregate as RA  # noqa: E402
@@ -290,6 +301,30 @@ AGG_PLAIN_EDGES = ((3, 5, P_ROUND), (5, 5, P_EDGE), (1, 7, 1001),
 AGG_FUSED_TIMED = ((5, 5, P_ROUND), (5, 5, P_EDGE), (100, 100, P_EDGE),
                    (1000, 1000, P_EDGE))
 AGG_PLAIN_TIMED = ((3, 5, P_ROUND), (5, 5, P_ROUND), (1000, 1000, P_EDGE))
+# the codec's residual K at the round's and the edge model's P (kg 3 of 8):
+# 14136 and 21624, both 8 mod 16 (8-byte code stores)
+K_ROUND, K_EDGE = P_ROUND // 8 * 3, P_EDGE // 8 * 3
+# the quantizer's edges (C, P, chunk), each also on a misaligned base (the
+# scalar variant): the codec's keyframe and residuals at the round's and
+# the fleet's C, a chunk that is no power of two (40), chunks of 16 and
+# 512 (a group of 1 lane, of a warp), 1024 (a warp looping over it, P
+# ragged and 8 mod 16), P % 4 != 0, 4 mod 16 (4-byte stores) and a tail
+# chunk; and its timed path shapes at chunk 256 (the keyframe, the round's
+# and the fleet's residual)
+QUANT_EDGES = ((5, P_ROUND, 256), (5, K_ROUND, 256), (1000, K_EDGE, 256),
+               (2, 1000, 40), (2, 456, 16), (2, 4100, 512), (3, 4096, 1024),
+               (3, 5000, 1024), (2, 1002, 64), (3, 999, 256),
+               (3, 64036, 64))
+QUANT_TIMED = ((5, P_ROUND, 256), (5, K_ROUND, 256), (1000, K_EDGE, 256))
+# kl_similarity's edges (N, M, D) on top of the path shapes: D 37 / 128 /
+# 130 (a second chunk of p), N of 1 and 129 (one past a 128-row tile), M =
+# 767, each also with b on a misaligned base; the variants forced at the
+# round's, C = 100 and the fleet's shapes (``kl_variants``); and the
+# timed path shapes (N = C, M = 6 C)
+KL_EDGES = ((1, 767, 128), (129, 767, 128), (129, 767, 37), (1, 1, 130),
+            (129, 767, 130), (1, 767, 37), (64, 64, 300))
+KL_VARIANT_SHAPES = ((5, 30), (100, 600), (1000, 6000))
+KL_TIMED = ((5, 30), (100, 600))
 ROUND_OUT = ROOT / "build" / "round_fedstil.json"
 CODEC = "delta+topk"                    # the wire codec of round_fedstil_codec
 CODEC_OUT = ROOT / "build" / "round_fedstil_codec.json"
@@ -558,13 +593,28 @@ def phase_kernels(dev, peak, card):
     err = max(err, quantize_err(xr, F),
               quantize_err(torch.randn((2, 999), generator=gen, device=dev),
                            256))
+    edges = []
+    for c, p, chunk in QUANT_EDGES:
+        xe = 3.0 * torch.randn((c, p), generator=gen, device=dev)
+        xe[0, :chunk] = 0.0                       # an all-zero chunk
+        xe[-1, :halves.numel()] = halves          # exact half-way codes
+        for xx in (xe, offset_copy(xe)):
+            err = max(err, quantize_err(xx, chunk))
+            edges.append([c, p, chunk, plan_of(QZ, c, p, chunk,
+                                               aligned(xx))])
     P = G_INT8 * F
-    nbytes = C * P * 4 + C * P + C * G_INT8 * 4
+    for c, p, chunk in ((C, P, F), (5, K_ROUND, 256), (1000, K_EDGE, 256)):
+        check(QZ._plan(c, p, chunk, True).variant == "vector",
+              f"batched_quantize ({c}, {p}) chunk {chunk}: not vector")
     rows["batched_quantize"] = dict(
-        max_abs_err=err, bound=bound(nbytes, 3.0 * C * P, peak),
+        max_abs_err=err, bound=bound(*quantize_work(C, P, F), peak),
         ms=time_ms(lambda: batched_quantize(x, chunk=F)),
         plain_ms=time_ms(lambda: REF.batched_quantize_ref(x, chunk=F)),
-        library_ms=None, shape=[C, P])
+        library_ms=None, shape=[C, P],
+        detail={"variant": plan_of(QZ, C, P, F, aligned(x)),
+                "store_bytes": QZ._plan(C, P, F, aligned(x)).store,
+                "edges": edges, "by_shape": quantize_timings(gen, dev, peak),
+                "sass": kernel_sass("quantize", ffma=False)})
 
     # batched_int8_pairwise_dist at the int8 serving shape + ragged shapes
     q = unit_rows(gen, dev, C, BATCH, F)
@@ -626,6 +676,53 @@ def phase_kernels(dev, peak, card):
     return rows
 
 
+def plan_of(module, *args):
+    """The variant ``module._plan`` picks for ``args`` ("one" for a tree
+    whose kernel has no plan)."""
+    plan = getattr(module, "_plan", None)
+    return plan(*args).variant if plan else "one"
+
+
+def aligned(t):
+    return t.data_ptr() % 16 == 0
+
+
+def quantize_work(c, p, chunk):
+    """(bytes, operations) of quantizing (c, p): each value read once, each
+    code and scale written once; a compare, a division and a round a
+    value."""
+    return 5.0 * c * p + 4.0 * c * -(-p // chunk), 3.0 * c * p
+
+
+def quantize_timings(gen, dev, peak):
+    """The quantizer at ``QUANT_TIMED`` (the codec's path shapes, chunk
+    256) beside its plain version, each with its variant, bound and share."""
+    out = []
+    for c, p, chunk in QUANT_TIMED:
+        x = torch.randn((c, p), generator=gen, device=dev)
+        b = bound(*quantize_work(c, p, chunk), peak)
+        ms = time_ms(lambda: batched_quantize(x, chunk=chunk))
+        out.append({"shape": [c, p, chunk],
+                    "variant": plan_of(QZ, c, p, chunk, aligned(x)), "ms": ms,
+                    "plain_ms": time_ms(lambda: REF.batched_quantize_ref(
+                        x, chunk=chunk)),
+                    "bound_ms": b[0], "bound_by": b[1],
+                    "bound_share": b[0] / ms})
+    return out
+
+
+def kernel_sass(source, ffma=True):
+    """csrc/<source>.cu's SASS report: no kernel of it spills (local memory
+    or stack), and, for the FMA tiles (aggregate, KL), FFMA present."""
+    sass = sass_report(source)
+    spills = {k: u for k, u in sass["by_kernel"].items()
+              if u["local_bytes"] or u["stack_bytes"]}
+    check(bool(sass["by_kernel"]) and not spills,
+          f"{source}: kernels with spills {spills}")
+    check(sass["ffma"] > 0 or not ffma, f"{source}: no FFMA in {sass}")
+    return sass
+
+
 def task_features(gen, dev, n):
     """(n, proto_dim) rows like the server's task features: means of tanh
     prototypes, entries in (-1, 1)."""
@@ -633,8 +730,8 @@ def task_features(gen, dev, n):
                                   device=dev))
 
 
-def kl_err(a, b):
-    out_k = kl_similarity(a, b)
+def kl_err(a, b, kernel=kl_similarity):
+    out_k = kernel(a, b)
     out_r = REF.kl_similarity_ref(a, b)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out_k).all()), "kl_similarity: non-finite")
@@ -642,6 +739,88 @@ def kl_err(a, b):
     check(err <= KL_TOL, f"kl_similarity {tuple(a.shape)} x {tuple(b.shape)}"
           f": max_abs_err {err} > {KL_TOL}")
     return err
+
+
+def kl_work(n, m, d):
+    """(bytes, FLOPs) of S (n, m) from a (n, d), b (m, d): both read once, S
+    written once; the product's 2 n m d (the softmaxes are O((n + m) d))."""
+    return 4.0 * (n * d + m * d + n * m), 2.0 * n * m * d
+
+
+def kl_forced(variant):
+    """kl_similarity under a forced variant (launches outside the wrapper:
+    not counted)."""
+    def run(a, b):
+        n, d = a.shape
+        m = b.shape[0]
+        plan = KLM._plan(n, m, d, aligned(b))
+        if plan.variant != variant:
+            plan = KLM._plan(n, m, d, aligned(b),
+                             split_min_tiles=0 if variant == "split" else
+                             float("inf"))
+        return KLM._launch(a, b, plan)
+    return run
+
+
+def kl_variants(gen, dev):
+    """Both variants forced at the round's, C = 100 and the fleet's shapes
+    (timed; their outputs equal bit for bit) and at the edges (within
+    KL_TOL of the plain version, b aligned and not): the times that set
+    ``SPLIT_MIN_TILES``."""
+    D = CFG.proto_dim
+    out = []
+    for n, m in KL_VARIANT_SHAPES:
+        a, b = task_features(gen, dev, n), task_features(gen, dev, m)
+        row, outs = {"N": n, "M": m, "plan": plan_of(KLM, n, m, D, True)}, []
+        for variant in KLM.VARIANTS:
+            run = kl_forced(variant)
+            kl_err(a, b, run)
+            outs.append(run(a, b))
+            row[f"{variant}_ms"] = time_ms(lambda: run(a, b))
+        torch.cuda.synchronize()
+        check(all(torch.equal(outs[0], o) for o in outs),
+              f"kl_similarity {n} x {m}: the variants' outputs differ")
+        out.append(row)
+    for n, m, d in KL_EDGES:
+        a = torch.randn((n, d), generator=gen, device=dev)
+        b = torch.randn((m, d), generator=gen, device=dev)
+        for variant in KLM.VARIANTS:
+            kl_err(a, b, kl_forced(variant))
+            kl_err(a, offset_copy(b), kl_forced(variant))
+    return out
+
+
+def kl_timings(gen, dev, peak):
+    """kl_similarity at ``KL_TIMED`` (N = C, M = 6 C, D = 128) beside its
+    plain version, each with its variant, bound and share."""
+    D = CFG.proto_dim
+    out = []
+    for n, m in KL_TIMED:
+        a, b = task_features(gen, dev, n), task_features(gen, dev, m)
+        bd = bound(*kl_work(n, m, D), peak)
+        ms = time_ms(lambda: kl_similarity(a, b))
+        out.append({"shape": [n, m, D],
+                    "variant": plan_of(KLM, n, m, D, aligned(b)), "ms": ms,
+                    "plain_ms": time_ms(lambda: REF.kl_similarity_ref(a, b)),
+                    "bound_ms": bd[0], "bound_by": bd[1],
+                    "bound_share": bd[0] / ms})
+    return out
+
+
+def kl_kernels_a_call(gen, dev):
+    """The device kernels of one kl_similarity call at the round's shape
+    (N = 5, M = 30), from torch.profiler: one."""
+    a = task_features(gen, dev, N_CLIENTS)
+    b = task_features(gen, dev, N_CLIENTS * HIST_K)
+    kl_similarity(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kl_similarity(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(names) == 1, f"kl_similarity at C = 5 ran kernels {names}")
+    return names
 
 
 def aggregate_err(w, th):
@@ -670,16 +849,25 @@ def relevance_kernel_rows(gen, dev, peak):
                               task_features(gen, dev, m)[:, :d].contiguous()),
                   kl_err(torch.randn((n, d), generator=gen, device=dev),
                          torch.randn((m, d), generator=gen, device=dev)))
+    for n, m, d in KL_EDGES:
+        a = torch.randn((n, d), generator=gen, device=dev)
+        b = torch.randn((m, d), generator=gen, device=dev)
+        err = max(err, kl_err(a, b), kl_err(a, offset_copy(b)),
+                  kl_err(offset_copy(a), b))
     C = SCALE_CLIENTS[-1]
     N, M = C, C * k
     a, b = task_features(gen, dev, N), task_features(gen, dev, M)
     err = max(err, kl_err(a, b))
     rows["kl_similarity"] = dict(
-        max_abs_err=err,
-        bound=bound(4.0 * (N * D + M * D + N * M), 2.0 * N * M * D, peak),
+        max_abs_err=err, bound=bound(*kl_work(N, M, D), peak),
         ms=time_ms(lambda: kl_similarity(a, b)),
         plain_ms=time_ms(lambda: REF.kl_similarity_ref(a, b)),
-        library_ms=None, shape=[N, M, D])
+        library_ms=None, shape=[N, M, D],
+        detail={"variant": plan_of(KLM, N, M, D, aligned(b)),
+                "by_shape": kl_timings(gen, dev, peak),
+                "variants": kl_variants(gen, dev),
+                "kernels_a_call_at_c5": kl_kernels_a_call(gen, dev),
+                "sass": kernel_sass("kl_similarity")})
 
     def relevance(c):
         return torch.rand((c, c), generator=gen, device=dev)
@@ -721,20 +909,8 @@ def relevance_kernel_rows(gen, dev, peak):
         detail={"library": "torch.mm(Wn, Theta), TF32 off",
                 "by_shape": aggregate_timings(gen, dev, peak, True),
                 "skinny_vs_tiled": skinny_vs_tiled(gen, dev),
-                "sass": aggregate_sass()})
+                "sass": kernel_sass("relevance_aggregate")})
     return rows
-
-
-def aggregate_sass():
-    """The aggregate library's SASS report; its tile kernels (the tiled and
-    ragged variants) must not spill."""
-    sass = sass_report("relevance_aggregate")
-    tiles = {k: u for k, u in sass["by_kernel"].items() if "tile_" in k}
-    check(len(tiles) == 2 and not any(u["local_bytes"] or u["stack_bytes"]
-                                      for u in tiles.values()),
-          f"relevance_aggregate: tile kernels {tiles} (want two, no spills)")
-    check(sass["ffma"] > 0, f"relevance_aggregate: no FFMA in {sass}")
-    return sass
 
 
 def skinny_vs_tiled(gen, dev):
@@ -1909,11 +2085,32 @@ def last_operands(names, by_reference=BY_REFERENCE):
         yield seen
 
 
+def path_work(name, args):
+    """(bytes, operations) of a round kernel's call on ``args``, counted as
+    in phase 3's rows."""
+    if name == "batched_pairwise_dist":
+        (c, q, f), g = args[0].shape, args[1].shape[1]
+        return 4.0 * (c * q * f + c * g * f + c * q * g), 2.0 * c * q * g * f
+    if name == "kl_similarity":
+        return kl_work(args[0].shape[0], args[1].shape[0], args[0].shape[1])
+    if name in ("fused_relevance_aggregate", "relevance_aggregate"):
+        (r, c), p = args[0].shape, args[1].shape[1]
+        return aggregate_work(r, c, p, name == "fused_relevance_aggregate")
+    if name == "adaptive_combine":
+        n = args[0].numel() * args[0].element_size() / 4
+        return 16.0 * n, 2.0 * n
+    c, p = args[0].shape
+    if name == "batched_quantize":
+        return quantize_work(c, p, 256)
+    return 5.0 * c * p + 4.0 * args[1].numel(), 1.0 * c * p   # dequantize
+
+
 def path_operand_errs(seen):
     """Each round kernel against its plain version on the operands of its
     last call in the card run (the last eval's (C, T Q, F) x (C, G_max, F)
     distances, the last server round's relevance and aggregate, the last
-    combine's leaf)."""
+    combine's leaf), and timed there beside its bound: the paths' own
+    shapes, which the launches x (ms - bound) ordering of PERF.md reads."""
     checks = {
         "batched_pairwise_dist": lambda *a: dist_err(
             "batched_pairwise_dist (round)", batched_pairwise_dist,
@@ -1925,9 +2122,19 @@ def path_operand_errs(seen):
             *(t.detach().contiguous() for t in a)),
         "batched_quantize": lambda x: quantize_err(x, 256),
         "batched_dequantize": lambda q, sc: dequantize_err(q, sc, 256)}
-    return {n: {"shapes": [list(a.shape) for a in seen[n]],
-                "max_abs_err": checks[n](*seen[n])}
-            for n in checks if n in seen}
+    peak = peaks(torch.cuda.get_device_name(0))
+    out = {}
+    for n in (n for n in checks if n in seen):
+        args = seen[n]
+        if n == "adaptive_combine":
+            args = tuple(t.detach().contiguous() for t in args)
+        kw = {"chunk": 256} if "quantize" in n else {}
+        b = bound(*path_work(n, args), peak)
+        out[n] = {"shapes": [list(a.shape) for a in args],
+                  "max_abs_err": checks[n](*args),
+                  "ms": time_ms(lambda: KERNELS[n]["fn"](*args, **kw)),
+                  "bound_ms": b[0], "bound_by": b[1]}
+    return out
 
 
 def simulate(bench, device, codec=None, init_params=None, engine="stacked",

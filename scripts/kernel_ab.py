@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""The redesigned kernels of one checkout, timed and fingerprinted, for an
+A/B between two checkouts on one card.
+
+    python3 scripts/kernel_ab.py TREE LABEL [SET ...]    # from the repo root
+
+SET is any of ``aggregate``, ``kl`` and ``quantize`` (all three when none
+is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
+(TREE ``.`` for this checkout; for another one the script is copied into
+TREE as ``chip_smoke_ab.py`` and imported from there), builds TREE's
+kernels, and for each set prints a ``TIMES`` line (CUDA events, median of
+30, each shape with its bound and its variant) and a ``DIGESTS`` line
+(sha256 of the outputs on seeded inputs at shapes of every variant, so two
+trees compare bit for bit):
+
+  aggregate  both entries at ``AGG_FUSED_TIMED`` / ``AGG_PLAIN_TIMED``
+             beside ``torch.mm``; B and Wn at skinny, tiled and ragged shapes
+  kl         S at ``KL_VARIANT_SHAPES`` (the round's, C = 100 and the
+             fleet's); S at those and at ragged D, N, M, b misaligned
+  quantize   the refresh's shape and ``QUANT_TIMED``; codes and scales at
+             ``QUANT_EDGES``, aligned and not
+
+A tree whose kernel has no ``_plan`` reports its variant as "one". Run
+parent, change, change, parent in one call on one card (the parent
+unpacked with ``git archive`` into a gitignored directory). Needs a CUDA
+card.
+"""
+import hashlib
+import json
+import shutil
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+SETS = ("aggregate", "kl", "quantize")
+
+
+def digest(*xs):
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def aggregate(CS, dev, peak):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    times = {"fused": CS.aggregate_timings(gen, dev, peak, True),
+             "plain": CS.aggregate_timings(gen, dev, peak, False)}
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    for c, p in ((5, 37696), (5, 57664), (33, 1000), (100, 57664),
+                 (1000, 57664), (7, 1001), (129, 333)):
+        w = torch.rand((c, c), generator=gen, device=dev)
+        w.fill_diagonal_(7.5)
+        w[1] = 0.0
+        th = 10.0 * torch.randn((c, p), generator=gen, device=dev)
+        b, wn = CS.fused_relevance_aggregate(w, th)
+        out[f"fused {c}x{p}"] = [digest(b), digest(wn)]
+        rows = wn[:max(1, c // 2)].contiguous()
+        out[f"plain {rows.shape[0]}x{c}x{p}"] = digest(
+            CS.relevance_aggregate(rows, th))
+    return times, out
+
+
+def kl(CS, dev, peak):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    D = CS.CFG.proto_dim
+    times = []
+    for n, m in CS.KL_VARIANT_SHAPES:
+        a, b = CS.task_features(gen, dev, n), CS.task_features(gen, dev, m)
+        ms = CS.time_ms(lambda: CS.kl_similarity(a, b))
+        bd = CS.bound(*CS.kl_work(n, m, D), peak)
+        times.append({"shape": [n, m, D], "ms": ms, "bound_ms": bd[0],
+                      "bound_share": bd[0] / ms,
+                      "variant": CS.plan_of(CS.KLM, n, m, D, True)})
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    shapes = [(n, m, D) for n, m in CS.KL_VARIANT_SHAPES] + list(CS.KL_EDGES)
+    for n, m, d in shapes:
+        a = torch.randn((n, d), generator=gen, device=dev)
+        b = torch.randn((m, d), generator=gen, device=dev)
+        out[f"{n}x{m}x{d}"] = [digest(CS.kl_similarity(a, b)),
+                               digest(CS.kl_similarity(torch.tanh(a),
+                                                       torch.tanh(b))),
+                               digest(CS.kl_similarity(a, CS.offset_copy(b)))]
+    return times, out
+
+
+def quantize(CS, dev, peak):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    times = []
+    shapes = ((CS.C, CS.G_INT8 * CS.F, CS.F),) + CS.QUANT_TIMED
+    for c, p, chunk in shapes:
+        x = torch.randn((c, p), generator=gen, device=dev)
+        ms = CS.time_ms(lambda: CS.batched_quantize(x, chunk=chunk))
+        bd = CS.bound(*CS.quantize_work(c, p, chunk), peak)
+        times.append({"shape": [c, p, chunk], "ms": ms, "bound_ms": bd[0],
+                      "bound_share": bd[0] / ms,
+                      "variant": CS.plan_of(CS.QZ, c, p, chunk, True)})
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    for c, p, chunk in CS.QUANT_EDGES:
+        x = 3.0 * torch.randn((c, p), generator=gen, device=dev)
+        x[0, :chunk] = 0.0
+        out[f"{c}x{p}/{chunk}"] = [
+            digest(*CS.batched_quantize(x, chunk=chunk)),
+            digest(*CS.batched_quantize(CS.offset_copy(x), chunk=chunk))]
+    return times, out
+
+
+def main():
+    tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
+    sets = sys.argv[3:] or SETS
+    bad = [s for s in sets if s not in SETS]
+    if bad:
+        sys.exit(f"unknown kernel sets {bad}: choose from {SETS}")
+    if tree != HERE:
+        shutil.copy(HERE / "chip_smoke.py", tree / "chip_smoke_ab.py")
+        sys.path.insert(0, str(tree))
+        import chip_smoke_ab as CS
+    else:
+        sys.path.insert(0, str(tree))
+        import chip_smoke as CS
+    import torch
+    if not hasattr(CS.RA, "_plan"):          # a tree before the variants
+        CS.RA._plan = lambda *a, **k: type("P", (), {"variant": "one"})()
+    dev = torch.device("cuda", 0)
+    CS._build.build_all()
+    peak = CS.peaks(torch.cuda.get_device_name(0))
+    run = {"aggregate": aggregate, "kl": kl, "quantize": quantize}
+    for name in sets:
+        times, digests = run[name](CS, dev, peak)
+        print("TIMES", name, label, json.dumps(times), flush=True)
+        print("DIGESTS", name, label, json.dumps(digests), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,8 @@
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA loads and their
 // tensor maps, register reallocation between warpgroups, wgmma
 // shared-memory descriptors and the bf16 products of a 64-row warpgroup
-// tile. relevance_aggregate.cu takes the mbarriers, the TMA load and the
-// fp32 2-D map. sm_90a only.
+// tile. relevance_aggregate.cu and kl_similarity.cu take the mbarriers, the
+// TMA load and the fp32 2-D map. sm_90a only.
 //
 // Accumulator fragment of a warpgroup's m64nN product, per thread:
 // element 4 j + e sits at row 16 w + lane / 4 + 8 (e >> 1) of the

@@ -7,22 +7,66 @@ and ``:batched_dequantize``).
     out[c, i]   = q[c, i] * scale[c, i // chunk]                 (dequantize)
 
 The serving index quantizes with ``chunk = feat_dim``: one scale per row;
-the wire codec quantizes and dequantizes with chunk 256. Take CUDA tensors
-only; ``ops.batched_quantize`` / ``ops.batched_dequantize`` send CPU
-tensors to the plain versions.
+the wire codec quantizes and dequantizes with chunk 256. ``_plan`` picks
+the quantizer's variant: ``vector`` (16 elements a thread, a chunk a group
+of lanes, codes stored 16, 8 or 4 bytes wide) or ``scalar`` (a warp a
+chunk). Take CUDA tensors only; ``ops.batched_quantize`` /
+``ops.batched_dequantize`` send CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
+VARIANTS = ("scalar", "vector")              # the .cu's Variant codes
+VEC_ELEMS = 16                               # elements a vector thread owns
+
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p)
 _DEQ_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
              + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+
+
+class Plan(NamedTuple):
+    variant: str                             # one of VARIANTS
+    store: int                               # bytes a code store writes
+
+
+def _plan(C: int, P: int, chunk: int, aligned: bool) -> Plan:
+    """The quantizer's variant for x (C, P) in chunks of ``chunk``;
+    ``aligned``: x's base is 16-byte aligned. The vector variant needs a
+    chunk that is a power of two of at least 16 elements (its lanes, chunk /
+    16 up to a warp, reduce by xor shuffles), whole float4 rows (P % 4 ==
+    0), 32-bit offsets and at most 65535 rows (the grid's y); it stores a
+    thread's 16 codes as one 16-byte store where every row starts on 16
+    bytes (P % 16 == 0), else as two of 8 or four of 4."""
+    pow2 = chunk >= VEC_ELEMS and chunk & (chunk - 1) == 0
+    if (pow2 and aligned and P % 4 == 0 and P + chunk < 2 ** 31
+            and C < 65536):
+        return Plan("vector", 16 if P % 16 == 0 else 8 if P % 8 == 0 else 4)
+    return Plan("scalar", 1)
+
+
+def _quantize(x, chunk: int, plan: Plan):
+    """Launch the quantizer under ``plan``: (codes, scales)."""
+    C, P = x.shape
+    nc = (P + chunk - 1) // chunk
+    q = torch.empty((C, P), dtype=torch.int8, device=x.device)
+    scales = torch.empty((C, nc), dtype=torch.float32, device=x.device)
+    if C * nc == 0:
+        return q, scales
+    fn = _build.kernel("quantize", "repro_batched_quantize", _ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), C, P, chunk,
+                VARIANTS.index(plan.variant), plan.store, stream)
+    _build.raise_on_error("batched_quantize", rc)
+    return q, scales
 
 
 def batched_quantize(x: torch.Tensor, *, chunk: int = 256):
@@ -33,18 +77,10 @@ def batched_quantize(x: torch.Tensor, *, chunk: int = 256):
         raise ValueError(f"chunk must be positive, got {chunk}")
     C, P = x.shape
     _build.check_operand("x", x, torch.float32, (C, P), x.device)
-    nc = (P + chunk - 1) // chunk
-    q = torch.empty((C, P), dtype=torch.int8, device=x.device)
-    scales = torch.empty((C, nc), dtype=torch.float32, device=x.device)
-    if C * nc == 0:
-        return q, scales
-    fn = _build.kernel("quantize", "repro_batched_quantize", _ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), C, P, chunk,
-                stream)
-    _build.raise_on_error("batched_quantize", rc)
-    batched_quantize.launches += 1
+    q, scales = _quantize(x, chunk, _plan(C, P, chunk,
+                                          x.data_ptr() % 16 == 0))
+    if scales.numel():
+        batched_quantize.launches += 1
     return q, scales
 
 

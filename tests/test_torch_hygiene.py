@@ -127,3 +127,14 @@ def test_tensor_core_forwards_count_launches_and_name_their_kernels(name):
     assert not any(f"{fast}(" in text for text in (src, shared) for fast in
                    ("__expf", "__exp10f", "__logf", "__fdividef"))
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("source", ["kl_similarity", "quantize"])
+def test_fp32_kernel_sources_use_no_fast_intrinsics(source):
+    """The KL similarity's expf / logf / __fdiv_rn and the quantizer's
+    division are IEEE: bit-identical outputs rest on them, so neither
+    source calls the approximate intrinsics."""
+    src = (PORT / "kernels" / "csrc" / f"{source}.cu").read_text()
+    assert not any(f"{fast}(" in src for fast in
+                   ("__expf", "__exp10f", "__logf", "__fdividef"))
+    assert "__fdiv_rn(" in src

@@ -33,9 +33,14 @@ from repro_torch.kernels.adaptive_combine import adaptive_combine
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist
 from repro_torch.kernels.ivf import (batched_cluster_dist,
                                      batched_ivf_shortlist_scores)
+from repro_torch.kernels.kl_similarity import SPLIT_MIN_TILES
+from repro_torch.kernels.kl_similarity import Plan as KLPlan
+from repro_torch.kernels.kl_similarity import _plan as kl_plan
 from repro_torch.kernels.kl_similarity import kl_similarity
 from repro_torch.kernels.pairwise_dist import (batched_pairwise_dist,
                                                pairwise_dist)
+from repro_torch.kernels.quantize import Plan as QPlan
+from repro_torch.kernels.quantize import _plan as quantize_plan
 from repro_torch.kernels.quantize import batched_dequantize, batched_quantize
 from repro_torch.kernels.relevance_aggregate import (SKINNY_MAX_C, Plan,
                                                      _plan,
@@ -430,3 +435,194 @@ def test_tile_summation_order_has_margin_at_the_fleet_shape():
     e_plain = np.abs(plain - exact).max()
     assert e_chain <= 1e-6 and e_plain <= 1e-6
     assert np.abs(acc - plain).max() <= e_chain + e_plain <= AGG_TOL / 50
+
+
+# (C, P, chunk, aligned) -> the quantizer's plan: the refresh's shape (one
+# scale a 64-wide row), the codec's keyframe and residuals at the round's
+# and the fleet's C (K = 14136 and 21624 are 8 mod 16: 8-byte code
+# stores), 4 mod 16 (4-byte stores), a chunk of 16 and one that loops
+# (1024), and the scalar cases: a chunk that is no power of two (40, 48),
+# P % 4 != 0, a misaligned base, more rows than the grid's y
+QUANT_PLANS = [
+    ((4, 131072 * 64, 64, True), QPlan("vector", 16)),
+    ((5, 37696, 256, True), QPlan("vector", 16)),
+    ((5, 14136, 256, True), QPlan("vector", 8)),
+    ((1000, 21624, 256, True), QPlan("vector", 8)),
+    ((3, 64036, 64, True), QPlan("vector", 4)),
+    ((2, 456, 16, True), QPlan("vector", 8)),
+    ((3, 5000, 1024, True), QPlan("vector", 8)),
+    ((2, 1000, 40, True), QPlan("scalar", 1)),
+    ((2, 1024, 48, True), QPlan("scalar", 1)),
+    ((3, 1002, 64, True), QPlan("scalar", 1)),
+    ((5, 14136, 256, False), QPlan("scalar", 1)),
+    ((65536, 64, 64, True), QPlan("scalar", 1)),
+]
+
+
+@pytest.mark.parametrize("args,plan", QUANT_PLANS, ids=[
+    "-".join(map(str, a)) for a, _ in QUANT_PLANS])
+def test_quantize_plan(args, plan):
+    """The variant and code-store width batched_quantize hands the CUDA
+    entry point: the vector variant (a chunk a group of chunk / 16 lanes)
+    wherever the chunk is a power of two of at least 16, P % 4 == 0 and the
+    base is aligned, storing 16 codes as wide as every row start allows."""
+    got = quantize_plan(*args)
+    assert got == plan
+    C, P, chunk, aligned = args
+    if got.variant == "vector":
+        assert P % got.store == 0 and chunk % 16 == 0 and aligned
+        assert (chunk // 16) & (chunk // 16 - 1) == 0
+
+
+# (N, M, D, aligned) -> the KL plan: the round's C = 5 and C = 100 on the
+# one-launch small tile, the fleet's C = 1000 split (its tile reads the row
+# pass's scratch by TMA, rows rounded up to 4, so b's alignment and D do
+# not matter there), ragged D (no float4 loads) and a misaligned b, the
+# split threshold's two sides
+KL_PLANS = [
+    ((5, 30, 128, True), KLPlan("small", True, None)),
+    ((5, 30, 128, False), KLPlan("small", False, None)),
+    ((100, 600, 128, True), KLPlan("small", True, None)),
+    ((1000, 6000, 128, True), KLPlan("split", False, (1000, 6000))),
+    ((1000, 6000, 128, False), KLPlan("split", False, (1000, 6000))),
+    ((1001, 6006, 37, False), KLPlan("split", False, (1004, 6008))),
+    ((129, 767, 37, True), KLPlan("small", False, None)),
+    ((1, 1, 130, True), KLPlan("small", False, None)),
+    ((1408, 1408, 128, True), KLPlan("small", True, None)),
+    ((1409, 1409, 128, True), KLPlan("split", False, (1412, 1412))),
+]
+
+
+@pytest.mark.parametrize("args,plan", KL_PLANS, ids=[
+    "-".join(map(str, a)) for a, _ in KL_PLANS])
+def test_kl_plan(args, plan):
+    """kl_similarity's variant, load width and scratch rows: one launch
+    (small, 64 x 64 tiles) below ``SPLIT_MIN_TILES`` tiles of 128 x 128,
+    the row pass and 128 x 128 tiles from there."""
+    assert kl_plan(*args) == plan
+    N, M, D, _ = args
+    tiles = -(-N // 128) * -(-M // 128)
+    assert (plan.variant == "split") == (tiles >= SPLIT_MIN_TILES)
+
+
+KL_TOL = 2e-6    # chip_smoke.py's bar for the kernel against the plain one
+
+
+def _fma32(a, b, c):
+    """fp32 fmaf, emulated: the float64 product of two fp32 values is exact,
+    the sum rounds once there and once more to fp32 (equal to fmaf but
+    where that double rounding falls on a tie, which does not change the
+    orders compared here)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _warp_rows(x, D):
+    """The two-launch kernel's row statistics, one warp a row: lane l sums
+    columns l, l + 32, .. in order, warp_sum's xor butterfly adds the 32
+    lanes (each lane its own value plus its partner's); every lane's
+    result is returned, to show they agree. -> (max, sum, h, p)."""
+    R = x.shape[0]
+    m = x.max(1)
+    sh = (x - m[:, None]).astype(np.float32)
+    e = np.exp(sh).astype(np.float32)
+
+    def butterfly(terms, fma=None):
+        lanes = np.zeros((R, 32), np.float32)
+        for d in range(D):
+            if fma is None:
+                lanes[:, d % 32] = lanes[:, d % 32] + terms[:, d]
+            else:
+                lanes[:, d % 32] = _fma32(terms[0][:, d], terms[1][:, d],
+                                          lanes[:, d % 32])
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ off]
+        assert (lanes == lanes[:, :1]).all()     # every lane agrees
+        return lanes[:, 0]
+
+    s = butterfly(e)
+    lse = np.log(s).astype(np.float32)
+    p = (e / s[:, None]).astype(np.float32)      # IEEE division, rounded
+    shift = np.float32(np.log(D))
+    h = butterfly(((p, ((sh - lse[:, None]) + shift).astype(np.float32))),
+                  fma=True)
+    return m, s, h, p
+
+
+def _tile_rows(x, D, threads):
+    """The fused tile's row statistics: ``threads`` threads a row split the
+    32 lane partials (thread j takes lanes kB j + 8 (i / kB) + i % kB, kB =
+    8 / threads), each summing its lanes' columns in order, and lane_tree
+    adds the 32 partials in one thread: v[l] += v[l + off] for off = 16,
+    8, 4, 2, then v[0] + v[1]."""
+    R = x.shape[0]
+    kR, kB = 32 // threads, 8 // threads
+    owned = sorted(kB * j + 8 * (i // kB) + i % kB
+                   for j in range(threads) for i in range(kR))
+    assert owned == list(range(32))              # each lane once
+    m = x.max(1)
+    sh = (x - m[:, None]).astype(np.float32)
+    e = np.exp(sh).astype(np.float32)
+
+    def tree(part):
+        v = part.copy()
+        for off in (16, 8, 4, 2):
+            v[:, :off] = v[:, :off] + v[:, off:2 * off]
+        return v[:, 0] + v[:, 1]
+
+    part = np.zeros((R, 32), np.float32)
+    for j in range(threads):
+        for i in range(kR):
+            lane = kB * j + 8 * (i // kB) + i % kB
+            for d in range(lane, D, 32):
+                part[:, lane] = part[:, lane] + e[:, d]
+    s = tree(part)
+    lse = np.log(s).astype(np.float32)
+    p = (e / s[:, None]).astype(np.float32)
+    shift = np.float32(np.log(D))
+    q = ((sh - lse[:, None]) + shift).astype(np.float32)
+    part[:] = 0.0
+    for lane in range(32):
+        for d in range(lane, D, 32):
+            part[:, lane] = _fma32(p[:, d], q[:, d], part[:, lane])
+    return m, s, tree(part), p
+
+
+@pytest.mark.parametrize("kind", ["tanh", "near_uniform"])
+def test_tile_row_statistics_keep_the_warp_order_at_the_fleet_shape(kind):
+    """The fused tile's row statistics (the lane partials split over the
+    threads of a row, lane_tree in one thread) against the one-warp-a-row
+    loop with warp_sum's butterfly, emulated in numpy fp32 at C = 1000 (N
+    = 1000 rows of a, D = 128; tanh task features and near-uniform rows,
+    where S sits next to 1): max, sum, h and p agree bit for bit, 4
+    threads a row (the small tile) as 2. S from those statistics (64 rows
+    of a against 600 of b) lies within half of KL_TOL of float64: 4.8e-7
+    (tanh) and 6.3e-7 (near-uniform), the fp32 roundings of log(sum) and
+    log D, which the shift cannot cancel between two rows."""
+    rng = np.random.default_rng(20)
+    N, D = 1000, 128
+    x = rng.standard_normal((N, D))
+    x = np.tanh(x) if kind == "tanh" else 1e-3 * x
+    x = x.astype(np.float32)
+    want = _warp_rows(x, D)
+    for threads in (4, 2):
+        got = _tile_rows(x, D, threads)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.view(np.int32), w.view(np.int32))
+    # S for 64 rows of a against 600 of b, from the warp statistics
+    m, s, h, p = want
+    xb = x[:600]
+    mb = xb.max(1)
+    lb = np.log(np.exp(xb - mb[:, None]).astype(np.float32).sum(1))
+    q = (((xb - mb[:, None]) - lb[:, None].astype(np.float32))
+         + np.float32(np.log(D))).astype(np.float32)
+    acc = np.zeros((64, 600), np.float32)
+    for d in range(D):
+        acc = _fma32(p[:64, d][:, None], q[None, :, d], acc)
+    S = np.exp(acc - h[:64, None])
+    x64 = x.astype(np.float64)
+    la = x64 - x64.max(1, keepdims=True)
+    la -= np.log(np.exp(la).sum(1, keepdims=True))
+    exact = np.exp(np.exp(la[:64]) @ la[:600].T
+                   - (np.exp(la[:64]) * la[:64]).sum(1)[:, None])
+    assert np.abs(S - exact).max() <= KL_TOL / 2
