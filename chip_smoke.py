@@ -61,7 +61,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the quantizer at its edges (chunks 16 to 1024, K = 14136
                  and 21624, P % 4 != 0, misaligned bases; each edge's
                  variant reported) and timed at the codec's path shapes;
-                 neither library spills
+                 neither library spills; the four distance entries at
+                 their edges (B 1 / 65 / 129, G 1 / 255 / 257 / 1000, fp32
+                 F 64 / 40 / 37, int8 F 64 / 48 / 40, bases off 16 bytes)
+                 under both variants of their ``_plan``, tile and ragged
+                 (each within 1e-5, the two bit for bit equal), timed at
+                 the path shapes (serving int8 and fp32, the round's
+                 evaluation) under each variant beside baddbmm and their
+                 bounds; their libraries hold FFMA, no HMMA / HGMMA, no
+                 spills
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -218,8 +226,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.int8_dist import batched_int8_pairwise_dist  # noqa: E402
 from repro_torch.kernels.ivf import (batched_cluster_dist,  # noqa: E402
                                      batched_ivf_shortlist_scores)
+from repro_torch.kernels import int8_dist as I8M  # noqa: E402
+from repro_torch.kernels import ivf as IVFM  # noqa: E402
 from repro_torch.kernels import kl_similarity as KLM  # noqa: E402
 from repro_torch.kernels.kl_similarity import kl_similarity  # noqa: E402
+from repro_torch.kernels import pairwise_dist as PD  # noqa: E402
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     batched_pairwise_dist, pairwise_dist)
 from repro_torch.kernels import quantize as QZ  # noqa: E402
@@ -325,6 +336,20 @@ KL_EDGES = ((1, 767, 128), (129, 767, 128), (129, 767, 37), (1, 1, 130),
             (129, 767, 130), (1, 767, 37), (64, 64, 300))
 KL_VARIANT_SHAPES = ((5, 30), (100, 600), (1000, 6000))
 KL_TIMED = ((5, 30), (100, 600))
+# the distance kernels' edges (C, B, G, F), each under every variant its
+# _plan can give and again with the query and gallery one element past a
+# 16-byte boundary (the ragged variant): B of 1, 65 and 129 around the
+# 64-row tiles, G of 1, 255, 257 and 1000 around the 128- and 64-row ones;
+# fp32 F 64, 40 and 37 (no 16-byte rows), int8 F 64, 48 and 40 (no
+# 16-byte code rows); and their path shapes: serving int8 and fp32, and
+# the last evaluation of the round paths, (5, 576, 64) x (5, 2304, 64)
+DIST_FP32_EDGES = ((1, 1, 1, 64), (2, 65, 255, 64), (2, 129, 257, 40),
+                   (3, 7, 1000, 37), (1, 64, 1000, 64))
+DIST_INT8_EDGES = ((1, 1, 1, 64), (2, 65, 255, 64), (2, 129, 257, 48),
+                   (3, 7, 1000, 40), (1, 129, 1000, 64))
+DIST_PATHS = {"serve_int8": (C, BATCH, G_INT8, F),
+              "serve_fp32": (C, BATCH, G_FP32, F),
+              "round_eval": (N_CLIENTS, 576, 2304, F)}
 ROUND_OUT = ROOT / "build" / "round_fedstil.json"
 CODEC = "delta+topk"                    # the wire codec of round_fedstil_codec
 CODEC_OUT = ROOT / "build" / "round_fedstil_codec.json"
@@ -575,6 +600,171 @@ def dist_err(name, kernel, plain, *args):
     return err
 
 
+def dist_work(name, c, b, g, f):
+    """(bytes, FLOPs) of a distance call, (c, b, f) queries against (c, g,
+    f) gallery rows: each operand read once (int8 codes with their scales
+    and norms, the cluster kernel's given norms), the (c, b, g) output
+    written once, 2 c b g f FLOPs."""
+    if name == "batched_int8_pairwise_dist":
+        nbytes = 4.0 * c * b * f + c * g * f + 8.0 * c * g + 4.0 * c * b * g
+    else:
+        nbytes = 4.0 * (c * b * f + c * g * f + c * b * g
+                        + (c * g if name == "batched_cluster_dist" else 0))
+    return nbytes, 2.0 * c * b * g * f
+
+
+DIST_PLAIN = {
+    "batched_pairwise_dist": REF.batched_pairwise_dist_ref,
+    "pairwise_dist": REF.pairwise_dist_ref,
+    "batched_int8_pairwise_dist": REF.batched_int8_pairwise_dist_ref,
+    "batched_cluster_dist": REF.batched_cluster_dist_ref}
+DIST_MODE = {"batched_pairwise_dist": "fp32", "pairwise_dist": "fp32",
+             "batched_int8_pairwise_dist": "int8",
+             "batched_cluster_dist": "norms"}
+
+
+def dist_operands(name, gen, dev, c, b, g, f):
+    """Unit-row operands of a distance entry at (c, b, g, f): the 2-D entry
+    takes client 0's rows."""
+    q, gal = unit_rows(gen, dev, c, b, f), unit_rows(gen, dev, c, g, f)
+    if name == "batched_int8_pairwise_dist":
+        return (q, *int8_gallery(gal))
+    if name == "batched_cluster_dist":
+        return q, gal, torch.sum(gal * gal, -1)
+    if name == "pairwise_dist":
+        return q[0], gal[0]
+    return q, gal
+
+
+def dist_forced(name, variant):
+    """The distance entry ``name`` under ``variant`` wherever its _plan
+    can give it (the tile needs 16-byte rows and bases; the plan of an
+    unaligned base is ragged), else under the plan's own: returns (out,
+    the variant run). Launches outside the wrappers: not counted."""
+    launch = {"batched_pairwise_dist": PD._batched,
+              "pairwise_dist": PD._pairwise,
+              "batched_int8_pairwise_dist": I8M._launch,
+              "batched_cluster_dist": IVFM._cluster}[name]
+
+    def run(q, g, *rest):
+        c, b, f = (1, *q.shape) if q.dim() == 2 else q.shape
+        plan = PD._plan(c, b, g.shape[-2], f, DIST_MODE[name],
+                        variant == "tile" and PD._aligned(q, g))
+        return launch(q, g, *rest, plan), plan.variant
+    return run
+
+
+def dist_variant_errs(name, *args):
+    """``name`` under each variant against its plain version (<= DIST_TOL),
+    the variants' outputs equal bit for bit: (max error, variants run)."""
+    want = DIST_PLAIN[name](*args)
+    runs = [dist_forced(name, v)(*args) for v in PD.VARIANTS]
+    torch.cuda.synchronize()
+    shape = tuple(runs[0][0].shape)
+    err = 0.0
+    for out, used in runs:
+        check(bool(torch.isfinite(out).all()),
+              f"{name} {shape} ({used}): non-finite output")
+        e = float((out - want).abs().max())
+        check(e <= DIST_TOL, f"{name} {shape} ({used}): max_abs_err {e} > "
+              f"{DIST_TOL}")
+        err = max(err, e)
+    check(all(torch.equal(runs[0][0].view(torch.int32), o.view(torch.int32))
+              for o, _ in runs),
+          f"{name} {shape}: the variants' outputs differ")
+    return err, sorted({used for _, used in runs})
+
+
+def dist_edges(gen, dev, name, edges):
+    """``name`` at ``edges`` under every variant, aligned and on bases off
+    16 bytes: (max error, [[C, B, G, F, aligned, variants run], ..])."""
+    err, out = 0.0, []
+    for c, b, g, f in edges:
+        args = dist_operands(name, gen, dev, c, b, g, f)
+        for al in (True, False):
+            xs = args if al else (offset_copy(args[0]), offset_copy(args[1]),
+                                  *args[2:])
+            e, ran = dist_variant_errs(name, *xs)
+            err = max(err, e)
+            out.append([c, b, g, f, al, ran])
+    return err, out
+
+
+def dist_timings(gen, dev, peak, name, paths):
+    """``name`` at the path shapes ``paths`` (keys of DIST_PATHS), checked
+    under every variant, timed through its wrapper (the planned variant)
+    and under each variant forced, beside its plain version, its bound and,
+    for the fp32 entries, one baddbmm with the norms."""
+    out = []
+    for path in paths:
+        c, b, g, f = DIST_PATHS[path]
+        args = dist_operands(name, gen, dev, c, b, g, f)
+        err, _ = dist_variant_errs(name, *args)
+        bd = bound(*dist_work(name, c, b, g, f), peak)
+        fn = KERNELS[name]["fn"]
+        ms = time_ms(lambda: fn(*args))
+        row = {"path": path, "shape": [c, b, g, f], "max_abs_err": err,
+               "variant": plan_of(PD, c, b, g, f, DIST_MODE[name],
+                                  aligned(args[0]) and aligned(args[1])),
+               "ms": ms, "bound_ms": bd[0], "bound_by": bd[1],
+               "bound_share": bd[0] / ms,
+               "plain_ms": time_ms(lambda: DIST_PLAIN[name](*args))}
+        for v in PD.VARIANTS:
+            run = dist_forced(name, v)
+            row[f"{v}_ms"] = time_ms(lambda: run(*args))
+        if name != "batched_int8_pairwise_dist":
+            row["library_ms"] = time_ms(lambda: dist_library(name, *args))
+        out.append(row)
+    return out
+
+
+def dist_library(name, q, g, *rest):
+    """One PyTorch call for the fp32 distances, norms included (baddbmm,
+    addmm for the 2-D entry; the cluster kernel's norms given)."""
+    if name == "pairwise_dist":
+        qq = torch.sum(q * q, -1)[:, None]
+        return torch.addmm(qq + torch.sum(g * g, -1)[None, :], q, g.T,
+                           alpha=-2)
+    qq = torch.sum(q * q, -1)[:, :, None]
+    gg = rest[0] if rest else torch.sum(g * g, -1)
+    return torch.baddbmm(qq + gg[:, None, :], q, g.transpose(1, 2), alpha=-2)
+
+
+def dist_sass(source):
+    """csrc/<source>.cu's SASS: FFMA, no tensor-core instruction (HMMA or
+    HGMMA), no spills (``kernel_sass``)."""
+    sass = kernel_sass(source)
+    check(sass["hgmma"] == 0 and sass["hmma"] == 0,
+          f"{source}: tensor-core instructions in {sass}")
+    return sass
+
+
+def dist_kernel_rows(gen, dev, peak):
+    """The two serving distance kernels (rows 3 and 4 of PERF.md) at their
+    edges under every variant, and at their path shapes, timed there; the
+    row's own time at the serving shape."""
+    rows = {}
+    for name, edges, paths, source in (
+            ("batched_int8_pairwise_dist", DIST_INT8_EDGES, ("serve_int8",),
+             "int8_dist"),
+            ("batched_pairwise_dist", DIST_FP32_EDGES,
+             ("serve_fp32", "round_eval"), "pairwise_dist")):
+        err, edge_rows = dist_edges(gen, dev, name, edges)
+        by_shape = dist_timings(gen, dev, peak, name, paths)
+        head = by_shape[0]
+        rows[name] = dict(
+            max_abs_err=max(err, *(r["max_abs_err"] for r in by_shape)),
+            bound=(head["bound_ms"], head["bound_by"]), ms=head["ms"],
+            plain_ms=head["plain_ms"], library_ms=head.get("library_ms"),
+            shape=head["shape"],
+            detail={"variant": head["variant"], "edges": edge_rows,
+                    "by_shape": by_shape, "sass": dist_sass(source),
+                    "library": ("none: no one PyTorch call takes int8 codes "
+                                "with row scales") if "int8" in name else
+                    "torch.baddbmm with the norms"})
+    return rows
+
+
 def phase_kernels(dev, peak, card):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
@@ -616,51 +806,7 @@ def phase_kernels(dev, peak, card):
                 "edges": edges, "by_shape": quantize_timings(gen, dev, peak),
                 "sass": kernel_sass("quantize", ffma=False)})
 
-    # batched_int8_pairwise_dist at the int8 serving shape + ragged shapes
-    q = unit_rows(gen, dev, C, BATCH, F)
-    gq, gs, gn2 = int8_gallery(unit_rows(gen, dev, C, G_INT8, F))
-    name = "batched_int8_pairwise_dist"
-    err = dist_err(name, batched_int8_pairwise_dist,
-                   REF.batched_int8_pairwise_dist_ref, q, gq, gs, gn2)
-    for (c, b, g, f) in ((3, 7, 1000, 64), (2, 5, 333, 40)):
-        err = max(err, dist_err(name, batched_int8_pairwise_dist,
-                                REF.batched_int8_pairwise_dist_ref,
-                                unit_rows(gen, dev, c, b, f),
-                                *int8_gallery(unit_rows(gen, dev, c, g, f))))
-    nbytes = (C * BATCH * F * 4 + C * G_INT8 * F + 2 * C * G_INT8 * 4
-              + C * BATCH * G_INT8 * 4)
-    flops = 2.0 * C * BATCH * G_INT8 * F
-    rows[name] = dict(
-        max_abs_err=err, bound=bound(nbytes, flops, peak),
-        ms=time_ms(lambda: batched_int8_pairwise_dist(q, gq, gs, gn2)),
-        plain_ms=time_ms(
-            lambda: REF.batched_int8_pairwise_dist_ref(q, gq, gs, gn2)),
-        library_ms=None, shape=[C, BATCH, G_INT8, F])
-
-    # batched_pairwise_dist at the fp32 serving shape + ragged shapes
-    gf = unit_rows(gen, dev, C, G_FP32, F)
-    name = "batched_pairwise_dist"
-    err = dist_err(name, batched_pairwise_dist, REF.batched_pairwise_dist_ref,
-                   q, gf)
-    for (c, b, g, f) in ((3, 7, 1000, 64), (2, 5, 333, 40)):
-        err = max(err, dist_err(name, batched_pairwise_dist,
-                                REF.batched_pairwise_dist_ref,
-                                unit_rows(gen, dev, c, b, f),
-                                unit_rows(gen, dev, c, g, f)))
-
-    def library():                   # one PyTorch call, norms included
-        qq = torch.sum(q * q, -1)[:, :, None]
-        gg = torch.sum(gf * gf, -1)[:, None, :]
-        return torch.baddbmm(qq + gg, q, gf.transpose(1, 2), alpha=-2)
-
-    nbytes = C * BATCH * F * 4 + C * G_FP32 * F * 4 + C * BATCH * G_FP32 * 4
-    flops = 2.0 * C * BATCH * G_FP32 * F
-    rows[name] = dict(
-        max_abs_err=err, bound=bound(nbytes, flops, peak),
-        ms=time_ms(lambda: batched_pairwise_dist(q, gf)),
-        plain_ms=time_ms(lambda: REF.batched_pairwise_dist_ref(q, gf)),
-        library_ms=time_ms(library), shape=[C, BATCH, G_FP32, F])
-
+    rows.update(dist_kernel_rows(gen, dev, peak))
     rows.update(relevance_kernel_rows(gen, dev, peak))
     rows.update(ivf_kernel_rows(gen, dev, peak))
     rows.update(topk_kernel_rows(gen, dev, peak))
@@ -1012,30 +1158,33 @@ def ivf_kernel_rows(gen, dev, peak):
     L, Kc = 512, 384
     name = "batched_cluster_dist"
     err = 0.0
-    for (c, b, l, f) in ((3, 7, 130, 64), (2, 70, 100, 40), (1, 1, 3, 64)):
+    for (c, b, l, f) in ((3, 7, 130, 64), (2, 70, 100, 40), (1, 1, 3, 64),
+                         (2, 65, 257, 64)):
         cent = unit_rows(gen, dev, c, l, f)
         cent[-1] = 0.0                       # a client with no centroids
+        qe, cn = unit_rows(gen, dev, c, b, f), torch.sum(cent * cent, -1)
         err = max(err, dist_err(name, batched_cluster_dist,
-                                REF.batched_cluster_dist_ref,
-                                unit_rows(gen, dev, c, b, f), cent,
-                                torch.sum(cent * cent, -1)))
+                                REF.batched_cluster_dist_ref, qe, cent, cn),
+                  dist_variant_errs(name, qe, cent, cn)[0],
+                  dist_variant_errs(name, offset_copy(qe),
+                                    offset_copy(cent), cn)[0])
     q = unit_rows(gen, dev, C, BATCH, F)
     cent = 0.9 * unit_rows(gen, dev, C, L, F)
     cn2 = torch.sum(cent * cent, -1)
     err = max(err, dist_err(name, batched_cluster_dist,
-                            REF.batched_cluster_dist_ref, q, cent, cn2))
-
-    def library():                   # one PyTorch call, norms included
-        qq = torch.sum(q * q, -1)[:, :, None]
-        return torch.baddbmm(qq + cn2[:, None, :], q, cent.transpose(1, 2),
-                             alpha=-2)
-
-    nbytes = 4.0 * (C * BATCH * F + C * L * F + C * L + C * BATCH * L)
+                            REF.batched_cluster_dist_ref, q, cent, cn2),
+              dist_variant_errs(name, q, cent, cn2)[0])
     rows[name] = dict(
-        max_abs_err=err, bound=bound(nbytes, 2.0 * C * BATCH * L * F, peak),
+        max_abs_err=err,
+        bound=bound(*dist_work(name, C, BATCH, L, F), peak),
         ms=time_ms(lambda: batched_cluster_dist(q, cent, cn2)),
         plain_ms=time_ms(lambda: REF.batched_cluster_dist_ref(q, cent, cn2)),
-        library_ms=time_ms(library), shape=[C, BATCH, L, F])
+        library_ms=time_ms(lambda: dist_library(name, q, cent, cn2)),
+        shape=[C, BATCH, L, F],
+        detail={"variant": plan_of(PD, C, BATCH, L, F, "norms", True),
+                **{f"{v}_ms": time_ms(lambda: dist_forced(name, v)(
+                    q, cent, cn2)) for v in PD.VARIANTS},
+                "sass": dist_sass("cluster_dist")})
 
     name = "batched_ivf_shortlist_scores"
     err = 0.0
@@ -1315,30 +1464,31 @@ def new_kernel_rows(gen, dev, peak):
 
     # pairwise_dist (2-D): one client of the fp32 serving shape, ragged
     # shapes
+    name = "pairwise_dist"
     err = 0.0
-    for qn, gn, f in ((7, 1000, 64), (5, 333, 40), (1, 1, 64)):
-        err = max(err, dist_err("pairwise_dist", pairwise_dist,
-                                REF.pairwise_dist_ref,
-                                unit_rows(gen, dev, qn, f),
-                                unit_rows(gen, dev, gn, f)))
+    for qn, gn, f in ((7, 1000, 64), (5, 333, 40), (1, 1, 64),
+                      (129, 257, 37)):
+        qe, ge = unit_rows(gen, dev, qn, f), unit_rows(gen, dev, gn, f)
+        err = max(err, dist_err(name, pairwise_dist, REF.pairwise_dist_ref,
+                                qe, ge),
+                  dist_variant_errs(name, qe, ge)[0],
+                  dist_variant_errs(name, offset_copy(qe),
+                                    offset_copy(ge))[0])
     q = unit_rows(gen, dev, BATCH, F)
     g = unit_rows(gen, dev, G_FP32, F)
-    err = max(err, dist_err("pairwise_dist", pairwise_dist,
-                            REF.pairwise_dist_ref, q, g))
-
-    def library():                   # one PyTorch call, norms included
-        qq = torch.sum(q * q, -1)[:, None]
-        gg = torch.sum(g * g, -1)[None, :]
-        return torch.addmm(qq + gg, q, g.T, alpha=-2)
-
-    rows["pairwise_dist"] = dict(
+    err = max(err, dist_err(name, pairwise_dist, REF.pairwise_dist_ref, q, g),
+              dist_variant_errs(name, q, g)[0])
+    rows[name] = dict(
         max_abs_err=err,
-        bound=bound(4.0 * (BATCH * F + G_FP32 * F + BATCH * G_FP32),
-                    2.0 * BATCH * G_FP32 * F, peak),
+        bound=bound(*dist_work(name, 1, BATCH, G_FP32, F), peak),
         ms=time_ms(lambda: pairwise_dist(q, g)),
         plain_ms=time_ms(lambda: REF.pairwise_dist_ref(q, g)),
-        library_ms=time_ms(library), shape=[BATCH, G_FP32, F],
-        detail={"library": "torch.addmm with the norms"})
+        library_ms=time_ms(lambda: dist_library(name, q, g)),
+        shape=[BATCH, G_FP32, F],
+        detail={"library": "torch.addmm with the norms",
+                "variant": plan_of(PD, 1, BATCH, G_FP32, F, "fp32", True),
+                **{f"{v}_ms": time_ms(lambda: dist_forced(name, v)(q, g))
+                   for v in PD.VARIANTS}})
     return rows
 
 
@@ -1509,10 +1659,10 @@ def blind_rows_check(got, sq, sk, kw):
 
 def sass_report(source):
     """What ``cuobjdump`` reads in csrc/<source>.cu's library: the HGMMA
-    (wgmma) and FFMA instructions in its SASS, and the most registers,
-    local memory and stack (ptxas's spills) of any of its kernels, then
-    each kernel's (registers are those a thread has at launch, before any
-    setmaxnreg)."""
+    (wgmma), HMMA (mma.sync) and FFMA instructions in its SASS, and the
+    most registers, local memory and stack (ptxas's spills) of any of its
+    kernels, then each kernel's (registers are those a thread has at
+    launch, before any setmaxnreg)."""
     def dump(flag):
         return subprocess.run(
             [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
@@ -1528,7 +1678,8 @@ def sass_report(source):
                  for m in re.findall(r"Function ([^\s:]+):\s*REG:(\d+) "
                                      r"STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
                                      usage)}
-    return {"hgmma": sass.count("HGMMA"), "ffma": sass.count("FFMA"),
+    return {"hgmma": sass.count("HGMMA"), "hmma": sass.count("HMMA"),
+            "ffma": sass.count("FFMA"),
             "registers": max(regs), "local_bytes": max(local),
             "stack_bytes": max(stack, default=0), "by_kernel": by_kernel}
 
@@ -2090,7 +2241,7 @@ def path_work(name, args):
     in phase 3's rows."""
     if name == "batched_pairwise_dist":
         (c, q, f), g = args[0].shape, args[1].shape[1]
-        return 4.0 * (c * q * f + c * g * f + c * q * g), 2.0 * c * q * g * f
+        return dist_work(name, c, q, g, f)
     if name == "kl_similarity":
         return kl_work(args[0].shape[0], args[1].shape[0], args[0].shape[1])
     if name in ("fused_relevance_aggregate", "relevance_aggregate"):
@@ -2112,9 +2263,10 @@ def path_operand_errs(seen):
     combine's leaf), and timed there beside its bound: the paths' own
     shapes, which the launches x (ms - bound) ordering of PERF.md reads."""
     checks = {
-        "batched_pairwise_dist": lambda *a: dist_err(
+        "batched_pairwise_dist": lambda *a: max(dist_err(
             "batched_pairwise_dist (round)", batched_pairwise_dist,
             REF.batched_pairwise_dist_ref, *a),
+            dist_variant_errs("batched_pairwise_dist", *a)[0]),
         "kl_similarity": kl_err,
         "fused_relevance_aggregate": aggregate_err,
         "relevance_aggregate": plain_aggregate_err,

@@ -4,8 +4,8 @@ A/B between two checkouts on one card.
 
     python3 scripts/kernel_ab.py TREE LABEL [SET ...]    # from the repo root
 
-SET is any of ``aggregate``, ``kl`` and ``quantize`` (all three when none
-is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
+SET is any of ``aggregate``, ``kl``, ``quantize`` and ``dist`` (all four
+when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
 (TREE ``.`` for this checkout; for another one the script is copied into
 TREE as ``chip_smoke_ab.py`` and imported from there), builds TREE's
 kernels, and for each set prints a ``TIMES`` line (CUDA events, median of
@@ -19,6 +19,12 @@ trees compare bit for bit):
              fleet's); S at those and at ragged D, N, M, b misaligned
   quantize   the refresh's shape and ``QUANT_TIMED``; codes and scales at
              ``QUANT_EDGES``, aligned and not
+  dist       the four distance entry points: the serving int8 and fp32
+             shapes and the round's evaluation (``DIST_PATHS``), the 2-D
+             entry at 64 x 32768 x 64 and the cluster distances at (4, 64,
+             512, 64) (rows 5 and 6); their outputs there and at
+             ``DIST_FP32_EDGES`` / ``DIST_INT8_EDGES`` (the 2-D entry on
+             client 0's rows), aligned and not
 
 A tree whose kernel has no ``_plan`` reports its variant as "one". Run
 parent, change, change, parent in one call on one card (the parent
@@ -32,7 +38,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-SETS = ("aggregate", "kl", "quantize")
+SETS = ("aggregate", "kl", "quantize", "dist")
 
 
 def digest(*xs):
@@ -111,6 +117,38 @@ def quantize(CS, dev, peak):
     return times, out
 
 
+def dist(CS, dev, peak):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    shapes = [("batched_int8_pairwise_dist", CS.DIST_PATHS["serve_int8"]),
+              ("batched_pairwise_dist", CS.DIST_PATHS["serve_fp32"]),
+              ("batched_pairwise_dist", CS.DIST_PATHS["round_eval"]),
+              ("pairwise_dist", (1, CS.BATCH, CS.G_FP32, CS.F)),
+              ("batched_cluster_dist", (CS.C, CS.BATCH, 512, CS.F))]
+    times = []
+    for name, (c, b, g, f) in shapes:
+        args = CS.dist_operands(name, gen, dev, c, b, g, f)
+        fn = CS.KERNELS[name]["fn"]
+        ms = CS.time_ms(lambda: fn(*args))
+        bd = CS.bound(*CS.dist_work(name, c, b, g, f), peak)
+        times.append({"name": name, "shape": [c, b, g, f], "ms": ms,
+                      "bound_ms": bd[0], "bound_share": bd[0] / ms,
+                      "variant": CS.plan_of(CS.PD, c, b, g, f,
+                                            CS.DIST_MODE[name], True)})
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    for name, (c, b, g, f) in shapes + [
+            (n, e) for n in ("batched_pairwise_dist", "pairwise_dist",
+                             "batched_cluster_dist")
+            for e in CS.DIST_FP32_EDGES] + [
+            ("batched_int8_pairwise_dist", e) for e in CS.DIST_INT8_EDGES]:
+        args = CS.dist_operands(name, gen, dev, c, b, g, f)
+        fn = CS.KERNELS[name]["fn"]
+        off = (CS.offset_copy(args[0]), CS.offset_copy(args[1]), *args[2:])
+        out[f"{name} {c}x{b}x{g}x{f}"] = [digest(fn(*args)), digest(fn(*off))]
+    return times, out
+
+
 def main():
     tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     sets = sys.argv[3:] or SETS
@@ -130,7 +168,8 @@ def main():
     dev = torch.device("cuda", 0)
     CS._build.build_all()
     peak = CS.peaks(torch.cuda.get_device_name(0))
-    run = {"aggregate": aggregate, "kl": kl, "quantize": quantize}
+    run = {"aggregate": aggregate, "kl": kl, "quantize": quantize,
+           "dist": dist}
     for name in sets:
         times, digests = run[name](CS, dev, peak)
         print("TIMES", name, label, json.dumps(times), flush=True)

@@ -15,16 +15,20 @@
 // about 1.1 MB move against 16.8 MFLOP of fp32 FMA, a third of a
 // microsecond either way: the launch itself (a few microseconds) bounds it.
 //
-// Design (dist_tile.cuh, mode kFp32Norms): 64 x 64 output tiles, 4 x 4
-// outputs per thread in registers, both operands staged k-major in shared
-// memory, IEEE fp32 FMAs (no TF32: probe selection ranks near-ties), |q|^2
-// reduced from the staged query tile, the centroid norms read from cn2.
+// Design (dist_tile.cuh, mode kFp32Norms, variant from _plan in
+// pairwise_dist.py): the same two variants as the other distance kernels,
+// summing in the same order (IEEE fp32 FMAs, no TF32: probe selection
+// ranks near-ties), |q|^2 chained from the staged query tile, the centroid
+// norms read from cn2. At this shape the tile variant runs 16 tiles on 16
+// SMs, one block's latency chain; it still ran a little ahead of the
+// ragged variant's 32 blocks on the card, so the aligned case takes it.
 #include "dist_tile.cuh"
 
 extern "C" int repro_batched_cluster_dist(const void* q, const void* cent,
                                           const void* cn2, void* out, int C,
-                                          int B, int L, int F, void* stream) {
+                                          int B, int L, int F, int variant,
+                                          void* stream) {
   return repro_dist::launch_dist<float, repro_dist::kFp32Norms>(
       (const float*)q, (const float*)cent, nullptr, (const float*)cn2,
-      (float*)out, C, B, L, F, (cudaStream_t)stream);
+      (float*)out, C, B, L, F, variant, (cudaStream_t)stream);
 }

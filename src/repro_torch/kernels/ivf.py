@@ -17,14 +17,36 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.pairwise_dist import VARIANTS, Plan, _aligned
+from repro_torch.kernels.pairwise_dist import _plan as _dist_plan
 
-_CDIST_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_CDIST_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _SHORT_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+
+def _cluster(qf, cent, cn2, plan: Plan):
+    """Launch the cluster-distance kernel under ``plan``: (C, B, L)."""
+    C, B, F = qf.shape
+    L = cent.shape[1]
+    dev = qf.device
+    out = torch.empty((C, B, L), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _build.kernel("cluster_dist", "repro_batched_cluster_dist",
+                       _CDIST_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(qf.data_ptr(), cent.data_ptr(), cn2.data_ptr(),
+                out.data_ptr(), C, B, L, F, VARIANTS.index(plan.variant),
+                stream)
+    _build.raise_on_error("batched_cluster_dist", rc)
+    return out
 
 
 def batched_cluster_dist(qf, cent, cn2):
     """(C, B, F) fp32 queries x ((C, L, F) centroids, (C, L) their squared
-    norms) -> (C, B, L) fp32 squared distances."""
+    norms) -> (C, B, L) fp32 squared distances; the variant from
+    ``pairwise_dist._plan`` in mode ``norms``."""
     if qf.dim() != 3 or cent.dim() != 3:
         raise ValueError(f"expected qf (C, B, F) and cent (C, L, F), got "
                          f"{tuple(qf.shape)} and {tuple(cent.shape)}")
@@ -34,17 +56,10 @@ def batched_cluster_dist(qf, cent, cn2):
     _build.check_operand("qf", qf, torch.float32, (C, B, F), dev)
     _build.check_operand("cent", cent, torch.float32, (C, L, F), dev)
     _build.check_operand("cn2", cn2, torch.float32, (C, L), dev)
-    out = torch.empty((C, B, L), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    fn = _build.kernel("cluster_dist", "repro_batched_cluster_dist",
-                       _CDIST_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(qf.data_ptr(), cent.data_ptr(), cn2.data_ptr(),
-                out.data_ptr(), C, B, L, F, stream)
-    _build.raise_on_error("batched_cluster_dist", rc)
-    batched_cluster_dist.launches += 1
+    out = _cluster(qf, cent, cn2,
+                   _dist_plan(C, B, L, F, "norms", _aligned(qf, cent)))
+    if out.numel():
+        batched_cluster_dist.launches += 1
     return out
 
 

@@ -12,6 +12,7 @@
 """
 import ast
 import importlib
+import re
 from pathlib import Path
 
 import pytest
@@ -138,3 +139,56 @@ def test_fp32_kernel_sources_use_no_fast_intrinsics(source):
     assert not any(f"{fast}(" in src for fast in
                    ("__expf", "__exp10f", "__logf", "__fdividef"))
     assert "__fdiv_rn(" in src
+
+
+DIST_SOURCES = ("dist_tile.cuh", "pairwise_dist.cu", "int8_dist.cu",
+                "cluster_dist.cu")
+
+
+@pytest.mark.parametrize("source", DIST_SOURCES)
+def test_distance_sources_stay_ieee_fp32_fma(source):
+    """The distance tile's outputs are bit-identical between its variants
+    and to the parent kernel only in IEEE fp32 FFMA: no approximate
+    intrinsics, no tensor-core product (mma, wgmma, TF32), and each entry
+    point takes the variant _plan picked."""
+    src = (PORT / "kernels" / "csrc" / source).read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert not any(f"{fast}(" in code for fast in
+                   ("__expf", "__exp10f", "__logf", "__fdividef", "__fmaf_",
+                    "__fmul_rz", "__fadd_rz"))
+    assert not any(op in code for op in ("mma", "tf32", "wmma", "sm90_common"))
+    if source == "dist_tile.cuh":
+        assert "fmaf(" in code and "__fsub_rn(" in code
+        assert "cp.async.cg.shared.global" in code
+    else:
+        assert '#include "dist_tile.cuh"' in code
+        assert "int variant" in code
+        assert re.search(r"variant,\s*\(cudaStream_t\)stream", code)
+
+
+DIST_WRAPPERS = {"pairwise_dist": ("batched_pairwise_dist", "pairwise_dist"),
+                 "int8_dist": ("batched_int8_pairwise_dist",),
+                 "ivf": ("batched_cluster_dist",
+                         "batched_ivf_shortlist_scores")}
+
+
+@pytest.mark.parametrize("module", sorted(DIST_WRAPPERS))
+def test_distance_wrappers_alone_count_their_launches(module):
+    """Only the public wrappers add to ``launches``: the launchers that take
+    a plan (``_batched``, ``_pairwise``, ``_launch``, ``_cluster``), which
+    chip_smoke.py calls with a forced variant to hold it against the plain
+    version, never count. Every distance wrapper hands its launcher the
+    plan of ``pairwise_dist._plan``."""
+    path = PORT / "kernels" / f"{module}.py"
+    tree = ast.parse(path.read_text())
+    counting = set()
+    for fn in (n for n in tree.body if isinstance(n, ast.FunctionDef)):
+        for node in ast.walk(fn):
+            if (isinstance(node, ast.AugAssign)
+                    and isinstance(node.target, ast.Attribute)
+                    and node.target.attr == "launches"):
+                counting.add(fn.name)
+    assert counting == set(DIST_WRAPPERS[module])
+    src = path.read_text()
+    assert "VARIANTS.index(plan.variant)" in src
+    assert "_plan(" in src

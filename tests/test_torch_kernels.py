@@ -37,6 +37,8 @@ from repro_torch.kernels.kl_similarity import SPLIT_MIN_TILES
 from repro_torch.kernels.kl_similarity import Plan as KLPlan
 from repro_torch.kernels.kl_similarity import _plan as kl_plan
 from repro_torch.kernels.kl_similarity import kl_similarity
+from repro_torch.kernels.pairwise_dist import Plan as DPlan
+from repro_torch.kernels.pairwise_dist import _plan as dist_plan
 from repro_torch.kernels.pairwise_dist import (batched_pairwise_dist,
                                                pairwise_dist)
 from repro_torch.kernels.quantize import Plan as QPlan
@@ -626,3 +628,99 @@ def test_tile_row_statistics_keep_the_warp_order_at_the_fleet_shape(kind):
     exact = np.exp(np.exp(la[:64]) @ la[:600].T
                    - (np.exp(la[:64]) * la[:64]).sum(1)[:, None])
     assert np.abs(S - exact).max() <= KL_TOL / 2
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: result byte n is byte (sel >>
+    4 n) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    pool = [(x >> (8 * k)) & 0xFF for k in range(4)] + \
+        [(np.uint32(y) >> np.uint32(8 * k)) & 0xFF for k in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= pool[(sel >> (4 * n)) & 7].astype(np.uint32) << np.uint32(8 * n)
+    return out
+
+
+def test_dist_tile_widens_int8_codes_exactly():
+    """The tile variant widens a word of four int8 codes without I2F (which
+    runs at an eighth of the FMA rate): u = w ^ 0x80808080 makes each byte
+    code + 128, a byte permute puts it under the exponent of 2^23 (bits
+    0x4b0000uu), and one fp32 subtraction of 2^23 + 128 leaves the code,
+    exactly. Emulated for every code in every byte position, against
+    float(code) bit for bit (0 gives +0, as the cast does)."""
+    codes = np.arange(-128, 128, dtype=np.int8)
+    for pos in range(4):
+        words = np.zeros((256, 4), np.int8)
+        words[:, pos] = codes
+        words[:, (pos + 1) % 4] = codes[::-1]       # a neighbour in place
+        w = words.view(np.uint32)[:, 0]
+        u = w ^ np.uint32(0x80808080)
+        bits = _byte_perm(u, 0x4B000000, 0x7440 + pos)
+        got = bits.view(np.float32) - np.float32(8388736.0)
+        assert got.dtype == np.float32
+        want = codes.astype(np.float32)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_dist_epilogue_rounding_matches_any_contraction():
+    """Both variants write (|q|^2 + n2) - 2 (dot s) (int8) and (|q|^2 + n2)
+    - 2 dot (fp32) with explicit roundings: r1 = fl(qq + n2), t = fl(dot
+    s), fl(r1 - fl(2 t)). Doubling is exact, so that equals the single
+    rounding fl(r1 - 2 t) that nvcc's FMA contraction of the parent's
+    expression computes: the new epilogue is bit-identical to the parent's
+    however it was contracted. Checked on 10^5 random triples (float64
+    holds r1 - 2 t exactly at these magnitudes)."""
+    rng = np.random.default_rng(21)
+    n = 100_000
+    qq = rng.random(n).astype(np.float32)
+    n2 = rng.random(n).astype(np.float32)
+    dot = rng.uniform(-1, 1, n).astype(np.float32)
+    s = rng.uniform(1e-3, 1e-2, n).astype(np.float32) * 100
+    r1 = (qq + n2).astype(np.float32)
+    for t in (dot, (dot * s).astype(np.float32)):
+        explicit = (r1 - (np.float32(2.0) * t).astype(np.float32)).astype(
+            np.float32)
+        contracted = (r1.astype(np.float64)
+                      - 2.0 * t.astype(np.float64)).astype(np.float32)
+        assert np.array_equal(explicit.view(np.int32),
+                              contracted.view(np.int32))
+
+
+# (C, B, G, F, mode, aligned) -> the distance kernels' plan: the path
+# shapes (serving int8 and fp32, the round's evaluation, the 2-D entry's 64
+# x 32768, the IVF cluster distances) and edges of B, G and F on the tile
+# variant; rows that are no whole 16 bytes (int8 F 40, fp32 F 37) and
+# misaligned bases, the variant chip_smoke.py forces with aligned=False,
+# on the ragged one
+DIST_PLANS = [
+    ((4, 64, 131072, 64, "int8", True), DPlan("tile")),
+    ((4, 64, 32768, 64, "fp32", True), DPlan("tile")),
+    ((5, 576, 2304, 64, "fp32", True), DPlan("tile")),
+    ((1, 64, 32768, 64, "fp32", True), DPlan("tile")),
+    ((4, 64, 512, 64, "norms", True), DPlan("tile")),
+    ((2, 129, 257, 48, "int8", True), DPlan("tile")),
+    ((1, 1, 1, 64, "fp32", True), DPlan("tile")),
+    ((2, 65, 255, 64, "norms", True), DPlan("tile")),
+    ((3, 7, 1000, 40, "fp32", True), DPlan("tile")),
+    ((2, 129, 257, 40, "int8", True), DPlan("ragged")),
+    ((3, 7, 1000, 37, "fp32", True), DPlan("ragged")),
+    ((2, 3, 100, 0, "fp32", True), DPlan("ragged")),
+    ((4, 64, 131072, 64, "int8", False), DPlan("ragged")),
+    ((4, 64, 32768, 64, "fp32", False), DPlan("ragged")),
+    ((5, 576, 2304, 64, "fp32", False), DPlan("ragged")),
+    ((4, 64, 512, 64, "norms", False), DPlan("ragged")),
+]
+
+
+@pytest.mark.parametrize("args,plan", DIST_PLANS, ids=[
+    "-".join(map(str, a)) for a, _ in DIST_PLANS])
+def test_dist_plan(args, plan):
+    """The variant the distance wrappers hand their CUDA entry points: the
+    tile variant (64 x 128 output tiles, persistent blocks) wherever the
+    rows and bases allow 16-byte copies (fp32 F % 4 == 0, int8 F % 16 ==
+    0), else the ragged one (64 x 64 tiles)."""
+    got = dist_plan(*args)
+    assert got == plan
+    C, B, G, F, mode, aligned = args
+    width = F * (1 if mode == "int8" else 4)
+    assert (got.variant == "tile") == (aligned and F > 0 and width % 16 == 0)
