@@ -69,7 +69,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the path shapes (serving int8 and fp32, the round's
                  evaluation) under each variant beside baddbmm and their
                  bounds; their libraries hold FFMA, no HMMA / HGMMA, no
-                 spills
+                 spills; the multi-leaf combine (``adaptive_combine_tree``)
+                 bit-identical on the round's head (C = 5 and a stack of
+                 one, aligned and through ``offset_copy``), the LM's
+                 full-width bf16 tree, a mixed fp32 / bf16 tree with
+                 ragged, misaligned and empty leaves, and a tree past
+                 MAX_LEAVES (three launches), its ``_foreach_mul`` gradients
+                 bit-identical to the one-leaf Function's; timed on the
+                 head beside seven one-leaf launches, the plain version and
+                 ``torch._foreach_addcmul``, with the host microseconds of
+                 a ``combine()`` call against the one-leaf path's, and on
+                 the LM's tree and row 11's single large leaves
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -99,7 +109,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  round mAP/R1/R5/forgetting, bytes, per-round wall and
                  stage ms; the same run on the CPU (the plain versions) and
                  their agreement; the launches of the round's kernels
-                 (counts zeroed just before the card run); each of them
+                 (counts zeroed just before the card run; the combine one
+                 tree launch a combine, no one-leaf launch); each of them
                  against its plain version on the operands of its last
                  call in the card run (tolerances of phase 3); then each
                  round's stage ms (``round_fedstil_stages``). The full
@@ -123,7 +134,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the four codec kernels' launches (counts zeroed just
                  before the card run; checked against the count the run's
                  own comm rows give), each codec kernel against its plain
-                 version on its last on-path operands, and the
+                 version on its last on-path operands and timed there
+                 beside its bound (so does round_fedstil_codec_int8, with
+                 quantize and dequantize), and the
                  encode_c2s / encode_s2c stage ms. Per-round tables go to
                  ``build/round_fedstil_codec.json``.
      round_fedstil_host: round_fedstil's protocol and initial weights on
@@ -133,8 +146,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  run (<= 0.01), equal bytes, round 0's normalized W within
                  1e-5, the launches of its kernels (relevance_aggregate once
                  a round with relevant rows, kl_similarity once a round,
-                 batched_pairwise_dist once an eval, adaptive_combine once
-                 a leaf per combine), each held against its plain version
+                 batched_pairwise_dist once an eval, adaptive_combine_tree
+                 once a combine and client), each held against its plain version
                  on its last on-path operands, and the stage ms
      round_host_variants: four-round runs of the slice's other host paths on
                  the card: FedSTIL with host evaluation against device
@@ -170,7 +183,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  (CUDA events: step ms, tokens/s, peak memory), flash
                  launches checked at 27 / 1 / 1 / 1 a step, all on the
                  tensor cores (counts zeroed just before),
-                 the combine once a leaf a step, each flash
+                 the combine once a dtype group a step (no one-leaf
+                 launch on any path), each flash
                  kernel against its plain version on its last on-path
                  operands, and the first step's loss and adaptive gradients
                  with attention routed to the plain versions on the card
@@ -212,6 +226,7 @@ from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
                                        unflatten_stacked)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import edge_model as EM  # noqa: E402
+from repro_torch.core.adaptive import combine, split_params  # noqa: E402
 from repro_torch.core.fedstil import FedSTIL  # noqa: E402
 from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
 from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
@@ -219,7 +234,9 @@ from repro_torch.data.tokens import synthetic_lm_batch  # noqa: E402
 from repro_torch.federated import FedAvg, run_simulation  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
-from repro_torch.kernels.adaptive_combine import adaptive_combine  # noqa: E402
+from repro_torch.kernels import adaptive_combine as ACM  # noqa: E402
+from repro_torch.kernels.adaptive_combine import (  # noqa: E402
+    adaptive_combine, adaptive_combine_tree)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
     flash_attention_fwd_lse)
@@ -423,13 +440,19 @@ KERNELS = {
         "fn": relevance_aggregate, "paths": ("round_fedstil_host",),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:43"},
+    # the one-leaf table of the tree kernel: no main path calls it since
+    # every combine takes the tree entry (each path checks 0 launches)
     "adaptive_combine": {
-        "fn": adaptive_combine,
+        "fn": adaptive_combine, "paths": (),
+        "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
+        "replaces": "src/repro/kernels/adaptive_combine.py:36"},
+    "adaptive_combine_tree": {
+        "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
                   "lm_train"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
-        "replaces": "src/repro/kernels/adaptive_combine.py:36"},
+        "replaces": "src/repro/kernels/adaptive_combine.py:47"},
     "batched_cluster_dist": {
         "fn": batched_cluster_dist, "paths": ("serve_ivf",),
         "source": "src/repro_torch/kernels/csrc/cluster_dist.cu",
@@ -811,6 +834,7 @@ def phase_kernels(dev, peak, card):
     rows.update(ivf_kernel_rows(gen, dev, peak))
     rows.update(topk_kernel_rows(gen, dev, peak))
     rows.update(new_kernel_rows(gen, dev, peak))
+    rows.update(combine_tree_rows(gen, dev, peak))
     rows.update(flash_kernel_rows(gen, dev, peak))
 
     for name, r in rows.items():
@@ -1264,6 +1288,28 @@ def topk_errs(x, kg):
             "batched_idx_bitunpack": float((bk - ir).abs().max())}
 
 
+def codec_work(name, c, p, group, kg):
+    """(bytes, operations) of one codec kernel call on (c, p) rows: the
+    dense rows, kept values and int32 indices at 4 bytes each, the packed
+    indices at their bits. Operations: the group x group compare and the kg
+    one-hot sums of a group; a few shifts and masks a slot; all far below
+    the bytes bound."""
+    nb = p // group
+    k = nb * kg
+    kb = (k + 7) // 8
+    bits = (group - 1).bit_length()
+    vec, ind, out, pk = 4.0 * c * k, 4.0 * c * k, 4.0 * c * p, c * bits * kb
+    n_groups = c * nb
+    return {"batched_topk_pack": (4.0 * c * p + vec + ind,
+                                  n_groups * (group * group
+                                              + 2 * group * kg)),
+            "batched_topk_unpack": (vec + ind + out,
+                                    n_groups * 2 * group * kg),
+            "batched_idx_bitpack": (ind + pk, c * kb * 8 * (2 + 3 * bits)),
+            "batched_idx_bitunpack": (pk + ind, c * k * (2 + 3 * bits)),
+            }[name]
+
+
 def topk_kernel_rows(gen, dev, peak):
     """The codec's four kernels held against their plain versions at the
     round's shape (C=5, P=37696), the fleet shape (C=1000, P=57664) and
@@ -1286,39 +1332,29 @@ def topk_kernel_rows(gen, dev, peak):
     fold(topk_errs(x, KG))
     nb = P // GROUP
     K = nb * KG
-    kb = (K + 7) // 8
-    bits = (GROUP - 1).bit_length()
     vals, idx = batched_topk_pack(x, group=GROUP, kg=KG)
     packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
-    vec, ind, out, pk = 4.0 * C * K, 4.0 * C * K, 4.0 * C * P, C * bits * kb
-    # operations: the 8x8 compare and the kg one-hot sums of a group; a
-    # few shifts and masks per slot; all far below the bytes bound
-    n_groups = C * nb
     specs = {
         "batched_topk_pack": (
-            4.0 * C * P + vec + ind, n_groups * (GROUP * GROUP
-                                                 + 2 * GROUP * KG),
             lambda: batched_topk_pack(x, group=GROUP, kg=KG),
             lambda: REF.batched_topk_pack_ref(x, group=GROUP, kg=KG),
             lambda: torch.topk(x.abs().view(C, nb, GROUP), KG, dim=-1)),
         "batched_topk_unpack": (
-            vec + ind + out, n_groups * 2 * GROUP * KG,
             lambda: batched_topk_unpack(vals, idx, p=P, group=GROUP, kg=KG),
             lambda: REF.batched_topk_unpack_ref(vals, idx, p=P, group=GROUP,
                                                 kg=KG), None),
         "batched_idx_bitpack": (
-            ind + pk, C * kb * 8 * (2 + 3 * bits),
             lambda: batched_idx_bitpack(idx, group=GROUP, kg=KG),
             lambda: REF.batched_idx_bitpack_ref(idx, group=GROUP, kg=KG),
             None),
         "batched_idx_bitunpack": (
-            pk + ind, C * K * (2 + 3 * bits),
             lambda: batched_idx_bitunpack(packed, k=K, group=GROUP, kg=KG),
             lambda: REF.batched_idx_bitunpack_ref(packed, k=K, group=GROUP,
                                                   kg=KG), None),
     }
     rows = {}
-    for name, (nbytes, ops_, kernel, plain, library) in specs.items():
+    for name, (kernel, plain, library) in specs.items():
+        nbytes, ops_ = codec_work(name, C, P, GROUP, KG)
         rows[name] = dict(
             max_abs_err=errs[name], bound=bound(nbytes, ops_, peak),
             ms=time_ms(kernel), plain_ms=time_ms(plain),
@@ -1451,16 +1487,22 @@ def new_kernel_rows(gen, dev, peak):
                     for _ in range(3))
         err = max(err, combine_err(b, al, a),
                   combine_err(offset_copy(b), al, offset_copy(a)))
+    hb = [torch.randn(LM_HEAD_LEAF, generator=gen, device=dev).bfloat16()
+          for _ in range(3)]
+    bf16_ms = time_ms(lambda: adaptive_combine(*hb))
+    bf16_bound = bound(*combine_work(hb[:1]), peak)[0]
+    del hb
     b, al, a = (torch.randn((Cf, P), generator=gen, device=dev)
                 for _ in range(3))
     err = max(err, combine_err(b, al, a))
-    n = Cf * P
     rows["adaptive_combine"] = dict(
-        max_abs_err=err, bound=bound(16.0 * n, 2.0 * n, peak),
+        max_abs_err=err, bound=bound(*combine_work([b]), peak),
         ms=time_ms(lambda: adaptive_combine(b, al, a)),
         plain_ms=time_ms(lambda: REF.adaptive_combine_ref(b, al, a)),
         library_ms=time_ms(lambda: torch.addcmul(a, b, al)), shape=[Cf, P],
-        detail={"library": "torch.addcmul(A, B, alpha)"})
+        detail={"library": "torch.addcmul(A, B, alpha)",
+                "bf16_head_leaf": {"shape": list(LM_HEAD_LEAF),
+                                   "ms": bf16_ms, "bound_ms": bf16_bound}})
 
     # pairwise_dist (2-D): one client of the fp32 serving shape, ragged
     # shapes
@@ -1490,6 +1532,206 @@ def new_kernel_rows(gen, dev, peak):
                 **{f"{v}_ms": time_ms(lambda: dist_forced(name, v)(q, g))
                    for v in PD.VARIANTS}})
     return rows
+
+
+# the combine over whole trees: the round's head (its 200 ids, P = 37696 a
+# client) and the LM's full-width bf16 adaptive tree
+ROUND_CLASSES = 200
+LM_HEAD_LEAF = (2048, 152064)            # qwen3-1.7b's head, padded vocab
+HOST_CALLS = 1000                       # combine() calls a host-time mean
+
+
+def combine_work(bases):
+    """(bytes, operations) of one combine over ``bases``' leaves: three
+    reads and a write of each value, a product and a sum."""
+    n = sum(t.numel() for t in bases)
+    return 4.0 * sum(t.numel() * t.element_size() for t in bases), 2.0 * n
+
+
+def combine_tree_err(bases, alphas, as_):
+    """The tree kernel against the plain version, every leaf bit for bit."""
+    outs = adaptive_combine_tree(bases, alphas, as_)
+    want = REF.adaptive_combine_tree_ref(bases, alphas, as_)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (o, w) in enumerate(zip(outs, want)):
+        bits = torch.int16 if o.dtype == torch.bfloat16 else torch.int32
+        bad = int((o.view(bits) != w.view(bits)).sum())
+        check(bad == 0, f"adaptive_combine_tree leaf {i} {tuple(o.shape)} "
+              f"{o.dtype}: {bad} values differ from the plain version")
+        if o.numel():
+            err = max(err, float((o.float() - w.float()).abs().max()))
+    return err
+
+
+def combine_grad_check(bases, alphas, as_, gen):
+    """``ops.adaptive_combine_tree``'s gradients (one ``_foreach_mul`` for
+    alpha, one for B) against the one-leaf Function's, leaf by leaf, bit
+    for bit, with B needing a gradient and without."""
+    gs = [torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+          for t in bases]
+    for b_grad in (False, True):
+        grads = []
+        for tree_entry in (True, False):
+            ins = [[t.detach().clone().requires_grad_(flag) for t in ts]
+                   for ts, flag in ((bases, b_grad), (alphas, True),
+                                    (as_, True))]
+            keys = [f"{i:04d}" for i in range(len(gs))]
+            trees = [dict(zip(keys, ts)) for ts in ins]
+            out = (ops.adaptive_combine_tree(*trees) if tree_entry
+                   else tree_map(ops.adaptive_combine, *trees))
+            torch.autograd.backward([out[k] for k in keys], gs)
+            grads.append([t.grad for ts in ins for t in ts])
+        torch.cuda.synchronize()
+        for k, (x, y) in enumerate(zip(*grads)):
+            check((x is None) == (y is None) and (x is None or torch.equal(
+                x.view(torch.int16 if x.dtype == torch.bfloat16
+                       else torch.int32),
+                y.view(torch.int16 if y.dtype == torch.bfloat16
+                       else torch.int32))),
+                  f"adaptive_combine_tree: gradient {k} (B needs one: "
+                  f"{b_grad}) differs from the one-leaf Function's")
+
+
+def round_head(gen, clients):
+    """The round's stacked head: ``clients`` heads drawn from ``gen``."""
+    cfg = EM.EdgeModelConfig(n_classes=ROUND_CLASSES)
+    heads = [EM.init_adaptive_layers(cfg, gen) for _ in range(clients)]
+    return {k: torch.stack([h[k] for h in heads]) for k in heads[0]}
+
+
+def lm_adaptive_tree(gen):
+    """qwen3-1.7b's adaptive tree at full width (bf16), as ``lm_train``
+    splits it from the seed's weights."""
+    cfg = get_config(LM_ARCH)
+    _, adaptive = split_params(cfg, lm.init_params(cfg, gen))
+    return adaptive
+
+
+def like(ts, gen):
+    return [torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+            for t in ts]
+
+
+def host_us(fn):
+    """Mean host microseconds of one call over HOST_CALLS calls after a
+    warm-up, the card drained at both ends."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / HOST_CALLS * 1e6
+
+
+def combine_tree_rows(gen, dev, peak):
+    """The multi-leaf combine held bit for bit against its plain version on
+    the round's head (stacked at C = 5 and as a stack of one; aligned and
+    through ``offset_copy``), the LM's full-width bf16 tree, a mixed fp32 /
+    bf16 tree with ragged, misaligned and empty leaves, and a tree past
+    MAX_LEAVES; its gradients against the one-leaf Function's. Timed on the
+    head beside seven one-leaf launches, the plain version and
+    ``torch._foreach_addcmul``, with the host time of a ``combine()`` call;
+    on the LM's tree and on row 11's single large leaves."""
+    err, by_shape, launches = 0.0, {}, {}
+
+    def row(name, bases, alphas, as_, per_leaf=False, library=False):
+        bd = bound(*combine_work(bases), peak)
+        r = {"leaves": len(bases), "launches": len(ACM._plan(
+                 [(t.dtype, t.numel(), (0, 0, 0, 0)) for t in bases])),
+             "ms": time_ms(lambda: adaptive_combine_tree(bases, alphas,
+                                                         as_)),
+             "bound_ms": bd[0], "bound_by": bd[1]}
+        if per_leaf:
+            r["one_leaf_launches_ms"] = time_ms(lambda: [
+                adaptive_combine(*x) for x in zip(bases, alphas, as_)])
+            r["plain_ms"] = time_ms(lambda: REF.adaptive_combine_tree_ref(
+                bases, alphas, as_))
+        if library:
+            r["library_ms"] = time_ms(lambda: torch._foreach_addcmul(
+                as_, bases, alphas))
+        by_shape[name] = r
+        return r
+
+    for clients in (N_CLIENTS, 1):
+        head = round_head(gen, clients)
+        check(sum(t[0].numel() for t in head.values()) == P_ROUND,
+              f"round head: P != {P_ROUND}")
+        bases = [t.contiguous() for t in tree_leaves(head)]
+        alphas, as_ = like(bases, gen), like(bases, gen)
+        err = max(err, combine_tree_err(bases, alphas, as_),
+                  combine_tree_err([offset_copy(t) for t in bases], alphas,
+                                   [offset_copy(t) for t in as_]))
+        combine_grad_check(bases, alphas, as_, gen)
+        r = row(f"head_c{clients}", bases, alphas, as_, per_leaf=True,
+                library=True)
+        B, al, A = (dict(zip(head, ts)) for ts in (bases, alphas, as_))
+        trainable = [{k: t.clone().requires_grad_(True) for k, t in d.items()}
+                     for d in (al, A)]
+        r["host_us_combine"] = host_us(lambda: combine(B, *trainable))
+        r["host_us_one_leaf_combines"] = host_us(
+            lambda: tree_map(ops.adaptive_combine, B, *trainable))
+        if clients == N_CLIENTS:
+            head_row = r
+
+    # the LM's full-width adaptive tree (bf16): values, gradients, time
+    tree = lm_adaptive_tree(torch.Generator(device=dev).manual_seed(SEED))
+    bases = tree_leaves(tree)
+    alphas, as_ = like(bases, gen), like(bases, gen)
+    err = max(err, combine_tree_err(bases, alphas, as_))
+    combine_grad_check(bases, alphas, as_, gen)
+    row("lm_bf16_tree", bases, alphas, as_)
+    del tree, bases, alphas, as_
+    torch.cuda.empty_cache()
+
+    # a mixed tree: fp32 and bf16, ragged lengths around the spans, an empty
+    # leaf, misaligned bases on every third leaf
+    sizes = (1, 3, 4095, 4096, 4097, 8191, 8193, 0, 1001, 37 * 129)
+    bases, alphas, as_ = [], [], []
+    for k, n in enumerate(sizes * 2):
+        dt = torch.float32 if k < len(sizes) else torch.bfloat16
+        b, al, a = (torch.randn((n,), generator=gen, device=dev).to(dt)
+                    for _ in range(3))
+        if k % 3 == 1:
+            b, a = offset_copy(b), offset_copy(a)
+        bases.append(b)
+        alphas.append(al)
+        as_.append(a)
+    err = max(err, combine_tree_err(bases, alphas, as_))
+    combine_grad_check(bases, alphas, as_, gen)
+    launches["mixed"] = len(ACM._plan(
+        [(t.dtype, t.numel(), (0, 0, 0, 0)) for t in bases]))
+    # past MAX_LEAVES: three launches of one dtype
+    n_many = 2 * ACM.MAX_LEAVES + 22
+    bases = [torch.randn((k % 37 + 1, 129), generator=gen, device=dev)
+             for k in range(n_many)]
+    alphas, as_ = like(bases, gen), like(bases, gen)
+    bases[5], as_[70] = offset_copy(bases[5]), offset_copy(as_[70])
+    before = adaptive_combine_tree.launches
+    err = max(err, combine_tree_err(bases, alphas, as_))
+    launches["past_max_leaves"] = adaptive_combine_tree.launches - before
+    check(launches["past_max_leaves"] == 3,
+          f"adaptive_combine_tree: {n_many} leaves took "
+          f"{launches['past_max_leaves']} launches, expected 3")
+
+    # row 11's single large leaves through the tree entry
+    for name, shape, dt in (("fleet_leaf", (SCALE_CLIENTS[-1], P_EDGE),
+                             torch.float32),
+                            ("lm_head_leaf", LM_HEAD_LEAF, torch.bfloat16)):
+        xs = [[torch.randn(shape, generator=gen, device=dev).to(dt)]
+              for _ in range(3)]
+        row(name, *xs)
+        del xs
+
+    r = head_row
+    return {"adaptive_combine_tree": dict(
+        max_abs_err=err, bound=(r["bound_ms"], r["bound_by"]),
+        ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+        shape=[N_CLIENTS, P_ROUND],
+        detail={"library": "torch._foreach_addcmul(As, Bs, alphas)",
+                "by_shape": by_shape, "launches_by_tree": launches})}
 
 
 # the dense LM's edge train step (lm_train): qwen3-1.7b at full width, the
@@ -2207,12 +2449,12 @@ class RecordingFedSTIL(FedSTIL):
 
 
 ROUND_KERNELS = ("kl_similarity", "fused_relevance_aggregate",
-                 "batched_pairwise_dist", "adaptive_combine")
+                 "batched_pairwise_dist", "adaptive_combine_tree")
 HOST_KERNELS = ("kl_similarity", "relevance_aggregate",
-                "batched_pairwise_dist", "adaptive_combine")
+                "batched_pairwise_dist", "adaptive_combine_tree")
 # operands the round never writes in place (each step makes new heads), kept
 # by reference so the round's stage times carry no copies
-BY_REFERENCE = ("adaptive_combine",)
+BY_REFERENCE = ("adaptive_combine_tree",)
 
 
 @contextlib.contextmanager
@@ -2227,7 +2469,10 @@ def last_operands(names, by_reference=BY_REFERENCE):
 
     def keep(name):
         def call(*args, **kw):
-            seen[name] = tuple(a if name in by_reference
+            # a tree's dicts are copied (its leaves are not), so a caller
+            # that rebinds a key later leaves the kept call intact
+            seen[name] = tuple(tree_map(lambda t: t, a)
+                               if name in by_reference
                                else a.detach().clone() for a in args)
             return orig[name](*args, **kw)
         return call
@@ -2247,9 +2492,8 @@ def path_work(name, args):
     if name in ("fused_relevance_aggregate", "relevance_aggregate"):
         (r, c), p = args[0].shape, args[1].shape[1]
         return aggregate_work(r, c, p, name == "fused_relevance_aggregate")
-    if name == "adaptive_combine":
-        n = args[0].numel() * args[0].element_size() / 4
-        return 16.0 * n, 2.0 * n
+    if name == "adaptive_combine_tree":
+        return combine_work(args[0])
     c, p = args[0].shape
     if name == "batched_quantize":
         return quantize_work(c, p, 256)
@@ -2260,7 +2504,7 @@ def path_operand_errs(seen):
     """Each round kernel against its plain version on the operands of its
     last call in the card run (the last eval's (C, T Q, F) x (C, G_max, F)
     distances, the last server round's relevance and aggregate, the last
-    combine's leaf), and timed there beside its bound: the paths' own
+    combine's tree), and timed there beside its bound: the paths' own
     shapes, which the launches x (ms - bound) ordering of PERF.md reads."""
     checks = {
         "batched_pairwise_dist": lambda *a: max(dist_err(
@@ -2270,22 +2514,28 @@ def path_operand_errs(seen):
         "kl_similarity": kl_err,
         "fused_relevance_aggregate": aggregate_err,
         "relevance_aggregate": plain_aggregate_err,
-        "adaptive_combine": lambda *a: combine_err(
-            *(t.detach().contiguous() for t in a)),
+        "adaptive_combine_tree": combine_tree_err,
         "batched_quantize": lambda x: quantize_err(x, 256),
         "batched_dequantize": lambda q, sc: dequantize_err(q, sc, 256)}
     peak = peaks(torch.cuda.get_device_name(0))
     out = {}
     for n in (n for n in checks if n in seen):
         args = seen[n]
-        if n == "adaptive_combine":
-            args = tuple(t.detach().contiguous() for t in args)
+        if n == "adaptive_combine_tree":       # (B, alpha, A) trees -> leaves
+            args = tuple([t.detach().contiguous() for t in tree_leaves(tr)]
+                         for tr in args)
         kw = {"chunk": 256} if "quantize" in n else {}
         b = bound(*path_work(n, args), peak)
-        out[n] = {"shapes": [list(a.shape) for a in args],
+        out[n] = {"shapes": [list(a.shape) for a in args[0]]
+                  if n == "adaptive_combine_tree"
+                  else [list(a.shape) for a in args],
                   "max_abs_err": checks[n](*args),
                   "ms": time_ms(lambda: KERNELS[n]["fn"](*args, **kw)),
                   "bound_ms": b[0], "bound_by": b[1]}
+        if n == "adaptive_combine_tree":
+            out[n]["library_ms"] = time_ms(
+                lambda: torch._foreach_addcmul(args[2], args[0], args[1]))
+            out[n]["library"] = "torch._foreach_addcmul(As, Bs, alphas)"
     return out
 
 
@@ -2305,13 +2555,13 @@ def simulate(bench, device, codec=None, init_params=None, engine="stacked",
 
 
 def combine_launches(strat, rounds, n_eval, clients):
-    """adaptive_combine launches a FedSTIL run makes: one a leaf for each
-    combine — the loss's and the tying term's heads every step, the head
-    after training every round, the eval heads every evaluation — times
-    the clients on the host engine, once for all on the stacked one."""
-    leaves = len(EM.init_adaptive_layers(strat.cfg, torch.Generator()))
-    per_round = (2 * strat.epochs + 1) * leaves * clients
-    return rounds * per_round + n_eval * leaves * clients
+    """adaptive_combine_tree launches a FedSTIL run makes: one for each
+    combine (the head is one fp32 group) — the loss's and the tying term's
+    heads every step, the head after training every round, the eval heads
+    every evaluation — times the clients on the host engine, once for all
+    on the stacked one."""
+    per_round = (2 * strat.epochs + 1) * clients
+    return rounds * per_round + n_eval * clients
 
 
 def nudged_init(bench):
@@ -2400,7 +2650,9 @@ def phase_round_fedstil(dev, card):
           "round_fedstil: card and CPU byte accounting differ")
     expect = {"kl_similarity": ROUNDS, "fused_relevance_aggregate": ROUNDS,
               "batched_pairwise_dist": n_eval,
-              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval, 1)}
+              "adaptive_combine_tree": combine_launches(strat, ROUNDS,
+                                                        n_eval, 1),
+              "adaptive_combine": 0}
     check(all(launches[k] == n for k, n in expect.items()),
           f"round_fedstil launches {launches}, expected {expect}")
     check(int(strat.round0[1].shape[1]) == P_ROUND,
@@ -2474,10 +2726,20 @@ def phase_round_profile(dev, card, n_rounds=6):
 def codec_path_errs(seen, prog):
     """The codec's four kernels against their plain versions on the
     operands of their last call in the card run (the last round's S2C
-    roundtrip), with the program's budget."""
+    roundtrip), with the program's budget, and timed there beside their
+    bounds: the path shapes rule 2's launches x (ms - bound) reads."""
     g, kg = prog.group, prog.kg
     (x,), (vals, idx), (ix,), (packed,) = (
         seen[n] for n in CODEC_KERNELS)
+    calls = {
+        "batched_topk_pack": lambda: batched_topk_pack(x, group=g, kg=kg),
+        "batched_topk_unpack": lambda: batched_topk_unpack(
+            vals, idx, p=prog.p, group=g, kg=kg),
+        "batched_idx_bitpack": lambda: batched_idx_bitpack(ix, group=g,
+                                                           kg=kg),
+        "batched_idx_bitunpack": lambda: batched_idx_bitunpack(
+            packed, k=prog.k, group=g, kg=kg)}
+    peak = peaks(torch.cuda.get_device_name(0))
     pairs = {
         "batched_topk_pack": (
             batched_topk_pack(x, group=g, kg=kg),
@@ -2500,10 +2762,13 @@ def codec_path_errs(seen, prog):
         check(all(torch.equal(a, b) for a, b in zip(k_out, r_out)),
               f"{name} (round_fedstil_codec): differs from the plain "
               "version on its last operands")
+        bd = bound(*codec_work(name, x.shape[0], prog.p, g, kg), peak)
         out[name] = {"shapes": [list(a.shape) for a in seen[name]],
                      "max_abs_err": max(float((a.double() - b.double())
                                               .abs().max())
-                                        for a, b in zip(k_out, r_out))}
+                                        for a, b in zip(k_out, r_out)),
+                     "ms": time_ms(calls[name]), "bound_ms": bd[0],
+                     "bound_by": bd[1]}
     return out
 
 
@@ -2546,8 +2811,9 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     expect.update({"kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
-                   "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
-                                                        1)})
+                   "adaptive_combine_tree": combine_launches(
+                       strat, ROUNDS, n_eval, 1),
+                   "adaptive_combine": 0})
     totals = {"c2s_wire": res.comm.total_c2s, "s2c_wire": res.comm.total_s2c,
               "c2s_formula": res.comm.total_c2s_formula,
               "s2c_formula": res.comm.total_s2c_formula}
@@ -2626,8 +2892,9 @@ def phase_round_fedstil_host(dev, card, stacked):
     w_err = float(np.abs(strat.round0[0] - strat_s.round0[0]).max())
     expect = {"kl_similarity": ROUNDS, "batched_pairwise_dist": n_eval,
               "relevance_aggregate": strat.aggregated_rounds,
-              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
-                                                   N_CLIENTS)}
+              "adaptive_combine_tree": combine_launches(strat, ROUNDS, n_eval,
+                                                        N_CLIENTS),
+              "adaptive_combine": 0}
     stages = sorted({k for st in res.stage_ms for k in st} - {"round"})
     HOST_OUT.parent.mkdir(parents=True, exist_ok=True)
     HOST_OUT.write_text(json.dumps({
@@ -2754,8 +3021,9 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
                    "kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
-                   "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
-                                                        1)})
+                   "adaptive_combine_tree": combine_launches(
+                       strat, ROUNDS, n_eval, 1),
+                   "adaptive_combine": 0})
     keys = ("mAP", "R1", "R5", "forgetting_mAP")
     stages = ("encode_c2s", "encode_s2c")
     INT8_OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -3081,7 +3349,7 @@ def phase_lm_train(dev, card):
           "launches_per_step": per_step,
           "tensor_core_launches_per_step": tc_step,
           "launches": {n: launches[n] for n in FLASH_STAGES
-                       + ("adaptive_combine",)},
+                       + ("adaptive_combine_tree", "adaptive_combine")},
           "kernel_vs_plain_on_path": on_path, "plain_attention_step": swap,
           "profile": profile_row,
           "phase_s": time.perf_counter() - t_phase})
@@ -3091,10 +3359,14 @@ def phase_lm_train(dev, card):
     check(all(p == expect_step for p in tc_step),
           f"lm_train tensor-core launches a step {tc_step}, expected "
           f"{expect_step}")
-    n_leaves = len(tree_leaves(st.B))
-    check(launches["adaptive_combine"] == n_leaves * LM_STEPS,
-          f"lm_train: {launches['adaptive_combine']} combine launches, "
-          f"expected {n_leaves} a step")
+    # one combine a step, one launch per dtype group of the adaptive tree
+    groups = len(ACM._plan([(t.dtype, t.numel(), (0, 0, 0, 0))
+                            for t in tree_leaves(st.B)]))
+    check(launches["adaptive_combine_tree"] == groups * LM_STEPS
+          and launches["adaptive_combine"] == 0,
+          f"lm_train: {launches['adaptive_combine_tree']} tree and "
+          f"{launches['adaptive_combine']} one-leaf combine launches, "
+          f"expected {groups} tree launches a step and no one-leaf one")
     check(swap["abs_loss_delta"] <= LM_SWAP_LOSS_TOL
           and swap["grad_rel_l2_worst_leaf"] <= LM_SWAP_GRAD_TOL,
           f"lm_train: kernels vs plain attention {swap}")

@@ -4,8 +4,8 @@ A/B between two checkouts on one card.
 
     python3 scripts/kernel_ab.py TREE LABEL [SET ...]    # from the repo root
 
-SET is any of ``aggregate``, ``kl``, ``quantize`` and ``dist`` (all four
-when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
+SET is any of ``aggregate``, ``kl``, ``quantize``, ``dist`` and ``combine``
+(all five when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
 (TREE ``.`` for this checkout; for another one the script is copied into
 TREE as ``chip_smoke_ab.py`` and imported from there), builds TREE's
 kernels, and for each set prints a ``TIMES`` line (CUDA events, median of
@@ -25,8 +25,18 @@ trees compare bit for bit):
              512, 64) (rows 5 and 6); their outputs there and at
              ``DIST_FP32_EDGES`` / ``DIST_INT8_EDGES`` (the 2-D entry on
              client 0's rows), aligned and not
+  combine    ``core.adaptive.combine`` (the tree's own: one launch per
+             dtype group, or a launch a leaf before the multi-leaf kernel)
+             on the round's head stacked at C = 5 and as a stack of one
+             (device ms, host microseconds a call, launches a call), on
+             row 11's single leaves, (1000, 57664) fp32 and the LM's
+             (2048, 152064) bf16 head; outputs there, on the head through
+             ``offset_copy`` and on a mixed fp32 / bf16 tree, and the
+             head's alpha and B gradients
 
-A tree whose kernel has no ``_plan`` reports its variant as "one". Run
+A tree whose kernel has no ``_plan`` reports its variant as "one"; a tree
+before the multi-leaf combine gets a stand-in ``adaptive_combine_tree``
+(its one-leaf kernel leaf by leaf) so this checkout's script imports. Run
 parent, change, change, parent in one call on one card (the parent
 unpacked with ``git archive`` into a gitignored directory). Needs a CUDA
 card.
@@ -38,13 +48,17 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-SETS = ("aggregate", "kl", "quantize", "dist")
+SETS = ("aggregate", "kl", "quantize", "dist", "combine")
 
 
 def digest(*xs):
+    import torch
     h = hashlib.sha256()
     for x in xs:
-        h.update(x.cpu().numpy().tobytes())
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:          # numpy has no bf16: its bits
+            x = x.view(torch.int16)
+        h.update(x.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -149,6 +163,67 @@ def dist(CS, dev, peak):
     return times, out
 
 
+def combine(CS, dev, peak):
+    import torch
+    from repro_torch.core.adaptive import combine as tree_combine
+    from repro_torch.kernels import adaptive_combine as ACM
+
+    def launches():
+        return ACM.adaptive_combine.launches + getattr(
+            ACM.adaptive_combine_tree, "launches", 0)
+
+    def leaf(shape, dt, gen):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    times, out = [], {}
+    for clients in (CS.N_CLIENTS, 1):
+        B = CS.round_head(gen, clients)
+        al, A = ({k: leaf(t.shape, t.dtype, gen) for k, t in B.items()}
+                 for _ in range(2))
+        trainable = [{k: t.clone().requires_grad_(True) for k, t in d.items()}
+                     for d in (al, A)]
+        before = launches()
+        theta = tree_combine(B, al, A)
+        n_launch = launches() - before
+        out[f"head C={clients}"] = digest(*CS.tree_leaves(theta))
+        off = {k: CS.offset_copy(t) for k, t in B.items()}
+        out[f"head C={clients} misaligned"] = digest(
+            *CS.tree_leaves(tree_combine(off, al, A)))
+        bd = CS.bound(*CS.combine_work(CS.tree_leaves(B)), peak)
+        times.append({
+            "shape": f"head C={clients}", "leaves": len(B),
+            "launches": n_launch,
+            "ms": CS.time_ms(lambda: tree_combine(B, al, A)),
+            "host_us": CS.host_us(lambda: tree_combine(B, *trainable)),
+            "bound_ms": bd[0]})
+        if clients == CS.N_CLIENTS:
+            Bg = {k: t.clone().requires_grad_(True) for k, t in B.items()}
+            th = tree_combine(Bg, *trainable)
+            gs = [leaf(t.shape, t.dtype, gen) for t in CS.tree_leaves(th)]
+            torch.autograd.backward(CS.tree_leaves(th), gs)
+            out["head C=5 grads"] = digest(
+                *(t.grad for t in CS.tree_leaves(trainable[0])),
+                *(t.grad for t in CS.tree_leaves(Bg)))
+    for name, shape, dt in (("fleet leaf", (1000, 57664), torch.float32),
+                            ("lm head leaf", CS.LM_HEAD_LEAF,
+                             torch.bfloat16)):
+        b, al, a = ({"w": leaf(shape, dt, gen)} for _ in range(3))
+        out[name] = digest(tree_combine(b, al, a)["w"])
+        bd = CS.bound(*CS.combine_work([b["w"]]), peak)
+        times.append({"shape": f"{name} {list(shape)}", "leaves": 1,
+                      "ms": CS.time_ms(lambda: tree_combine(b, al, a)),
+                      "bound_ms": bd[0]})
+        del b, al, a
+    mixed = [leaf((n,), torch.float32 if k % 2 else torch.bfloat16, gen)
+             for k, n in enumerate((1, 4097, 8193, 1001, 37 * 129, 5))]
+    trees = [dict(zip("abcdef", mixed))] + [
+        {k: leaf(t.shape, t.dtype, gen) for k, t in zip("abcdef", mixed)}
+        for _ in range(2)]
+    out["mixed"] = digest(*CS.tree_leaves(tree_combine(*trees)))
+    return times, out
+
+
 def main():
     tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     sets = sys.argv[3:] or SETS
@@ -157,7 +232,14 @@ def main():
         sys.exit(f"unknown kernel sets {bad}: choose from {SETS}")
     if tree != HERE:
         shutil.copy(HERE / "chip_smoke.py", tree / "chip_smoke_ab.py")
-        sys.path.insert(0, str(tree))
+        sys.path[:0] = [str(tree / "src"), str(tree)]
+        from repro_torch.kernels import adaptive_combine as ACM
+        if not hasattr(ACM, "adaptive_combine_tree"):
+            def stand_in(bases, alphas, as_):
+                return [ACM.adaptive_combine(*x)
+                        for x in zip(bases, alphas, as_)]
+            stand_in.launches = 0
+            ACM.adaptive_combine_tree = stand_in
         import chip_smoke_ab as CS
     else:
         sys.path.insert(0, str(tree))
@@ -169,7 +251,7 @@ def main():
     CS._build.build_all()
     peak = CS.peaks(torch.cuda.get_device_name(0))
     run = {"aggregate": aggregate, "kl": kl, "quantize": quantize,
-           "dist": dist}
+           "dist": dist, "combine": combine}
     for name in sets:
         times, digests = run[name](CS, dev, peak)
         print("TIMES", name, label, json.dumps(times), flush=True)

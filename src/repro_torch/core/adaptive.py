@@ -7,9 +7,9 @@
 residual; (alpha_c, A_c) train locally. The port of ``AdaptiveState``,
 ``combine`` and ``init_adaptive`` in ``repro/core/adaptive.py``, leaf-wise
 over the port's flat head dicts, so a leading client axis passes straight
-through. ``combine`` goes through ``kernels.ops.adaptive_combine`` (the
-CUDA kernel for CUDA tensors, one launch a leaf, differentiable), the form
-the reference names as its hot path.
+through. ``combine`` goes through ``kernels.ops.adaptive_combine_tree``
+(for CUDA tensors one kernel launch per dtype group over every leaf,
+differentiable), the form the reference names as its hot path.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ class AdaptiveState:
 
 def combine(B: Theta, alpha: Theta, A: Theta) -> Theta:
     """theta = B ⊙ alpha + A, leaf-wise (paper Eq. 2)."""
-    return tree_map(ops.adaptive_combine, B, alpha, A)
+    return ops.adaptive_combine_tree(B, alpha, A)
 
 
 def init_adaptive(theta0: Theta) -> AdaptiveState:

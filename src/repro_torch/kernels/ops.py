@@ -11,6 +11,8 @@ import torch
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.adaptive_combine import adaptive_combine as _combine
+from repro_torch.kernels.adaptive_combine import \
+    adaptive_combine_tree as _combine_tree
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
 from repro_torch.kernels.ivf import batched_cluster_dist as _bcdist
@@ -105,6 +107,82 @@ class AdaptiveCombine(torch.autograd.Function):
 def adaptive_combine(base, alpha, a):
     """FedSTIL Eq. 2 over one leaf: base * alpha + a, differentiable."""
     return AdaptiveCombine.apply(base, alpha, a)
+
+
+def _products(gs, others, need):
+    """[g * other] where ``need``, else None: one ``_foreach_mul`` over
+    the leaves that need it (each product rounded once, as ``g * other``)."""
+    idx = [i for i, k in enumerate(need) if k]
+    out = [None] * len(need)
+    if idx:
+        prods = torch._foreach_mul([gs[i] for i in idx],
+                                   [others[i] for i in idx])
+        for i, p in zip(idx, prods):
+            out[i] = p
+    return out
+
+
+class AdaptiveCombineTree(torch.autograd.Function):
+    """theta = B * alpha + A over n leaves at once: ``apply(n, *bases,
+    *alphas, *as_)`` -> n outputs. The forward goes through the device
+    dispatch (one CUDA launch per dtype group for CUDA tensors, the plain
+    version leaf by leaf for CPU ones); the backward forms autograd's
+    products for the plain expression, each kind in one ``_foreach_mul``:
+    d alpha = g * B, d B = g * alpha (where B needs it), d A = g."""
+
+    @staticmethod
+    def forward(ctx, n, *leaves):
+        bases, alphas, as_ = leaves[:n], leaves[n:2 * n], leaves[2 * n:]
+        ctx.n = n
+        ctx.save_for_backward(*bases, *alphas)
+        if _on_cuda(*leaves):
+            contig = lambda ts: [t.contiguous() for t in ts]
+            return tuple(_combine_tree(contig(bases), contig(alphas),
+                                       contig(as_)))
+        return tuple(REF.adaptive_combine_tree_ref(bases, alphas, as_))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        d_b = _products(gs, saved[n:], need[:n])
+        d_alpha = _products(gs, saved[:n], need[n:2 * n])
+        d_a = [g if k else None for g, k in zip(gs, need[2 * n:])]
+        return (None, *d_b, *d_alpha, *d_a)
+
+
+def _collect(B, alpha, A, out):
+    """Append (B, alpha, A) leaf triples to ``out`` in ``B``'s key order: a
+    plain recursion, as ``_rebuild``, since every combine pays for it on
+    the host and ``tree_map``'s generator at each node costs several times
+    as much."""
+    if isinstance(B, dict):
+        for k in B:
+            _collect(B[k], alpha[k], A[k], out)
+    else:
+        out.append((B, alpha, A))
+
+
+def _rebuild(B, leaves):
+    """A tree shaped as ``B`` whose leaves come from the iterator ``leaves``
+    in ``_collect``'s order."""
+    if isinstance(B, dict):
+        return {k: _rebuild(v, leaves) for k, v in B.items()}
+    return next(leaves)
+
+
+def adaptive_combine_tree(B, alpha, A):
+    """FedSTIL Eq. 2 over every leaf of three trees of one structure
+    (nested dicts, or single tensors): differentiable, the output shaped
+    as ``B`` (its keys in ``B``'s order)."""
+    triples = []
+    _collect(B, alpha, A, triples)
+    if not triples:
+        return _rebuild(B, iter(()))
+    bases, alphas, as_ = zip(*triples)
+    return _rebuild(B, iter(AdaptiveCombineTree.apply(
+        len(bases), *bases, *alphas, *as_)))
 
 
 def relevance_aggregate(w, thetas):

@@ -71,6 +71,12 @@ def adaptive_combine_ref(base, alpha, a):
     return base * alpha + a
 
 
+def adaptive_combine_tree_ref(bases, alphas, as_):
+    """``adaptive_combine_ref`` leaf by leaf over flat lists."""
+    return [adaptive_combine_ref(b, al, a)
+            for b, al, a in zip(bases, alphas, as_)]
+
+
 def relevance_aggregate_ref(w, thetas):
     """FedSTIL Eq. 6 over given rows: (R, C) x (C, P) -> (R, P) in thetas'
     dtype, fp32 sums."""

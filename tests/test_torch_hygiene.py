@@ -34,6 +34,7 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("quantize", "batched_dequantize"),
             ("relevance_aggregate", "relevance_aggregate"),
             ("adaptive_combine", "adaptive_combine"),
+            ("adaptive_combine", "adaptive_combine_tree"),
             ("pairwise_dist", "pairwise_dist"),
             ("flash_attention", "flash_attention_fwd"),
             ("flash_attention", "flash_attention_fwd_lse"),
