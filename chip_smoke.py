@@ -69,17 +69,19 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the path shapes (serving int8 and fp32, the round's
                  evaluation) under each variant beside baddbmm and their
                  bounds; their libraries hold FFMA, no HMMA / HGMMA, no
-                 spills; the multi-leaf combine (``adaptive_combine_tree``)
-                 bit-identical on the round's head (C = 5 and a stack of
-                 one, aligned and through ``offset_copy``), the LM's
-                 full-width bf16 tree, a mixed fp32 / bf16 tree with
-                 ragged, misaligned and empty leaves, and a tree past
-                 MAX_LEAVES (three launches), its ``_foreach_mul`` gradients
-                 bit-identical to the one-leaf Function's; timed on the
-                 head beside seven one-leaf launches, the plain version and
-                 ``torch._foreach_addcmul``, with the host microseconds of
-                 a ``combine()`` call against the one-leaf path's, and on
-                 the LM's tree and row 11's single large leaves
+                 spills; the combine (``adaptive_combine_tree``, one launch
+                 per dtype group of a tree) bit-identical on single leaves
+                 (ragged, misaligned, fp32 and bf16), the round's head (C =
+                 5 and a stack of one, aligned and through
+                 ``offset_copy``), the LM's full-width bf16 tree, a mixed
+                 fp32 / bf16 tree with ragged, misaligned and empty leaves
+                 (two launches) and a tree past MAX_LEAVES (three), its
+                 ``_foreach_mul`` gradients bit-identical to autograd's of
+                 ``b * al + a``; timed on the head beside seven one-leaf
+                 launches, the plain version and ``torch._foreach_addcmul``,
+                 with the host microseconds of a ``combine()`` call against
+                 the leaf-by-leaf path's, and on the LM's tree and single
+                 large leaves
   4. serve_int8  C=4 clients x G=131072 clustered gallery rows (the
                  8 MiB/client int8 budget), int8 engine, batch 64, 512
                  closed-loop queries with a head update at mid-stream
@@ -110,7 +112,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  stage ms; the same run on the CPU (the plain versions) and
                  their agreement; the launches of the round's kernels
                  (counts zeroed just before the card run; the combine one
-                 tree launch a combine, no one-leaf launch); each of them
+                 launch a combine); each of them
                  against its plain version on the operands of its last
                  call in the card run (tolerances of phase 3); then each
                  round's stage ms (``round_fedstil_stages``). The full
@@ -146,8 +148,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  run (<= 0.01), equal bytes, round 0's normalized W within
                  1e-5, the launches of its kernels (relevance_aggregate once
                  a round with relevant rows, kl_similarity once a round,
-                 batched_pairwise_dist once an eval, adaptive_combine_tree
-                 once a combine and client), each held against its plain version
+                 batched_pairwise_dist once an eval, adaptive_combine once a
+                 combine and client), each held against its plain version
                  on its last on-path operands, and the stage ms
      round_host_variants: four-round runs of the slice's other host paths on
                  the card: FedSTIL with host evaluation against device
@@ -183,8 +185,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  (CUDA events: step ms, tokens/s, peak memory), flash
                  launches checked at 27 / 1 / 1 / 1 a step, all on the
                  tensor cores (counts zeroed just before),
-                 the combine once a dtype group a step (no one-leaf
-                 launch on any path), each flash
+                 the combine once a dtype a step, each flash
                  kernel against its plain version on its last on-path
                  operands, and the first step's loss and adaptive gradients
                  with attention routed to the plain versions on the card
@@ -440,19 +441,16 @@ KERNELS = {
         "fn": relevance_aggregate, "paths": ("round_fedstil_host",),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:43"},
-    # the one-leaf table of the tree kernel: no main path calls it since
-    # every combine takes the tree entry (each path checks 0 launches)
+    # every combine is one launch per dtype group over all its leaves
+    # (``ops.adaptive_combine_tree``; the reference's leaf-wise tree,
+    # adaptive_combine.py:47, calls the kernel below once a leaf)
     "adaptive_combine": {
-        "fn": adaptive_combine, "paths": (),
-        "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
-        "replaces": "src/repro/kernels/adaptive_combine.py:36"},
-    "adaptive_combine_tree": {
         "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
                   "lm_train"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
-        "replaces": "src/repro/kernels/adaptive_combine.py:47"},
+        "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
         "fn": batched_cluster_dist, "paths": ("serve_ivf",),
         "source": "src/repro_torch/kernels/csrc/cluster_dist.cu",
@@ -1409,11 +1407,12 @@ def plain_aggregate_err(w, th):
 
 
 def new_kernel_rows(gen, dev, peak):
-    """The four kernels of the host-engine slice at their path shapes and
-    ragged ones, timed at the fleet shapes: dequantize at C=1000 and the
+    """Three kernels of the host-engine slice (the fourth, the combine, is
+    ``combine_tree_rows``') at their path shapes and ragged ones, timed at
+    the fleet shapes: dequantize at C=1000 and the
     codec's K = 21624 (P = 57664); the plain aggregate at R = C = 1000 (its
-    path shape, R <= 5 rows of C = 5, is launch-bound); the combine over a
-    (1000, 57664) leaf; the 2-D distances at 64 x 32768 x 64."""
+    path shape, R <= 5 rows of C = 5, is launch-bound); the 2-D distances
+    at 64 x 32768 x 64."""
     rows = {}
     Cf, P = SCALE_CLIENTS[-1], P_EDGE
     K = P // GROUP * KG
@@ -1470,39 +1469,6 @@ def new_kernel_rows(gen, dev, peak):
         library_ms=time_ms(lambda: torch.mm(w, th)), shape=[Cf, Cf, P],
         detail={"library": "torch.mm(W, Theta), TF32 off",
                 "by_shape": aggregate_timings(gen, dev, peak, False)})
-
-    # adaptive_combine: the round head's leaves, a ragged leaf on
-    # misaligned bases (the scalar path), a leaf of the fleet's size
-    err = 0.0
-    for shape in ((N_CLIENTS, CFG.proto_dim, CFG.hidden), (N_CLIENTS, 64),
-                  (CFG.feat_dim, 200), (1001,)):
-        b, al, a = (torch.randn(shape, generator=gen, device=dev)
-                    for _ in range(3))
-        err = max(err, combine_err(b, al, a),
-                  combine_err(offset_copy(b), al, offset_copy(a)))
-    # bf16 (the LM's adaptive leaves at full width): the head's leaf, an
-    # MLP leaf, a ragged leaf on misaligned bases
-    for shape in ((2048, 152064), (2048, 6144), (1001,)):
-        b, al, a = (torch.randn(shape, generator=gen, device=dev).bfloat16()
-                    for _ in range(3))
-        err = max(err, combine_err(b, al, a),
-                  combine_err(offset_copy(b), al, offset_copy(a)))
-    hb = [torch.randn(LM_HEAD_LEAF, generator=gen, device=dev).bfloat16()
-          for _ in range(3)]
-    bf16_ms = time_ms(lambda: adaptive_combine(*hb))
-    bf16_bound = bound(*combine_work(hb[:1]), peak)[0]
-    del hb
-    b, al, a = (torch.randn((Cf, P), generator=gen, device=dev)
-                for _ in range(3))
-    err = max(err, combine_err(b, al, a))
-    rows["adaptive_combine"] = dict(
-        max_abs_err=err, bound=bound(*combine_work([b]), peak),
-        ms=time_ms(lambda: adaptive_combine(b, al, a)),
-        plain_ms=time_ms(lambda: REF.adaptive_combine_ref(b, al, a)),
-        library_ms=time_ms(lambda: torch.addcmul(a, b, al)), shape=[Cf, P],
-        detail={"library": "torch.addcmul(A, B, alpha)",
-                "bf16_head_leaf": {"shape": list(LM_HEAD_LEAF),
-                                   "ms": bf16_ms, "bound_ms": bf16_bound}})
 
     # pairwise_dist (2-D): one client of the fp32 serving shape, ragged
     # shapes
@@ -1566,10 +1532,11 @@ def combine_tree_err(bases, alphas, as_):
 
 def combine_grad_check(bases, alphas, as_, gen):
     """``ops.adaptive_combine_tree``'s gradients (one ``_foreach_mul`` for
-    alpha, one for B) against the one-leaf Function's, leaf by leaf, bit
-    for bit, with B needing a gradient and without."""
-    gs = [torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
-          for t in bases]
+    alpha, one for B) against autograd's of the plain ``b * al + a``, leaf
+    by leaf, bit for bit, with B needing a gradient and without."""
+    gs = like(bases, gen)
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16
+                            else torch.int32)
     for b_grad in (False, True):
         grads = []
         for tree_entry in (True, False):
@@ -1579,18 +1546,15 @@ def combine_grad_check(bases, alphas, as_, gen):
             keys = [f"{i:04d}" for i in range(len(gs))]
             trees = [dict(zip(keys, ts)) for ts in ins]
             out = (ops.adaptive_combine_tree(*trees) if tree_entry
-                   else tree_map(ops.adaptive_combine, *trees))
+                   else tree_map(REF.adaptive_combine_ref, *trees))
             torch.autograd.backward([out[k] for k in keys], gs)
             grads.append([t.grad for ts in ins for t in ts])
         torch.cuda.synchronize()
         for k, (x, y) in enumerate(zip(*grads)):
-            check((x is None) == (y is None) and (x is None or torch.equal(
-                x.view(torch.int16 if x.dtype == torch.bfloat16
-                       else torch.int32),
-                y.view(torch.int16 if y.dtype == torch.bfloat16
-                       else torch.int32))),
+            check((x is None) == (y is None)
+                  and (x is None or torch.equal(bits(x), bits(y))),
                   f"adaptive_combine_tree: gradient {k} (B needs one: "
-                  f"{b_grad}) differs from the one-leaf Function's")
+                  f"{b_grad}) differs from autograd's of b * al + a")
 
 
 def round_head(gen, clients):
@@ -1627,33 +1591,56 @@ def host_us(fn):
 
 
 def combine_tree_rows(gen, dev, peak):
-    """The multi-leaf combine held bit for bit against its plain version on
+    """The combine held bit for bit against its plain version: single
+    leaves through the one-leaf entry (the round head's, ragged and
+    misaligned ones, the LM's bf16 ones); trees through the tree entry on
     the round's head (stacked at C = 5 and as a stack of one; aligned and
     through ``offset_copy``), the LM's full-width bf16 tree, a mixed fp32 /
     bf16 tree with ragged, misaligned and empty leaves, and a tree past
-    MAX_LEAVES; its gradients against the one-leaf Function's. Timed on the
-    head beside seven one-leaf launches, the plain version and
+    MAX_LEAVES; its gradients against autograd's of the plain expression.
+    Timed on the head beside seven one-leaf launches, the plain version and
     ``torch._foreach_addcmul``, with the host time of a ``combine()`` call;
-    on the LM's tree and on row 11's single large leaves."""
+    on the LM's tree and on single large leaves. Each row's launches are
+    read from the counter over one call."""
     err, by_shape, launches = 0.0, {}, {}
 
-    def row(name, bases, alphas, as_, per_leaf=False, library=False):
+    def row(name, bases, alphas, as_, per_leaf=False, library=None):
         bd = bound(*combine_work(bases), peak)
-        r = {"leaves": len(bases), "launches": len(ACM._plan(
-                 [(t.dtype, t.numel(), (0, 0, 0, 0)) for t in bases])),
+        before = adaptive_combine_tree.launches
+        adaptive_combine_tree(bases, alphas, as_)
+        r = {"leaves": len(bases),
+             "launches": adaptive_combine_tree.launches - before,
              "ms": time_ms(lambda: adaptive_combine_tree(bases, alphas,
                                                          as_)),
-             "bound_ms": bd[0], "bound_by": bd[1]}
+             "bound_ms": bd[0], "bound_by": bd[1],
+             "plain_ms": time_ms(lambda: REF.adaptive_combine_tree_ref(
+                 bases, alphas, as_))}
         if per_leaf:
             r["one_leaf_launches_ms"] = time_ms(lambda: [
                 adaptive_combine(*x) for x in zip(bases, alphas, as_)])
-            r["plain_ms"] = time_ms(lambda: REF.adaptive_combine_tree_ref(
-                bases, alphas, as_))
-        if library:
+        if library == "foreach":
             r["library_ms"] = time_ms(lambda: torch._foreach_addcmul(
                 as_, bases, alphas))
+        elif library == "addcmul":
+            r["library_ms"] = time_ms(lambda: torch.addcmul(
+                as_[0], bases[0], alphas[0]))
         by_shape[name] = r
         return r
+
+    # single leaves: the round head's, a ragged one on misaligned bases
+    # (the scalar path); bf16: the LM's head leaf, an MLP leaf, a ragged one
+    for shape, dt in (((N_CLIENTS, CFG.proto_dim, CFG.hidden), torch.float32),
+                      ((N_CLIENTS, 64), torch.float32),
+                      ((CFG.feat_dim, 200), torch.float32),
+                      ((1001,), torch.float32),
+                      (LM_HEAD_LEAF, torch.bfloat16),
+                      ((2048, 6144), torch.bfloat16),
+                      ((1001,), torch.bfloat16)):
+        b, al, a = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                    for _ in range(3))
+        err = max(err, combine_err(b, al, a),
+                  combine_err(offset_copy(b), al, offset_copy(a)))
+        del b, al, a
 
     for clients in (N_CLIENTS, 1):
         head = round_head(gen, clients)
@@ -1666,7 +1653,7 @@ def combine_tree_rows(gen, dev, peak):
                                    [offset_copy(t) for t in as_]))
         combine_grad_check(bases, alphas, as_, gen)
         r = row(f"head_c{clients}", bases, alphas, as_, per_leaf=True,
-                library=True)
+                library="foreach")
         B, al, A = (dict(zip(head, ts)) for ts in (bases, alphas, as_))
         trainable = [{k: t.clone().requires_grad_(True) for k, t in d.items()}
                      for d in (al, A)]
@@ -1699,10 +1686,13 @@ def combine_tree_rows(gen, dev, peak):
         bases.append(b)
         alphas.append(al)
         as_.append(a)
+    before = adaptive_combine_tree.launches
     err = max(err, combine_tree_err(bases, alphas, as_))
+    launches["mixed"] = adaptive_combine_tree.launches - before
     combine_grad_check(bases, alphas, as_, gen)
-    launches["mixed"] = len(ACM._plan(
-        [(t.dtype, t.numel(), (0, 0, 0, 0)) for t in bases]))
+    check(launches["mixed"] == 2,
+          f"adaptive_combine_tree: the mixed tree took {launches['mixed']} "
+          "launches, expected 2 (one per dtype)")
     # past MAX_LEAVES: three launches of one dtype
     n_many = 2 * ACM.MAX_LEAVES + 22
     bases = [torch.randn((k % 37 + 1, 129), generator=gen, device=dev)
@@ -1716,21 +1706,23 @@ def combine_tree_rows(gen, dev, peak):
           f"adaptive_combine_tree: {n_many} leaves took "
           f"{launches['past_max_leaves']} launches, expected 3")
 
-    # row 11's single large leaves through the tree entry
+    # single large leaves through the tree entry: the fleet's fp32 leaf and
+    # the LM's bf16 head leaf
     for name, shape, dt in (("fleet_leaf", (SCALE_CLIENTS[-1], P_EDGE),
                              torch.float32),
                             ("lm_head_leaf", LM_HEAD_LEAF, torch.bfloat16)):
         xs = [[torch.randn(shape, generator=gen, device=dev).to(dt)]
               for _ in range(3)]
-        row(name, *xs)
+        row(name, *xs, library="addcmul")
         del xs
 
     r = head_row
-    return {"adaptive_combine_tree": dict(
+    return {"adaptive_combine": dict(
         max_abs_err=err, bound=(r["bound_ms"], r["bound_by"]),
         ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
         shape=[N_CLIENTS, P_ROUND],
-        detail={"library": "torch._foreach_addcmul(As, Bs, alphas)",
+        detail={"library": "torch._foreach_addcmul(As, Bs, alphas); single "
+                           "leaves torch.addcmul(A, B, alpha)",
                 "by_shape": by_shape, "launches_by_tree": launches})}
 
 
@@ -2449,12 +2441,14 @@ class RecordingFedSTIL(FedSTIL):
 
 
 ROUND_KERNELS = ("kl_similarity", "fused_relevance_aggregate",
-                 "batched_pairwise_dist", "adaptive_combine_tree")
+                 "batched_pairwise_dist", "adaptive_combine")
 HOST_KERNELS = ("kl_similarity", "relevance_aggregate",
-                "batched_pairwise_dist", "adaptive_combine_tree")
+                "batched_pairwise_dist", "adaptive_combine")
 # operands the round never writes in place (each step makes new heads), kept
 # by reference so the round's stage times carry no copies
-BY_REFERENCE = ("adaptive_combine_tree",)
+BY_REFERENCE = ("adaptive_combine",)
+# the ``ops`` entry a path reaches a kernel through, where its name differs
+OP_OF = {"adaptive_combine": "adaptive_combine_tree"}
 
 
 @contextlib.contextmanager
@@ -2465,7 +2459,7 @@ def last_operands(names, by_reference=BY_REFERENCE):
     Names in ``by_reference`` keep references, for operands the path never
     writes in place (the IVF image is replaced at refresh, not
     overwritten), so the path's timing carries no copies."""
-    seen, orig = {}, {n: getattr(ops, n) for n in names}
+    seen, orig = {}, {n: getattr(ops, OP_OF.get(n, n)) for n in names}
 
     def keep(name):
         def call(*args, **kw):
@@ -2477,7 +2471,7 @@ def last_operands(names, by_reference=BY_REFERENCE):
             return orig[name](*args, **kw)
         return call
 
-    with patched_ops({n: keep(n) for n in names}):
+    with patched_ops({OP_OF.get(n, n): keep(n) for n in names}):
         yield seen
 
 
@@ -2492,7 +2486,7 @@ def path_work(name, args):
     if name in ("fused_relevance_aggregate", "relevance_aggregate"):
         (r, c), p = args[0].shape, args[1].shape[1]
         return aggregate_work(r, c, p, name == "fused_relevance_aggregate")
-    if name == "adaptive_combine_tree":
+    if name == "adaptive_combine":
         return combine_work(args[0])
     c, p = args[0].shape
     if name == "batched_quantize":
@@ -2514,25 +2508,25 @@ def path_operand_errs(seen):
         "kl_similarity": kl_err,
         "fused_relevance_aggregate": aggregate_err,
         "relevance_aggregate": plain_aggregate_err,
-        "adaptive_combine_tree": combine_tree_err,
+        "adaptive_combine": combine_tree_err,
         "batched_quantize": lambda x: quantize_err(x, 256),
         "batched_dequantize": lambda q, sc: dequantize_err(q, sc, 256)}
     peak = peaks(torch.cuda.get_device_name(0))
     out = {}
     for n in (n for n in checks if n in seen):
         args = seen[n]
-        if n == "adaptive_combine_tree":       # (B, alpha, A) trees -> leaves
+        if n == "adaptive_combine":            # (B, alpha, A) trees -> leaves
             args = tuple([t.detach().contiguous() for t in tree_leaves(tr)]
                          for tr in args)
         kw = {"chunk": 256} if "quantize" in n else {}
         b = bound(*path_work(n, args), peak)
         out[n] = {"shapes": [list(a.shape) for a in args[0]]
-                  if n == "adaptive_combine_tree"
+                  if n == "adaptive_combine"
                   else [list(a.shape) for a in args],
                   "max_abs_err": checks[n](*args),
                   "ms": time_ms(lambda: KERNELS[n]["fn"](*args, **kw)),
                   "bound_ms": b[0], "bound_by": b[1]}
-        if n == "adaptive_combine_tree":
+        if n == "adaptive_combine":
             out[n]["library_ms"] = time_ms(
                 lambda: torch._foreach_addcmul(args[2], args[0], args[1]))
             out[n]["library"] = "torch._foreach_addcmul(As, Bs, alphas)"
@@ -2555,7 +2549,7 @@ def simulate(bench, device, codec=None, init_params=None, engine="stacked",
 
 
 def combine_launches(strat, rounds, n_eval, clients):
-    """adaptive_combine_tree launches a FedSTIL run makes: one for each
+    """adaptive_combine launches a FedSTIL run makes: one for each
     combine (the head is one fp32 group) — the loss's and the tying term's
     heads every step, the head after training every round, the eval heads
     every evaluation — times the clients on the host engine, once for all
@@ -2650,9 +2644,8 @@ def phase_round_fedstil(dev, card):
           "round_fedstil: card and CPU byte accounting differ")
     expect = {"kl_similarity": ROUNDS, "fused_relevance_aggregate": ROUNDS,
               "batched_pairwise_dist": n_eval,
-              "adaptive_combine_tree": combine_launches(strat, ROUNDS,
-                                                        n_eval, 1),
-              "adaptive_combine": 0}
+              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
+                                                   1)}
     check(all(launches[k] == n for k, n in expect.items()),
           f"round_fedstil launches {launches}, expected {expect}")
     check(int(strat.round0[1].shape[1]) == P_ROUND,
@@ -2811,9 +2804,8 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     expect.update({"kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
-                   "adaptive_combine_tree": combine_launches(
-                       strat, ROUNDS, n_eval, 1),
-                   "adaptive_combine": 0})
+                   "adaptive_combine": combine_launches(
+                       strat, ROUNDS, n_eval, 1)})
     totals = {"c2s_wire": res.comm.total_c2s, "s2c_wire": res.comm.total_s2c,
               "c2s_formula": res.comm.total_c2s_formula,
               "s2c_formula": res.comm.total_s2c_formula}
@@ -2892,9 +2884,8 @@ def phase_round_fedstil_host(dev, card, stacked):
     w_err = float(np.abs(strat.round0[0] - strat_s.round0[0]).max())
     expect = {"kl_similarity": ROUNDS, "batched_pairwise_dist": n_eval,
               "relevance_aggregate": strat.aggregated_rounds,
-              "adaptive_combine_tree": combine_launches(strat, ROUNDS, n_eval,
-                                                        N_CLIENTS),
-              "adaptive_combine": 0}
+              "adaptive_combine": combine_launches(strat, ROUNDS, n_eval,
+                                                   N_CLIENTS)}
     stages = sorted({k for st in res.stage_ms for k in st} - {"round"})
     HOST_OUT.parent.mkdir(parents=True, exist_ok=True)
     HOST_OUT.write_text(json.dumps({
@@ -3021,9 +3012,8 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
                    "kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
-                   "adaptive_combine_tree": combine_launches(
-                       strat, ROUNDS, n_eval, 1),
-                   "adaptive_combine": 0})
+                   "adaptive_combine": combine_launches(
+                       strat, ROUNDS, n_eval, 1)})
     keys = ("mAP", "R1", "R5", "forgetting_mAP")
     stages = ("encode_c2s", "encode_s2c")
     INT8_OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -3349,7 +3339,7 @@ def phase_lm_train(dev, card):
           "launches_per_step": per_step,
           "tensor_core_launches_per_step": tc_step,
           "launches": {n: launches[n] for n in FLASH_STAGES
-                       + ("adaptive_combine_tree", "adaptive_combine")},
+                       + ("adaptive_combine",)},
           "kernel_vs_plain_on_path": on_path, "plain_attention_step": swap,
           "profile": profile_row,
           "phase_s": time.perf_counter() - t_phase})
@@ -3359,14 +3349,12 @@ def phase_lm_train(dev, card):
     check(all(p == expect_step for p in tc_step),
           f"lm_train tensor-core launches a step {tc_step}, expected "
           f"{expect_step}")
-    # one combine a step, one launch per dtype group of the adaptive tree
-    groups = len(ACM._plan([(t.dtype, t.numel(), (0, 0, 0, 0))
-                            for t in tree_leaves(st.B)]))
-    check(launches["adaptive_combine_tree"] == groups * LM_STEPS
-          and launches["adaptive_combine"] == 0,
-          f"lm_train: {launches['adaptive_combine_tree']} tree and "
-          f"{launches['adaptive_combine']} one-leaf combine launches, "
-          f"expected {groups} tree launches a step and no one-leaf one")
+    # one combine a step, one launch per dtype of the adaptive tree (each
+    # group is under MAX_LEAVES)
+    groups = len({t.dtype for t in tree_leaves(st.B)})
+    check(launches["adaptive_combine"] == groups * LM_STEPS,
+          f"lm_train: {launches['adaptive_combine']} combine launches, "
+          f"expected {groups} a step (one per dtype)")
     check(swap["abs_loss_delta"] <= LM_SWAP_LOSS_TOL
           and swap["grad_rel_l2_worst_leaf"] <= LM_SWAP_GRAD_TOL,
           f"lm_train: kernels vs plain attention {swap}")

@@ -6,8 +6,8 @@
     theta = B * alpha + A          (elementwise, any shape, fp32 or bf16)
 
 ``adaptive_combine_tree`` combines every leaf of a tree in one launch per
-dtype group (``_plan`` lays the launches out); ``adaptive_combine`` is the
-one-leaf table of the same kernel. The product and the sum round
+dtype group (``_plan`` lays the launches out); ``adaptive_combine`` is a
+tree of one leaf. The product and the sum round
 separately (in bf16: each computed in fp32 and rounded to bf16, as eager
 PyTorch does), as in the plain version: the kernel is bit-identical to it.
 Take CUDA tensors only; ``ops.adaptive_combine_tree`` and
@@ -23,18 +23,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p)
-_TREE_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-              ctypes.c_void_p)
-_SYMBOLS = {torch.float32: "repro_adaptive_combine",
-            torch.bfloat16: "repro_adaptive_combine_bf16"}
+_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         ctypes.c_void_p)
 # the .cu's constants: leaves a launch (its table stays under 4 KB), threads
 # a block, 16-byte vectors of each operand a thread
 MAX_LEAVES = 64
 THREADS, UNROLL = 256, 4
 SPAN = {dt: THREADS * UNROLL * (16 // dt.itemsize)   # values a block covers
-        for dt in _SYMBOLS}
+        for dt in (torch.float32, torch.bfloat16)}
 
 
 class Launch(NamedTuple):
@@ -124,7 +120,7 @@ def adaptive_combine_tree(bases, alphas, as_) -> List[torch.Tensor]:
     if not plan:
         return outs
     fn = _build.kernel("adaptive_combine", "repro_adaptive_combine_tree",
-                       _TREE_ARGS)
+                       _ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for launch in plan:
@@ -146,30 +142,11 @@ adaptive_combine_tree.launches = 0
 
 def adaptive_combine(base, alpha, a):
     """Three fp32 (or three bf16) tensors of one shape -> base * alpha + a
-    in their dtype: the one-leaf table of the tree kernel."""
-    shape = tuple(base.shape)
-    dev = base.device
-    dtype = base.dtype
-    if dtype not in _SYMBOLS:
-        raise TypeError(f"adaptive_combine: dtype {dtype}, the kernel takes "
-                        "float32 or bfloat16")
-    for name, t in (("base", base), ("alpha", alpha), ("a", a)):
-        _build.check_operand(name, t, dtype, shape, dev)
-    n = base.numel()
-    if n >= 1 << 31:
-        raise ValueError(f"adaptive_combine: {n} elements, the kernel "
-                         "indexes fewer than 2^31")
-    out = torch.empty(shape, dtype=dtype, device=dev)
-    if n == 0:
-        return out
-    vec = int(all(t.data_ptr() % 16 == 0 for t in (base, alpha, a, out)))
-    fn = _build.kernel("adaptive_combine", _SYMBOLS[dtype], _ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(base.data_ptr(), alpha.data_ptr(), a.data_ptr(),
-                out.data_ptr(), n, vec, stream)
-    _build.raise_on_error("adaptive_combine", rc)
-    adaptive_combine.launches += 1
+    in their dtype: ``adaptive_combine_tree`` over this one leaf, its
+    launch counted in both counts."""
+    before = adaptive_combine_tree.launches
+    (out,) = adaptive_combine_tree([base], [alpha], [a])
+    adaptive_combine.launches += adaptive_combine_tree.launches - before
     return out
 
 

@@ -159,40 +159,7 @@ int launch(const Table& t, long long blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int one_leaf(const void* b, const void* alpha, const void* a, void* out,
-             long long n, int vec, void* stream) {
-  if (n == 0) return 0;
-  if (n < 0 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  Table t = {};
-  t.b[0] = b;
-  t.al[0] = alpha;
-  t.a[0] = a;
-  t.out[0] = out;
-  t.n[0] = (unsigned)n;
-  t.vec[0] = vec != 0;
-  t.count = 1;
-  return launch<T>(t, (n + span<T>() - 1) / span<T>(), (cudaStream_t)stream);
-}
-
 }  // namespace
-
-// b, alpha, a, out: n fp32 each, contiguous on the current device, n < 2^31;
-// vec = all four bases 16-byte aligned. The one-leaf table of the tree
-// kernel. Returns cudaGetLastError().
-extern "C" int repro_adaptive_combine(const void* b, const void* alpha,
-                                      const void* a, void* out, long long n,
-                                      int vec, void* stream) {
-  return one_leaf<float>(b, alpha, a, out, n, vec, stream);
-}
-
-// The same over bf16 b, alpha, a, out (8 values a 16-byte vector).
-extern "C" int repro_adaptive_combine_bf16(const void* b, const void* alpha,
-                                           const void* a, void* out,
-                                           long long n, int vec,
-                                           void* stream) {
-  return one_leaf<__nv_bfloat16>(b, alpha, a, out, n, vec, stream);
-}
 
 // Every leaf of one dtype group in one launch. desc: count rows of seven
 // int64 (b, alpha, a, out, n, first block, vec), count <= kMaxLeaves, as

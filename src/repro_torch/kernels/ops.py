@@ -8,9 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels.adaptive_combine import adaptive_combine as _combine
 from repro_torch.kernels.adaptive_combine import \
     adaptive_combine_tree as _combine_tree
 from repro_torch.kernels.int8_dist import \
@@ -80,35 +80,6 @@ def batched_dequantize(q, scales, *, chunk: int = 256):
     return REF.batched_dequantize_ref(q, scales, chunk=chunk)
 
 
-class AdaptiveCombine(torch.autograd.Function):
-    """theta = B * alpha + A whose forward goes through the device dispatch
-    (the CUDA kernel for CUDA tensors, the plain version for CPU ones) and
-    whose backward forms the products autograd forms for the plain
-    expression: d alpha = g * B, d A = g, d B = g * alpha. The reference
-    has no backward kernel, so the backward is plain torch."""
-
-    @staticmethod
-    def forward(ctx, base, alpha, a):
-        ctx.save_for_backward(base, alpha)
-        if _on_cuda(base, alpha, a):
-            return _combine(base.contiguous(), alpha.contiguous(),
-                            a.contiguous())
-        return REF.adaptive_combine_ref(base, alpha, a)
-
-    @staticmethod
-    def backward(ctx, g):
-        base, alpha = ctx.saved_tensors
-        need_b, need_alpha, need_a = ctx.needs_input_grad
-        return (g * alpha if need_b else None,
-                g * base if need_alpha else None,
-                g if need_a else None)
-
-
-def adaptive_combine(base, alpha, a):
-    """FedSTIL Eq. 2 over one leaf: base * alpha + a, differentiable."""
-    return AdaptiveCombine.apply(base, alpha, a)
-
-
 def _products(gs, others, need):
     """[g * other] where ``need``, else None: one ``_foreach_mul`` over
     the leaves that need it (each product rounded once, as ``g * other``)."""
@@ -152,37 +123,24 @@ class AdaptiveCombineTree(torch.autograd.Function):
         return (None, *d_b, *d_alpha, *d_a)
 
 
-def _collect(B, alpha, A, out):
-    """Append (B, alpha, A) leaf triples to ``out`` in ``B``'s key order: a
-    plain recursion, as ``_rebuild``, since every combine pays for it on
-    the host and ``tree_map``'s generator at each node costs several times
-    as much."""
-    if isinstance(B, dict):
-        for k in B:
-            _collect(B[k], alpha[k], A[k], out)
-    else:
-        out.append((B, alpha, A))
-
-
-def _rebuild(B, leaves):
-    """A tree shaped as ``B`` whose leaves come from the iterator ``leaves``
-    in ``_collect``'s order."""
-    if isinstance(B, dict):
-        return {k: _rebuild(v, leaves) for k, v in B.items()}
-    return next(leaves)
-
-
 def adaptive_combine_tree(B, alpha, A):
     """FedSTIL Eq. 2 over every leaf of three trees of one structure
     (nested dicts, or single tensors): differentiable, the output shaped
     as ``B`` (its keys in ``B``'s order)."""
     triples = []
-    _collect(B, alpha, A, triples)
+    tree_map(lambda *leaf: triples.append(leaf), B, alpha, A)
     if not triples:
-        return _rebuild(B, iter(()))
+        return tree_map(lambda _: None, B)
     bases, alphas, as_ = zip(*triples)
-    return _rebuild(B, iter(AdaptiveCombineTree.apply(
-        len(bases), *bases, *alphas, *as_)))
+    outs = iter(AdaptiveCombineTree.apply(len(bases), *bases, *alphas,
+                                          *as_))
+    return tree_map(lambda _: next(outs), B)
+
+
+def adaptive_combine(base, alpha, a):
+    """FedSTIL Eq. 2 over one leaf: base * alpha + a, differentiable (the
+    tree entry over a single tensor)."""
+    return adaptive_combine_tree(base, alpha, a)
 
 
 def relevance_aggregate(w, thetas):

@@ -3,8 +3,9 @@
 which ``core.adaptive.combine`` goes through) on the CPU.
 
 The tree equals the one-leaf ``ops.adaptive_combine`` applied leaf by leaf
-bit for bit, in values and in autograd gradients (its backward forms each
-kind of product in one ``_foreach_mul``), on the round's ReID head stacked
+and autograd of the plain ``b * al + a`` leaf by leaf, bit for bit, in
+values and in gradients (its backward forms each kind of product in one
+``_foreach_mul``), on the round's ReID head stacked
 at C = 5 and as a stack of one, a reduced dense LM's nested adaptive tree
 in bf16, a mixed fp32 / bf16 tree and a tree with an empty leaf. Against
 the JAX package: bit for bit its eager ``core.adaptive.combine`` (two
@@ -31,6 +32,7 @@ from repro_torch.common.pytree import (leaf_paths, tree_leaves, tree_map,
 from repro_torch.core import edge_model as EM
 from repro_torch.core.adaptive import combine, split_params
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as REF
 from repro_torch.kernels.adaptive_combine import (MAX_LEAVES, SPAN, Launch,
                                                   _plan,
                                                   adaptive_combine_tree)
@@ -92,8 +94,8 @@ def _assert_trees_bitwise(got, want):
 @pytest.mark.parametrize("name", list(TREES))
 def test_tree_equals_per_leaf_combine_with_gradients(name, b_grad):
     """Values and the gradients of B (where it needs one), alpha and A equal
-    the one-leaf Function's, leaf by leaf, bit for bit; the structure and
-    key order are B's."""
+    the one-leaf entry's and autograd's of the plain ``b * al + a``, leaf by
+    leaf, bit for bit; the structure and key order are B's."""
     B0 = TREES[name]()
     rng = np.random.default_rng(11)
     al0, A0, W = _like(B0, rng), _like(B0, rng), _like(B0, rng)
@@ -103,19 +105,23 @@ def test_tree_equals_per_leaf_combine_with_gradients(name, b_grad):
                 tree_map(lambda t: t.clone().requires_grad_(True), al0),
                 tree_map(lambda t: t.clone().requires_grad_(True), A0))
 
-    tree_in, leaf_in = leaves(b_grad), leaves(b_grad)
+    tree_in, leaf_in, plain_in = leaves(b_grad), leaves(b_grad), \
+        leaves(b_grad)
     got = ops.adaptive_combine_tree(*tree_in)
-    want = tree_map(ops.adaptive_combine, *leaf_in)
-    _assert_trees_bitwise(got, want)
+    runs = ((tree_map(ops.adaptive_combine, *leaf_in), leaf_in),
+            (tree_map(REF.adaptive_combine_ref, *plain_in), plain_in))
+    for want, _ in runs:
+        _assert_trees_bitwise(got, want)
     assert list(got) == list(B0)
-    for out, ins in ((got, tree_in), (want, leaf_in)):
+    for out, ins in ((got, tree_in),) + runs:
         sum(torch.sum(o.float() * w.float()) for o, w in
             zip(tree_leaves(out), tree_leaves(W))).backward()
-    for t_tree, l_tree in zip(tree_in, leaf_in):
-        for t, l in zip(tree_leaves(t_tree), tree_leaves(l_tree)):
-            assert (t.grad is None) == (l.grad is None)
-            if t.grad is not None:
-                assert torch.equal(_bits(t.grad), _bits(l.grad))
+    for _, ref_in in runs:
+        for t_tree, l_tree in zip(tree_in, ref_in):
+            for t, l in zip(tree_leaves(t_tree), tree_leaves(l_tree)):
+                assert (t.grad is None) == (l.grad is None)
+                if t.grad is not None:
+                    assert torch.equal(_bits(t.grad), _bits(l.grad))
     assert (tree_leaves(tree_in[0])[0].grad is not None) == b_grad
 
 
