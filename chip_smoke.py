@@ -26,9 +26,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  shortlist scores within 1e-5 (shortlist ids equal, ragged
                  shapes with an empty bucket and an all-invalid client);
                  the codec's grouped top-k pack / unpack and index bit-pack
-                 / unpack equal to theirs (values under ==, indices and
-                 bytes bit for bit) at the round's, the fleet's and ragged
-                 shapes, with ties, zeros and an all-zero row; dequantize
+                 / unpack, and the path's encode (pack + bit-pack) and
+                 decode (bit-unpack + unpack) launches, equal to theirs
+                 (values under ==, NaN where theirs is, indices and bytes
+                 bit for bit) at the round's, the fleet's and ragged
+                 shapes, with ties, zeros, an all-zero row, NaN and
+                 infinities, the decode on malformed planes bit for bit
+                 against the one-stage bit-unpack and unpack (encode and
+                 decode timed at the round's and the fleet's shapes beside
+                 the two launches each replaces); dequantize
                  and the adaptive combine bit-identical, the host server's
                  plain aggregate within 2e-5, the 2-D distances within
                  1e-5 (the codec's K with its tail chunk, misaligned bases,
@@ -133,9 +139,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  ``comm_breakdown()`` totals
                  wire against formula, the measured reduction and the mAP
                  difference against round_fedstil (reported, not gated),
-                 the four codec kernels' launches (counts zeroed just
-                 before the card run; checked against the count the run's
-                 own comm rows give), each codec kernel against its plain
+                 the codec's encode and decode launches, once each a
+                 residual payload (118; counts zeroed just before the card
+                 run; checked against the count the run's own comm rows
+                 give), none of the four one-stage codec kernels, encode
+                 and decode each against its plain
                  version on its last on-path operands and timed there
                  beside its bound (so does round_fedstil_codec_int8, with
                  quantize and dequantize), and the
@@ -161,8 +169,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
      round_fedstil_codec_int8: round_fedstil's protocol with ``topk+int8``
                  on the stacked engine on the card: wire bytes at the
                  prediction from the shapes, batched_quantize and
-                 batched_dequantize once a payload (120), the four codec
-                 kernels once a residual payload (118), each kernel against
+                 batched_dequantize once a payload (120), encode and decode
+                 once a residual payload (118), none of the four one-stage
+                 codec kernels, each kernel against
                  its plain version on its last on-path operands, the coded
                  minus the uncoded final mAP; then 30 rounds of the same on
                  the card and on the CPU: equal wire bytes, final mAP / R1
@@ -173,9 +182,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
  10. wire_round_scale  ``BatchedCodec.roundtrip`` of a (C, 57664) payload
                  under ``delta+topk`` and ``topk+int8`` at C=100 and C=1000
-                 past the keyframe: device ms of each codec kernel and of
-                 the whole roundtrip, wire bytes a client against the dense
-                 230656
+                 past the keyframe: device ms of encode, decode, the four
+                 one-stage kernels and the whole roundtrip, the
+                 roundtrip's peak memory, wire bytes a client against the
+                 dense 230656
  11. lm_train    the FedSTIL split step of ``launch/train.py``
                  (``make_train_step``, tie_lambda 1e-4, Adam with the cosine
                  schedule) on qwen3-1.7b at full width (28 layers, d 2048,
@@ -257,8 +267,11 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 from repro_torch.kernels import relevance_aggregate as RA  # noqa: E402
 from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
     fused_relevance_aggregate, relevance_aggregate)
+from repro_torch.kernels import topk_pack as TP  # noqa: E402
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_idx_bitunpack,
+                                           batched_topk_decode,
+                                           batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
@@ -459,24 +472,36 @@ KERNELS = {
         "fn": batched_ivf_shortlist_scores, "paths": ("serve_ivf",),
         "source": "src/repro_torch/kernels/csrc/ivf_shortlist.cu",
         "replaces": "src/repro/kernels/ivf.py:126"},
-    "batched_topk_pack": {
-        "fn": batched_topk_pack,
+    # the codec's path runs two launches a sparse payload: encode (pack +
+    # bit-pack, topk_pack.py:78 and :128) and decode (bit-unpack + unpack,
+    # :161 and :207); the four one-stage kernels stay as the counterparts
+    # of the reference's four functions, with no main-path caller
+    "batched_topk_encode": {
+        "fn": batched_topk_encode,
         "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:78",
+        "also_replaces": ["src/repro/kernels/topk_pack.py:128"]},
+    "batched_topk_decode": {
+        "fn": batched_topk_decode,
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/topk_pack.py:207",
+        "also_replaces": ["src/repro/kernels/topk_pack.py:161"]},
+    "batched_topk_pack": {
+        "fn": batched_topk_pack, "paths": (),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:78"},
     "batched_topk_unpack": {
-        "fn": batched_topk_unpack,
-        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "fn": batched_topk_unpack, "paths": (),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:207"},
     "batched_idx_bitpack": {
-        "fn": batched_idx_bitpack,
-        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "fn": batched_idx_bitpack, "paths": (),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:128"},
     "batched_idx_bitunpack": {
-        "fn": batched_idx_bitunpack,
-        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "fn": batched_idx_bitunpack, "paths": (),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:161"},
     # every bf16 stage runs on a tensor-core kernel (counted in
@@ -503,8 +528,11 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
 }
-CODEC_KERNELS = ("batched_topk_pack", "batched_topk_unpack",
-                 "batched_idx_bitpack", "batched_idx_bitunpack")
+# the codec path's kernels, and the one-stage kernels they fold, which the
+# path must no longer launch
+CODEC_KERNELS = ("batched_topk_encode", "batched_topk_decode")
+ONE_STAGE_CODEC = ("batched_topk_pack", "batched_topk_unpack",
+                   "batched_idx_bitpack", "batched_idx_bitunpack")
 
 
 def zero_counts() -> None:
@@ -1256,11 +1284,43 @@ def codec_rows(gen, dev, c, p, aligned=True):
     return out
 
 
+def exact(a, b) -> bool:
+    """Equal shapes and values under == (+0.0 == -0.0), NaN exactly where
+    the other has NaN: the codec's outputs against their plain versions."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.isclose(a, b, rtol=0.0, atol=0.0, equal_nan=True).all())
+
+
+def exact_err(a, b) -> float:
+    """The largest |a - b| where the two are not ``exact`` alike (0.0 when
+    they agree everywhere)."""
+    if a.numel() == 0:
+        return 0.0
+    same = torch.isclose(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+    d = (a.double() - b.double()).abs()
+    return float(torch.where(same, torch.zeros_like(d), d).max())
+
+
+def nonfinite_rows(gen, dev, c, p):
+    """``codec_rows`` with 3% of the entries NaN, +inf or -inf: groups
+    that hold one spread x * 0 = NaN across their slots (the encode's full
+    one-hot path), the rest take its finite shortcut."""
+    x = codec_rows(gen, dev, c, p)
+    hit = torch.rand((c, p), generator=gen, device=dev) < 0.03
+    pick = torch.randint(0, 3, (c, p), generator=gen, device=dev)
+    bad = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                       device=dev)[pick]
+    return torch.where(hit, bad, x)
+
+
 def topk_errs(x, kg):
-    """All four codec kernels on ``x`` against their plain versions: values
-    equal under ==, indices and packed bytes bit-identical. Returns the
-    largest absolute difference seen (0 when they agree)."""
+    """The six codec kernels on ``x`` against their plain versions: values
+    equal under == with NaN where the plain version has NaN, indices and
+    packed bytes bit-identical; the encode against pack then bit-pack, the
+    decode against bit-unpack then unpack. Returns each kernel's largest
+    absolute difference (0 when they agree)."""
     C, P = x.shape
+    finite = bool(torch.isfinite(x).all())
     vk, ik = batched_topk_pack(x, group=GROUP, kg=kg)
     vr, ir = REF.batched_topk_pack_ref(x, group=GROUP, kg=kg)
     K = ik.shape[1]
@@ -1269,21 +1329,85 @@ def topk_errs(x, kg):
     pk = batched_idx_bitpack(ir, group=GROUP, kg=kg)
     pr = REF.batched_idx_bitpack_ref(ir, group=GROUP, kg=kg)
     bk = batched_idx_bitunpack(pr, k=K, group=GROUP, kg=kg)
+    br = REF.batched_idx_bitunpack_ref(pr, k=K, group=GROUP, kg=kg)
+    ve, pe = batched_topk_encode(x, group=GROUP, kg=kg)
+    de = batched_topk_decode(vr, pr, k=K, p=P, group=GROUP, kg=kg)
+    der = REF.batched_topk_decode_ref(vr, pr, k=K, p=P, group=GROUP, kg=kg)
     torch.cuda.synchronize()
-    shape = f"C={C} P={P} kg={kg}"
-    check(torch.equal(vk, vr) and torch.equal(ik, ir),
+    shape = f"C={C} P={P} kg={kg}{'' if finite else ' non-finite'}"
+    check(exact(vk, vr) and torch.equal(ik, ir),
           f"batched_topk_pack {shape}: differs from the plain version")
-    check(torch.equal(dk, dr),
+    check(exact(dk, dr),
           f"batched_topk_unpack {shape}: differs from the plain version")
     check(torch.equal(pk, pr),
           f"batched_idx_bitpack {shape}: differs from the plain version")
-    check(torch.equal(bk, ir),
+    check(torch.equal(bk, br) and (not finite or torch.equal(bk, ir)),
           f"batched_idx_bitunpack {shape}: does not give back the indices")
-    return {"batched_topk_pack": max(float((vk - vr).abs().max()),
+    check(exact(ve, vr) and torch.equal(pe, pr),
+          f"batched_topk_encode {shape}: differs from pack + bit-pack")
+    check(exact(de, der),
+          f"batched_topk_decode {shape}: differs from bit-unpack + unpack")
+    return {"batched_topk_pack": max(exact_err(vk, vr),
                                      float((ik - ir).abs().max())),
-            "batched_topk_unpack": float((dk - dr).abs().max()),
+            "batched_topk_unpack": exact_err(dk, dr),
             "batched_idx_bitpack": float((pk.int() - pr.int()).abs().max()),
-            "batched_idx_bitunpack": float((bk - ir).abs().max())}
+            "batched_idx_bitunpack": float((bk - br).abs().max()),
+            "batched_topk_encode": max(exact_err(ve, vr),
+                                       float((pe.int() - pr.int())
+                                             .abs().max())),
+            "batched_topk_decode": exact_err(de, der)}
+
+
+def codec_variant_errs(x, kg, group=GROUP):
+    """Encode and decode under every per-thread variant (``TP._plan``'s
+    ``per`` forced; launches not counted) against their plain versions on
+    ``x``: the variant the plan would not pick at this shape held too."""
+    C, P = x.shape
+    vr, pr = REF.batched_topk_encode_ref(x, group=group, kg=kg)
+    dr = REF.batched_topk_decode_ref(vr, pr, k=vr.shape[1], p=P, group=group,
+                                     kg=kg)
+    errs = {"batched_topk_encode": 0.0, "batched_topk_decode": 0.0}
+    for per in TP.PER_THREAD:
+        plan = TP._plan(C, P, group, kg, aligned(x), per=per)
+        v, pk = torch.empty_like(vr), torch.empty_like(pr)
+        d = torch.empty((C, P), device=x.device)
+        TP._encode(x, v, pk, group, kg, plan)
+        TP._decode(vr, pr, d, group, kg, plan)
+        torch.cuda.synchronize()
+        shape = f"C={C} P={P} G={group} kg={kg} per={per}"
+        check(exact(v, vr) and torch.equal(pk, pr),
+              f"batched_topk_encode {shape}: differs from pack + bit-pack")
+        check(exact(d, dr),
+              f"batched_topk_decode {shape}: differs from bit-unpack + unpack")
+        errs["batched_topk_encode"] = max(errs["batched_topk_encode"],
+                                          exact_err(v, vr))
+        errs["batched_topk_decode"] = max(errs["batched_topk_decode"],
+                                          exact_err(d, dr))
+    return errs
+
+
+def malformed_decode(gen, dev, c, p, kg):
+    """The decode on bit-planes of random bytes (local indices that repeat
+    in a group, and past G where G is not a power of two; not at G = 8)
+    against the one-stage bit-unpack and unpack kernels, bit for bit: a
+    repeated index sums up to kg values in slot order, an order the plain
+    version's reduction does not promise, so its difference is reported,
+    not held. Returns that difference."""
+    K = -(-p // GROUP) * kg
+    bits = (GROUP - 1).bit_length()
+    vals = torch.randn((c, K), generator=gen, device=dev)
+    planes = torch.randint(0, 256, (c, bits * -(-K // 8)), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    got = batched_topk_decode(vals, planes, k=K, p=p, group=GROUP, kg=kg)
+    two = batched_topk_unpack(vals, batched_idx_bitunpack(
+        planes, k=K, group=GROUP, kg=kg), p=p, group=GROUP, kg=kg)
+    plain = REF.batched_topk_decode_ref(vals, planes, k=K, p=p, group=GROUP,
+                                        kg=kg)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), two.view(torch.int32)),
+          f"batched_topk_decode C={c} P={p} kg={kg} malformed planes: "
+          "differs from bit-unpack + unpack")
+    return float((got - plain).abs().max())
 
 
 def codec_work(name, c, p, group, kg):
@@ -1291,29 +1415,85 @@ def codec_work(name, c, p, group, kg):
     dense rows, kept values and int32 indices at 4 bytes each, the packed
     indices at their bits. Operations: the group x group compare and the kg
     one-hot sums of a group; a few shifts and masks a slot; all far below
-    the bytes bound."""
+    the bytes bound. Encode and decode move no int32 index."""
     nb = p // group
     k = nb * kg
     kb = (k + 7) // 8
     bits = (group - 1).bit_length()
     vec, ind, out, pk = 4.0 * c * k, 4.0 * c * k, 4.0 * c * p, c * bits * kb
     n_groups = c * nb
-    return {"batched_topk_pack": (4.0 * c * p + vec + ind,
-                                  n_groups * (group * group
-                                              + 2 * group * kg)),
-            "batched_topk_unpack": (vec + ind + out,
-                                    n_groups * 2 * group * kg),
-            "batched_idx_bitpack": (ind + pk, c * kb * 8 * (2 + 3 * bits)),
-            "batched_idx_bitunpack": (pk + ind, c * k * (2 + 3 * bits)),
+    pack = (4.0 * c * p + vec + ind, n_groups * (group * group
+                                                 + 2 * group * kg))
+    unpack = (vec + ind + out, n_groups * 2 * group * kg)
+    bitpack = (ind + pk, c * kb * 8 * (2 + 3 * bits))
+    bitunpack = (pk + ind, c * k * (2 + 3 * bits))
+    return {"batched_topk_pack": pack, "batched_topk_unpack": unpack,
+            "batched_idx_bitpack": bitpack,
+            "batched_idx_bitunpack": bitunpack,
+            "batched_topk_encode": (4.0 * c * p + vec + pk,
+                                    pack[1] + bitpack[1]),
+            "batched_topk_decode": (vec + pk + out,
+                                    unpack[1] + bitunpack[1]),
             }[name]
 
 
+def codec_timings(x, peak):
+    """At one (C, P) of rows ``x``: encode and decode beside their bounds,
+    the four one-stage kernels, each pair as the two launches it replaces
+    (timed together) and as the sum of its two times."""
+    C, P = x.shape
+    K = -(-P // GROUP) * KG
+    vals, idx = batched_topk_pack(x, group=GROUP, kg=KG)
+    packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
+    one = {
+        "batched_topk_pack": lambda: batched_topk_pack(x, group=GROUP,
+                                                       kg=KG),
+        "batched_idx_bitpack": lambda: batched_idx_bitpack(idx, group=GROUP,
+                                                           kg=KG),
+        "batched_idx_bitunpack": lambda: batched_idx_bitunpack(
+            packed, k=K, group=GROUP, kg=KG),
+        "batched_topk_unpack": lambda: batched_topk_unpack(
+            vals, idx, p=P, group=GROUP, kg=KG)}
+    out = {"shape": [C, P, GROUP, KG]}
+    for name, fn in one.items():
+        out[name] = {"ms": time_ms(fn),
+                     "bound_ms": bound(*codec_work(name, C, P, GROUP, KG),
+                                       peak)[0]}
+    pairs = {
+        "batched_topk_encode": (
+            lambda: batched_topk_encode(x, group=GROUP, kg=KG),
+            lambda: batched_idx_bitpack(batched_topk_pack(
+                x, group=GROUP, kg=KG)[1], group=GROUP, kg=KG),
+            ("batched_topk_pack", "batched_idx_bitpack")),
+        "batched_topk_decode": (
+            lambda: batched_topk_decode(vals, packed, k=K, p=P, group=GROUP,
+                                        kg=KG),
+            lambda: batched_topk_unpack(vals, batched_idx_bitunpack(
+                packed, k=K, group=GROUP, kg=KG), p=P, group=GROUP, kg=KG),
+            ("batched_idx_bitunpack", "batched_topk_unpack"))}
+    for name, (fn, two, parts) in pairs.items():
+        bd = bound(*codec_work(name, C, P, GROUP, KG), peak)
+        ms = time_ms(fn)
+        out[name] = {"ms": ms, "bound_ms": bd[0], "bound_share": bd[0] / ms,
+                     "per_thread": TP._plan(C, P, GROUP, KG,
+                                            aligned(x)).per,
+                     "two_launches_ms": time_ms(two),
+                     "sum_of_two_ms": sum(out[n]["ms"] for n in parts),
+                     "replaces": list(parts)}
+    return out
+
+
 def topk_kernel_rows(gen, dev, peak):
-    """The codec's four kernels held against their plain versions at the
+    """The codec's six kernels held against their plain versions at the
     round's shape (C=5, P=37696), the fleet shape (C=1000, P=57664) and
     ragged P with kg 1, 3 and 8 (the tail group selects pad slots at kg 8),
-    on rows with ties, zeros and an all-zero row; timed at the fleet shape."""
-    errs = dict.fromkeys(CODEC_KERNELS, 0.0)
+    on rows with ties, zeros and an all-zero row, and on rows holding NaN
+    and infinities (there encode and decode under both per-thread
+    variants, at an aligned and a misaligned base, and at groups 2, 6 and
+    16); the decode on malformed planes against the one-stage kernels. Timed at the fleet shape; encode and decode at the round's
+    shape too, beside the one-stage kernels they replace."""
+    names = CODEC_KERNELS + ONE_STAGE_CODEC
+    errs = dict.fromkeys(names, 0.0)
 
     def fold(e):
         for n, v in e.items():
@@ -1324,15 +1504,43 @@ def topk_kernel_rows(gen, dev, peak):
                    KG))
     for p in (999, 8 * 2048 + 5):
         for kg in (1, 3, 8):
-            fold(topk_errs(codec_rows(gen, dev, 3, p), kg))
+            for x in (codec_rows(gen, dev, 3, p),
+                      nonfinite_rows(gen, dev, 3, p)):
+                fold(topk_errs(x, kg))
+                fold(codec_variant_errs(x, kg))
+                fold(codec_variant_errs(offset_copy(x), kg))
+    fold(topk_errs(nonfinite_rows(gen, dev, N_CLIENTS, P_ROUND), KG))
+    for group in (2, 6, 16):         # other group sizes: 1, 3 and 4 planes
+        for kg in sorted({1, min(3, group), group}):
+            x = nonfinite_rows(gen, dev, 3, 40 * group + 3)
+            fold(codec_variant_errs(x, kg, group))
+            fold(codec_variant_errs(codec_rows(gen, dev, 3, 600 * group),
+                                    kg, group))
+    malformed = {f"{c}x{p} kg {kg}": malformed_decode(gen, dev, c, p, kg)
+                 for c, p, kg in ((3, 999, 3), (3, 999, 8),
+                                  (N_CLIENTS, P_ROUND, KG))}
     C, P = SCALE_CLIENTS[-1], P_EDGE
     x = codec_rows(gen, dev, C, P)
     fold(topk_errs(x, KG))
+    for c, p in ((N_CLIENTS, P_ROUND), (C, P)):
+        check(TP._plan(c, p, GROUP, KG, True).vec,
+              f"codec ({c}, {p}): encode / decode not on 16-byte accesses")
+    by_shape = [codec_timings(codec_rows(gen, dev, N_CLIENTS, P_ROUND),
+                              peak), codec_timings(x, peak)]
     nb = P // GROUP
     K = nb * KG
     vals, idx = batched_topk_pack(x, group=GROUP, kg=KG)
     packed = batched_idx_bitpack(idx, group=GROUP, kg=KG)
     specs = {
+        "batched_topk_encode": (
+            lambda: batched_topk_encode(x, group=GROUP, kg=KG),
+            lambda: REF.batched_topk_encode_ref(x, group=GROUP, kg=KG),
+            None),
+        "batched_topk_decode": (
+            lambda: batched_topk_decode(vals, packed, k=K, p=P, group=GROUP,
+                                        kg=KG),
+            lambda: REF.batched_topk_decode_ref(vals, packed, k=K, p=P,
+                                                group=GROUP, kg=KG), None),
         "batched_topk_pack": (
             lambda: batched_topk_pack(x, group=GROUP, kg=KG),
             lambda: REF.batched_topk_pack_ref(x, group=GROUP, kg=KG),
@@ -1353,15 +1561,17 @@ def topk_kernel_rows(gen, dev, peak):
     rows = {}
     for name, (kernel, plain, library) in specs.items():
         nbytes, ops_ = codec_work(name, C, P, GROUP, KG)
+        detail = {"bound_bytes": nbytes, "library": (
+            "torch.topk of |x| over groups: nearest call, indices only, no "
+            "tie promise, no value gather") if library else "none"}
+        if name in CODEC_KERNELS:
+            detail.update(by_shape=by_shape, malformed_planes_vs_plain=(
+                malformed if name == "batched_topk_decode" else None))
         rows[name] = dict(
             max_abs_err=errs[name], bound=bound(nbytes, ops_, peak),
             ms=time_ms(kernel), plain_ms=time_ms(plain),
             library_ms=time_ms(library) if library else None,
-            shape=[C, P, GROUP, KG],
-            detail={"bound_bytes": nbytes, "library": (
-                "torch.topk of |x| over groups: nearest call, indices "
-                "only, no tie promise, no value gather") if library
-                else "none"})
+            shape=[C, P, GROUP, KG], detail=detail)
     return rows
 
 
@@ -2717,51 +2927,66 @@ def phase_round_profile(dev, card, n_rounds=6):
 
 
 def codec_path_errs(seen, prog):
-    """The codec's four kernels against their plain versions on the
+    """The codec's encode and decode against their plain versions on the
     operands of their last call in the card run (the last round's S2C
     roundtrip), with the program's budget, and timed there beside their
-    bounds: the path shapes rule 2's launches x (ms - bound) reads."""
+    bounds and beside the two one-stage launches each replaces: the path
+    shapes rule 2's launches x (ms - bound) reads."""
     g, kg = prog.group, prog.kg
-    (x,), (vals, idx), (ix,), (packed,) = (
-        seen[n] for n in CODEC_KERNELS)
+    (x,), (vals, packed) = (seen[n] for n in CODEC_KERNELS)
+    idx = REF.batched_idx_bitunpack_ref(packed, k=prog.k, group=g, kg=kg)
     calls = {
-        "batched_topk_pack": lambda: batched_topk_pack(x, group=g, kg=kg),
-        "batched_topk_unpack": lambda: batched_topk_unpack(
-            vals, idx, p=prog.p, group=g, kg=kg),
-        "batched_idx_bitpack": lambda: batched_idx_bitpack(ix, group=g,
-                                                           kg=kg),
-        "batched_idx_bitunpack": lambda: batched_idx_bitunpack(
-            packed, k=prog.k, group=g, kg=kg)}
+        "batched_topk_encode": (
+            lambda: batched_topk_encode(x, group=g, kg=kg),
+            lambda: batched_idx_bitpack(batched_topk_pack(
+                x, group=g, kg=kg)[1], group=g, kg=kg)),
+        "batched_topk_decode": (
+            lambda: batched_topk_decode(vals, packed, k=prog.k, p=prog.p,
+                                        group=g, kg=kg),
+            lambda: batched_topk_unpack(vals, batched_idx_bitunpack(
+                packed, k=prog.k, group=g, kg=kg), p=prog.p, group=g,
+                kg=kg))}
+    one = {"batched_topk_pack": lambda: batched_topk_pack(x, group=g, kg=kg),
+           "batched_idx_bitpack": lambda: batched_idx_bitpack(
+               idx, group=g, kg=kg),
+           "batched_idx_bitunpack": lambda: batched_idx_bitunpack(
+               packed, k=prog.k, group=g, kg=kg),
+           "batched_topk_unpack": lambda: batched_topk_unpack(
+               vals, idx, p=prog.p, group=g, kg=kg)}
     peak = peaks(torch.cuda.get_device_name(0))
     pairs = {
-        "batched_topk_pack": (
-            batched_topk_pack(x, group=g, kg=kg),
-            REF.batched_topk_pack_ref(x, group=g, kg=kg)),
-        "batched_topk_unpack": (
-            batched_topk_unpack(vals, idx, p=prog.p, group=g, kg=kg),
-            REF.batched_topk_unpack_ref(vals, idx, p=prog.p, group=g, kg=kg)),
-        "batched_idx_bitpack": (
-            batched_idx_bitpack(ix, group=g, kg=kg),
-            REF.batched_idx_bitpack_ref(ix, group=g, kg=kg)),
-        "batched_idx_bitunpack": (
-            batched_idx_bitunpack(packed, k=prog.k, group=g, kg=kg),
-            REF.batched_idx_bitunpack_ref(packed, k=prog.k, group=g, kg=kg)),
+        "batched_topk_encode": (
+            batched_topk_encode(x, group=g, kg=kg),
+            REF.batched_topk_encode_ref(x, group=g, kg=kg)),
+        "batched_topk_decode": (
+            (batched_topk_decode(vals, packed, k=prog.k, p=prog.p, group=g,
+                                 kg=kg),),
+            (REF.batched_topk_decode_ref(vals, packed, k=prog.k, p=prog.p,
+                                         group=g, kg=kg),)),
     }
     torch.cuda.synchronize()
     out = {}
     for name, (k_out, r_out) in pairs.items():
-        k_out = k_out if isinstance(k_out, tuple) else (k_out,)
-        r_out = r_out if isinstance(r_out, tuple) else (r_out,)
-        check(all(torch.equal(a, b) for a, b in zip(k_out, r_out)),
-              f"{name} (round_fedstil_codec): differs from the plain "
-              "version on its last operands")
+        check(all(exact(a, b) for a, b in zip(k_out, r_out)),
+              f"{name} (codec path): differs from the plain version on its "
+              "last operands")
         bd = bound(*codec_work(name, x.shape[0], prog.p, g, kg), peak)
+        kernel, two = calls[name]
         out[name] = {"shapes": [list(a.shape) for a in seen[name]],
-                     "max_abs_err": max(float((a.double() - b.double())
-                                              .abs().max())
+                     "max_abs_err": max(exact_err(a.float(), b.float())
                                         for a, b in zip(k_out, r_out)),
-                     "ms": time_ms(calls[name]), "bound_ms": bd[0],
-                     "bound_by": bd[1]}
+                     "ms": time_ms(kernel), "bound_ms": bd[0],
+                     "bound_by": bd[1], "two_launches_ms": time_ms(two),
+                     "per_thread": TP._plan(x.shape[0], prog.p, g, kg,
+                                            aligned(x)).per}
+    parts = {"batched_topk_encode": ("batched_topk_pack",
+                                     "batched_idx_bitpack"),
+             "batched_topk_decode": ("batched_idx_bitunpack",
+                                     "batched_topk_unpack")}
+    for name, names in parts.items():      # rows 12a-15a: off the path now
+        out[name]["one_stage"] = {
+            n: {"ms": time_ms(one[n]), "bound_ms": bound(*codec_work(
+                n, x.shape[0], prog.p, g, kg), peak)[0]} for n in names}
     return out
 
 
@@ -2801,6 +3026,7 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
     n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
     expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
+    expect.update(dict.fromkeys(ONE_STAGE_CODEC, 0))
     expect.update({"kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
@@ -3007,6 +3233,7 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
     n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
     n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
     expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
+    expect.update(dict.fromkeys(ONE_STAGE_CODEC, 0))
     expect.update({"batched_quantize": n_c2s + n_s2c,
                    "batched_dequantize": n_c2s + n_s2c,
                    "kl_similarity": ROUNDS,
@@ -3112,9 +3339,11 @@ def phase_server_scale(dev, card):
 def phase_wire_round_scale(dev, card):
     """``BatchedCodec.roundtrip`` of a (C, 57664) payload under
     ``delta+topk`` and ``topk+int8`` at C = 100 and 1000, past the
-    keyframe: device ms of each kernel on the steady-state operands and of
-    the whole roundtrip (CUDA events), and the wire bytes a client against
-    the dense payload (topk+int8: against the prediction from the
+    keyframe: device ms of each kernel on the steady-state operands (the
+    path's encode and decode, and the four one-stage kernels they fold) and
+    of the whole roundtrip (CUDA events), the roundtrip's peak device
+    memory above what is held before it, and the wire bytes a client
+    against the dense payload (topk+int8: against the prediction from the
     shapes)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for codec in (CODEC, CODEC_INT8):
@@ -3143,7 +3372,12 @@ def phase_wire_round_scale(dev, card):
                    "bitunpack_ms": time_ms(lambda: batched_idx_bitunpack(
                        packed, k=prog.k, group=GROUP, kg=KG)),
                    "unpack_ms": time_ms(lambda: batched_topk_unpack(
-                       vals, idx, p=P_EDGE, group=GROUP, kg=KG))}
+                       vals, idx, p=P_EDGE, group=GROUP, kg=KG)),
+                   "encode_ms": time_ms(lambda: batched_topk_encode(
+                       r, group=GROUP, kg=KG)),
+                   "decode_ms": time_ms(lambda: batched_topk_decode(
+                       vals, packed, k=prog.k, p=P_EDGE, group=GROUP,
+                       kg=KG))}
             if codec == CODEC_INT8:
                 q, sc = batched_quantize(vals, chunk=prog.chunk)
                 rec.update(
@@ -3156,6 +3390,13 @@ def phase_wire_round_scale(dev, card):
                       f"wire_round_scale {codec}: {per_client} bytes a "
                       f"client, predicted {INT8_SCALE_WIRE}")
             rec["roundtrip_ms"] = time_ms(lambda: prog.roundtrip(mat))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            prog.roundtrip(mat)
+            torch.cuda.synchronize()
+            rec["roundtrip_peak_bytes_above_held"] = (
+                torch.cuda.max_memory_allocated() - held)
             emit(rec)
             del prog, base, mat, recon, buffers, r, vals, idx, packed
             torch.cuda.empty_cache()
@@ -3515,7 +3756,9 @@ def main():
               f"{name} never launched on its path(s): {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": sum(by_path.values()),
+            "replaces": spec["replaces"],
+            "also_replaces": spec.get("also_replaces", []),
+            "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -4,8 +4,8 @@ A/B between two checkouts on one card.
 
     python3 scripts/kernel_ab.py TREE LABEL [SET ...]    # from the repo root
 
-SET is any of ``aggregate``, ``kl``, ``quantize``, ``dist`` and ``combine``
-(all five when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
+SET is any of ``aggregate``, ``kl``, ``quantize``, ``dist``, ``combine``
+and ``codec`` (all six when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
 (TREE ``.`` for this checkout; for another one the script is copied into
 TREE as ``chip_smoke_ab.py`` and imported from there), builds TREE's
 kernels, and for each set prints a ``TIMES`` line (CUDA events, median of
@@ -33,10 +33,22 @@ trees compare bit for bit):
              (2048, 152064) bf16 head; outputs there, on the head through
              ``offset_copy`` and on a mixed fp32 / bf16 tree, and the
              head's alpha and B gradients
+  codec      the wire codec's sparse encode and decode (one launch each,
+             or, before them, pack + bit-pack and bit-unpack + unpack) at
+             the round's (5, 37696) and the fleet's (1000, 57664) rows
+             beside their bounds, launches a call; ``BatchedCodec``'s
+             roundtrip of a residual at the fleet's rows under both codecs
+             (device ms, codec launches, peak memory above what is held
+             before it); outputs there, at
+             ragged P with kg 1, 3 and 8, on a misaligned copy, on rows
+             holding NaN and infinities, and the decode of malformed
+             planes
 
 A tree whose kernel has no ``_plan`` reports its variant as "one"; a tree
 before the multi-leaf combine gets a stand-in ``adaptive_combine_tree``
-(its one-leaf kernel leaf by leaf) so this checkout's script imports. Run
+(its one-leaf kernel leaf by leaf), and one before the codec's encode and
+decode gets stand-ins that call its two one-stage kernels each, so this
+checkout's script imports. Run
 parent, change, change, parent in one call on one card (the parent
 unpacked with ``git archive`` into a gitignored directory). Needs a CUDA
 card.
@@ -48,7 +60,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-SETS = ("aggregate", "kl", "quantize", "dist", "combine")
+SETS = ("aggregate", "kl", "quantize", "dist", "combine", "codec")
 
 
 def digest(*xs):
@@ -224,6 +236,77 @@ def combine(CS, dev, peak):
     return times, out
 
 
+def codec(CS, dev, peak):
+    import torch
+
+    def launches():
+        return sum(CS.KERNELS[n]["fn"].launches
+                   for n in CS.CODEC_KERNELS + CS.ONE_STAGE_CODEC)
+
+    def enc(x, kg=CS.KG):
+        return CS.batched_topk_encode(x, group=CS.GROUP, kg=kg)
+
+    def dec(vals, planes, p, kg=CS.KG):
+        return CS.batched_topk_decode(vals, planes, k=vals.shape[1], p=p,
+                                      group=CS.GROUP, kg=kg)
+
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    times = []
+    for c, p in ((CS.N_CLIENTS, CS.P_ROUND), (CS.SCALE_CLIENTS[-1],
+                                              CS.P_EDGE)):
+        x = CS.codec_rows(gen, dev, c, p)
+        vals, planes = enc(x)
+        for name, fn in (("encode", lambda: enc(x)),
+                         ("decode", lambda: dec(vals, planes, p))):
+            before = launches()
+            fn()
+            n_launch = launches() - before
+            bd = CS.bound(*CS.codec_work(f"batched_topk_{name}", c, p,
+                                         CS.GROUP, CS.KG), peak)
+            ms = CS.time_ms(fn)
+            times.append({"name": name, "shape": [c, p], "ms": ms,
+                          "bound_ms": bd[0], "bound_share": bd[0] / ms,
+                          "launches": n_launch})
+        del x, vals, planes
+    for spec in (CS.CODEC, CS.CODEC_INT8):      # the path's roundtrip
+        c, p = CS.SCALE_CLIENTS[-1], CS.P_EDGE
+        prog = CS.BatchedCodec(CS.make_codec(spec), p)
+        base = torch.randn((c, p), generator=gen, device=dev)
+        prog.roundtrip(base)                               # the keyframe
+        mat = base + 0.01 * torch.randn((c, p), generator=gen, device=dev)
+        ms = CS.time_ms(lambda: prog.roundtrip(mat))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        prog.roundtrip(mat)
+        torch.cuda.synchronize()
+        times.append({"name": f"roundtrip {spec}", "shape": [c, p],
+                      "ms": ms, "launches": launches() - before,
+                      "peak_bytes_above_held":
+                      torch.cuda.max_memory_allocated() - held})
+        del prog, base, mat
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    cases = [(CS.N_CLIENTS, CS.P_ROUND, CS.KG, False),
+             (CS.SCALE_CLIENTS[-1], CS.P_EDGE, CS.KG, False),
+             (CS.N_CLIENTS, CS.P_ROUND, CS.KG, True)] + [
+        (3, p, kg, nf) for p in (999, 8 * 2048 + 5) for kg in (1, 3, 8)
+        for nf in (False, True)]
+    for c, p, kg, nonfinite in cases:
+        x = (CS.nonfinite_rows if nonfinite else CS.codec_rows)(gen, dev, c,
+                                                                  p)
+        vals, planes = enc(x, kg)
+        bad = torch.randint(0, 256, planes.shape, generator=gen, device=dev,
+                            dtype=torch.uint8)
+        key = f"{c}x{p} kg {kg}{' non-finite' if nonfinite else ''}"
+        out[key] = [digest(vals, planes), digest(dec(vals, planes, p, kg)),
+                    digest(*enc(CS.offset_copy(x), kg)),
+                    digest(dec(vals, bad, p, kg))]
+    return times, out
+
+
 def main():
     tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     sets = sys.argv[3:] or SETS
@@ -240,6 +323,19 @@ def main():
                         for x in zip(bases, alphas, as_)]
             stand_in.launches = 0
             ACM.adaptive_combine_tree = stand_in
+        from repro_torch.kernels import topk_pack as TPM
+        if not hasattr(TPM, "batched_topk_encode"):
+            def encode(x, *, group=8, kg):
+                v, i = TPM.batched_topk_pack(x, group=group, kg=kg)
+                return v, TPM.batched_idx_bitpack(i, group=group, kg=kg)
+
+            def decode(vals, packed, *, k, p, group=8, kg):
+                return TPM.batched_topk_unpack(
+                    vals, TPM.batched_idx_bitunpack(packed, k=k, group=group,
+                                                    kg=kg),
+                    p=p, group=group, kg=kg)
+            encode.launches = decode.launches = 0
+            TPM.batched_topk_encode, TPM.batched_topk_decode = encode, decode
         import chip_smoke_ab as CS
     else:
         sys.path.insert(0, str(tree))
@@ -251,7 +347,7 @@ def main():
     CS._build.build_all()
     peak = CS.peaks(torch.cuda.get_device_name(0))
     run = {"aggregate": aggregate, "kl": kl, "quantize": quantize,
-           "dist": dist, "combine": combine}
+           "dist": dist, "combine": combine, "codec": codec}
     for name in sets:
         times, digests = run[name](CS, dev, peak)
         print("TIMES", name, label, json.dumps(times), flush=True)

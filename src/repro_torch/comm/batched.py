@@ -3,10 +3,12 @@
 The port of ``repro/comm/batched.py``. ``BatchedCodec`` runs the host
 ``PipelineCodec``'s stage stack (delta -> grouped topk -> {int8|bf16}) over
 ALL C clients' flattened (C, P) payload rows at once, on the device that
-holds them: the sparsify, index and quantize stages are ``kernels.ops``'
-grouped top-k pack / unpack, index bit-pack / unpack and per-chunk
-quantize / dequantize (CUDA kernels for CUDA tensors, the plain versions
-for CPU tensors); bf16 is a cast to ``torch.bfloat16`` and back. Encoded
+holds them: a sparse payload's sparsify and index stages are one
+``kernels.ops.batched_topk_encode`` (grouped top-k pack and index
+bit-pack) and one ``batched_topk_decode`` (bit-unpack and unpack), the
+quantize stage ``batched_quantize`` / ``batched_dequantize`` per chunk
+(CUDA kernels for CUDA tensors, one launch each, the plain versions for
+CPU tensors); bf16 is a cast to ``torch.bfloat16`` and back. Encoded
 buffers stay on the device; the measured per-client wire bytes follow from
 the buffer shapes, so a simulated round reads nothing back.
 
@@ -82,8 +84,8 @@ class BatchedCodec:
                 "keep_rate": torch.sum(vals != 0, dim=1) / self.p}
 
     def _enc_sparse(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
-        vals, idx = ops.batched_topk_pack(x, group=self.group, kg=self.kg)
-        packed = ops.batched_idx_bitpack(idx, group=self.group, kg=self.kg)
+        vals, packed = ops.batched_topk_encode(x, group=self.group,
+                                               kg=self.kg)
         return (self._quant(vals, {"idx_bits": packed}),
                 self._enc_metrics(x, vals))
 
@@ -94,9 +96,8 @@ class BatchedCodec:
     def _dec(self, buffers: Buffers) -> torch.Tensor:
         if "idx_bits" not in buffers:
             return self._dequant(buffers)
-        idx = ops.batched_idx_bitunpack(buffers["idx_bits"], k=self.k,
-                                        group=self.group, kg=self.kg)
-        return ops.batched_topk_unpack(self._dequant(buffers), idx,
+        return ops.batched_topk_decode(self._dequant(buffers),
+                                       buffers["idx_bits"], k=self.k,
                                        p=self.p, group=self.group, kg=self.kg)
 
     # ---- wire ----------------------------------------------------------------

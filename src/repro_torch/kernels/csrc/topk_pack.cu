@@ -1,6 +1,15 @@
-// The wire codec's grouped top-k sparsify and index bit-packing: four
-// kernels, each replacing one Pallas TPU kernel of
-// src/repro/kernels/topk_pack.py.
+// The wire codec's grouped top-k sparsify and index bit-packing. The
+// codec's path takes two launches a sparse payload, each folding two
+// Pallas TPU kernels of src/repro/kernels/topk_pack.py:
+//
+//   batched_topk_encode    batched_topk_pack, then batched_idx_bitpack
+//       (C, P) fp32 -> values (C, nb*kg) fp32 + bit-planes (C, bits *
+//       ceil(nb*kg/8)) uint8, with no int32 index tensor in between.
+//   batched_topk_decode    batched_idx_bitunpack, then batched_topk_unpack
+//       values + bit-planes -> dense (C, p) fp32.
+//
+// Four one-stage kernels stay beside them, each replacing one of those
+// Pallas kernels on its own (no main-path caller):
 //
 //   batched_topk_pack      src/repro/kernels/topk_pack.py:batched_topk_pack
 //       (C, P) fp32 -> values (C, nb*kg) fp32 + absolute indices (C, nb*kg)
@@ -16,10 +25,22 @@
 //
 // What bounds them on an H100: bytes. Each moves its inputs and outputs once
 // and does an 8x8 compare or a few shifts per element, far below the card's
-// operations-per-byte balance.
+// operations-per-byte balance. At the round's C = 5 a launch is ~6 us
+// against a bound under 0.4 us: launch latency, which only folding two
+// launches into one removes (encode, decode). At the fleet's C = 1000 the
+// encode's ranking (G x G compares a group) also takes a share of the
+// issue slots the loads need.
 //
-// Design: one thread per group (pack, unpack) or per packed byte position,
-// eight slots (bitpack, bitunpack). A group's G inputs sit in registers; neighbouring
+// Design of encode and decode: a block owns 256 * per consecutive groups of
+// one row (per = 1 or 2, kernels/topk_pack.py:_plan: 2 past a small grid,
+// for twice the bytes in flight), so its first slot falls on a byte of
+// every plane; the plane bytes are built (encode) and read (decode) in
+// shared memory, the values staged there and moved in 16-byte vectors (see
+// topk_encode_kernel and topk_decode_kernel).
+//
+// Design of the one-stage kernels: one thread per group (pack, unpack) or
+// per packed byte position, eight slots (bitpack, bitunpack). A group's G
+// inputs sit in registers; neighbouring
 // threads read and write neighbouring addresses, so a warp's accesses fall
 // in a few contiguous lines. The TPU kernels tile P into 2048-element
 // blocks and pad P to a tile multiple; here each thread masks the ragged
@@ -52,34 +73,33 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGroup = 16;
 
+// A group's G inputs from row xr into registers: two 16-byte vectors at
+// G = 8 (G / 4 of them at any G that is a multiple of 4) where vec says the
+// row keeps them aligned, scalar loads otherwise; zeros past P, as the
+// reference's padding.
 template <int G>
-__global__ void __launch_bounds__(kThreads)
-topk_pack_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                 int* __restrict__ idx, unsigned P, unsigned nb, int kg,
-                 unsigned n_groups, bool vec) {
-  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n_groups) return;
-  const unsigned c = t / nb;
-  const unsigned base = (t - c * nb) * G;
-  const float* xr = x + (size_t)c * P;
-
-  float v[G];
-  bool loaded = false;
-  if constexpr (G == 8) {
+__device__ __forceinline__ void load_group(const float* __restrict__ xr,
+                                           unsigned base, unsigned P,
+                                           bool vec, float (&v)[G]) {
+  if constexpr (G % 4 == 0) {
     if (vec && base + G <= P) {
-      const float4 lo = *reinterpret_cast<const float4*>(xr + base);
-      const float4 hi = *reinterpret_cast<const float4*>(xr + base + 4);
-      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-      loaded = true;
+#pragma unroll
+      for (int q = 0; q < G / 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(xr + base + 4 * q);
+        v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+      }
+      return;
     }
   }
-  if (!loaded) {
 #pragma unroll
-    for (int i = 0; i < G; ++i) v[i] = base + i < P ? xr[base + i] : 0.f;
-  }
+  for (int i = 0; i < G; ++i) v[i] = base + i < P ? xr[base + i] : 0.f;
+}
 
-  int rank[G];
+// rank[i] = #{j : |v_j| > |v_i| or (|v_j| == |v_i| and j < i)}.
+template <int G>
+__device__ __forceinline__ void rank_group(const float (&v)[G],
+                                           int (&rank)[G]) {
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const float ai = fabsf(v[i]);
@@ -91,22 +111,52 @@ topk_pack_kernel(const float* __restrict__ x, float* __restrict__ vals,
     }
     rank[i] = r;
   }
+}
+
+// Slot s's one-hot sums: value = sum_i v_i * [rank_i == s] in IEEE
+// products and sums, index = sum_i (base + i) * [rank_i == s] (wrapping
+// 32-bit, as the reference's int32 sum).
+template <int G>
+__device__ __forceinline__ void onehot_slot(const float (&v)[G],
+                                            const int (&rank)[G], int s,
+                                            unsigned base, float& value,
+                                            unsigned& index) {
+  float acc = 0.f;
+  unsigned ia = 0;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const bool hit = rank[i] == s;
+    acc = __fadd_rn(acc, __fmul_rn(v[i], hit ? 1.f : 0.f));
+    ia += hit ? base + i : 0u;
+  }
+  value = acc;
+  index = ia;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+topk_pack_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                 int* __restrict__ idx, unsigned P, unsigned nb, int kg,
+                 unsigned n_groups, bool vec) {
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_groups) return;
+  const unsigned c = t / nb;
+  const unsigned base = (t - c * nb) * G;
+  float v[G];
+  load_group<G>(x + (size_t)c * P, base, P, vec, v);
+  int rank[G];
+  rank_group<G>(v, rank);
 
   float* vo = vals + (size_t)t * kg;
   int* io = idx + (size_t)t * kg;
 #pragma unroll
   for (int s = 0; s < G; ++s) {
     if (s < kg) {
-      float acc = 0.f;
-      int ia = 0;
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const bool hit = rank[i] == s;
-        acc = __fadd_rn(acc, __fmul_rn(v[i], hit ? 1.f : 0.f));
-        ia += hit ? (int)(base + i) : 0;
-      }
-      vo[s] = acc;
-      io[s] = ia;
+      float value;
+      unsigned index;
+      onehot_slot<G>(v, rank, s, base, value, index);
+      vo[s] = value;
+      io[s] = (int)index;
     }
   }
 }
@@ -219,15 +269,308 @@ idx_bitunpack_kernel(const uint8_t* __restrict__ packed, int* __restrict__ out,
     if (s0 + l < k) orow[s0 + l] = v[l];
 }
 
+// ---------------------------------------------------------------------------
+// encode (pack + bit-pack) and decode (bit-unpack + unpack): one launch each
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int bits_of(int g) {
+  int b = 0;
+  while ((1 << b) < g) ++b;
+  return b;
+}
+
+// The scalar head of an n-float span of device memory at gm: the floats
+// before its first 16-byte boundary (gm is 4-byte aligned).
+__device__ __forceinline__ unsigned span_head(const float* gm, unsigned n) {
+  return min(n, (unsigned)((16u - ((uintptr_t)gm & 15u)) & 15u) >> 2);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+// The line holding p into L1 (the group is loaded from there later).
+__device__ __forceinline__ void prefetch_l1(const float* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// n floats from device memory into a block's 16-byte aligned shared buffer
+// by cp.async, so a thread's copies are all in flight at once: element i
+// lands at sm[off + i], off = gm's float offset within its 16-byte line,
+// so the body between a scalar head and tail moves in 16-byte copies
+// aligned on both sides. Returns off; waits for this thread's copies (the
+// caller's barrier makes them the block's).
+__device__ __forceinline__ unsigned stage_in(float* __restrict__ sm,
+                                             const float* __restrict__ gm,
+                                             unsigned n) {
+  const unsigned off = (unsigned)((uintptr_t)gm >> 2) & 3u;
+  const unsigned head = min(n, (4u - off) & 3u);
+  const unsigned nv = (n - head) >> 2;
+  for (unsigned i = threadIdx.x; i < head; i += kThreads)
+    cp_async4(sm + off + i, gm + i);
+  for (unsigned i = threadIdx.x; i < nv; i += kThreads)
+    cp_async16(sm + off + head + 4 * i, gm + head + 4 * i);
+  for (unsigned i = head + 4 * nv + threadIdx.x; i < n; i += kThreads)
+    cp_async4(sm + off + i, gm + i);
+  cp_async_wait_all();
+  return off;
+}
+
+// n floats of a shared buffer to device memory: 16-byte stores between a
+// scalar head and tail (the shared side read as four words where the head
+// leaves it off 16 bytes). Stores do not hold the thread, so a plain loop
+// keeps them all in flight.
+__device__ __forceinline__ void stage_out(float* __restrict__ gm,
+                                          const float* __restrict__ sm,
+                                          unsigned n) {
+  const unsigned head = span_head(gm, n);
+  const unsigned nv = (n - head) >> 2;
+  float4* g4 = reinterpret_cast<float4*>(gm + head);
+  for (unsigned i = threadIdx.x; i < head; i += kThreads) gm[i] = sm[i];
+  if (head == 0) {
+    for (unsigned i = threadIdx.x; i < nv; i += kThreads)
+      g4[i] = reinterpret_cast<const float4*>(sm)[i];
+  } else {
+    for (unsigned i = threadIdx.x; i < nv; i += kThreads) {
+      const float* s = sm + head + 4 * i;
+      g4[i] = make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+  for (unsigned i = head + 4 * nv + threadIdx.x; i < n; i += kThreads)
+    gm[i] = sm[i];
+}
+
+// One group's selection into a block's shared buffers: its kg values at
+// svt and the low bytes of their local indices (ia - base; bits < 8 of the
+// int32 local index, all a plane takes) at slt, slot order.
+//
+// A group whose inputs are all finite takes a shortcut with the same
+// bits: its ranks are a permutation, so slot r's one-hot sum has a single
+// term that is not a signed zero and comes out as v_i + 0 (+0 for a zero
+// of either sign), its index as base + i; the thread writes them at slot
+// rank_i for each rank_i < kg. A group holding a NaN or an infinity
+// spreads x * 0 across its slots and takes the full one-hot sums.
+//
+// The full sums run out of line, one copy per G, reloading the group (an
+// L1 or L2 hit) rather than taking the registers' values by address: the
+// path no finite row takes costs the kernel's body no stack, registers or
+// unrolled code.
+template <int G>
+__device__ __noinline__ void select_nonfinite(const float* __restrict__ xr,
+                                              unsigned base, unsigned P,
+                                              bool vec, int kg, float* svt,
+                                              uint8_t* slt) {
+  float v[G];
+  load_group<G>(xr, base, P, vec, v);
+  int rank[G];
+  rank_group<G>(v, rank);
+#pragma unroll 1
+  for (int s = 0; s < kg; ++s) {
+    unsigned index;
+    onehot_slot<G>(v, rank, s, base, svt[s], index);
+    slt[s] = (uint8_t)(index - base);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void select_group(const float (&v)[G],
+                                             const float* __restrict__ xr,
+                                             unsigned base, unsigned P,
+                                             bool vec, int kg, float* svt,
+                                             uint8_t* slt) {
+  bool finite = true;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    finite = finite && (__float_as_uint(v[i]) & 0x7fffffffu) < 0x7f800000u;
+  if (!finite) {
+    select_nonfinite<G>(xr, base, P, vec, kg, svt, slt);
+    return;
+  }
+  int rank[G];
+  rank_group<G>(v, rank);
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    if (rank[i] < kg) {
+      svt[rank[i]] = __fadd_rn(v[i], 0.f);
+      slt[rank[i]] = (uint8_t)i;
+    }
+  }
+}
+
+// Encode and decode blocks hold per = 1 or kMaxPer groups a thread (the
+// launch's choice, kernels/topk_pack.py:_plan); the shared buffers are
+// sized for kMaxPer, 40 KB of static shared memory for the encode at G = 16.
+constexpr int kMaxPer = 2;
+
+// Grid (tiles, C); a block's tile is kThreads * per groups of one row,
+// thread t holding groups t, t + kThreads, ... of it. Each thread first
+// prefetches its later groups into L1 (per groups' bytes in flight), then
+// loads and ranks each in turn as topk_pack_kernel does (select_group; one
+// copy of the ranking code whatever per is); after the barrier the block
+// stores its values with stage_out and builds each plane's bytes of its
+// slots from shared memory, byte b from slots 8b..8b+7 at bit s % 8, as
+// idx_bitpack_kernel does. No int32 index leaves the block.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+topk_encode_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                   uint8_t* __restrict__ planes, unsigned P, unsigned nb,
+                   int kg, unsigned kb, int per, bool vec) {
+  constexpr int kBits = bits_of(G);
+  __shared__ __align__(16) float sv[kMaxPer * kThreads * G];
+  __shared__ __align__(16) uint8_t sl[kMaxPer * kThreads * G];
+  const unsigned c = blockIdx.y;
+  const unsigned tile = kThreads * per;
+  const unsigned g0 = blockIdx.x * tile;
+  const float* xr = x + (size_t)c * P;
+  for (int h = 1; h < per; ++h) {         // later groups' bytes in flight
+    const unsigned g = g0 + h * kThreads + threadIdx.x;
+    if (g < nb) prefetch_l1(xr + (size_t)g * G);
+  }
+#pragma unroll 1                           // one copy of the ranking code
+  for (int h = 0; h < per; ++h) {
+    const unsigned local = h * kThreads + threadIdx.x;
+    float* svt = sv + local * kg;
+    uint8_t* slt = sl + local * kg;
+    if (g0 + local < nb) {
+      const unsigned base = (g0 + local) * G;
+      float v[G];
+      load_group<G>(xr, base, P, vec, v);
+      select_group<G>(v, xr, base, P, vec, kg, svt, slt);
+    } else {                     // past the row's last group: slots pack 0
+      for (int s = 0; s < kg; ++s) {
+        svt[s] = 0.f;
+        slt[s] = 0;
+      }
+    }
+  }
+  __syncthreads();
+
+  const unsigned K = nb * kg;
+  const unsigned n = min(tile, nb - g0) * kg;         // slots of this tile
+  stage_out(vals + (size_t)c * K + g0 * kg, sv, n);
+  const unsigned nbytes = (n + 7) / 8;
+  uint8_t* prow = planes + (size_t)c * kBits * kb + g0 * kg / 8;
+  for (unsigned b = threadIdx.x; b < nbytes; b += kThreads) {
+    const uint2 w = *reinterpret_cast<const uint2*>(sl + 8 * b);
+#pragma unroll
+    for (int j = 0; j < kBits; ++j) {
+      unsigned byte = 0;
+#pragma unroll
+      for (int l = 0; l < 8; ++l)
+        byte |= (((l < 4 ? w.x >> (8 * l) : w.y >> (8 * (l - 4))) >> j) & 1u)
+                << l;
+      prow[(size_t)j * kb + b] = (uint8_t)byte;
+    }
+  }
+}
+
+// One group's decode from a block's shared buffers (values sv, planes sp
+// of plane_len bytes each): its kg local indices rebuilt from the plane
+// bits of slots slot0.., value_s * [li_s == l] summed into its G outputs in
+// slot order, as topk_unpack_kernel does (a local index >= G adds
+// nothing), written as G / 4 16-byte vectors where vec allows.
+template <int G>
+__device__ __forceinline__ void decode_group(const float* sv,
+                                             const uint8_t* sp,
+                                             unsigned plane_len,
+                                             unsigned slot0, int kg,
+                                             float* orow, unsigned base,
+                                             unsigned p, bool vec) {
+  constexpr int kBits = bits_of(G);
+  float acc[G];
+#pragma unroll
+  for (int l = 0; l < G; ++l) acc[l] = 0.f;
+#pragma unroll 1
+  for (unsigned slot = slot0; slot < slot0 + kg; ++slot) {
+    int li = 0;
+#pragma unroll
+    for (int j = 0; j < kBits; ++j)
+      li |= ((sp[j * plane_len + (slot >> 3)] >> (slot & 7)) & 1) << j;
+    const float v = sv[slot];
+#pragma unroll
+    for (int l = 0; l < G; ++l)
+      acc[l] = __fadd_rn(acc[l], __fmul_rn(v, li == l ? 1.f : 0.f));
+  }
+  if constexpr (G % 4 == 0) {
+    if (vec && base + G <= p) {
+#pragma unroll
+      for (int q = 0; q < G / 4; ++q)
+        *reinterpret_cast<float4*>(orow + base + 4 * q) = make_float4(
+            acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < G; ++l)
+    if (base + l < p) orow[base + l] = acc[l];
+}
+
+// Grid (tiles, C), the encode's tiles. The block stages each plane's bytes
+// of its slots and its slots' values (cp.async, stage_in) in shared
+// memory; after the barrier thread t decodes groups t, t + kThreads, ... of
+// the tile (decode_group).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+topk_decode_kernel(const float* __restrict__ vals,
+                   const uint8_t* __restrict__ planes,
+                   float* __restrict__ out, unsigned p, unsigned nb, int kg,
+                   unsigned kb, int per, bool vec) {
+  constexpr int kBits = bits_of(G);
+  constexpr unsigned kPlane = kMaxPer * kThreads * G / 8;   // bytes, at most
+  __shared__ __align__(16) float sv[kMaxPer * kThreads * G + 4];
+  __shared__ uint8_t sp[kBits * kPlane];
+  const unsigned c = blockIdx.y;
+  const unsigned tile = kThreads * per;
+  const unsigned g0 = blockIdx.x * tile;
+  const unsigned K = nb * kg;
+  const unsigned n = min(tile, nb - g0) * kg;
+  const unsigned nbytes = (n + 7) / 8;
+  const uint8_t* prow = planes + (size_t)c * kBits * kb + g0 * kg / 8;
+  for (unsigned b = threadIdx.x; b < nbytes; b += kThreads) {
+    uint8_t t[kBits];                  // every plane's byte b in flight
+#pragma unroll
+    for (int j = 0; j < kBits; ++j) t[j] = prow[(size_t)j * kb + b];
+#pragma unroll
+    for (int j = 0; j < kBits; ++j) sp[j * kPlane + b] = t[j];
+  }
+  const unsigned off = stage_in(sv, vals + (size_t)c * K + g0 * kg, n);
+  __syncthreads();
+
+  float* orow = out + (size_t)c * p;
+#pragma unroll 1
+  for (int h = 0; h < per; ++h) {
+    const unsigned local = h * kThreads + threadIdx.x;
+    if (g0 + local < nb)
+      decode_group<G>(sv + off, sp, kPlane, local * kg, kg, orow,
+                      (g0 + local) * G, p, vec);
+  }
+}
+
 constexpr long long kMaxThreads = 1LL << 31;
 
 unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-#define REPRO_GROUP_CASES(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) \
+#define REPRO_PLANE_GROUP_CASES(X) \
+  X(2) X(3) X(4) X(5) X(6) X(7) X(8) \
   X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
+#define REPRO_GROUP_CASES(X) X(1) REPRO_PLANE_GROUP_CASES(X)
 
 }  // namespace
 
@@ -314,5 +657,72 @@ extern "C" int repro_batched_idx_bitunpack(const void* packed, void* out,
   idx_bitunpack_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)packed, (int*)out, (unsigned)k, (unsigned)kb, group,
       (unsigned)kg, bits, (unsigned)n, vec != 0);
+  return (int)cudaGetLastError();
+}
+
+
+// x: (C, P) fp32; vals: (C, K) fp32, K = nb*kg, nb = ceil(P / group);
+// planes: (C, bits*kb) uint8, kb = ceil(K / 8), bits = ceil(log2 group);
+// 2 <= group <= 16, 1 <= kg <= group; vec = x's rows keep 16-byte loads
+// aligned; per = groups a thread (1 or 2); C * K < 2^31, P < 2^31, C <=
+// 65535. Returns cudaGetLastError().
+extern "C" int repro_batched_topk_encode(const void* x, void* vals,
+                                         void* planes, long long C,
+                                         long long P, int group, int kg,
+                                         int vec, int per, void* stream) {
+  if (group < 2 || group > kMaxGroup || kg < 1 || kg > group)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = (P + group - 1) / group;
+  const long long K = nb * kg;
+  if (C * K == 0) return 0;
+  if (C * K >= kMaxThreads || P >= kMaxThreads || C > 65535 ||
+      per < 1 || per > kMaxPer)
+    return (int)cudaErrorInvalidValue;
+  const long long tile = (long long)kThreads * per;
+  const dim3 grid((unsigned)((nb + tile - 1) / tile), (unsigned)C);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+#define X(G)                                                              \
+  case G:                                                                 \
+    topk_encode_kernel<G><<<grid, kThreads, 0, st>>>(                     \
+        (const float*)x, (float*)vals, (uint8_t*)planes, (unsigned)P,     \
+        (unsigned)nb, kg, (unsigned)((K + 7) / 8), per, vec != 0);        \
+    break;
+    REPRO_PLANE_GROUP_CASES(X)
+#undef X
+  }
+  return (int)cudaGetLastError();
+}
+
+// vals: (C, K) fp32, K = nb*kg, nb = ceil(p / group); planes: (C,
+// bits*kb) uint8 with K <= 8*kb; out: (C, p) fp32; 2 <= group <= 16,
+// 1 <= kg <= group; vec = out's rows keep 16-byte stores aligned; per =
+// groups a thread (1 or 2); C * nb * group < 2^31, C <= 65535. Returns
+// cudaGetLastError().
+extern "C" int repro_batched_topk_decode(const void* vals, const void* planes,
+                                         void* out, long long C, long long p,
+                                         long long kb, int group, int kg,
+                                         int vec, int per, void* stream) {
+  if (group < 2 || group > kMaxGroup || kg < 1 || kg > group)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = (p + group - 1) / group;
+  const long long K = nb * kg;
+  if (C * p == 0) return 0;
+  if (C * nb * group >= kMaxThreads || K > kb * 8 || C > 65535 ||
+      per < 1 || per > kMaxPer)
+    return (int)cudaErrorInvalidValue;
+  const long long tile = (long long)kThreads * per;
+  const dim3 grid((unsigned)((nb + tile - 1) / tile), (unsigned)C);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+#define X(G)                                                              \
+  case G:                                                                 \
+    topk_decode_kernel<G><<<grid, kThreads, 0, st>>>(                     \
+        (const float*)vals, (const uint8_t*)planes, (float*)out,          \
+        (unsigned)p, (unsigned)nb, kg, (unsigned)kb, per, vec != 0);      \
+    break;
+    REPRO_PLANE_GROUP_CASES(X)
+#undef X
+  }
   return (int)cudaGetLastError();
 }

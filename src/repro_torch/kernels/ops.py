@@ -29,6 +29,8 @@ from repro_torch.kernels.relevance_aggregate import \
     relevance_aggregate as _agg
 from repro_torch.kernels.topk_pack import batched_idx_bitpack as _bidxpack
 from repro_torch.kernels.topk_pack import batched_idx_bitunpack as _bidxunpack
+from repro_torch.kernels.topk_pack import batched_topk_decode as _bdecode
+from repro_torch.kernels.topk_pack import batched_topk_encode as _bencode
 from repro_torch.kernels.topk_pack import batched_topk_pack as _btopk
 from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
 
@@ -219,6 +221,26 @@ def batched_idx_bitunpack(packed, *, k: int, group: int = 8, kg: int):
     if _on_cuda(packed):
         return _bidxunpack(packed, k=k, group=group, kg=kg)
     return REF.batched_idx_bitunpack_ref(packed, k=k, group=group, kg=kg)
+
+
+def batched_topk_encode(x, *, group: int = 8, kg: int):
+    """The wire codec's sparse encode in one step: (C, P) -> (values (C,
+    ceil(P/group)*kg) fp32, uint8 bit-planes of the local indices), as
+    ``batched_topk_pack`` then ``batched_idx_bitpack``."""
+    if _on_cuda(x):
+        return _bencode(x, group=group, kg=kg)
+    return REF.batched_topk_encode_ref(x, group=group, kg=kg)
+
+
+def batched_topk_decode(vals, packed, *, k: int, p: int, group: int = 8,
+                        kg: int):
+    """Inverse of ``batched_topk_encode``: values + bit-planes -> dense
+    (C, p) fp32, as ``batched_idx_bitunpack`` then
+    ``batched_topk_unpack``."""
+    if _on_cuda(vals, packed):
+        return _bdecode(vals, packed, k=k, p=p, group=group, kg=kg)
+    return REF.batched_topk_decode_ref(vals, packed, k=k, p=p, group=group,
+                                       kg=kg)
 
 
 # ---------------------------------------------------------------------------

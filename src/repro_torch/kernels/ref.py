@@ -292,6 +292,22 @@ def batched_idx_bitunpack_ref(packed, *, k: int, group: int, kg: int):
     return (slot // kg)[None, :] * group + li
 
 
+def batched_topk_encode_ref(x, *, group: int, kg: int):
+    """The codec's encode: ``batched_topk_pack_ref`` then
+    ``batched_idx_bitpack_ref`` -> (values (C, nb*kg) fp32, bit-planes
+    (C, bits * ceil(nb*kg/8)) uint8)."""
+    vals, idx = batched_topk_pack_ref(x, group=group, kg=kg)
+    return vals, batched_idx_bitpack_ref(idx, group=group, kg=kg)
+
+
+def batched_topk_decode_ref(vals, packed, *, k: int, p: int, group: int,
+                            kg: int):
+    """The codec's decode: ``batched_idx_bitunpack_ref`` then
+    ``batched_topk_unpack_ref`` -> dense (C, p) fp32."""
+    idx = batched_idx_bitunpack_ref(packed, k=k, group=group, kg=kg)
+    return batched_topk_unpack_ref(vals, idx, p=p, group=group, kg=kg)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: forward, forward + logsumexp, dQ, dK/dV
 # ---------------------------------------------------------------------------

@@ -37,8 +37,11 @@ from repro_torch.comm.batched import BatchedCodec
 from repro_torch.common.pytree import (tree_flatten_stacked,
                                        tree_unflatten_stacked)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import topk_pack as TP
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,
                                            batched_idx_bitunpack,
+                                           batched_topk_decode,
+                                           batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
 
@@ -172,7 +175,154 @@ def test_pack_of_non_finite_rows_follows_the_reference():
     assert np.isnan(vals.numpy()[0, :3]).all()
 
 
+# ---------------------------------------------------------------------------
+# the codec's path: encode (pack + bit-pack) and decode (bit-unpack +
+# unpack), one launch each on the card
+# ---------------------------------------------------------------------------
+
+CODEC_CASES = [(group * 40 + tail, group, kg)
+               for group in (2, 6, 8, 16) for tail in (0, 3)
+               for kg in sorted({1, min(3, group), group})]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("P,group,kg", CODEC_CASES)
+def test_topk_encode_decode_match_jax(P, group, kg, backend):
+    """Encode equals the JAX package's pack then bit-pack, decode its
+    bit-unpack then unpack, bit for bit (P a multiple of the group and
+    ragged by 3; G = 6 leaves local indices 6 and 7 unused in 3 bits)."""
+    rng = np.random.default_rng(P * 7 + group + kg)
+    x = _codec_input(rng, 4, P, group)
+    vals, packed = ops.batched_topk_encode(torch.from_numpy(x), group=group,
+                                           kg=kg)
+    jv, ji = _jops("batched_topk_pack", backend, x, group=group, kg=kg)
+    jp = _jops("batched_idx_bitpack", backend, ji, group=group, kg=kg)
+    np.testing.assert_array_equal(_np(vals), np.asarray(jv))
+    np.testing.assert_array_equal(_np(packed), np.asarray(jp))
+    K = vals.shape[1]
+    assert K == -(-P // group) * kg and packed.dtype == torch.uint8
+    assert packed.shape == (4, (group - 1).bit_length() * -(-K // 8))
+
+    dense = ops.batched_topk_decode(vals, packed, k=K, p=P, group=group,
+                                    kg=kg)
+    jb = _jops("batched_idx_bitunpack", backend, jp, k=K, group=group,
+               kg=kg)
+    jd = _jops("batched_topk_unpack", backend, jv, jb, p=P, group=group,
+               kg=kg)
+    np.testing.assert_array_equal(_np(dense), np.asarray(jd))
+    assert dense.shape == (4, P) and dense.dtype == torch.float32
+    kept = _np(dense) != 0
+    np.testing.assert_array_equal(_np(dense)[kept], x[kept])
+
+
+@pytest.mark.parametrize("group", [6, 8])
+def test_topk_encode_of_non_finite_rows_follows_the_reference(group):
+    """NaN and infinity through the one-step encode: the values spread
+    x * 0 = NaN across a group as the reference's pack does, and the
+    planes carry the low bits of its (then unclamped) indices."""
+    rng = np.random.default_rng(13 + group)
+    x = rng.standard_normal((3, 5 * group + 2)).astype(np.float32)
+    x[0, 2], x[0, group + 1] = np.nan, np.inf
+    x[1, 3], x[1, 5], x[1, 2 * group + 1] = np.nan, np.nan, -np.inf
+    x[2, -1] = np.inf                              # in the ragged tail
+    vals, packed = ops.batched_topk_encode(torch.from_numpy(x), group=group,
+                                           kg=3)
+    jv, ji = JREF.batched_topk_pack_ref(x, group=group, kg=3)
+    jp = JREF.batched_idx_bitpack_ref(ji, group=group, kg=3)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jp))
+    assert np.isnan(vals.numpy()[0, :3]).all()
+    dense = ops.batched_topk_decode(vals, packed, k=vals.shape[1],
+                                    p=x.shape[1], group=group, kg=3)
+    jd = JREF.batched_topk_unpack_ref(
+        jv, JREF.batched_idx_bitunpack_ref(jp, k=vals.shape[1], group=group,
+                                           kg=3),
+        p=x.shape[1], group=group, kg=3)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("group", [6, 8])
+def test_topk_decode_of_malformed_planes_matches_jax(group, backend):
+    """Planes of random bytes: local indices that repeat in a group sum,
+    and at G = 6 the indices 6 and 7 add nothing."""
+    rng = np.random.default_rng(21 + group)
+    C, P, kg = 3, 40 * group + 5, 3
+    K = -(-P // group) * kg
+    bits = (group - 1).bit_length()
+    vals = rng.standard_normal((C, K)).astype(np.float32)
+    bad = rng.integers(0, 256, (C, bits * -(-K // 8)), dtype=np.uint8)
+    dense = ops.batched_topk_decode(torch.from_numpy(vals),
+                                    torch.from_numpy(bad), k=K, p=P,
+                                    group=group, kg=kg)
+    jb = _jops("batched_idx_bitunpack", backend, bad, k=K, group=group,
+               kg=kg)
+    jd = _jops("batched_topk_unpack", backend, vals, jb, p=P, group=group,
+               kg=kg)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("rows,p,group,kg", [
+    (5, 37696, 8, 3), (1000, 57664, 8, 3), (3, 999, 8, 8), (2, 5, 6, 3),
+    (4, 256 * 8 * 3, 8, 1), (7, 256 * 16 + 1, 16, 16), (1, 2, 2, 1)])
+def test_codec_plan_tiles_every_slot_once_on_byte_boundaries(rows, p, group,
+                                                             kg):
+    nb = -(-p // group)
+    K, kb = nb * kg, -(-nb * kg // 8)
+    for per in TP.PER_THREAD:
+        plan = TP._plan(rows, p, group, kg, aligned=True, per=per)
+        assert plan.groups == TP.THREADS * per
+        assert plan.grid == (-(-nb // plan.groups), rows)
+        slots = [plan.slots(x) for x in range(plan.grid[0])]
+        assert all(s.start % 8 == 0 and len(s) > 0 for s in slots)
+        assert [i for s in slots for i in s] == list(range(K))
+        planes = [plan.plane_bytes(x) for x in range(plan.grid[0])]
+        assert [b for r in planes for b in r] == list(range(kb))
+        assert plan.vec == (group % 4 == 0 and p % 4 == 0)
+        assert not TP._plan(rows, p, group, kg, aligned=False, per=per).vec
+
+
+@pytest.mark.parametrize("rows,p,per", [(5, 37696, 1), (9, 57664, 1),
+                                        (10, 57664, 2), (100, 57664, 2),
+                                        (1000, 57664, 2), (1, 10 ** 6, 2)])
+def test_codec_plan_takes_two_groups_a_thread_past_a_small_grid(rows, p,
+                                                                per):
+    """One group a thread while the one-group grid has at most SMALL_GRID
+    blocks (the round's C = 5: 95), two past it (the fleet's)."""
+    assert TP._plan(rows, p, 8, 3, aligned=True).per == per
+
+
+@pytest.mark.parametrize("spec", ["delta+topk", "topk+int8"])
+def test_batched_codec_sparse_payload_takes_one_encode_and_one_decode(
+        spec, monkeypatch):
+    """A roundtrip of a sparse payload calls ``ops.batched_topk_encode``
+    once and ``ops.batched_topk_decode`` once, and none of the four
+    one-stage ops (counted on ``ops``; the keyframe calls neither)."""
+    calls = {}
+    for name in ("batched_topk_encode", "batched_topk_decode",
+                 "batched_topk_pack", "batched_topk_unpack",
+                 "batched_idx_bitpack", "batched_idx_bitunpack"):
+        def counted(*a, _name=name, _fn=getattr(ops, name), **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    rng = np.random.default_rng(8)
+    prog = BatchedCodec(CODEC.make_codec(spec), 999)
+    prog.roundtrip(torch.from_numpy(_codec_input(rng, 4, 999)))
+    assert calls == {}                                # the dense keyframe
+    for r in range(2):
+        recon, buffers = prog.roundtrip(
+            torch.from_numpy(_codec_input(rng, 4, 999)))
+        assert "idx_bits" in buffers
+        assert calls == {"batched_topk_encode": r + 1,
+                         "batched_topk_decode": r + 1}
+
+
 CUDA_WRAPPERS = [
+    (batched_topk_encode, lambda: (torch.zeros(2, 16),), {"kg": 3}),
+    (batched_topk_decode,
+     lambda: (torch.zeros(2, 6), torch.zeros(2, 3, dtype=torch.uint8)),
+     {"k": 6, "p": 16, "kg": 3}),
     (batched_topk_pack, lambda: (torch.zeros(2, 16),), {"kg": 3}),
     (batched_topk_unpack,
      lambda: (torch.zeros(2, 6), torch.zeros(2, 6, dtype=torch.int32)),
@@ -205,6 +355,36 @@ def test_topk_wrappers_refuse_budgets_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="planes"):
         batched_idx_bitunpack(torch.zeros(2, 4, dtype=torch.uint8), k=6,
                               kg=3)
+
+
+@pytest.mark.parametrize("kw", [{"group": 17, "kg": 3}, {"group": 1, "kg": 1},
+                                {"group": 8, "kg": 9}, {"group": 8, "kg": 0}],
+                         ids=["group17", "group1", "kg9", "kg0"])
+def test_codec_wrappers_refuse_budgets_the_kernel_does_not_take(kw):
+    """Encode and decode take 2 <= group <= 16 (a plane needs a bit) and
+    1 <= kg <= group, and neither launches on a refusal."""
+    before = (batched_topk_encode.launches, batched_topk_decode.launches)
+    with pytest.raises(ValueError, match="group|kg"):
+        batched_topk_encode(torch.zeros(2, 16), **kw)
+    with pytest.raises(ValueError, match="group|kg"):
+        batched_topk_decode(torch.zeros(2, 6),
+                            torch.zeros(2, 3, dtype=torch.uint8), k=6, p=16,
+                            **kw)
+    assert (batched_topk_encode.launches,
+            batched_topk_decode.launches) == before
+
+
+def test_codec_wrappers_refuse_shapes_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="slots"):
+        batched_topk_decode(torch.zeros(2, 5),
+                            torch.zeros(2, 3, dtype=torch.uint8), k=5, p=16,
+                            kg=3)
+    with pytest.raises(ValueError, match="planes"):
+        batched_topk_decode(torch.zeros(2, 6),
+                            torch.zeros(2, 4, dtype=torch.uint8), k=6, p=16,
+                            kg=3)
+    with pytest.raises(ValueError, match="rows"):
+        batched_topk_encode(torch.zeros(TP.MAX_ROWS + 1, 8), kg=3)
 
 
 # ---------------------------------------------------------------------------
