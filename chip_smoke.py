@@ -34,7 +34,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  infinities, the decode on malformed planes bit for bit
                  against the one-stage bit-unpack and unpack (encode and
                  decode timed at the round's and the fleet's shapes beside
-                 the two launches each replaces); dequantize
+                 the two launches each replaces); the int8 decode
+                 (dequantize + bit-unpack + unpack) bit for bit against its
+                 plain version and against dequantize then decode, planned
+                 and under both per-thread variants, at the round's and the
+                 fleet's payloads and ragged ones (code rows off 16 bytes,
+                 chunks 256 / 100 / 7, groups 6 / 8 / 16, NaN and infinite
+                 scales, a misaligned code base, malformed planes), timed
+                 at both path shapes beside its plain version and the two
+                 launches it replaces; dequantize
                  and the adaptive combine bit-identical, the host server's
                  plain aggregate within 2e-5, the 2-D distances within
                  1e-5 (the codec's K with its tail chunk, misaligned bases,
@@ -146,7 +154,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  and decode each against its plain
                  version on its last on-path operands and timed there
                  beside its bound (so does round_fedstil_codec_int8, with
-                 quantize and dequantize), and the
+                 quantize, the int8 decode and dequantize), and the
                  encode_c2s / encode_s2c stage ms. Per-round tables go to
                  ``build/round_fedstil_codec.json``.
      round_fedstil_host: round_fedstil's protocol and initial weights on
@@ -168,12 +176,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  (equal bytes, metrics within 0.03)
      round_fedstil_codec_int8: round_fedstil's protocol with ``topk+int8``
                  on the stacked engine on the card: wire bytes at the
-                 prediction from the shapes, batched_quantize and
-                 batched_dequantize once a payload (120), encode and decode
-                 once a residual payload (118), none of the four one-stage
-                 codec kernels, each kernel against
+                 prediction from the shapes, batched_quantize once a
+                 payload (120), batched_dequantize once a dense keyframe
+                 (2), encode and the int8 decode (dequantize + bit-unpack
+                 + unpack in one launch) once a residual payload (118),
+                 neither the fp32 decode nor the four one-stage codec
+                 kernels, each kernel against
                  its plain version on its last on-path operands, the coded
-                 minus the uncoded final mAP; then 30 rounds of the same on
+                 minus the uncoded final mAP; then 24 rounds of the same on
                  the card and on the CPU: equal wire bytes, final mAP / R1
                  within 0.03; per-round tables in
                  ``build/round_fedstil_codec_int8.json``
@@ -182,7 +192,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
  10. wire_round_scale  ``BatchedCodec.roundtrip`` of a (C, 57664) payload
                  under ``delta+topk`` and ``topk+int8`` at C=100 and C=1000
-                 past the keyframe: device ms of encode, decode, the four
+                 past the keyframe: device ms of encode, decode (topk+int8:
+                 also the int8 decode, quantize and dequantize), the four
                  one-stage kernels and the whole roundtrip, the
                  roundtrip's peak memory, wire bytes a client against the
                  dense 230656
@@ -271,6 +282,7 @@ from repro_torch.kernels import topk_pack as TP  # noqa: E402
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_idx_bitunpack,
                                            batched_topk_decode,
+                                           batched_topk_decode_int8,
                                            batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
@@ -399,8 +411,9 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # the card-vs-CPU comparison of round_fedstil_codec_int8 runs both at this
 # depth (its 60-round card run is held to the byte prediction): the CPU
 # rerun of the whole protocol took 20.5 s on the card's host, the largest
-# share of the script's time
-INT8_CPU_ROUNDS = 30
+# share of the script's time; 30 rounds took 11.6-14.0 s, and 24 pay for
+# the int8 decode's phase-3 checks (~3 s)
+INT8_CPU_ROUNDS = 24
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -418,6 +431,8 @@ KERNELS = {
         "paths": ("serve", "serve_ivf", "round_fedstil_codec_int8"),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:58"},
+    # the int8 path's two dense keyframes; its residuals dequantize in
+    # batched_topk_decode_int8's prologue
     "batched_dequantize": {
         "fn": batched_dequantize, "paths": ("round_fedstil_codec_int8",),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
@@ -474,8 +489,10 @@ KERNELS = {
         "replaces": "src/repro/kernels/ivf.py:126"},
     # the codec's path runs two launches a sparse payload: encode (pack +
     # bit-pack, topk_pack.py:78 and :128) and decode (bit-unpack + unpack,
-    # :161 and :207); the four one-stage kernels stay as the counterparts
-    # of the reference's four functions, with no main-path caller
+    # :161 and :207; under topk+int8 the int8 decode, dequantize +
+    # bit-unpack + unpack); the four one-stage kernels stay as the
+    # counterparts of the reference's four functions, with no main-path
+    # caller
     "batched_topk_encode": {
         "fn": batched_topk_encode,
         "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
@@ -483,11 +500,17 @@ KERNELS = {
         "replaces": "src/repro/kernels/topk_pack.py:78",
         "also_replaces": ["src/repro/kernels/topk_pack.py:128"]},
     "batched_topk_decode": {
-        "fn": batched_topk_decode,
-        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "fn": batched_topk_decode, "paths": ("round_fedstil_codec",),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:207",
         "also_replaces": ["src/repro/kernels/topk_pack.py:161"]},
+    "batched_topk_decode_int8": {
+        "fn": batched_topk_decode_int8,
+        "paths": ("round_fedstil_codec_int8",),
+        "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
+        "replaces": "src/repro/kernels/quantize.py:94",
+        "also_replaces": ["src/repro/kernels/topk_pack.py:161",
+                          "src/repro/kernels/topk_pack.py:207"]},
     "batched_topk_pack": {
         "fn": batched_topk_pack, "paths": (),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
@@ -529,8 +552,9 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
 }
 # the codec path's kernels, and the one-stage kernels they fold, which the
-# path must no longer launch
+# path must no longer launch; topk+int8 decodes in INT8_DECODE instead
 CODEC_KERNELS = ("batched_topk_encode", "batched_topk_decode")
+INT8_DECODE = "batched_topk_decode_int8"
 ONE_STAGE_CODEC = ("batched_topk_pack", "batched_topk_unpack",
                    "batched_idx_bitpack", "batched_idx_bitunpack")
 
@@ -859,6 +883,7 @@ def phase_kernels(dev, peak, card):
     rows.update(relevance_kernel_rows(gen, dev, peak))
     rows.update(ivf_kernel_rows(gen, dev, peak))
     rows.update(topk_kernel_rows(gen, dev, peak))
+    rows.update(decode_int8_rows(gen, dev, peak))
     rows.update(new_kernel_rows(gen, dev, peak))
     rows.update(combine_tree_rows(gen, dev, peak))
     rows.update(flash_kernel_rows(gen, dev, peak))
@@ -1410,17 +1435,20 @@ def malformed_decode(gen, dev, c, p, kg):
     return float((got - plain).abs().max())
 
 
-def codec_work(name, c, p, group, kg):
+def codec_work(name, c, p, group, kg, chunk=256):
     """(bytes, operations) of one codec kernel call on (c, p) rows: the
     dense rows, kept values and int32 indices at 4 bytes each, the packed
-    indices at their bits. Operations: the group x group compare and the kg
-    one-hot sums of a group; a few shifts and masks a slot; all far below
-    the bytes bound. Encode and decode move no int32 index."""
+    indices at their bits, int8 codes at 1 byte and their chunk scales at
+    4. Operations: the group x group compare and the kg one-hot sums of a
+    group; a few shifts and masks a slot; a product a code; all far below
+    the bytes bound. Encode and decode move no int32 index, the int8
+    decode no fp32 value."""
     nb = p // group
     k = nb * kg
     kb = (k + 7) // 8
     bits = (group - 1).bit_length()
     vec, ind, out, pk = 4.0 * c * k, 4.0 * c * k, 4.0 * c * p, c * bits * kb
+    codes = c * k + 4.0 * c * -(-k // chunk)
     n_groups = c * nb
     pack = (4.0 * c * p + vec + ind, n_groups * (group * group
                                                  + 2 * group * kg))
@@ -1434,6 +1462,8 @@ def codec_work(name, c, p, group, kg):
                                     pack[1] + bitpack[1]),
             "batched_topk_decode": (vec + pk + out,
                                     unpack[1] + bitunpack[1]),
+            INT8_DECODE: (codes + pk + out,
+                          unpack[1] + bitunpack[1] + c * k),
             }[name]
 
 
@@ -1481,6 +1511,132 @@ def codec_timings(x, peak):
                      "sum_of_two_ms": sum(out[n]["ms"] for n in parts),
                      "replaces": list(parts)}
     return out
+
+
+def int8_payload(gen, dev, c, p, kg, chunk, group=GROUP, nonfinite=False):
+    """The int8 codec's sparse payload of ``codec_rows`` (c, p): the
+    encode's values quantized per chunk -> (codes, scales, planes), with the
+    int8 extremes (-128 among them) in row 0; ``nonfinite``: a NaN, a +inf
+    and a -inf scale (the quantizer's for chunks holding them)."""
+    vals, planes = batched_topk_encode(codec_rows(gen, dev, c, p),
+                                       group=group, kg=kg)
+    q, sc = REF.batched_quantize_ref(vals, chunk=chunk)
+    q[0, :3] = torch.tensor([-128, 127, -127], dtype=torch.int8, device=dev)
+    if nonfinite:
+        nc = sc.shape[1]
+        sc[0, min(1, nc - 1)] = float("nan")
+        sc[-1, 0] = float("inf")
+        sc[c // 2, nc - 1] = float("-inf")
+    return q, sc, planes
+
+
+def decode_int8_errs(q, sc, planes, p, kg, chunk, group=GROUP):
+    """The int8 decode on (codes, scales, planes) against its plain version
+    and against the two launches it replaces (dequantize, then decode),
+    bit for bit (NaN where theirs is), planned and under each per-thread
+    variant (forced, not counted). Returns the largest difference (0.0
+    when they agree)."""
+    C, K = q.shape
+    kw = dict(k=K, p=p, group=group, kg=kg)
+    got = batched_topk_decode_int8(q, sc, planes, chunk=chunk, **kw)
+    plain = REF.batched_topk_decode_int8_ref(q, sc, planes, chunk=chunk, **kw)
+    two = batched_topk_decode(batched_dequantize(q, sc, chunk=chunk), planes,
+                              **kw)
+    outs = [got]
+    for per in TP.PER_THREAD:
+        d = torch.empty((C, p), device=q.device)
+        TP._decode_int8(q, sc, planes, d, group, kg, chunk,
+                        TP._plan(C, p, group, kg, True, per=per))
+        outs.append(d)
+    torch.cuda.synchronize()
+    shape = (f"C={C} P={p} G={group} kg={kg} chunk={chunk} K%16={K % 16}"
+             f"{'' if bool(torch.isfinite(sc).all()) else ' non-finite'}"
+             f"{'' if q.data_ptr() % 16 == 0 else ' misaligned'}")
+    for i, d in enumerate(outs):
+        what = "planned" if i == 0 else f"per={TP.PER_THREAD[i - 1]}"
+        check(exact(d, plain), f"{INT8_DECODE} {shape} {what}: differs from "
+              "the plain version")
+        check(torch.equal(d.view(torch.int32), two.view(torch.int32)),
+              f"{INT8_DECODE} {shape} {what}: differs from dequantize + "
+              "decode")
+    return max(exact_err(d, plain) for d in outs)
+
+
+def decode_int8_timings(gen, dev, peak, c, p):
+    """The int8 decode at (c, p) (chunk 256, kg KG) beside its bound, its
+    plain version and the two launches it replaces (timed together and
+    each alone; the dequantize also beside its plain version)."""
+    q, sc, planes = int8_payload(gen, dev, c, p, KG, 256)
+    kw = dict(k=q.shape[1], p=p, group=GROUP, kg=KG)
+    vals = batched_dequantize(q, sc, chunk=256)
+    bd = bound(*codec_work(INT8_DECODE, c, p, GROUP, KG), peak)
+    ms = time_ms(lambda: batched_topk_decode_int8(q, sc, planes, **kw))
+    deq = time_ms(lambda: batched_dequantize(q, sc, chunk=256))
+    dec = time_ms(lambda: batched_topk_decode(vals, planes, **kw))
+    return {"shape": [c, p, GROUP, KG, 256], "ms": ms, "bound_ms": bd[0],
+            "bound_by": bd[1], "bound_share": bd[0] / ms,
+            "bound_bytes": codec_work(INT8_DECODE, c, p, GROUP, KG)[0],
+            "per_thread": TP._plan(c, p, GROUP, KG, True).per,
+            "plain_ms": time_ms(lambda: REF.batched_topk_decode_int8_ref(
+                q, sc, planes, **kw)),
+            "two_launches_ms": time_ms(lambda: batched_topk_decode(
+                batched_dequantize(q, sc, chunk=256), planes, **kw)),
+            "dequantize_ms": deq, "decode_ms": dec,
+            "sum_of_two_ms": deq + dec,
+            "dequantize_plain_ms": time_ms(lambda: REF.batched_dequantize_ref(
+                q, sc, chunk=256))}
+
+
+def decode_int8_rows(gen, dev, peak):
+    """The int8 decode held against its plain version and against
+    dequantize + decode, bit for bit: the round's (5, 37696) and the
+    fleet's (1000, 57664) payloads (K = 14136 and 21624, code rows 8 bytes
+    off 16), ragged P (K odd), kg 1 / 3 / 8, chunks 256, 100 and 7, groups
+    6 and 16, NaN and infinite scales, codes at a misaligned base, both
+    per-thread variants; on malformed planes against the two launches.
+    Timed at both path shapes (``by_shape``); the row's own time is the
+    fleet's."""
+    err = 0.0
+    cases = [(N_CLIENTS, P_ROUND, KG, 256, GROUP),
+             (SCALE_CLIENTS[-1], P_EDGE, KG, 256, GROUP)]
+    cases += [(3, p, kg, chunk, GROUP) for p in (999, 8 * 2048 + 5)
+              for kg in (1, 3, 8) for chunk in (256, 100)]
+    cases += [(3, 40 * g + 3, kg, chunk, g) for g in (6, 16)
+              for kg in (1, 3) for chunk in (256, 7)]
+    for c, p, kg, chunk, g in cases:
+        for nonfinite in (False, True):
+            q, sc, planes = int8_payload(gen, dev, c, p, kg, chunk, g,
+                                         nonfinite)
+            err = max(err, decode_int8_errs(q, sc, planes, p, kg, chunk, g))
+            if c <= N_CLIENTS:
+                err = max(err, decode_int8_errs(offset_copy(q), sc, planes,
+                                                p, kg, chunk, g))
+    malformed = {}
+    for c, p, kg in ((3, 999, 3), (N_CLIENTS, P_ROUND, KG)):
+        q, sc, planes = int8_payload(gen, dev, c, p, kg, 256)
+        bad = torch.randint(0, 256, planes.shape, generator=gen, device=dev,
+                            dtype=torch.uint8)
+        kw = dict(k=q.shape[1], p=p, group=GROUP, kg=kg)
+        got = batched_topk_decode_int8(q, sc, bad, **kw)
+        two = batched_topk_decode(batched_dequantize(q, sc), bad, **kw)
+        plain = REF.batched_topk_decode_int8_ref(q, sc, bad, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), two.view(torch.int32)),
+              f"{INT8_DECODE} C={c} P={p} kg={kg} malformed planes: differs "
+              "from dequantize + decode")
+        malformed[f"{c}x{p} kg {kg}"] = float((got - plain).abs().max())
+    by_shape = [decode_int8_timings(gen, dev, peak, N_CLIENTS, P_ROUND),
+                decode_int8_timings(gen, dev, peak, SCALE_CLIENTS[-1],
+                                    P_EDGE)]
+    fleet = by_shape[-1]
+    return {INT8_DECODE: dict(
+        max_abs_err=err, bound=(fleet["bound_ms"], fleet["bound_by"]),
+        ms=fleet["ms"], plain_ms=fleet["plain_ms"], library_ms=None,
+        shape=fleet["shape"],
+        detail={"bound_bytes": fleet["bound_bytes"],
+                "library": "none: no one PyTorch call dequantizes per chunk "
+                "and scatters", "by_shape": by_shape,
+                "malformed_planes_vs_plain": malformed})}
 
 
 def topk_kernel_rows(gen, dev, peak):
@@ -2930,63 +3086,90 @@ def codec_path_errs(seen, prog):
     """The codec's encode and decode against their plain versions on the
     operands of their last call in the card run (the last round's S2C
     roundtrip), with the program's budget, and timed there beside their
-    bounds and beside the two one-stage launches each replaces: the path
-    shapes rule 2's launches x (ms - bound) reads."""
-    g, kg = prog.group, prog.kg
-    (x,), (vals, packed) = (seen[n] for n in CODEC_KERNELS)
-    idx = REF.batched_idx_bitunpack_ref(packed, k=prog.k, group=g, kg=kg)
+    bounds and beside the launches each replaces: the path shapes rule 2's
+    launches x (ms - bound) reads. Under topk+int8 the decode is the int8
+    decode (dequantize + bit-unpack + unpack), held bit for bit against
+    dequantize then decode too."""
+    g, kg, k, p = prog.group, prog.kg, prog.k, prog.p
+    int8 = prog.quant == "int8"
+    dec = INT8_DECODE if int8 else "batched_topk_decode"
+    (x,), dec_args = seen["batched_topk_encode"], seen[dec]
+    packed = dec_args[-1]
+    vals = (REF.batched_dequantize_ref(*dec_args[:2], chunk=prog.chunk)
+            .contiguous() if int8 else dec_args[0])
+    idx = REF.batched_idx_bitunpack_ref(packed, k=k, group=g, kg=kg)
+    kw = dict(k=k, p=p, group=g, kg=kg)
+    if int8:
+        q, sc = dec_args[:2]
+        decode = (lambda: batched_topk_decode_int8(q, sc, packed,
+                                                   chunk=prog.chunk, **kw))
+        plain = REF.batched_topk_decode_int8_ref(q, sc, packed,
+                                                 chunk=prog.chunk, **kw)
+        two = (lambda: batched_topk_decode(batched_dequantize(
+            q, sc, chunk=prog.chunk), packed, **kw))
+        parts = ("batched_dequantize", "batched_idx_bitunpack",
+                 "batched_topk_unpack")
+    else:
+        decode = lambda: batched_topk_decode(vals, packed, **kw)
+        plain = REF.batched_topk_decode_ref(vals, packed, **kw)
+        two = (lambda: batched_topk_unpack(vals, batched_idx_bitunpack(
+            packed, k=k, group=g, kg=kg), p=p, group=g, kg=kg))
+        parts = ("batched_idx_bitunpack", "batched_topk_unpack")
     calls = {
         "batched_topk_encode": (
             lambda: batched_topk_encode(x, group=g, kg=kg),
             lambda: batched_idx_bitpack(batched_topk_pack(
                 x, group=g, kg=kg)[1], group=g, kg=kg)),
-        "batched_topk_decode": (
-            lambda: batched_topk_decode(vals, packed, k=prog.k, p=prog.p,
-                                        group=g, kg=kg),
-            lambda: batched_topk_unpack(vals, batched_idx_bitunpack(
-                packed, k=prog.k, group=g, kg=kg), p=prog.p, group=g,
-                kg=kg))}
+        dec: (decode, two)}
     one = {"batched_topk_pack": lambda: batched_topk_pack(x, group=g, kg=kg),
            "batched_idx_bitpack": lambda: batched_idx_bitpack(
                idx, group=g, kg=kg),
            "batched_idx_bitunpack": lambda: batched_idx_bitunpack(
-               packed, k=prog.k, group=g, kg=kg),
+               packed, k=k, group=g, kg=kg),
            "batched_topk_unpack": lambda: batched_topk_unpack(
-               vals, idx, p=prog.p, group=g, kg=kg)}
+               vals, idx, p=p, group=g, kg=kg)}
+    if int8:
+        one["batched_dequantize"] = lambda: batched_dequantize(
+            q, sc, chunk=prog.chunk)
     peak = peaks(torch.cuda.get_device_name(0))
+    got = decode()
     pairs = {
         "batched_topk_encode": (
             batched_topk_encode(x, group=g, kg=kg),
             REF.batched_topk_encode_ref(x, group=g, kg=kg)),
-        "batched_topk_decode": (
-            (batched_topk_decode(vals, packed, k=prog.k, p=prog.p, group=g,
-                                 kg=kg),),
-            (REF.batched_topk_decode_ref(vals, packed, k=prog.k, p=prog.p,
-                                         group=g, kg=kg),)),
-    }
+        dec: ((got,), (plain,))}
     torch.cuda.synchronize()
+    if int8:
+        check(torch.equal(got.view(torch.int32), two().view(torch.int32)),
+              f"{dec} (codec path): differs from dequantize + decode on its "
+              "last operands")
     out = {}
     for name, (k_out, r_out) in pairs.items():
         check(all(exact(a, b) for a, b in zip(k_out, r_out)),
               f"{name} (codec path): differs from the plain version on its "
               "last operands")
-        bd = bound(*codec_work(name, x.shape[0], prog.p, g, kg), peak)
-        kernel, two = calls[name]
+        bd = bound(*codec_work(name, x.shape[0], p, g, kg, prog.chunk or 256),
+                   peak)
+        kernel, two_fn = calls[name]
         out[name] = {"shapes": [list(a.shape) for a in seen[name]],
                      "max_abs_err": max(exact_err(a.float(), b.float())
                                         for a, b in zip(k_out, r_out)),
                      "ms": time_ms(kernel), "bound_ms": bd[0],
-                     "bound_by": bd[1], "two_launches_ms": time_ms(two),
-                     "per_thread": TP._plan(x.shape[0], prog.p, g, kg,
+                     "bound_by": bd[1], "two_launches_ms": time_ms(two_fn),
+                     "per_thread": TP._plan(x.shape[0], p, g, kg,
                                             aligned(x)).per}
-    parts = {"batched_topk_encode": ("batched_topk_pack",
-                                     "batched_idx_bitpack"),
-             "batched_topk_decode": ("batched_idx_bitunpack",
-                                     "batched_topk_unpack")}
-    for name, names in parts.items():      # rows 12a-15a: off the path now
+    def one_bound(n):
+        work = (path_work(n, (q, sc)) if n == "batched_dequantize"
+                else codec_work(n, x.shape[0], p, g, kg))
+        return bound(*work, peak)[0]
+
+    # rows 2a and 12a-15a: off the path now
+    for name, names in (("batched_topk_encode", ("batched_topk_pack",
+                                                 "batched_idx_bitpack")),
+                        (dec, parts)):
         out[name]["one_stage"] = {
-            n: {"ms": time_ms(one[n]), "bound_ms": bound(*codec_work(
-                n, x.shape[0], prog.p, g, kg), peak)[0]} for n in names}
+            n: {"ms": time_ms(one[n]), "bound_ms": one_bound(n)}
+            for n in names}
     return out
 
 
@@ -3026,7 +3209,7 @@ def phase_round_fedstil_codec(dev, card, uncoded):
     n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
     n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
     expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
-    expect.update(dict.fromkeys(ONE_STAGE_CODEC, 0))
+    expect.update(dict.fromkeys(ONE_STAGE_CODEC + (INT8_DECODE,), 0))
     expect.update({"kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
@@ -3214,8 +3397,8 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
     their last on-path operands."""
     bench = FederatedReIDBenchmark(seed=SEED)
     zero_counts()
-    names = (ROUND_KERNELS + CODEC_KERNELS
-             + ("batched_quantize", "batched_dequantize"))
+    names = (ROUND_KERNELS + ("batched_topk_encode", INT8_DECODE,
+                              "batched_quantize", "batched_dequantize"))
     with last_operands(names) as seen:
         strat, res, wall_s = simulate(bench, dev, CODEC_INT8)
     launches = counts()
@@ -3232,10 +3415,14 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
     rows_short, rows_cpu = res_short.comm_breakdown(), res_cpu.comm_breakdown()
     n_c2s = sum(r["c2s_wire"] > 0 for r in rows)
     n_s2c = sum(r["s2c_wire"] > 0 for r in rows)
-    expect = {n: (n_c2s - 1) + (n_s2c - 1) for n in CODEC_KERNELS}
+    # a residual payload: one encode and one int8 decode (dequantize
+    # folded in); the two dense keyframes: dequantize
+    residuals = (n_c2s - 1) + (n_s2c - 1)
+    expect = {"batched_topk_encode": residuals, INT8_DECODE: residuals,
+              "batched_topk_decode": 0}
     expect.update(dict.fromkeys(ONE_STAGE_CODEC, 0))
     expect.update({"batched_quantize": n_c2s + n_s2c,
-                   "batched_dequantize": n_c2s + n_s2c,
+                   "batched_dequantize": 2,
                    "kl_similarity": ROUNDS,
                    "fused_relevance_aggregate": ROUNDS,
                    "batched_pairwise_dist": n_eval,
@@ -3385,7 +3572,10 @@ def phase_wire_round_scale(dev, card):
                     quantize_ms=time_ms(lambda: batched_quantize(
                         vals, chunk=prog.chunk)),
                     dequantize_ms=time_ms(lambda: batched_dequantize(
-                        q, sc, chunk=prog.chunk)))
+                        q, sc, chunk=prog.chunk)),
+                    decode_int8_ms=time_ms(lambda: batched_topk_decode_int8(
+                        q, sc, packed, k=prog.k, p=P_EDGE, group=GROUP,
+                        kg=KG, chunk=prog.chunk)))
                 check(per_client == INT8_SCALE_WIRE,
                       f"wire_round_scale {codec}: {per_client} bytes a "
                       f"client, predicted {INT8_SCALE_WIRE}")

@@ -4,8 +4,8 @@ A/B between two checkouts on one card.
 
     python3 scripts/kernel_ab.py TREE LABEL [SET ...]    # from the repo root
 
-SET is any of ``aggregate``, ``kl``, ``quantize``, ``dist``, ``combine``
-and ``codec`` (all six when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
+SET is any of ``aggregate``, ``kl``, ``quantize``, ``dist``, ``combine``,
+``codec`` and ``codec_int8`` (all seven when none is named). Runs this checkout's ``chip_smoke.py`` against TREE's ``src/``
 (TREE ``.`` for this checkout; for another one the script is copied into
 TREE as ``chip_smoke_ab.py`` and imported from there), builds TREE's
 kernels, and for each set prints a ``TIMES`` line (CUDA events, median of
@@ -38,17 +38,24 @@ trees compare bit for bit):
              the round's (5, 37696) and the fleet's (1000, 57664) rows
              beside their bounds, launches a call; ``BatchedCodec``'s
              roundtrip of a residual at the fleet's rows under both codecs
-             (device ms, codec launches, peak memory above what is held
-             before it); outputs there, at
+             (device ms, codec launches with quantize and dequantize, peak
+             memory above what is held before it); outputs there, at
              ragged P with kg 1, 3 and 8, on a misaligned copy, on rows
              holding NaN and infinities, and the decode of malformed
              planes
+  codec_int8 the int8 codec's residual decode (one launch, or, before it,
+             dequantize then decode) at the round's (5, 37696) and the
+             fleet's (1000, 57664) payloads beside its bound, launches a
+             call; outputs there, at ragged P with kg 1, 3 and 8 and
+             chunks 256 and 100, with NaN and infinite scales, on codes
+             at a misaligned base, and on malformed planes
 
 A tree whose kernel has no ``_plan`` reports its variant as "one"; a tree
 before the multi-leaf combine gets a stand-in ``adaptive_combine_tree``
 (its one-leaf kernel leaf by leaf), and one before the codec's encode and
-decode gets stand-ins that call its two one-stage kernels each, so this
-checkout's script imports. Run
+decode gets stand-ins that call its two one-stage kernels each, and one
+before the int8 decode a stand-in that calls dequantize then decode, so
+this checkout's script imports. Run
 parent, change, change, parent in one call on one card (the parent
 unpacked with ``git archive`` into a gitignored directory). Needs a CUDA
 card.
@@ -60,7 +67,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-SETS = ("aggregate", "kl", "quantize", "dist", "combine", "codec")
+SETS = ("aggregate", "kl", "quantize", "dist", "combine", "codec",
+        "codec_int8")
 
 
 def digest(*xs):
@@ -241,7 +249,9 @@ def codec(CS, dev, peak):
 
     def launches():
         return sum(CS.KERNELS[n]["fn"].launches
-                   for n in CS.CODEC_KERNELS + CS.ONE_STAGE_CODEC)
+                   for n in CS.CODEC_KERNELS + CS.ONE_STAGE_CODEC
+                   + (CS.INT8_DECODE, "batched_quantize",
+                      "batched_dequantize"))
 
     def enc(x, kg=CS.KG):
         return CS.batched_topk_encode(x, group=CS.GROUP, kg=kg)
@@ -307,6 +317,54 @@ def codec(CS, dev, peak):
     return times, out
 
 
+def codec_int8(CS, dev, peak):
+    import torch
+
+    def launches():
+        return sum(CS.KERNELS[n]["fn"].launches
+                   for n in (CS.INT8_DECODE, "batched_dequantize",
+                             "batched_topk_decode"))
+
+    def dec(q, sc, planes, p, kg=CS.KG, chunk=256):
+        return CS.batched_topk_decode_int8(q, sc, planes, k=q.shape[1], p=p,
+                                           group=CS.GROUP, kg=kg, chunk=chunk)
+
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    times = []
+    for c, p in ((CS.N_CLIENTS, CS.P_ROUND), (CS.SCALE_CLIENTS[-1],
+                                              CS.P_EDGE)):
+        q, sc, planes = CS.int8_payload(gen, dev, c, p, CS.KG, 256)
+        before = launches()
+        dec(q, sc, planes, p)
+        n_launch = launches() - before
+        bd = CS.bound(*CS.codec_work(CS.INT8_DECODE, c, p, CS.GROUP, CS.KG),
+                      peak)
+        ms = CS.time_ms(lambda: dec(q, sc, planes, p))
+        times.append({"name": "decode_int8", "shape": [c, p], "ms": ms,
+                      "bound_ms": bd[0], "bound_share": bd[0] / ms,
+                      "launches": n_launch})
+        del q, sc, planes
+    gen = torch.Generator(device=dev).manual_seed(123)
+    out = {}
+    cases = [(CS.N_CLIENTS, CS.P_ROUND, CS.KG, 256),
+             (CS.SCALE_CLIENTS[-1], CS.P_EDGE, CS.KG, 256)] + [
+        (3, p, kg, chunk) for p in (999, 8 * 2048 + 5) for kg in (1, 3, 8)
+        for chunk in (256, 100)]
+    for c, p, kg, chunk in cases:
+        for nonfinite in (False, True):
+            q, sc, planes = CS.int8_payload(gen, dev, c, p, kg, chunk,
+                                            nonfinite=nonfinite)
+            bad = torch.randint(0, 256, planes.shape, generator=gen,
+                                device=dev, dtype=torch.uint8)
+            key = (f"{c}x{p} kg {kg} chunk {chunk}"
+                   f"{' non-finite' if nonfinite else ''}")
+            out[key] = [digest(dec(q, sc, planes, p, kg, chunk)),
+                        digest(dec(CS.offset_copy(q), sc, planes, p, kg,
+                                   chunk)),
+                        digest(dec(q, sc, bad, p, kg, chunk))]
+    return times, out
+
+
 def main():
     tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     sets = sys.argv[3:] or SETS
@@ -336,6 +394,16 @@ def main():
                     p=p, group=group, kg=kg)
             encode.launches = decode.launches = 0
             TPM.batched_topk_encode, TPM.batched_topk_decode = encode, decode
+        if not hasattr(TPM, "batched_topk_decode_int8"):
+            from repro_torch.kernels import quantize as QZM
+
+            def decode_int8(codes, scales, packed, *, k, p, group=8, kg,
+                            chunk=256):
+                return TPM.batched_topk_decode(
+                    QZM.batched_dequantize(codes, scales, chunk=chunk),
+                    packed, k=k, p=p, group=group, kg=kg)
+            decode_int8.launches = 0
+            TPM.batched_topk_decode_int8 = decode_int8
         import chip_smoke_ab as CS
     else:
         sys.path.insert(0, str(tree))
@@ -347,7 +415,8 @@ def main():
     CS._build.build_all()
     peak = CS.peaks(torch.cuda.get_device_name(0))
     run = {"aggregate": aggregate, "kl": kl, "quantize": quantize,
-           "dist": dist, "combine": combine, "codec": codec}
+           "dist": dist, "combine": combine, "codec": codec,
+           "codec_int8": codec_int8}
     for name in sets:
         times, digests = run[name](CS, dev, peak)
         print("TIMES", name, label, json.dumps(times), flush=True)

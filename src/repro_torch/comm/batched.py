@@ -6,9 +6,11 @@ ALL C clients' flattened (C, P) payload rows at once, on the device that
 holds them: a sparse payload's sparsify and index stages are one
 ``kernels.ops.batched_topk_encode`` (grouped top-k pack and index
 bit-pack) and one ``batched_topk_decode`` (bit-unpack and unpack), the
-quantize stage ``batched_quantize`` / ``batched_dequantize`` per chunk
-(CUDA kernels for CUDA tensors, one launch each, the plain versions for
-CPU tensors); bf16 is a cast to ``torch.bfloat16`` and back. Encoded
+quantize stage ``batched_quantize`` per chunk; an int8 sparse payload
+decodes in one ``batched_topk_decode_int8`` (dequantize, bit-unpack and
+unpack), a dense one in ``batched_dequantize`` (CUDA kernels for CUDA
+tensors, one launch each, the plain versions for CPU tensors); bf16 is a
+cast to ``torch.bfloat16`` and back. Encoded
 buffers stay on the device; the measured per-client wire bytes follow from
 the buffer shapes, so a simulated round reads nothing back.
 
@@ -96,9 +98,13 @@ class BatchedCodec:
     def _dec(self, buffers: Buffers) -> torch.Tensor:
         if "idx_bits" not in buffers:
             return self._dequant(buffers)
+        kw = dict(k=self.k, p=self.p, group=self.group, kg=self.kg)
+        if self.quant == "int8":
+            return ops.batched_topk_decode_int8(
+                buffers["values"], buffers["scales"], buffers["idx_bits"],
+                chunk=self.chunk, **kw)
         return ops.batched_topk_decode(self._dequant(buffers),
-                                       buffers["idx_bits"], k=self.k,
-                                       p=self.p, group=self.group, kg=self.kg)
+                                       buffers["idx_bits"], **kw)
 
     # ---- wire ----------------------------------------------------------------
     def _encode_residual(self, x):

@@ -1,12 +1,19 @@
 // The wire codec's grouped top-k sparsify and index bit-packing. The
-// codec's path takes two launches a sparse payload, each folding two
-// Pallas TPU kernels of src/repro/kernels/topk_pack.py:
+// codec's path takes two launches a sparse payload, each folding two or
+// three Pallas TPU kernels of src/repro/kernels/:
 //
-//   batched_topk_encode    batched_topk_pack, then batched_idx_bitpack
+//   batched_topk_encode    topk_pack.py: batched_topk_pack, then
+//       batched_idx_bitpack
 //       (C, P) fp32 -> values (C, nb*kg) fp32 + bit-planes (C, bits *
 //       ceil(nb*kg/8)) uint8, with no int32 index tensor in between.
 //   batched_topk_decode    batched_idx_bitunpack, then batched_topk_unpack
 //       values + bit-planes -> dense (C, p) fp32.
+//   batched_topk_decode_int8
+//       src/repro/kernels/quantize.py:batched_dequantize, then the decode:
+//       int8 codes (C, nb*kg) + chunk scales (C, ceil(nb*kg / chunk)) fp32
+//       + bit-planes -> dense (C, p) fp32, each value
+//       __fmul_rn((float)code, its chunk's scale) in the decode's prologue,
+//       with no fp32 value tensor in between (the topk+int8 codec's path).
 //
 // Four one-stage kernels stay beside them, each replacing one of those
 // Pallas kernels on its own (no main-path caller):
@@ -331,6 +338,70 @@ __device__ __forceinline__ unsigned stage_in(float* __restrict__ sm,
   return off;
 }
 
+// The int8 decode's prologue: a tile's n codes q (slots j0, j0 + 1, ... of
+// a row whose chunk scales are sc) into a block's 16-byte aligned shared
+// buffer as __fmul_rn((float)code, sc[slot / chunk]), dequantize_kernel's
+// single IEEE product (no FMA, no reciprocal). Element i lands at sm[off +
+// i], off = q's offset within its 4-byte word, so the codes between a
+// scalar head (up to q's next 16-byte boundary) and tail are read as
+// 16-byte vectors and their values stored as four float4. A vector walks
+// its chunk index without a division a code (a scale reload where it
+// crosses a chunk, a hit in the line just read at chunk 256); any chunk >=
+// 1. Returns off; the caller's barrier makes the values the block's. Out
+// of line: one copy for every group size, and no register of it is held
+// in the decode (a kernel of 32 registers, as the fp32 decode's).
+__device__ __noinline__ unsigned dequant_in(float* __restrict__ sm,
+                                            const int8_t* __restrict__ q,
+                                            const float* __restrict__ sc,
+                                            unsigned j0, unsigned chunk,
+                                            unsigned n) {
+  const unsigned off = (unsigned)(uintptr_t)q & 3u;
+  const unsigned head =
+      min(n, (unsigned)((16u - ((uintptr_t)q & 15u)) & 15u));
+  const unsigned nv = (n - head) >> 4;
+  for (unsigned i = threadIdx.x; i < head; i += kThreads)
+    sm[off + i] = __fmul_rn((float)q[i], sc[(j0 + i) / chunk]);
+  for (unsigned v = threadIdx.x; v < nv; v += kThreads) {
+    const unsigned i = head + 16 * v;
+    const uint4 w = *reinterpret_cast<const uint4*>(q + i);
+    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+    unsigned ci = (j0 + i) / chunk;
+    unsigned r = j0 + i - ci * chunk;
+    float s = sc[ci];
+    float f[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (r == chunk) {
+        r = 0;
+        s = sc[++ci];
+      }
+      ++r;
+      const float code = (float)(int8_t)(words[e >> 2] >> (8 * (e & 3)));
+      f[e] = __fmul_rn(code, s);
+    }
+    float4* d = reinterpret_cast<float4*>(sm + off + i);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      d[t] = make_float4(f[4 * t], f[4 * t + 1], f[4 * t + 2], f[4 * t + 3]);
+  }
+  for (unsigned i = head + 16 * nv + threadIdx.x; i < n; i += kThreads)
+    sm[off + i] = __fmul_rn((float)q[i], sc[(j0 + i) / chunk]);
+  return off;
+}
+
+// The 128-byte lines of dequant_in's codes (a line a thread) and of its
+// first and last scale into L1 before the plane bytes are staged, so the
+// two round trips overlap, with no register held across the staging.
+__device__ __forceinline__ void prefetch_int8(const int8_t* q,
+                                              const float* sc, unsigned j0,
+                                              unsigned chunk, unsigned n) {
+  for (unsigned i = 128 * threadIdx.x; i < n + 127; i += 128 * kThreads)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(q + min(i, n - 1)));
+  if (threadIdx.x < 2)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(
+        sc + (j0 + threadIdx.x * (n - 1)) / chunk));
+}
+
 // n floats of a shared buffer to device memory: 16-byte stores between a
 // scalar head and tail (the shared side read as four words where the head
 // leaves it off 16 bytes). Stores do not hold the thread, so a plain loop
@@ -521,13 +592,18 @@ __device__ __forceinline__ void decode_group(const float* sv,
 }
 
 // Grid (tiles, C), the encode's tiles. The block stages each plane's bytes
-// of its slots and its slots' values (cp.async, stage_in) in shared
-// memory; after the barrier thread t decodes groups t, t + kThreads, ... of
-// the tile (decode_group).
+// of its slots and its slots' values in shared memory: the fp32 values by
+// cp.async (stage_in), or, where codes is not null (the int8 decode), the
+// values dequantized from the int8 codes and chunk scales (dequant_in,
+// their lines prefetched ahead of the plane bytes; vals unused). After the
+// barrier thread t decodes groups t, t + kThreads, ... of the tile
+// (decode_group): one decode body for both prologues.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 topk_decode_kernel(const float* __restrict__ vals,
-                   const uint8_t* __restrict__ planes,
+                   const int8_t* __restrict__ codes,
+                   const float* __restrict__ scales, unsigned nc,
+                   unsigned chunk, const uint8_t* __restrict__ planes,
                    float* __restrict__ out, unsigned p, unsigned nb, int kg,
                    unsigned kb, int per, bool vec) {
   constexpr int kBits = bits_of(G);
@@ -540,6 +616,9 @@ topk_decode_kernel(const float* __restrict__ vals,
   const unsigned K = nb * kg;
   const unsigned n = min(tile, nb - g0) * kg;
   const unsigned nbytes = (n + 7) / 8;
+  const size_t first = (size_t)c * K + g0 * kg;      // the tile's slot 0
+  const float* sc = scales + (size_t)c * nc;
+  if (codes) prefetch_int8(codes + first, sc, g0 * kg, chunk, n);
   const uint8_t* prow = planes + (size_t)c * kBits * kb + g0 * kg / 8;
   for (unsigned b = threadIdx.x; b < nbytes; b += kThreads) {
     uint8_t t[kBits];                  // every plane's byte b in flight
@@ -548,7 +627,9 @@ topk_decode_kernel(const float* __restrict__ vals,
 #pragma unroll
     for (int j = 0; j < kBits; ++j) sp[j * kPlane + b] = t[j];
   }
-  const unsigned off = stage_in(sv, vals + (size_t)c * K + g0 * kg, n);
+  const unsigned off = codes ? dequant_in(sv, codes + first, sc, g0 * kg,
+                                         chunk, n)
+                              : stage_in(sv, vals + first, n);
   __syncthreads();
 
   float* orow = out + (size_t)c * p;
@@ -694,6 +775,41 @@ extern "C" int repro_batched_topk_encode(const void* x, void* vals,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// Both decode entries: the fp32 values (codes null) or the int8 codes with
+// nc chunk scales a row. Checks as the entries below state them.
+int run_decode(const float* vals, const int8_t* codes, const float* scales,
+               long long nc, int chunk, const uint8_t* planes, float* out,
+               long long C, long long p, long long kb, int group, int kg,
+               int vec, int per, cudaStream_t st) {
+  if (group < 2 || group > kMaxGroup || kg < 1 || kg > group)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = (p + group - 1) / group;
+  const long long K = nb * kg;
+  if (codes && (chunk < 1 || nc != (K + chunk - 1) / chunk))
+    return (int)cudaErrorInvalidValue;
+  if (C * p == 0) return 0;
+  if (C * nb * group >= kMaxThreads || K > kb * 8 || C > 65535 ||
+      per < 1 || per > kMaxPer)
+    return (int)cudaErrorInvalidValue;
+  const long long tile = (long long)kThreads * per;
+  const dim3 grid((unsigned)((nb + tile - 1) / tile), (unsigned)C);
+  switch (group) {
+#define X(G)                                                              \
+  case G:                                                                 \
+    topk_decode_kernel<G><<<grid, kThreads, 0, st>>>(                     \
+        vals, codes, scales, (unsigned)nc, (unsigned)chunk, planes, out,  \
+        (unsigned)p, (unsigned)nb, kg, (unsigned)kb, per, vec != 0);      \
+    break;
+    REPRO_PLANE_GROUP_CASES(X)
+#undef X
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // vals: (C, K) fp32, K = nb*kg, nb = ceil(p / group); planes: (C,
 // bits*kb) uint8 with K <= 8*kb; out: (C, p) fp32; 2 <= group <= 16,
 // 1 <= kg <= group; vec = out's rows keep 16-byte stores aligned; per =
@@ -703,26 +819,22 @@ extern "C" int repro_batched_topk_decode(const void* vals, const void* planes,
                                          void* out, long long C, long long p,
                                          long long kb, int group, int kg,
                                          int vec, int per, void* stream) {
-  if (group < 2 || group > kMaxGroup || kg < 1 || kg > group)
-    return (int)cudaErrorInvalidValue;
-  const long long nb = (p + group - 1) / group;
-  const long long K = nb * kg;
-  if (C * p == 0) return 0;
-  if (C * nb * group >= kMaxThreads || K > kb * 8 || C > 65535 ||
-      per < 1 || per > kMaxPer)
-    return (int)cudaErrorInvalidValue;
-  const long long tile = (long long)kThreads * per;
-  const dim3 grid((unsigned)((nb + tile - 1) / tile), (unsigned)C);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (group) {
-#define X(G)                                                              \
-  case G:                                                                 \
-    topk_decode_kernel<G><<<grid, kThreads, 0, st>>>(                     \
-        (const float*)vals, (const uint8_t*)planes, (float*)out,          \
-        (unsigned)p, (unsigned)nb, kg, (unsigned)kb, per, vec != 0);      \
-    break;
-    REPRO_PLANE_GROUP_CASES(X)
-#undef X
-  }
-  return (int)cudaGetLastError();
+  return run_decode((const float*)vals, nullptr, nullptr, 0, 1,
+                    (const uint8_t*)planes, (float*)out, C, p, kb, group, kg,
+                    vec, per, (cudaStream_t)stream);
+}
+
+// codes: (C, K) int8 and scales: (C, nc) fp32, nc = ceil(K / chunk), chunk
+// >= 1 (batched_quantize's outputs); planes, out and the rest as
+// repro_batched_topk_decode. out = repro_batched_topk_decode(
+// repro_batched_dequantize(codes, scales), planes), bit for bit. Returns
+// cudaGetLastError().
+extern "C" int repro_batched_topk_decode_int8(
+    const void* codes, const void* scales, const void* planes, void* out,
+    long long C, long long p, long long kb, long long nc, int chunk,
+    int group, int kg, int vec, int per, void* stream) {
+  if (codes == nullptr) return (int)cudaErrorInvalidValue;
+  return run_decode(nullptr, (const int8_t*)codes, (const float*)scales, nc,
+                    chunk, (const uint8_t*)planes, (float*)out, C, p, kb,
+                    group, kg, vec, per, (cudaStream_t)stream);
 }

@@ -30,6 +30,8 @@ from repro_torch.kernels.relevance_aggregate import \
 from repro_torch.kernels.topk_pack import batched_idx_bitpack as _bidxpack
 from repro_torch.kernels.topk_pack import batched_idx_bitunpack as _bidxunpack
 from repro_torch.kernels.topk_pack import batched_topk_decode as _bdecode
+from repro_torch.kernels.topk_pack import \
+    batched_topk_decode_int8 as _bdecode8
 from repro_torch.kernels.topk_pack import batched_topk_encode as _bencode
 from repro_torch.kernels.topk_pack import batched_topk_pack as _btopk
 from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
@@ -241,6 +243,18 @@ def batched_topk_decode(vals, packed, *, k: int, p: int, group: int = 8,
         return _bdecode(vals, packed, k=k, p=p, group=group, kg=kg)
     return REF.batched_topk_decode_ref(vals, packed, k=k, p=p, group=group,
                                        kg=kg)
+
+
+def batched_topk_decode_int8(codes, scales, packed, *, k: int, p: int,
+                             group: int = 8, kg: int, chunk: int = 256):
+    """The int8 codec's decode in one step: int8 codes + chunk scales +
+    bit-planes -> dense (C, p) fp32, as ``batched_dequantize`` then
+    ``batched_topk_decode``."""
+    if _on_cuda(codes, scales, packed):
+        return _bdecode8(codes, scales, packed, k=k, p=p, group=group, kg=kg,
+                         chunk=chunk)
+    return REF.batched_topk_decode_int8_ref(codes, scales, packed, k=k, p=p,
+                                            group=group, kg=kg, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

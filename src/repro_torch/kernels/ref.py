@@ -308,6 +308,16 @@ def batched_topk_decode_ref(vals, packed, *, k: int, p: int, group: int,
     return batched_topk_unpack_ref(vals, idx, p=p, group=group, kg=kg)
 
 
+def batched_topk_decode_int8_ref(codes, scales, packed, *, k: int, p: int,
+                                 group: int, kg: int, chunk: int = 256):
+    """The int8 codec's decode: ``batched_dequantize_ref`` of the (C, k)
+    codes and their chunk scales, then ``batched_topk_decode_ref`` ->
+    dense (C, p) fp32."""
+    return batched_topk_decode_ref(
+        batched_dequantize_ref(codes, scales, chunk=chunk), packed, k=k, p=p,
+        group=group, kg=kg)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: forward, forward + logsumexp, dQ, dK/dV
 # ---------------------------------------------------------------------------

@@ -1,17 +1,24 @@
 """CUDA kernel wrappers of the wire codec's grouped top-k and index
 bit-packing (``csrc/topk_pack.cu``; replace
 ``repro/kernels/topk_pack.py:batched_topk_pack``, ``:batched_topk_unpack``,
-``:batched_idx_bitpack`` and ``:batched_idx_bitunpack``).
+``:batched_idx_bitpack`` and ``:batched_idx_bitunpack``, and with them
+``repro/kernels/quantize.py:batched_dequantize`` on the int8 codec's path).
 
-The codec's path takes two launches, each folding two of the four:
+The codec's path takes two launches, each folding two of the four (the
+int8 decode also the dequantize):
 
     encode:     (C, P) fp32 -> (values (C, nb*kg) fp32, bit-planes (C,
                 bits*ceil(nb*kg/8)) uint8): pack, then bit-pack, with no
                 int32 index tensor in between
     decode:     values + bit-planes -> dense (C, p) fp32: bit-unpack, then
                 unpack
+    decode_int8:
+                int8 codes (C, nb*kg) + chunk scales (C, ceil(nb*kg/chunk))
+                fp32 + bit-planes -> dense (C, p) fp32: dequantize, then
+                decode, with no fp32 value tensor in between; the decode's
+                kernel with another prologue
 
-Each block of both owns THREADS * per consecutive groups of one row
+Each block of all three owns THREADS * per consecutive groups of one row
 (``_plan``). The four one-stage kernels below stay, as the counterparts
 of the reference's four functions:
 
@@ -25,7 +32,7 @@ of the reference's four functions:
     bitunpack:  (C, bits*kb) uint8 -> (C, k) int32 absolute indices
 
 The pack and unpack kernels take 1 <= kg <= group <= 16, encode and
-decode 2 <= group <= 16 (a plane needs a bit) and at most ``MAX_ROWS``
+the decodes 2 <= group <= 16 (a plane needs a bit) and at most ``MAX_ROWS``
 rows (the grid's second dimension); every kernel indexes its threads and
 slots in 32 bits, so a call needs fewer than 2^31 of them. Take CUDA
 tensors only; the ``ops`` dispatchers send CPU tensors to the plain
@@ -61,6 +68,8 @@ _ENCODE_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
                 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _DECODE_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 3
                 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_DECODE_INT8_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,) * 4
+                     + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 
 
 def _check_budget(group: int, kg: int) -> None:
@@ -266,6 +275,17 @@ def _decode(vals, packed, out, group, kg, plan):
             plan.per)
 
 
+def _decode_int8(codes, scales, packed, out, group, kg, chunk, plan):
+    """One int8 decode launch under ``plan``, uncounted (checked
+    operands)."""
+    C, p = out.shape
+    _launch("repro_batched_topk_decode_int8", _DECODE_INT8_ARGS,
+            "batched_topk_decode_int8", out.device, codes.data_ptr(),
+            scales.data_ptr(), packed.data_ptr(), out.data_ptr(), C, p,
+            packed.shape[1] // _bits(group), scales.shape[1], chunk, group,
+            kg, int(plan.vec), plan.per)
+
+
 def batched_topk_encode(x, *, group: int = 8, kg: int):
     """(C, P) fp32 -> (values (C, nb*kg) fp32, bit-planes (C, bits *
     ceil(nb*kg/8)) uint8): ``batched_topk_pack`` then
@@ -292,28 +312,35 @@ def batched_topk_encode(x, *, group: int = 8, kg: int):
 batched_topk_encode.launches = 0
 
 
-def batched_topk_decode(vals, packed, *, k: int, p: int, group: int = 8,
-                        kg: int):
-    """Values (C, k) + bit-planes (C, bits*kb) -> dense (C, p) fp32:
-    ``batched_idx_bitunpack`` then ``batched_topk_unpack``, in one launch;
-    k = ceil(p/group)*kg <= 8*kb."""
+def _check_decode(name, vals, packed, k, p, group, kg, what):
+    """The shape checks both decodes share; returns (C, K, bytes a plane
+    row)."""
     if vals.dim() != 2 or packed.dim() != 2:
-        raise ValueError(f"vals, packed: expected (C, k) and (C, bits*kb), "
+        raise ValueError(f"{name}, packed: expected (C, k) and (C, bits*kb), "
                          f"got {tuple(vals.shape)}, {tuple(packed.shape)}")
     C, K = vals.shape
     bits = _check_codec(C, group, kg)
     if K != k or K != (p + group - 1) // group * kg:
-        raise ValueError(f"vals: {K} slots, k={k}, p={p} needs "
+        raise ValueError(f"{name}: {K} slots, k={k}, p={p} needs "
                          f"{(p + group - 1) // group * kg}")
     nbytes = packed.shape[1]
     if nbytes % bits or k > nbytes // bits * 8:
         raise ValueError(f"packed: {nbytes} bytes a row do not hold {bits} "
                          f"planes of {k} slots")
+    _check_size(C * ((p + group - 1) // group) * group, what)
+    return C, K, nbytes
+
+
+def batched_topk_decode(vals, packed, *, k: int, p: int, group: int = 8,
+                        kg: int):
+    """Values (C, k) + bit-planes (C, bits*kb) -> dense (C, p) fp32:
+    ``batched_idx_bitunpack`` then ``batched_topk_unpack``, in one launch;
+    k = ceil(p/group)*kg <= 8*kb."""
+    C, K, nbytes = _check_decode("vals", vals, packed, k, p, group, kg,
+                                 "batched_topk_decode")
     dev = vals.device
     _build.check_operand("vals", vals, torch.float32, (C, K), dev)
     _build.check_operand("packed", packed, torch.uint8, (C, nbytes), dev)
-    _check_size(C * ((p + group - 1) // group) * group,
-                "batched_topk_decode")
     out = torch.empty((C, p), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -324,3 +351,33 @@ def batched_topk_decode(vals, packed, *, k: int, p: int, group: int = 8,
 
 
 batched_topk_decode.launches = 0
+
+
+def batched_topk_decode_int8(codes, scales, packed, *, k: int, p: int,
+                             group: int = 8, kg: int, chunk: int = 256):
+    """int8 codes (C, k) + chunk scales (C, ceil(k/chunk)) fp32 +
+    bit-planes (C, bits*kb) -> dense (C, p) fp32: the quantizer's
+    ``batched_dequantize`` then ``batched_topk_decode``, in one launch, bit
+    for bit (value = code * scale, one IEEE product)."""
+    C, K, nbytes = _check_decode("codes", codes, packed, k, p, group, kg,
+                                 "batched_topk_decode_int8")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    nc = -(-K // chunk)
+    if tuple(scales.shape) != (C, nc):
+        raise ValueError(f"scales: shape {tuple(scales.shape)}, {K} slots in "
+                         f"chunks of {chunk} need ({C}, {nc})")
+    dev = codes.device
+    _build.check_operand("codes", codes, torch.int8, (C, K), dev)
+    _build.check_operand("scales", scales, torch.float32, (C, nc), dev)
+    _build.check_operand("packed", packed, torch.uint8, (C, nbytes), dev)
+    out = torch.empty((C, p), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    _decode_int8(codes, scales, packed, out, group, kg, chunk,
+                 _plan(C, p, group, kg, out.data_ptr() % 16 == 0))
+    batched_topk_decode_int8.launches += 1
+    return out
+
+
+batched_topk_decode_int8.launches = 0

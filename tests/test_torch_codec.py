@@ -41,6 +41,7 @@ from repro_torch.kernels import topk_pack as TP
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,
                                            batched_idx_bitunpack,
                                            batched_topk_decode,
+                                           batched_topk_decode_int8,
                                            batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
@@ -292,36 +293,143 @@ def test_codec_plan_takes_two_groups_a_thread_past_a_small_grid(rows, p,
     assert TP._plan(rows, p, 8, 3, aligned=True).per == per
 
 
-@pytest.mark.parametrize("spec", ["delta+topk", "topk+int8"])
+# the int8 codec's decode: dequantize, bit-unpack and unpack in one launch
+# on the card
+
+DECODE_INT8_CASES = [(group * 150 + 3, group, kg, chunk)
+                     for group in (2, 8, 16)
+                     for kg in sorted({1, min(3, group), group})
+                     for chunk in (256, 100)]
+
+
+def _int8_payload(rng, C, P, group, kg, chunk):
+    """A sparse payload as the int8 codec ships it: the encode's values
+    quantized per chunk, with the int8 extremes, -128 among them, written
+    in."""
+    x = _codec_input(rng, C, P, group)
+    vals, packed = ops.batched_topk_encode(torch.from_numpy(x), group=group,
+                                           kg=kg)
+    q, scales = ops.batched_quantize(vals, chunk=chunk)
+    q[3, :3] = torch.tensor([-128, 127, -127], dtype=torch.int8)
+    return q, scales, packed
+
+
+def _with_nonfinite_scales(scales):
+    """A NaN, a +inf and a -inf scale, as the quantizer gives a chunk that
+    holds NaN or an infinity."""
+    bad = scales.clone()
+    nc = bad.shape[1]
+    bad[0, min(1, nc - 1)] = float("nan")
+    bad[1, 0] = float("inf")
+    bad[2, nc - 1] = float("-inf")
+    return bad
+
+
+def _jax_decode_int8(decode_ops, q, scales, packed, *, p, group, kg, chunk):
+    """The JAX package's dequantize, bit-unpack and unpack, through
+    ``decode_ops(name, *args, **kw)``."""
+    K = q.shape[1]
+    jv = decode_ops("batched_dequantize", q.numpy(), scales.numpy(),
+                    chunk=chunk)
+    jb = decode_ops("batched_idx_bitunpack", packed.numpy(), k=K,
+                    group=group, kg=kg)
+    return np.asarray(decode_ops("batched_topk_unpack", jv, jb, p=p,
+                                 group=group, kg=kg))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("P,group,kg,chunk", DECODE_INT8_CASES)
+def test_topk_decode_int8_matches_jax(P, group, kg, chunk, backend):
+    """The int8 decode equals the JAX package's dequantize, then
+    bit-unpack, then unpack, bit for bit, and the port's two-step
+    ``batched_topk_decode(batched_dequantize(...))``: ragged P (3 past a
+    group multiple), a chunk that divides no tile (100), the code -128.
+
+    With a NaN, a +inf and a -inf scale it equals the reference's written
+    arithmetic (``repro.kernels.ref``, eager), where value * 0 spreads NaN
+    across every group holding a non-finite value. The JAX package's
+    jitted ``ops`` (both backends) differ there: XLA rewrites the one-hot
+    product into a select, which keeps a non-finite value at its own slot
+    alone; every group holding none is equal bit for bit."""
+    rng = np.random.default_rng(P * 11 + group + kg + chunk)
+    q, scales, packed = _int8_payload(rng, 4, P, group, kg, chunk)
+    K = q.shape[1]
+    kw = dict(p=P, group=group, kg=kg, chunk=chunk)
+    jitted = lambda name, *a, **k: _jops(name, backend, *a, **k)
+    eager = lambda name, *a, **k: getattr(JREF, f"{name}_ref")(*a, **k)
+    for sc in (scales, _with_nonfinite_scales(scales)):
+        dense = ops.batched_topk_decode_int8(q, sc, packed, k=K, **kw)
+        assert dense.shape == (4, P) and dense.dtype == torch.float32
+        bits = dense.view(torch.int32).numpy()
+        two = ops.batched_topk_decode(
+            ops.batched_dequantize(q, sc, chunk=chunk), packed, k=K, p=P,
+            group=group, kg=kg)
+        np.testing.assert_array_equal(bits, two.view(torch.int32).numpy())
+        np.testing.assert_array_equal(
+            bits, ref.batched_topk_decode_int8_ref(q, sc, packed, k=K, **kw)
+            .view(torch.int32).numpy())
+        jd = _jax_decode_int8(jitted, q, sc, packed, **kw)
+        finite = bool(torch.isfinite(sc).all())
+        if finite:
+            np.testing.assert_array_equal(_np(dense), jd)
+            continue
+        np.testing.assert_array_equal(
+            _np(dense), _jax_decode_int8(eager, q, sc, packed, **kw))
+        nb = -(-P // group)
+        pad = np.pad(_np(dense), ((0, 0), (0, nb * group - P)))
+        clean = np.isfinite(pad.reshape(4, nb, group)).all(-1)
+        keep = np.repeat(clean, group, axis=1)[:, :P]
+        assert not keep.all() and np.isnan(_np(dense)).any()
+        np.testing.assert_array_equal(_np(dense)[keep], jd[keep])
+
+
+SPARSE_PAYLOAD_CALLS = {
+    # spec: (the dense keyframe's calls, a residual payload's calls)
+    "delta+topk": ({}, {"batched_topk_encode": 1, "batched_topk_decode": 1}),
+    "topk+int8": ({"batched_dequantize": 1},
+                  {"batched_topk_encode": 1, "batched_topk_decode_int8": 1}),
+}
+
+
+@pytest.mark.parametrize("spec", sorted(SPARSE_PAYLOAD_CALLS))
 def test_batched_codec_sparse_payload_takes_one_encode_and_one_decode(
         spec, monkeypatch):
     """A roundtrip of a sparse payload calls ``ops.batched_topk_encode``
-    once and ``ops.batched_topk_decode`` once, and none of the four
-    one-stage ops (counted on ``ops``; the keyframe calls neither)."""
+    once and one decode once: ``batched_topk_decode`` for fp32 values,
+    ``batched_topk_decode_int8`` (dequantize folded in) for int8 codes,
+    with no ``batched_dequantize`` on a residual; none of the four
+    one-stage ops (counted on ``ops``). The dense keyframe calls no codec
+    op (int8: one ``batched_dequantize``)."""
     calls = {}
     for name in ("batched_topk_encode", "batched_topk_decode",
+                 "batched_topk_decode_int8", "batched_dequantize",
                  "batched_topk_pack", "batched_topk_unpack",
                  "batched_idx_bitpack", "batched_idx_bitunpack"):
         def counted(*a, _name=name, _fn=getattr(ops, name), **kw):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*a, **kw)
         monkeypatch.setattr(ops, name, counted)
+    keyframe, residual = SPARSE_PAYLOAD_CALLS[spec]
     rng = np.random.default_rng(8)
     prog = BatchedCodec(CODEC.make_codec(spec), 999)
     prog.roundtrip(torch.from_numpy(_codec_input(rng, 4, 999)))
-    assert calls == {}                                # the dense keyframe
+    assert calls == keyframe
     for r in range(2):
         recon, buffers = prog.roundtrip(
             torch.from_numpy(_codec_input(rng, 4, 999)))
         assert "idx_bits" in buffers
-        assert calls == {"batched_topk_encode": r + 1,
-                         "batched_topk_decode": r + 1}
+        assert calls == {n: keyframe.get(n, 0) + (r + 1) * residual.get(n, 0)
+                         for n in set(keyframe) | set(residual)}
 
 
 CUDA_WRAPPERS = [
     (batched_topk_encode, lambda: (torch.zeros(2, 16),), {"kg": 3}),
     (batched_topk_decode,
      lambda: (torch.zeros(2, 6), torch.zeros(2, 3, dtype=torch.uint8)),
+     {"k": 6, "p": 16, "kg": 3}),
+    (batched_topk_decode_int8,
+     lambda: (torch.zeros(2, 6, dtype=torch.int8), torch.ones(2, 1),
+              torch.zeros(2, 3, dtype=torch.uint8)),
      {"k": 6, "p": 16, "kg": 3}),
     (batched_topk_pack, lambda: (torch.zeros(2, 16),), {"kg": 3}),
     (batched_topk_unpack,
@@ -361,17 +469,23 @@ def test_topk_wrappers_refuse_budgets_the_kernel_does_not_take():
                                 {"group": 8, "kg": 9}, {"group": 8, "kg": 0}],
                          ids=["group17", "group1", "kg9", "kg0"])
 def test_codec_wrappers_refuse_budgets_the_kernel_does_not_take(kw):
-    """Encode and decode take 2 <= group <= 16 (a plane needs a bit) and
-    1 <= kg <= group, and neither launches on a refusal."""
-    before = (batched_topk_encode.launches, batched_topk_decode.launches)
+    """Encode and both decodes take 2 <= group <= 16 (a plane needs a bit)
+    and 1 <= kg <= group, and none launches on a refusal."""
+    wrappers = (batched_topk_encode, batched_topk_decode,
+                batched_topk_decode_int8)
+    before = [w.launches for w in wrappers]
     with pytest.raises(ValueError, match="group|kg"):
         batched_topk_encode(torch.zeros(2, 16), **kw)
     with pytest.raises(ValueError, match="group|kg"):
         batched_topk_decode(torch.zeros(2, 6),
                             torch.zeros(2, 3, dtype=torch.uint8), k=6, p=16,
                             **kw)
-    assert (batched_topk_encode.launches,
-            batched_topk_decode.launches) == before
+    with pytest.raises(ValueError, match="group|kg"):
+        batched_topk_decode_int8(torch.zeros(2, 6, dtype=torch.int8),
+                                 torch.ones(2, 1),
+                                 torch.zeros(2, 3, dtype=torch.uint8), k=6,
+                                 p=16, **kw)
+    assert [w.launches for w in wrappers] == before
 
 
 def test_codec_wrappers_refuse_shapes_the_kernel_does_not_take():
@@ -385,6 +499,22 @@ def test_codec_wrappers_refuse_shapes_the_kernel_does_not_take():
                             kg=3)
     with pytest.raises(ValueError, match="rows"):
         batched_topk_encode(torch.zeros(TP.MAX_ROWS + 1, 8), kg=3)
+    planes = torch.zeros(2, 3, dtype=torch.uint8)
+    codes = torch.zeros(2, 6, dtype=torch.int8)
+    with pytest.raises(ValueError, match="slots"):
+        batched_topk_decode_int8(codes[:, :5], torch.ones(2, 1), planes, k=5,
+                                 p=16, kg=3)
+    with pytest.raises(ValueError, match="planes"):
+        batched_topk_decode_int8(codes, torch.ones(2, 1),
+                                 torch.zeros(2, 4, dtype=torch.uint8), k=6,
+                                 p=16, kg=3)
+    with pytest.raises(ValueError, match="chunk"):
+        batched_topk_decode_int8(codes, torch.ones(2, 1), planes, k=6, p=16,
+                                 kg=3, chunk=0)
+    for cols, chunk in ((2, 256), (1, 4)):    # a column too many / too few
+        with pytest.raises(ValueError, match="scales"):
+            batched_topk_decode_int8(codes, torch.ones(2, cols), planes, k=6,
+                                     p=16, kg=3, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("topk_pack", "batched_topk_unpack"),
             ("topk_pack", "batched_idx_bitpack"),
             ("topk_pack", "batched_idx_bitunpack"),
+            ("topk_pack", "batched_topk_decode_int8"),
             ("quantize", "batched_dequantize"),
             ("relevance_aggregate", "relevance_aggregate"),
             ("adaptive_combine", "adaptive_combine"),
@@ -45,6 +46,8 @@ SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
              ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}
 # wrappers whose TPU kernel is not ``<module>.py:<wrapper name>``
 REPLACES = {
+    ("topk_pack", "batched_topk_decode_int8"):
+        "src/repro/kernels/quantize.py:batched_dequantize",
     ("flash_attention", "flash_attention_fwd"):
         "src/repro/kernels/flash_attention.py:flash_attention",
     ("flash_attention", "flash_attention_fwd_lse"):
