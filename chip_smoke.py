@@ -3,8 +3,9 @@
 ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
 FedSTIL federated round (stacked engine, device evaluation), the same
 round with the ``delta+topk`` wire codec, on the host engine, and with the
-``topk+int8`` wire codec, and the dense LM's FedSTIL edge train step
-(qwen3-1.7b at full width).
+``topk+int8`` wire codec, the paper's Table II baselines (the strategy
+zoo), and the dense LM's FedSTIL edge train step (qwen3-1.7b at full
+width).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -187,6 +188,24 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  the card and on the CPU: equal wire bytes, final mAP / R1
                  within 0.03; per-round tables in
                  ``build/round_fedstil_codec_int8.json``
+     round_zoo:  the Table II baselines at ``benchmarks/common.py``'s
+                 settings (epochs 4): EWC, MAS, iCaRL (raw-image
+                 exemplars re-encoded on the card), FedProx, FedCurv and
+                 FedWeIT (a) l1 1e-4 / l2 1e-6 and (b) 5e-6 / 1e-3 on the
+                 host engine, on the paper's bench (C=5, T=6, the edge
+                 model's widths) for 6 rounds (one a task; the protocol's
+                 60 cut), evaluated every 2 rounds, each on the card and
+                 again on the CPU: per-eval-round mAP / R1 / forgetting,
+                 every eval round's mAP / R1 card vs CPU within 1e-4,
+                 C2S / S2C / storage bytes equal (FedWeIT: up to the
+                 exact ties at its top-30% threshold, counted per
+                 upload), round wall and stage ms (medians); FedProx also
+                 on the stacked engine on the card, every eval round
+                 within 1e-4 of its host run, with equal bytes;
+                 batched_pairwise_dist once an evaluation (24) and no
+                 other kernel (counts zeroed just before the card runs),
+                 held against its plain version on its last on-path
+                 operands. Per-round tables in ``build/round_zoo.json``
   9. server_round_scale  the stacked server step alone (ring push, KL
                  relevance, flatten, fused aggregate, unflatten) at C=100
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
@@ -253,7 +272,8 @@ from repro_torch.core.fedstil import FedSTIL  # noqa: E402
 from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
 from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
 from repro_torch.data.tokens import synthetic_lm_batch  # noqa: E402
-from repro_torch.federated import FedAvg, run_simulation  # noqa: E402
+from repro_torch.federated import (FedAvg, FedCurv, FedProx,  # noqa: E402
+                                   FedWeIT, run_simulation)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import adaptive_combine as ACM  # noqa: E402
@@ -287,7 +307,7 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_topk_pack,
                                            batched_topk_unpack)
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
-from repro_torch.lifelong import STL  # noqa: E402
+from repro_torch.lifelong import EWC, ICaRL, MAS, STL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
@@ -414,6 +434,14 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # share of the script's time; 30 rounds took 11.6-14.0 s, and 24 pay for
 # the int8 decode's phase-3 checks (~3 s)
 INT8_CPU_ROUNDS = 24
+# round_zoo: the Table II baselines at benchmarks/common.py's epochs, one
+# round a task (the protocol's 60 rounds cut to 6), evaluated every 2
+ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
+# every eval round's mAP / R1: card vs CPU (the same code on the same
+# weights; at most 5.7e-7 measured on the H100) and FedProx host vs stacked
+# on the card (at most 1.5e-6)
+ZOO_TOL = 1e-4
+ZOO_OUT = ROOT / "build" / "round_zoo.json"
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -444,7 +472,8 @@ KERNELS = {
     "batched_pairwise_dist": {
         "fn": batched_pairwise_dist,
         "paths": ("serve", "round_fedstil", "round_fedstil_codec",
-                  "round_fedstil_host", "round_fedstil_codec_int8"),
+                  "round_fedstil_host", "round_fedstil_codec_int8",
+                  "round_zoo"),
         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
         "replaces": "src/repro/kernels/pairwise_dist.py:91"},
     # no main path of either package calls the 2-D form: the per-query
@@ -3476,6 +3505,182 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
 # ---------------------------------------------------------------------------
 
 
+def tie_excess(a) -> int:
+    """Entries of a sparsified leaf kept beyond k = max(1, int(0.3 size)):
+    the exact ties at its top-30% threshold."""
+    flat = torch.abs(a).reshape(-1)
+    k = max(1, int(0.3 * flat.numel()))
+    return int(torch.count_nonzero(flat >= torch.sort(flat)[0][-k])) - k
+
+
+class RecordingFedWeIT(FedWeIT):
+    """FedWeIT that keeps every upload's nnz, its ties at the threshold
+    (``tie_excess`` over its leaves) and the k its top-30% keeps before
+    ties (sum over leaves of max(1, int(0.3 size)))."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.nnz, self.ties, self.k = [], [], 0
+
+    def local_train(self, client, state, protos, labels, rnd, **kw):
+        state, up = super().local_train(client, state, protos, labels, rnd,
+                                        **kw)
+        self.nnz.append(int(up["A_nnz"]))
+        self.ties.append(sum(tie_excess(a) for a in tree_leaves(up["A"])))
+        self.k = sum(max(1, int(0.3 * a.numel()))
+                     for a in tree_leaves(up["A"]))
+        return state, up
+
+
+def zoo_strategies(cfg):
+    """The Table II baselines as ``benchmarks/common.py:36-52`` builds them
+    (epochs 4; FedWeIT's settings (a) and (b))."""
+    weit = lambda l1, l2: lambda: RecordingFedWeIT(
+        cfg, epochs=ZOO_EPOCHS, n_clients=N_CLIENTS, l1=l1, l2=l2)
+    return {"ewc": lambda: EWC(cfg, epochs=ZOO_EPOCHS),
+            "mas": lambda: MAS(cfg, epochs=ZOO_EPOCHS),
+            "icarl": lambda: ICaRL(cfg, epochs=ZOO_EPOCHS,
+                                   extractor=EM.extract_prototypes),
+            "fedprox": lambda: FedProx(cfg, epochs=ZOO_EPOCHS),
+            "fedcurv": lambda: FedCurv(cfg, epochs=ZOO_EPOCHS),
+            "fedweit_a": weit(1e-4, 1e-6),
+            "fedweit_b": weit(5e-6, 1e-3)}
+
+
+def zoo_run(bench, device, make, engine="host"):
+    """One zoo run of ZOO_ROUNDS from SEED's weights -> (strategy, result,
+    wall s)."""
+    strategy = make()
+    t0 = time.perf_counter()
+    res = run_simulation(strategy, bench, rounds=ZOO_ROUNDS,
+                         eval_every=ZOO_EVAL_EVERY, seed=SEED, engine=engine,
+                         device=device)
+    return strategy, res, time.perf_counter() - t0
+
+
+def zoo_bytes(name, card_run, cpu_run):
+    """Card vs CPU bytes: equal, except FedWeIT's nnz, which counts exact
+    ties at its top-30% threshold (tests/test_torch_fed_strategies.py: the
+    kept entries of ``l2.b``, whose cross-entropy gradient BN erases, are
+    chosen by rounding). Each FedWeIT upload keeps exactly k plus its own
+    ties on either side, so card and CPU nnz differ by no more than their
+    ties (equal where neither has any), and the raw C2S / S2C totals differ
+    by exactly 8 bytes a differing entry, once up and once to each client
+    down."""
+    (sa, ra, _), (sb, rb, _) = card_run, cpu_run
+    out = {"c2s": [ra.comm.total_c2s, rb.comm.total_c2s],
+           "s2c": [ra.comm.total_s2c, rb.comm.total_s2c],
+           "storage": [ra.storage_bytes, rb.storage_bytes]}
+    if not name.startswith("fedweit"):
+        out["equal"] = (ra.comm.round_breakdown() == rb.comm.round_breakdown()
+                        and ra.storage_bytes == rb.storage_bytes)
+        return out
+    na, nb = sum(sa.nnz), sum(sb.nnz)
+    out.update(nnz=[na, nb], ties=[sum(sa.ties), sum(sb.ties)], k=sa.k,
+               uploads=len(sa.nnz),
+               uploads_nnz_differ=sum(a != b for a, b in zip(sa.nnz, sb.nnz)))
+    out["equal"] = (len(sa.nnz) == len(sb.nnz) == N_CLIENTS * ZOO_ROUNDS
+                    and sa.k == sb.k
+                    and all(n == sa.k + t for n, t in zip(sa.nnz, sa.ties))
+                    and all(n == sb.k + t for n, t in zip(sb.nnz, sb.ties))
+                    and all(abs(a - b) <= max(ta, tb) for a, b, ta, tb in
+                            zip(sa.nnz, sb.nnz, sa.ties, sb.ties))
+                    and ra.comm.total_c2s - rb.comm.total_c2s == 8 * (na - nb)
+                    and ra.comm.total_s2c - rb.comm.total_s2c
+                    == 8 * N_CLIENTS * (na - nb)
+                    and ra.storage_bytes == rb.storage_bytes)
+    return out
+
+
+def phase_round_zoo(dev, card):
+    """The Table II baselines on the card and on the CPU, from the same
+    initial weights, on the paper's bench (C = 5, T = 6, the edge model's
+    widths), ZOO_ROUNDS rounds: EWC, MAS, iCaRL, FedProx, FedCurv and
+    FedWeIT (a) and (b) on the host engine, FedProx also on the stacked
+    engine on the card. Card vs CPU: bytes (``zoo_bytes``), every eval
+    round's mAP / R1 within ZOO_TOL; FedProx host vs stacked the same, with
+    equal bytes; batched_pairwise_dist once an evaluation and no other
+    kernel, held against its plain version on its last on-path operands."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    cfg = EM.EdgeModelConfig(n_classes=bench.n_classes)
+    makes = zoo_strategies(cfg)
+    zero_counts()
+    with last_operands(("batched_pairwise_dist",)) as seen:
+        card_runs = {n: zoo_run(bench, dev, m) for n, m in makes.items()}
+        stacked = zoo_run(bench, dev, makes["fedprox"], engine="stacked")
+    launches = counts()
+    on_path = path_operand_errs(seen)
+    n_eval = len(stacked[1].rounds)
+    expect = {n: 0 for n in KERNELS}
+    expect["batched_pairwise_dist"] = (len(card_runs) + 1) * n_eval
+    t0 = time.perf_counter()
+    cpu_runs = {n: zoo_run(bench, "cpu", m) for n, m in makes.items()}
+    cpu_s = time.perf_counter() - t0
+
+    keys = ("mAP", "R1", "forgetting_mAP")
+    runs, tables = {}, {}
+    for name, (strat, res, wall_s) in card_runs.items():
+        _, res_cpu, _ = cpu_runs[name]
+        check(len(res.rounds) == n_eval == len(res_cpu.rounds),
+              f"round_zoo {name}: {len(res.rounds)} eval rounds")
+        for r in res.rounds:
+            check(all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0
+                      for k in keys), f"round_zoo {name}: bad metrics {r}")
+        per_round, final = metric_deltas(res.rounds, res_cpu.rounds)
+        stages = ("local_train", "server", "apply", "eval")
+        runs[name] = {
+            "eval_rounds": [r["round"] for r in res.rounds],
+            **{k: [r[k] for r in res.rounds] for k in keys},
+            "cpu_final": {k: res_cpu.rounds[-1][k] for k in keys},
+            "card_vs_cpu": {"largest_per_round_delta": per_round,
+                            "final_abs_delta": final,
+                            "tolerance": ZOO_TOL},
+            "bytes": zoo_bytes(name, card_runs[name], cpu_runs[name]),
+            "round_wall_ms_median": float(np.median(
+                [s["wall_ms"] for s in res.stage_ms])),
+            "stage_ms_median": {k: float(np.median(
+                [s.get(k, 0.0) for s in res.stage_ms])) for k in stages},
+            "sim_wall_s": wall_s}
+        tables[name] = {"rounds": res.rounds, "rounds_cpu": res_cpu.rounds,
+                        "stage_ms": res.stage_ms}
+    host = card_runs["fedprox"][1]
+    _, st_res, st_wall = stacked
+    per_round, final = metric_deltas(st_res.rounds, host.rounds)
+    fedprox_stacked = {
+        "largest_per_round_delta": per_round, "final_abs_delta": final,
+        "tolerance": ZOO_TOL,
+        "bytes_equal": (st_res.comm.total_c2s == host.comm.total_c2s
+                        and st_res.comm.total_s2c == host.comm.total_s2c
+                        and st_res.storage_bytes == host.storage_bytes),
+        "round_wall_ms_median": float(np.median(
+            [s["wall_ms"] for s in st_res.stage_ms])),
+        "sim_wall_s": st_wall}
+    ZOO_OUT.parent.mkdir(parents=True, exist_ok=True)
+    ZOO_OUT.write_text(json.dumps({"card": card, "runs": tables,
+                                   "fedprox_stacked": st_res.stage_ms}))
+    emit({"phase": "round_zoo", "card": card, "clients": N_CLIENTS,
+          "tasks": bench.n_tasks, "rounds": ZOO_ROUNDS,
+          "epochs": ZOO_EPOCHS, "eval_every": ZOO_EVAL_EVERY, "runs": runs,
+          "fedprox_host_vs_stacked": fedprox_stacked,
+          "cpu_reruns_s": cpu_s,
+          "launches": {k: v for k, v in launches.items() if v},
+          "expected_launches": {k: v for k, v in expect.items() if v},
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(ZOO_OUT.relative_to(ROOT))})
+    for name, r in runs.items():
+        check(r["bytes"]["equal"],
+              f"round_zoo {name}: card and CPU bytes differ: {r['bytes']}")
+        check(all(v <= ZOO_TOL for v in r["card_vs_cpu"]
+                  ["largest_per_round_delta"].values()),
+              f"round_zoo {name}: card vs CPU {r['card_vs_cpu']} > {ZOO_TOL}")
+    check(all(v <= ZOO_TOL for v in per_round.values())
+          and fedprox_stacked["bytes_equal"],
+          f"round_zoo: FedProx host vs stacked {fedprox_stacked}")
+    check(launches == expect,
+          f"round_zoo launches {launches}, expected {expect}")
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+
+
 def phase_server_scale(dev, card):
     """ring push -> KL relevance -> flatten -> fused aggregate -> unflatten
     at the C of BENCH_server_round.json / BENCH_mesh_round.json, with the
@@ -3924,6 +4129,9 @@ def main():
     launches["round_fedstil_codec_int8"], errs = \
         phase_round_fedstil_codec_int8(dev, card, res)
     fold(errs)
+    # path 7: the Table II strategy zoo (counts zeroed inside)
+    launches["round_zoo"], errs = phase_round_zoo(dev, card)
+    fold(errs)
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     del strat, res
@@ -3931,7 +4139,7 @@ def main():
     phase_server_scale(dev, card)
     phase_wire_round_scale(dev, card)
     torch.cuda.empty_cache()
-    # path 7: the dense LM's edge train step (counts zeroed inside)
+    # path 8: the dense LM's edge train step (counts zeroed inside)
     launches["lm_train"], errs = phase_lm_train(dev, card)
     for name, err in errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)

@@ -3,7 +3,8 @@ nested (a FedSTIL client's trainable part is ``{"alpha": theta, "A":
 theta}``, each theta a flat dict under dotted keys such as ``l1.w``).
 
 Leaves are visited in the JAX package's ``jax.tree.flatten`` order: keys
-sorted at every level, a dotted key compared part by part. The flattened
+sorted at every level, a dotted key compared part by part, an integer key
+(FedWeIT's neighbour dicts, keyed by client) by its value. The flattened
 (C, P) columns therefore come out in the same order as
 ``repro.common.pytree.tree_flatten_stacked``: ``bn.bias, bn.scale,
 head.w, l1.b, l1.w, l2.b, l2.w`` for an edge head.
@@ -18,8 +19,13 @@ import torch
 Tree = Dict[str, Any]
 
 
-def _order(tree: Tree) -> List[str]:
-    return sorted(tree, key=lambda k: k.split("."))
+def _sort_key(k) -> list:
+    """Integer keys by value (2 before 10), strings part by part."""
+    return [int(k)] if isinstance(k, (int, np.integer)) else k.split(".")
+
+
+def _order(tree: Tree) -> list:
+    return sorted(tree, key=_sort_key)
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -95,6 +95,53 @@ def forward_one(theta, protos) -> np.ndarray:
         return EM.adaptive_forward(as_one(theta), x)[0][0].cpu().numpy()
 
 
+# Importances are taken over chunks of this many prototypes: BN has no
+# gradient at a batch of 1 (the reference's ``_fisher`` / ``_importance``).
+CHUNK = 8
+
+
+def client_sum(t: torch.Tensor) -> torch.Tensor:
+    """(C, ...) -> (C,): the sum over every dimension but the stack's."""
+    return torch.sum(t.flatten(1), 1)
+
+
+def tree_copy(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def chunk_grads(theta, loss_fn, protos, labels=None):
+    """Per-chunk gradients of ``loss_fn`` at one client's head, the
+    reference's ``jax.vmap(jax.grad(...))`` over chunks: the first
+    ``len(protos) // CHUNK * CHUNK`` host prototypes in chunks of
+    ``CHUNK``, the head copied once a chunk as a stack, and one backward
+    pass over the sum of the (n_chunks,) losses, so each row's gradient is
+    its own chunk's. ``loss_fn(th, x)`` or ``loss_fn(th, x, y)`` takes the
+    stacked heads, (n_chunks, CHUNK, D) prototypes and (n_chunks, CHUNK)
+    labels. Returns a tree of (n_chunks, ...) gradients."""
+    dev = device_of(theta)
+    n = (len(protos) // CHUNK) * CHUNK
+    x = torch.from_numpy(np.asarray(protos[:n], np.float32)).reshape(
+        -1, CHUNK, protos.shape[-1]).to(dev)
+    args = [x]
+    if labels is not None:
+        args.append(torch.from_numpy(np.asarray(labels[:n], np.int64))
+                    .reshape(-1, CHUNK).to(dev))
+    rows = x.shape[0]
+    th = tree_map(lambda t: t.detach()[None].repeat(
+        (rows,) + (1,) * t.dim()).requires_grad_(True), theta)
+    with torch.enable_grad():
+        torch.sum(loss_fn(th, *args)).backward()
+    return tree_map(lambda t: t.grad, th)
+
+
+def fisher_diag(theta, protos, labels):
+    """The diagonal Fisher of one client's head: the mean over chunks of
+    prototypes of each chunk's squared CE gradient (``_fisher`` of the
+    reference's FedCurv, ``_importance`` of its EWC)."""
+    g = chunk_grads(theta, EM.ce_loss, protos, labels)
+    return tree_map(lambda gg: torch.mean(torch.square(gg), 0), g)
+
+
 def eval_round_stacked(theta, qp, qids, task_mask, gp, gids, gmask, *,
                        ranks=(1, 3, 5), max_matches=None):
     """Every client x task retrieval evaluation of one round.

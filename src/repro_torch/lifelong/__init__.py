@@ -1,4 +1,4 @@
-"""Local-only lifelong baselines of the port."""
-from repro_torch.lifelong.strategies import STL
+"""Local-only lifelong baselines of the port (paper Table II)."""
+from repro_torch.lifelong.strategies import EWC, ICaRL, MAS, STL
 
-__all__ = ["STL"]
+__all__ = ["EWC", "ICaRL", "MAS", "STL"]

@@ -1,7 +1,8 @@
 """Structural rules of the PyTorch port, checked on its sources:
 
-  * src/repro_torch/ and chip_smoke.py import neither jax / jaxlib nor the
-    JAX package ``repro`` (the port keeps its own copies);
+  * src/repro_torch/, chip_smoke.py and the port's examples
+    (``examples/*_torch.py``) import neither jax / jaxlib nor the JAX
+    package ``repro`` (the port keeps its own copies);
   * every CUDA kernel wrapper carries an integer ``launches`` counter, and
     its kernel module names the TPU kernel it replaces (the four flash
     attention stages among them); the two forwards also count their
@@ -72,7 +73,8 @@ TC_KERNEL = {"flash_attention_fwd": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_modules(path):
