@@ -9,7 +9,9 @@ width).
 
     python3 chip_smoke.py            # from the repository root
 
-Phases, each printing one JSON line; any failure exits nonzero:
+Phases, each printing one JSON line; any failure exits nonzero. Every
+federated run that reports stage ms is traced (``run_simulation(...,
+trace=obs.Tracer())``): its stages are the telemetry spans:
 
   1. device      torch's card name and ``nvidia-smi``'s name + power limit
                  (no CUDA device -> exit 1, no result)
@@ -184,7 +186,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  neither the fp32 decode nor the four one-stage codec
                  kernels, each kernel against
                  its plain version on its last on-path operands, the coded
-                 minus the uncoded final mAP; then 24 rounds of the same on
+                 minus the uncoded final mAP; then 12 rounds of the same on
                  the card and on the CPU: equal wire bytes, final mAP / R1
                  within 0.03; per-round tables in
                  ``build/round_fedstil_codec_int8.json``
@@ -214,8 +216,20 @@ Phases, each printing one JSON line; any failure exits nonzero:
                  past the keyframe: device ms of encode, decode (topk+int8:
                  also the int8 decode, quantize and dequantize), the four
                  one-stage kernels and the whole roundtrip, the
-                 roundtrip's peak memory, wire bytes a client against the
-                 dense 230656
+                 roundtrip's peak memory untraced and under a tracer (the
+                 encode's metrics), wire bytes a client against the dense
+                 230656
+     telemetry:  what tracing costs: the stacked server round's tracing tax
+                 at C=100 (benchmarks/server_round.py's measure: null
+                 tracer against a live one, min of 3 x 8 rounds; reported
+                 against its 2% rule), the null hooks' host cost times the
+                 hooks of a stacked round as a share of the untraced
+                 round's wall (fails at 2% or more), the protocol's stacked
+                 round untraced and traced for 6 rounds each, twice (round
+                 wall of each; no span sync and no torch.cuda.synchronize
+                 untraced, counted), the traced run's phase shares and its
+                 Chrome trace written to build/ and read back, and the
+                 codec roundtrip's peak at C=1000 both ways
  11. lm_train    the FedSTIL split step of ``launch/train.py``
                  (``make_train_step``, tie_lambda 1e-4, Adam with the cosine
                  schedule) on qwen3-1.7b at full width (28 layers, d 2048,
@@ -309,6 +323,8 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.lifelong import EWC, ICaRL, MAS, STL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.obs import report  # noqa: E402
+from repro_torch.obs import trace as obs  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
                                  RetrievalEngine, map_from_ranked_ids,
                                  query_ivf, query_ivf_host, recall_at_k,
@@ -431,9 +447,10 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # the card-vs-CPU comparison of round_fedstil_codec_int8 runs both at this
 # depth (its 60-round card run is held to the byte prediction): the CPU
 # rerun of the whole protocol took 20.5 s on the card's host, the largest
-# share of the script's time; 30 rounds took 11.6-14.0 s, and 24 pay for
-# the int8 decode's phase-3 checks (~3 s)
-INT8_CPU_ROUNDS = 24
+# share of the script's time; 30 rounds took 11.6-14.0 s, 24 paid for the
+# int8 decode's phase-3 checks (~3 s), and 12 (two a task) for the
+# telemetry phase
+INT8_CPU_ROUNDS = 12
 # round_zoo: the Table II baselines at benchmarks/common.py's epochs, one
 # round a task (the protocol's 60 rounds cut to 6), evaluated every 2
 ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
@@ -442,6 +459,15 @@ ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
 # on the card (at most 1.5e-6)
 ZOO_TOL = 1e-4
 ZOO_OUT = ROOT / "build" / "round_zoo.json"
+# telemetry: the stacked round untraced and traced over this many rounds;
+# the server round's tracing tax as benchmarks/server_round.py measures it
+# (C, rounds a timing, timings a side; gated there at 2%, reported here);
+# null hooks timed over this many calls each
+TELEMETRY_ROUNDS = 6
+TAX_CLIENTS, TAX_ITERS, TAX_REPEATS = 100, 8, 3
+OVERHEAD_GATE = 0.02
+NULL_HOOK_CALLS = 100_000
+TRACE_OUT = ROOT / "build" / "telemetry_trace.json"
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -2930,8 +2956,9 @@ def path_operand_errs(seen):
 
 def simulate(bench, device, codec=None, init_params=None, engine="stacked",
              eval_backend="device", strategy=None, rounds=None):
-    """One run of the protocol (FedSTIL by default, ROUNDS rounds) from
-    SEED's weights; returns (strategy, result, wall seconds)."""
+    """One traced run of the protocol (FedSTIL by default, ROUNDS rounds)
+    from SEED's weights, so its ``stage_ms`` is filled; returns (strategy,
+    result, wall seconds)."""
     if strategy is None:
         strategy = RecordingFedSTIL(
             EM.EdgeModelConfig(n_classes=bench.n_classes),
@@ -2939,7 +2966,8 @@ def simulate(bench, device, codec=None, init_params=None, engine="stacked",
     t0 = time.perf_counter()
     res = run_simulation(strategy, bench, rounds=rounds or ROUNDS, seed=SEED,
                          engine=engine, eval_backend=eval_backend,
-                         device=device, init_params=init_params)
+                         device=device, init_params=init_params,
+                         trace=obs.Tracer())
     return strategy, res, time.perf_counter() - t0
 
 
@@ -3091,7 +3119,8 @@ def phase_round_profile(dev, card, n_rounds=6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_simulation(strategy, bench, rounds=n_rounds, seed=SEED,
-                             engine="stacked", device=dev)
+                             engine="stacked", device=dev,
+                             trace=obs.Tracer())
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -3548,13 +3577,13 @@ def zoo_strategies(cfg):
 
 
 def zoo_run(bench, device, make, engine="host"):
-    """One zoo run of ZOO_ROUNDS from SEED's weights -> (strategy, result,
-    wall s)."""
+    """One traced zoo run of ZOO_ROUNDS from SEED's weights -> (strategy,
+    result, wall s)."""
     strategy = make()
     t0 = time.perf_counter()
     res = run_simulation(strategy, bench, rounds=ZOO_ROUNDS,
                          eval_every=ZOO_EVAL_EVERY, seed=SEED, engine=engine,
-                         device=device)
+                         device=device, trace=obs.Tracer())
     return strategy, res, time.perf_counter() - t0
 
 
@@ -3736,8 +3765,10 @@ def phase_wire_round_scale(dev, card):
     of the whole roundtrip (CUDA events), the roundtrip's peak device
     memory above what is held before it, and the wire bytes a client
     against the dense payload (topk+int8: against the prediction from the
-    shapes)."""
+    shapes). The peak is taken untraced and under a tracer (the encode's
+    metrics); returns {(codec, C): (peak untraced, peak traced)}."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    peaks_out = {}
     for codec in (CODEC, CODEC_INT8):
         for C in SCALE_CLIENTS:
             prog = BatchedCodec(make_codec(codec), P_EDGE)
@@ -3785,16 +3816,226 @@ def phase_wire_round_scale(dev, card):
                       f"wire_round_scale {codec}: {per_client} bytes a "
                       f"client, predicted {INT8_SCALE_WIRE}")
             rec["roundtrip_ms"] = time_ms(lambda: prog.roundtrip(mat))
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            prog.roundtrip(mat)
-            torch.cuda.synchronize()
-            rec["roundtrip_peak_bytes_above_held"] = (
-                torch.cuda.max_memory_allocated() - held)
+            # untraced (the encode computes no metric), then traced
+            rec["roundtrip_peak_bytes_above_held"] = roundtrip_peak(prog, mat)
+            with obs.active(obs.Tracer()):
+                rec["roundtrip_peak_bytes_above_held_traced"] = \
+                    roundtrip_peak(prog, mat)
+            check(prog.last_metrics is not None, "wire_round_scale: the "
+                  "traced encode computed no metric")
+            peaks_out[(codec, C)] = (
+                rec["roundtrip_peak_bytes_above_held"],
+                rec["roundtrip_peak_bytes_above_held_traced"])
             emit(rec)
             del prog, base, mat, recon, buffers, r, vals, idx, packed
             torch.cuda.empty_cache()
+    return peaks_out
+
+
+def roundtrip_peak(prog, mat) -> int:
+    """Device bytes one ``prog.roundtrip(mat)`` allocates above what is
+    held before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prog.roundtrip(mat)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+# ---------------------------------------------------------------------------
+# telemetry: what tracing costs, off and on
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counting_syncs():
+    """{"span_sync", "cuda_synchronize"}: the calls made inside the block
+    to a live span's ``sync`` and to ``torch.cuda.synchronize``."""
+    n = {"span_sync": 0, "cuda_synchronize": 0}
+    span_sync, cuda_sync = obs._Span.sync, torch.cuda.synchronize
+
+    def counted_span_sync(self, value):
+        n["span_sync"] += 1
+        return span_sync(self, value)
+
+    def counted_cuda_sync(*args, **kw):
+        n["cuda_synchronize"] += 1
+        return cuda_sync(*args, **kw)
+
+    obs._Span.sync, torch.cuda.synchronize = (counted_span_sync,
+                                              counted_cuda_sync)
+    try:
+        yield n
+    finally:
+        obs._Span.sync, torch.cuda.synchronize = span_sync, cuda_sync
+
+
+def null_hook_us(dev):
+    """Host microseconds of one null-tracer hook, over NULL_HOOK_CALLS
+    calls each: a span with a sync, a metric, an ``is_active`` check."""
+    x = torch.zeros(1, device=dev)
+    out = {}
+    with obs.suspended():
+        for name, hook in (
+                ("span", lambda: obs.span("round.local_train", cat="phase",
+                                          round=0)),
+                ("metric", lambda: obs.metric("server.relevance", None,
+                                              round=0)),
+                ("is_active", obs.is_active)):
+            t0 = time.perf_counter()
+            if name == "span":
+                for _ in range(NULL_HOOK_CALLS):
+                    with hook() as sp:
+                        sp.sync(x)
+            else:
+                for _ in range(NULL_HOOK_CALLS):
+                    hook()
+            out[name] = (time.perf_counter() - t0) / NULL_HOOK_CALLS * 1e6
+    return out
+
+
+def server_tracing_tax(dev):
+    """The reference's tracing-tax measure (``benchmarks/server_round.py``
+    ``measure_overhead``) on the card: the stacked server round at
+    TAX_CLIENTS over resident heads, TAX_ITERS rounds a timing, the null
+    tracer (``obs.suspended``) against a live one, min of TAX_REPEATS
+    each; host wall ms of a round ending in a device sync."""
+    cfg = EM.EdgeModelConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    heads = EM.stack_heads([EM.init_adaptive_layers(cfg, gen)
+                            for _ in range(TAX_CLIENTS)], dev)
+    feats = task_features(gen, dev, (TAX_ITERS + 1) * TAX_CLIENTS).reshape(
+        TAX_ITERS + 1, TAX_CLIENTS, -1)
+    strat = FedSTIL(cfg, n_clients=TAX_CLIENTS)
+
+    def one_round(r):
+        strat.server_round_stacked(r, {"theta": heads,
+                                       "task_feature": feats[r % len(feats)]})
+        torch.cuda.synchronize(dev)
+
+    def timed():
+        t0 = time.perf_counter()
+        for r in range(1, TAX_ITERS + 1):
+            one_round(r)
+        return (time.perf_counter() - t0) / TAX_ITERS
+
+    one_round(0)
+    tracer, off, on = obs.Tracer(), [], []
+    for _ in range(TAX_REPEATS):
+        with obs.suspended():
+            off.append(timed())
+        with obs.active(tracer):
+            on.append(timed())
+    base, traced = min(off), min(on)
+    frac = max(0.0, traced - base) / base
+    stages = report.summarize(tracer.events)["stages"]
+    return {"clients": TAX_CLIENTS, "iters": TAX_ITERS,
+            "repeats": TAX_REPEATS, "untraced_ms": base * 1e3,
+            "traced_ms": traced * 1e3, "untraced_ms_all": [
+                v * 1e3 for v in off], "traced_ms_all": [v * 1e3 for v in on],
+            "overhead_frac": frac, "gate": OVERHEAD_GATE,
+            "within_gate": bool(frac < OVERHEAD_GATE),
+            "stage_mean_ms": {k: g["mean_s"] * 1e3
+                              for k, g in stages.items()}}
+
+
+def phase_telemetry(dev, card, codec_peaks):
+    """What tracing costs on the card: the server round's tracing tax at
+    C = 100 (reported against the reference's 2% rule), the null hooks'
+    cost as a share of the untraced stacked round (fails at 2% or more),
+    the stacked round untraced and traced over the same TELEMETRY_ROUNDS
+    (round wall of each; the untraced runs make no device sync from a
+    span nor any other), the traced run's phase shares and its Chrome
+    trace written and read back, and the codec roundtrip's peak at
+    C = 1000 untraced and traced (``wire_round_scale``)."""
+    bench = FederatedReIDBenchmark(seed=SEED)
+    cfg = EM.EdgeModelConfig(n_classes=bench.n_classes)
+
+    synchronize = torch.cuda.synchronize       # outside counting_syncs
+
+    def run(rounds, trace=None):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        res = run_simulation(FedSTIL(cfg, n_clients=N_CLIENTS), bench,
+                             rounds=rounds, seed=SEED, engine="stacked",
+                             device=dev, trace=trace)
+        synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    setup, untraced, traced, syncs_off, syncs_on = [], [], [], [], []
+    for _ in range(2):
+        setup.append(run(0)[1])
+        with counting_syncs() as n:
+            res_off, ms = run(TELEMETRY_ROUNDS)
+        untraced.append(ms)
+        syncs_off.append(dict(n))
+        tracer = obs.Tracer()
+        with counting_syncs() as n:
+            res_on, ms = run(TELEMETRY_ROUNDS, tracer)
+        traced.append(ms)
+        syncs_on.append(dict(n))
+    check(res_on.rounds == res_off.rounds
+          and res_on.comm_breakdown() == res_off.comm_breakdown(),
+          "telemetry: the traced round's results differ from the untraced")
+    check(res_off.stage_ms == [] and len(res_on.stage_ms) == TELEMETRY_ROUNDS,
+          "telemetry: stage_ms filled untraced or empty traced")
+    round_ms = lambda walls: (min(walls) - min(setup)) / TELEMETRY_ROUNDS
+    untraced_round, traced_round = round_ms(untraced), round_ms(traced)
+
+    spans = [e for e in tracer.events if e["kind"] == "span"]
+    metrics = [e for e in tracer.events if e["kind"] == "metric"]
+    hooks = {"spans": len(spans) / TELEMETRY_ROUNDS,
+             "metrics": len(metrics) / TELEMETRY_ROUNDS,
+             "span_syncs": syncs_on[-1]["span_sync"] / TELEMETRY_ROUNDS}
+    hook_us = null_hook_us(dev)
+    null_us = (hooks["spans"] * hook_us["span"]
+               + hooks["metrics"] * (hook_us["metric"] + hook_us["is_active"]))
+    null_share = null_us / (untraced_round * 1e3)
+
+    summary = report.summarize(tracer.events)
+    TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    TRACE_OUT.write_text(json.dumps(obs.chrome_trace(tracer.events)))
+    reread = json.loads(TRACE_OUT.read_text())["traceEvents"]
+    tax = server_tracing_tax(dev)
+    peak = {codec: {"untraced": codec_peaks[(codec, max(SCALE_CLIENTS))][0],
+                    "traced": codec_peaks[(codec, max(SCALE_CLIENTS))][1]}
+            for codec in (CODEC, CODEC_INT8)}
+    emit({"phase": "telemetry", "card": card, "clients": N_CLIENTS,
+          "rounds": TELEMETRY_ROUNDS, "engine": "stacked",
+          "setup_ms": setup, "untraced_run_ms": untraced,
+          "traced_run_ms": traced,
+          "untraced_round_wall_ms": untraced_round,
+          "traced_round_wall_ms": traced_round,
+          "traced_stage_wall_ms_median": float(np.median(
+              [r["wall_ms"] for r in res_on.stage_ms])),
+          "syncs_untraced": syncs_off, "syncs_traced": syncs_on,
+          "hooks_per_round": hooks, "null_hook_us": hook_us,
+          "null_hooks_us_per_round": null_us,
+          "null_hooks_share_of_untraced_round": null_share,
+          "phase_share": {k: g["share"]
+                          for k, g in summary["phases"].items()},
+          "phase_mean_ms": {k: g["mean_s"] * 1e3
+                            for k, g in summary["phases"].items()},
+          "stage_mean_ms": {k: g["mean_s"] * 1e3
+                            for k, g in summary["stages"].items()},
+          "chrome_trace": {"path": str(TRACE_OUT.relative_to(ROOT)),
+                           "events": len(reread)},
+          "server_tracing_tax": tax,
+          "codec_roundtrip_peak_bytes_c1000": peak})
+    check(all(n == {"span_sync": 0, "cuda_synchronize": 0}
+              for n in syncs_off),
+          f"telemetry: the untraced round synced the device: {syncs_off}")
+    check(syncs_on[-1]["span_sync"] > 0, "telemetry: no span synced traced")
+    check(null_share < OVERHEAD_GATE,
+          f"telemetry: null hooks {null_share:.4%} of the untraced round "
+          f"(>= {OVERHEAD_GATE:.0%})")
+    check(len(reread) == len(spans) + len(metrics),
+          "telemetry: the Chrome trace lost events")
+    check(set(summary["phases"]) == {"round.gather", "round.local_train",
+                                     "round.server", "round.apply",
+                                     "round.eval"},
+          f"telemetry: phases {sorted(summary['phases'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -4137,8 +4378,9 @@ def main():
     del strat, res
     phase_round_profile(dev, card)
     phase_server_scale(dev, card)
-    phase_wire_round_scale(dev, card)
+    codec_peaks = phase_wire_round_scale(dev, card)
     torch.cuda.empty_cache()
+    phase_telemetry(dev, card, codec_peaks)
     # path 8: the dense LM's edge train step (counts zeroed inside)
     launches["lm_train"], errs = phase_lm_train(dev, card)
     for name, err in errs.items():

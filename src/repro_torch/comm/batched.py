@@ -12,7 +12,9 @@ unpack), a dense one in ``batched_dequantize`` (CUDA kernels for CUDA
 tensors, one launch each, the plain versions for CPU tensors); bf16 is a
 cast to ``torch.bfloat16`` and back. Encoded
 buffers stay on the device; the measured per-client wire bytes follow from
-the buffer shapes, so a simulated round reads nothing back.
+the buffer shapes, so a simulated round reads nothing back. The encode's
+per-row telemetry (residual norm, kept energy, keep rate) is computed only
+while an ``obs`` tracer is active, as the reference reads it back only then.
 
 Stage semantics are the host codec's (same top-k tie rule, same bit-plane
 layout, bf16 rounded to nearest even), with one difference the reference
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.comm.codec import PipelineCodec
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs
 
 Buffers = Dict[str, torch.Tensor]
 
@@ -54,7 +57,7 @@ class BatchedCodec:
         self._enc_ref: Optional[torch.Tensor] = None
         self._dec_ref: Optional[torch.Tensor] = None
         # the last encode's per-row telemetry, on the device (never read
-        # back here)
+        # back here); computed only while a tracer is active, else None
         self.last_metrics: Optional[Dict[str, torch.Tensor]] = None
 
     # ---- stages --------------------------------------------------------------
@@ -85,15 +88,15 @@ class BatchedCodec:
                 "kept_energy": k2 / torch.clamp(r2, min=1e-12),
                 "keep_rate": torch.sum(vals != 0, dim=1) / self.p}
 
-    def _enc_sparse(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
+    def _enc_sparse(self, x) -> Tuple[Buffers, torch.Tensor]:
+        """(buffers, the kept values) of a sparse payload."""
         vals, packed = ops.batched_topk_encode(x, group=self.group,
                                                kg=self.kg)
-        return (self._quant(vals, {"idx_bits": packed}),
-                self._enc_metrics(x, vals))
+        return self._quant(vals, {"idx_bits": packed}), vals
 
-    def _enc_dense(self, x) -> Tuple[Buffers, Dict[str, torch.Tensor]]:
+    def _enc_dense(self, x) -> Tuple[Buffers, torch.Tensor]:
         x = x.float()
-        return self._quant(x, {}), self._enc_metrics(x, x)
+        return self._quant(x, {}), x
 
     def _dec(self, buffers: Buffers) -> torch.Tensor:
         if "idx_bits" not in buffers:
@@ -109,19 +112,20 @@ class BatchedCodec:
     # ---- wire ----------------------------------------------------------------
     def _encode_residual(self, x):
         """Apply the keyframe rule and encode; advances NO state. Returns
-        (buffers, delta reference or None) and keeps the encode's telemetry
-        in ``last_metrics``."""
-        if not self.delta:
-            buffers, mets = (self._enc_sparse(x) if self.topk
-                             else self._enc_dense(x))
-            self.last_metrics = mets
-            return buffers, None
-        keyframe = self._enc_ref is None
-        ref = torch.zeros_like(x) if keyframe else self._enc_ref
-        r = x - ref
-        buffers, mets = (self._enc_dense(r) if keyframe or not self.topk
-                         else self._enc_sparse(r))
-        self.last_metrics = mets
+        (buffers, delta reference or None). Under a tracer the encode's
+        telemetry goes to ``last_metrics``; untraced it is None and no
+        metric is launched."""
+        ref = None
+        if self.delta:
+            keyframe = self._enc_ref is None
+            ref = torch.zeros_like(x) if keyframe else self._enc_ref
+            x = x - ref
+            sparse = self.topk and not keyframe
+        else:
+            sparse = self.topk
+        buffers, kept = self._enc_sparse(x) if sparse else self._enc_dense(x)
+        self.last_metrics = (self._enc_metrics(x, kept) if obs.is_active()
+                             else None)
         return buffers, ref
 
     def encode(self, mat) -> Buffers:

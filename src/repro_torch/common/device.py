@@ -6,8 +6,6 @@ quietly continues on the CPU.
 """
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Union
 
 import torch
@@ -33,22 +31,3 @@ def synchronize(device: torch.device) -> None:
     """Wait for the card's queue (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class StageTimes(dict):
-    """Host wall milliseconds per named stage, each stage bracketed by a
-    device sync so its work is inside it; repeated stages add up."""
-
-    def __init__(self, device: torch.device):
-        super().__init__()
-        self.device = device
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            synchronize(self.device)
-            self[name] = self.get(name, 0.0) + (time.perf_counter() - t0) * 1e3

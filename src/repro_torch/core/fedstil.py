@@ -34,7 +34,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.common.device import StageTimes
 from repro_torch.common.pytree import (device_of, flatten_stacked,
                                        tree_bytes, unflatten_stacked)
 from repro_torch.core import edge_model as EM
@@ -46,6 +45,8 @@ from repro_torch.core.relevance import (DeviceRingHistory, RelevanceTracker,
 from repro_torch.core.tying import tying_loss
 from repro_torch.federated.base import ClientState, Strategy, forward_one
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs
+from repro_torch.obs.metrics import relevance_metrics
 
 
 class FedSTIL(Strategy):
@@ -133,18 +134,15 @@ class FedSTIL(Strategy):
         if not self.st_integration or not uploads:
             return {}
         clients = sorted(uploads)
-        dev = device_of(uploads[clients[0]]["theta"])
-        self.tracker.device = dev
-        clock = StageTimes(dev)
-        with clock.stage("relevance"):
-            D = np.asarray(uploads[clients[0]]["task_feature"]).shape[-1]
-            feats = np.zeros((self.n_clients, D), np.float32)
-            mask = np.zeros((self.n_clients,), np.float32)
-            for c in clients:
-                feats[c] = uploads[c]["task_feature"]
-                mask[c] = 1.0
-            self.tracker.push_all(feats, mask)
-            W = self.tracker.relevance()
+        self.tracker.device = device_of(uploads[clients[0]]["theta"])
+        D = np.asarray(uploads[clients[0]]["task_feature"]).shape[-1]
+        feats = np.zeros((self.n_clients, D), np.float32)
+        mask = np.zeros((self.n_clients,), np.float32)
+        for c in clients:
+            feats[c] = uploads[c]["task_feature"]
+            mask[c] = 1.0
+        self.tracker.push_all(feats, mask)
+        W = self.tracker.relevance()
         self.last_W = W
         # only rows with relevant neighbours are aggregated; under partial
         # participation the block of the clients that uploaded is
@@ -153,13 +151,11 @@ class FedSTIL(Strategy):
         nz = np.flatnonzero(Wc.sum(1) > 0)
         out = {c: {} for c in clients}
         if nz.size:
-            with clock.stage("aggregate"):
-                bases = personalized_aggregate(
-                    [uploads[c]["theta"] for c in clients], Wc[nz],
-                    backend=self.server_backend)
+            bases = personalized_aggregate(
+                [uploads[c]["theta"] for c in clients], Wc[nz],
+                backend=self.server_backend)
             for row, base in zip(nz, bases):
                 out[clients[row]] = {"B": base}
-        self.server_ms = dict(clock)
         return out
 
     def apply_dispatch(self, state, dispatch):
@@ -205,25 +201,33 @@ class FedSTIL(Strategy):
             return None
         feats = upload["task_feature"]                       # (C, D)
         C, D = feats.shape
-        clock = StageTimes(feats.device)
         with torch.no_grad():
-            with clock.stage("relevance"):
-                if self._ring is None:
-                    self._ring = DeviceRingHistory(C, self.history_len, D,
-                                                   feats.device)
-                self._ring.push_all(feats)
-                W_raw = self._ring.raw_relevance(
-                    forgetting_ratio=self.forgetting_ratio, metric=self.metric)
-            with clock.stage("flatten"):
+            if self._ring is None:
+                self._ring = DeviceRingHistory(C, self.history_len, D,
+                                               feats.device)
+            ring = self._ring
+            with obs.span("server.relevance", cat="stage", round=rnd) as sp:
+                ring.push_all(feats)
+                W_raw = sp.sync(ring.raw_relevance(
+                    forgetting_ratio=self.forgetting_ratio,
+                    metric=self.metric))
+            with obs.span("server.flatten", cat="stage", round=rnd) as sp:
                 flat, meta = flatten_stacked(upload["theta"])  # (C, P)
-            with clock.stage("aggregate"):
-                B_flat, Wn = ops.fused_relevance_aggregate(W_raw, flat)
+                sp.sync(flat)
+            with obs.span("server.aggregate", cat="stage", round=rnd) as sp:
+                B_flat, Wn = sp.sync(ops.fused_relevance_aggregate(W_raw,
+                                                                   flat))
+            # per-client round observables (staleness, ring fill, W row
+            # mass / density): computed and read back only under a tracer
+            if obs.is_active():
+                obs.metric("server.relevance",
+                           relevance_metrics(W_raw, ring.valid, ring.stale),
+                           round=rnd)
             self.last_W = Wn.cpu().numpy()
             # all-zero rows (no relevant neighbours yet) keep their old base
             nz = torch.sum(Wn, 1) > 0
-            with clock.stage("unflatten"):
-                B = unflatten_stacked(B_flat, meta)
-        self.server_ms = dict(clock)
+            with obs.span("server.unflatten", cat="stage", round=rnd) as sp:
+                B = sp.sync(unflatten_stacked(B_flat, meta))
         return {"B": B, "nz": nz}
 
     # ---- wire-codec payload split --------------------------------------------

@@ -51,6 +51,7 @@ from repro_torch.common.pytree import (device_of, tree_bytes,
                                        tree_unflatten_stacked)
 from repro_torch.core import edge_model as EM
 from repro_torch.evalreid.batched import _PAD_QID, batched_retrieval_metrics
+from repro_torch.obs import trace as obs
 from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
 
 
@@ -190,9 +191,6 @@ class Strategy:
         self.batch = batch
         self.opt = adam(lr=lr, weight_decay=weight_decay)
         self.rng = np.random.default_rng(seed)
-        # host wall ms of the last server round's stages (strategies with a
-        # server fill it in)
-        self.server_ms: Dict[str, float] = {}
         # wire codecs (comm.codec): when set, the simulation encodes every
         # upload and dispatch, logs the MEASURED buffer bytes (the formulas
         # stay as the cross-check), and the receiver trains on the decoded,
@@ -427,11 +425,13 @@ class Strategy:
         verbatim subtree's included)."""
         lossy, verbatim = split(tree)
         dev = device_of(lossy)
-        decoded, payload = codec.roundtrip(lossy, peer=peer)
+        with obs.span("comm.roundtrip", cat="codec", peer=list(peer)) as sp:
+            decoded, payload = codec.roundtrip(lossy, peer=peer)
+            decoded = sp.sync(tree_map(lambda a: torch.from_numpy(a).to(dev),
+                                       decoded))
         measured = payload.nbytes
         if verbatim is not None:
             measured += tree_bytes(verbatim)
-        decoded = tree_map(lambda a: torch.from_numpy(a).to(dev), decoded)
         return join(decoded, verbatim), measured
 
     def wire_upload(self, upload, client: int):
@@ -465,8 +465,12 @@ class Strategy:
         mat, meta = tree_flatten_stacked(lossy)
         C = mat.shape[0]
         prog = self._stacked_wire_program(which, int(mat.shape[1]))
-        with torch.no_grad():
+        with torch.no_grad(), obs.span(f"comm.{which}", cat="codec") as sp:
             recon, buffers = prog.roundtrip(mat)
+            sp.sync(recon)
+        # the encode's per-row telemetry (residual norm = decoder-reference
+        # staleness, kept energy, keep rate): computed only under a tracer
+        obs.metric("comm.encode", prog.last_metrics, direction=which)
         per_client = prog.per_client_bytes(buffers)
         if verbatim is not None:
             per_client += tree_bytes(verbatim) // max(C, 1)

@@ -17,8 +17,8 @@ engines drive the rounds:
     and train, serve and dispatch for all C at once.
 
 A strategy with wire codecs (``FedSTIL(..., codec="topk+int8")``) sends the
-upload and the dispatch through them (stages ``encode_c2s`` and
-``encode_s2c``; the host codec one client at a time on the host engine,
+upload and the dispatch through them (the host codec one client at a time
+on the host engine, inside local training and the apply;
 ``comm.batched.BatchedCodec`` over all C rows on the stacked one) and logs
 the measured wire bytes beside the formulas
 (``SimulationResult.comm_breakdown()``). Evaluation runs batched on the
@@ -31,10 +31,13 @@ and the evaluation inputs are cached: the (C, T, Q, D) query stacks stay on
 the device, and each task's (C, G_max, D) galleries are assembled once from
 the pre-extracted query prototypes of the other clients.
 
-Every stage of a round is bracketed by a device sync and timed on the host
-clock (``SimulationResult.stage_ms``): the round already reads the (C, C)
-relevance and the dispatch mask back every round, so the syncs add no
-waiting the round did not have.
+``run_simulation(..., trace=...)`` traces a run (``repro_torch.obs``): the
+reference's phase spans (``round.gather`` / ``local_train`` / ``encode`` /
+``server`` / ``apply`` / ``eval``), the server's stage spans, the codec
+spans and the relevance and encode metrics, each span ending in a device
+sync where the reference's does. ``SimulationResult.stage_ms`` is filled
+from those spans. Untraced, every hook is the null tracer's: no device
+syncs, no metric launches, no readbacks, and ``stage_ms`` stays empty.
 """
 from __future__ import annotations
 
@@ -47,13 +50,14 @@ import numpy as np
 import torch
 
 from repro_torch.comm.accounting import CommLog
-from repro_torch.common.device import StageTimes, resolve_device
+from repro_torch.common.device import resolve_device
 from repro_torch.core import edge_model as EM
 from repro_torch.data.synthetic import FederatedReIDBenchmark
 from repro_torch.evalreid.batched import max_match_bound
 from repro_torch.evalreid.retrieval import evaluate_retrieval
 from repro_torch.federated.base import (Strategy, eval_round_stacked,
                                         not_in_this_slice)
+from repro_torch.obs import trace as obs
 from repro_torch.train.metrics import LifelongTracker
 
 EVAL_RANKS = (1, 3, 5)
@@ -68,6 +72,7 @@ class SimulationResult:
     storage_bytes: int
     rounds: List[Dict[str, float]]      # per-eval-round mean metrics
     server_time_s: float = 0.0          # wall time inside the server round
+    # traced runs only: per round, its wall and each stage's summed span ms
     stage_ms: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     # the run's evaluation galleries, to serve (RetrievalEngine.from_eval_cache)
     eval_cache: Optional["_EvalCache"] = None
@@ -261,7 +266,7 @@ class _Run:
     comm: CommLog = dataclasses.field(default_factory=CommLog)
     eval_rounds: List[Dict[str, float]] = dataclasses.field(
         default_factory=list)
-    stage_ms: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    wall_ms: List[float] = dataclasses.field(default_factory=list)
     server_s: float = 0.0
 
     @property
@@ -271,12 +276,12 @@ class _Run:
     def task(self, rnd: int) -> int:
         return min(rnd // self.rounds_per_task, self.bench.n_tasks - 1)
 
-    def evaluate(self, clock, rnd, t, stacked_theta, get_state, engine):
+    def evaluate(self, rnd, t, stacked_theta, get_state, engine):
         """The round's evaluation when it is due: batched on the device
         (``stacked_theta()``) or per client on the host (``get_state``)."""
         if (rnd + 1) % self.eval_every and rnd != self.rounds - 1:
             return
-        with clock.stage("eval"):
+        with obs.span("round.eval", cat="phase", round=rnd):
             if self.cache.device_ready:
                 per_round = _eval_round_device(stacked_theta(), self.cache,
                                                self.tracker, rnd, t)
@@ -295,7 +300,8 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
                    rounds: int = 12, eval_every: int = 2, seed: int = 0,
                    verbose: bool = False, engine: str = "host",
                    eval_backend: str = "device", device="cuda",
-                   init_params: Optional[dict] = None) -> SimulationResult:
+                   init_params: Optional[dict] = None,
+                   trace=None) -> SimulationResult:
     """Drive ``rounds`` federated rounds of ``strategy`` over ``bench`` on
     ``device`` (the card by default; ``"cpu"`` runs the plain versions).
 
@@ -307,7 +313,33 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
     arrays starts from given weights instead of a CPU torch generator
     seeded with ``seed`` (the reference draws from ``jax.random``, which
     torch cannot reproduce).
+
+    ``trace`` turns on telemetry for this run: a path writes the JSONL
+    there (summarize with ``python -m repro_torch.obs.report``); an
+    ``obs.Tracer`` records into it without closing (the caller owns the
+    sink). ``None`` (default) keeps every obs hook on the active tracer,
+    the null one unless the caller activated another — no timestamps, no
+    device syncs, no readbacks.
     """
+    kw = dict(rounds=rounds, eval_every=eval_every, seed=seed,
+              verbose=verbose, engine=engine, eval_backend=eval_backend,
+              device=device, init_params=init_params)
+    if trace is None:
+        return _run_simulation(strategy, bench, **kw)
+    owns = not isinstance(trace, obs.Tracer)
+    tracer = obs.Tracer(trace) if owns else trace
+    tracer.meta(kind_detail="run_simulation", engine=engine, rounds=rounds,
+                n_clients=bench.n_clients, strategy=strategy.name)
+    try:
+        with obs.active(tracer):
+            return _run_simulation(strategy, bench, **kw)
+    finally:
+        if owns:
+            tracer.close()
+
+
+def _run_simulation(strategy, bench, *, rounds, eval_every, seed, verbose,
+                    engine, eval_backend, device, init_params):
     if engine in ENGINES_LATER:
         raise not_in_this_slice(f"engine={engine!r}", ENGINES_LATER[engine])
     if engine not in ("host", "stacked"):
@@ -318,6 +350,8 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
         raise ValueError(f"strategy {strategy.name!r} does not implement the "
                          "stacked engine API; use engine='host'")
     dev = resolve_device(device)
+    tracer = obs.get_tracer()
+    first_event = len(tracer.events) if tracer.active else 0
     g_params, thetas0 = _initial_params(strategy, bench, seed, dev,
                                         init_params)
     states = {c: strategy.init_client(thetas0[c])
@@ -329,28 +363,63 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
                LifelongTracker(bench.n_clients))
     storage = (_stacked_rounds(run, states) if engine == "stacked"
                else _host_rounds(run, states))
+    stage_ms = (_stage_ms(tracer.events[first_event:], run.wall_ms)
+                if tracer.active else [])
     return SimulationResult(strategy.name, run.tracker, run.comm, storage,
                             run.eval_rounds, server_time_s=run.server_s,
-                            stage_ms=run.stage_ms, eval_cache=run.cache)
+                            stage_ms=stage_ms, eval_cache=run.cache)
+
+
+# the phase spans' stage_ms keys (round.encode's time is in its codec spans)
+PHASE_STAGES = {"round.gather": "gather", "round.local_train": "local_train",
+                "round.server": "server", "round.apply": "apply",
+                "round.eval": "eval"}
+CODEC_STAGES = {"comm.upload": "encode_c2s", "comm.dispatch": "encode_s2c",
+                "c2s": "encode_c2s", "s2c": "encode_s2c"}
+
+
+def _stage_ms(events, wall_ms):
+    """A traced run's spans -> per round {"round", "wall_ms", stage: ms}:
+    the phase spans under their stage names, the server's stage spans under
+    their own (``server.relevance``, ...), and the codec spans summed per
+    direction (``encode_c2s`` / ``encode_s2c``). A codec span carries no
+    round; it belongs to the phase span that encloses it, the next one to
+    end."""
+    rows = [{"round": rnd, "wall_ms": w} for rnd, w in enumerate(wall_ms)]
+    pending: List[Tuple[str, float]] = []
+    for e in events:
+        if e["kind"] != "span":
+            continue
+        name, ms = e["name"], e["dur"] * 1e3
+        if e.get("cat") == "codec":
+            pending.append((CODEC_STAGES[e["peer"][0] if "peer" in e
+                                         else name], ms))
+            continue
+        row = rows[e["round"]]
+        key = PHASE_STAGES.get(name, name if e.get("cat") == "stage"
+                               else None)
+        for k, v in pending + ([(key, ms)] if key else []):
+            row[k] = row.get(k, 0.0) + v
+        pending.clear()
+    return rows
 
 
 def _host_rounds(run: _Run, states) -> int:
-    """The host engine: every round trains the clients one by one, sends
-    each upload (through the upload codec when there is one), runs the
-    server over the uploads and applies each non-empty dispatch (through
-    the dispatch codec). Returns the largest client storage."""
-    strategy, C, dev = run.strategy, run.bench.n_clients, run.device
+    """The host engine: every round trains the clients one by one, sending
+    each upload through the upload codec when there is one, runs the server
+    over the uploads and applies each non-empty dispatch (through the
+    dispatch codec). Returns the largest client storage."""
+    strategy, C = run.strategy, run.bench.n_clients
     accepts_raw = "raw_images" in inspect.signature(
         strategy.local_train).parameters
     for rnd in range(run.rounds):
         t = run.task(rnd)
-        clock = StageTimes(dev)
         t_round = time.perf_counter()
         # EWC/MAS-style methods consolidate importance at task boundaries
         consolidate = ((rnd + 1) % run.rounds_per_task == 0
                        or rnd == run.rounds - 1)
         uploads = {}
-        with clock.stage("local_train"):
+        with obs.span("round.local_train", cat="phase", round=rnd):
             for c in range(C):
                 px, py, _, _ = run.protos[(c, t)]
                 kw = {"consolidate": consolidate}
@@ -359,47 +428,38 @@ def _host_rounds(run: _Run, states) -> int:
                               g_params=run.g_params)
                 states[c], up = strategy.local_train(c, states[c], px, py,
                                                      rnd, **kw)
-                if up is not None:
-                    uploads[c] = up
-        formulas = {c: strategy.upload_bytes(up) for c, up in uploads.items()}
-        if strategy.upload_codec is not None and uploads:
-            # the server integrates the DECODED (possibly lossy) uploads
-            with clock.stage("encode_c2s"):
-                for c in uploads:
-                    uploads[c], measured = strategy.wire_upload(uploads[c], c)
-                    run.comm.log_c2s(rnd, formulas[c], measured=measured)
-        else:
-            for c in uploads:
-                run.comm.log_c2s(rnd, formulas[c])
+                if up is None:
+                    continue
+                formula = strategy.upload_bytes(up)
+                if strategy.upload_codec is not None:
+                    # the server integrates the DECODED (possibly lossy)
+                    # upload
+                    up, measured = strategy.wire_upload(up, c)
+                    run.comm.log_c2s(rnd, formula, measured=measured)
+                else:
+                    run.comm.log_c2s(rnd, formula)
+                uploads[c] = up
 
         if strategy.uses_server and uploads:
             t0 = time.perf_counter()
-            with clock.stage("server"):
+            with obs.span("round.server", cat="phase", round=rnd):
                 dispatches = strategy.server_round(rnd, uploads)
             run.server_s += time.perf_counter() - t0
-            clock.update({f"server.{k}": v
-                          for k, v in strategy.server_ms.items()})
-            dispatches = {c: d for c, d in dispatches.items() if d}
-            formulas = {c: strategy.dispatch_bytes(d)
-                        for c, d in dispatches.items()}
-            if strategy.dispatch_codec is not None and dispatches:
-                with clock.stage("encode_s2c"):
-                    for c in dispatches:
-                        dispatches[c], measured = strategy.wire_dispatch(
-                            dispatches[c], c)
-                        run.comm.log_s2c(rnd, formulas[c], measured=measured)
-            else:
-                for c in dispatches:
-                    run.comm.log_s2c(rnd, formulas[c])
-            with clock.stage("apply"):
+            with obs.span("round.apply", cat="phase", round=rnd):
                 for c, d in dispatches.items():
+                    if not d:
+                        continue
+                    formula = strategy.dispatch_bytes(d)
+                    if strategy.dispatch_codec is not None:
+                        d, measured = strategy.wire_dispatch(d, c)
+                        run.comm.log_s2c(rnd, formula, measured=measured)
+                    else:
+                        run.comm.log_s2c(rnd, formula)
                     states[c] = strategy.apply_dispatch(states[c], d)
 
-        run.evaluate(clock, rnd, t, lambda: strategy.stack_eval_thetas(states),
+        run.evaluate(rnd, t, lambda: strategy.stack_eval_thetas(states),
                      lambda c: states[c], "host")
-        run.stage_ms.append({"round": rnd,
-                             "wall_ms": (time.perf_counter() - t_round) * 1e3,
-                             **clock})
+        run.wall_ms.append((time.perf_counter() - t_round) * 1e3)
     return max(strategy.storage_bytes(states[c]) for c in range(C))
 
 
@@ -412,22 +472,22 @@ def _stacked_rounds(run: _Run, states) -> int:
     stacked = strategy.stack_states(states)
     for rnd in range(run.rounds):
         t = run.task(rnd)
-        clock = StageTimes(dev)
         t_round = time.perf_counter()
         protos_list = [run.protos[(c, t)][0] for c in range(C)]
         labels_list = [run.protos[(c, t)][1] for c in range(C)]
-        with clock.stage("gather"):
+        with obs.span("round.gather", cat="phase", round=rnd):
             bx, by = strategy.gather_round_batches(stacked, protos_list,
                                                    labels_list, dev)
-        with clock.stage("local_train"):
+        with obs.span("round.local_train", cat="phase", round=rnd) as sp:
             stacked, upload = strategy.local_train_stacked(
                 stacked, bx, by, protos_list, labels_list, rnd)
+            sp.sync(stacked.trainable)
         if upload is not None:
             formula = strategy.stacked_upload_bytes(upload, C)
             if strategy.upload_codec is not None:
                 # one batched encode + decode of all C rows; the server
                 # round consumes the decoded (lossy) upload
-                with clock.stage("encode_c2s"):
+                with obs.span("round.encode", cat="phase", round=rnd):
                     upload, measured = strategy.wire_upload_stacked(upload)
                 run.comm.log_c2s_many(rnd, formula, C, measured=measured)
             else:
@@ -435,11 +495,11 @@ def _stacked_rounds(run: _Run, states) -> int:
 
         if strategy.uses_server and upload is not None:
             t0 = time.perf_counter()
-            with clock.stage("server"):
+            with obs.span("round.server", cat="phase", round=rnd) as sp:
                 dispatch = strategy.server_round_stacked(rnd, upload)
+                if dispatch is not None:
+                    sp.sync(dispatch)
             run.server_s += time.perf_counter() - t0
-            clock.update({f"server.{k}": v
-                          for k, v in strategy.server_ms.items()})
             if dispatch is not None:
                 per_client = strategy.stacked_dispatch_bytes(dispatch, C)
                 n_nz = int(dispatch["nz"].sum()) if "nz" in dispatch else C
@@ -449,22 +509,20 @@ def _stacked_rounds(run: _Run, states) -> int:
                     # every dispatch round, so all C are shipped and
                     # counted; the formula keeps one dispatch per client
                     # with relevant neighbours
-                    with clock.stage("encode_s2c"):
+                    with obs.span("round.encode", cat="phase", round=rnd):
                         dispatch, measured = strategy.wire_dispatch_stacked(
                             dispatch)
                     run.comm.log_s2c_many(rnd, per_client, C,
                                           measured=measured, n_formula=n_nz)
                 else:
                     run.comm.log_s2c_many(rnd, per_client, n_nz)
-                with clock.stage("apply"):
+                with obs.span("round.apply", cat="phase", round=rnd) as sp:
                     stacked = strategy.apply_dispatch_stacked(stacked,
                                                               dispatch)
+                    sp.sync(stacked.extras)
 
-        run.evaluate(clock, rnd, t,
-                     lambda: strategy.eval_theta_stacked(stacked),
+        run.evaluate(rnd, t, lambda: strategy.eval_theta_stacked(stacked),
                      lambda c: strategy.client_view(stacked, c), "stacked")
-        run.stage_ms.append({"round": rnd,
-                             "wall_ms": (time.perf_counter() - t_round) * 1e3,
-                             **clock})
+        run.wall_ms.append((time.perf_counter() - t_round) * 1e3)
     return max(strategy.storage_bytes(strategy.client_view(stacked, c))
                for c in range(C))

@@ -10,6 +10,13 @@ Usage:
 
 Runs on the CUDA device and raises without one; ``--device cpu`` runs the
 plain PyTorch versions instead of the kernels.
+
+With ``--trace out.jsonl`` the run executes under a live
+``repro_torch.obs`` tracer: serve.batch / serve.index_refresh spans,
+bucket-exact latency histograms and rolling QPS from a ``ServeStats``
+wired into the batcher (the ``serve.stats`` metric at the end), and IVF
+probe metrics when ``--mode ivf``. Inspect the sink with
+``python -m repro_torch.obs.report out.jsonl``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import edge_model as EM
+from repro_torch.obs import trace as obs
+from repro_torch.obs.metrics import ServeStats
 from repro_torch.serving import ContinuousBatcher, GalleryIndex, RetrievalEngine
 from repro_torch.serving.batcher import run_closed_loop
 
@@ -43,8 +52,25 @@ def main(argv=None):
                     help="coarse buckets scored per query (ivf mode)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="OUT.jsonl",
+                    help="write a repro_torch.obs telemetry JSONL (spans + "
+                         "serve stats); read it with python -m "
+                         "repro_torch.obs.report")
     args = ap.parse_args(argv)
 
+    tracer = obs.Tracer(path=args.trace) if args.trace else obs.NullTracer()
+    try:
+        with obs.active(tracer):
+            out = _serve(args)
+    finally:
+        tracer.close()
+    if args.trace:
+        print(f"telemetry: {args.trace}  "
+              f"(python -m repro_torch.obs.report {args.trace})")
+    return out
+
+
+def _serve(args):
     cfg = EM.EdgeModelConfig()
     rng = np.random.default_rng(args.seed)
     C, G = args.clients, args.gallery
@@ -67,7 +93,8 @@ def main(argv=None):
                rng.standard_normal(cfg.proto_dim).astype(np.float32), -1)
               for _ in range(args.queries)]
 
-    batcher = ContinuousBatcher(engine, batch=args.batch)
+    stats = ServeStats() if obs.is_active() else None
+    batcher = ContinuousBatcher(engine, batch=args.batch, stats=stats)
     # warmup launch (kernel load) before measuring
     batcher.submit(0, stream[0][1])
     batcher.drain()
@@ -88,6 +115,8 @@ def main(argv=None):
               f"p50={r['p50_ms']:.2f}ms  p99={r['p99_ms']:.2f}ms")
     print(f"index update (new adaptive heads, no re-extraction): "
           f"{refresh_ms:.1f} ms")
+    if stats is not None:
+        obs.metric("serve.stats", stats.snapshot(), mode=args.mode)
     return {"pre": r1, "post": r2, "refresh_ms": refresh_ms}
 
 

@@ -1,15 +1,19 @@
-"""Serving metrics, ported from ``repro/obs/metrics.py``.
+"""Round and serving metrics, ported from ``repro/obs/metrics.py``.
 
-``ivf_metrics`` is computed on the device from the tensors of the same IVF
-query launch. The host-side stats are copies (pure numpy there too; the
-port keeps its own rather than importing them):
+Device-side helpers compute the round's observables on tensors, on the
+device that holds them: relevance row mass / sparsity and ring staleness
+(``relevance_metrics``, ``update_staleness``), codec keep-rate /
+residual-norm (``codec_metrics``) and IVF probe hit-rates
+(``ivf_metrics``). The engines compute them only when a tracer is active,
+and the tracer reads them back.
 
-``LatencyHistogram`` (fixed log-spaced buckets; exact p50/p99 *from the
-buckets*, i.e. the reported percentile is a bucket upper edge — a
-bounded-relative-error quantile that never stores per-sample data),
-``RollingMeter`` (windowed QPS), and ``ServeStats`` bundling the histograms
-+ queue-depth and DRR deficit snapshots the ``ContinuousBatcher`` records
-into.
+The host-side stats are copies (pure numpy there too; the port keeps its
+own rather than importing them): ``LatencyHistogram`` (fixed log-spaced
+buckets; exact p50/p99 *from the buckets*, i.e. the reported percentile is
+a bucket upper edge — a bounded-relative-error quantile that never stores
+per-sample data), ``RollingMeter`` (windowed QPS), and ``ServeStats``
+bundling the histograms + queue-depth and DRR deficit snapshots the
+``ContinuousBatcher`` records into.
 """
 from __future__ import annotations
 
@@ -20,6 +24,37 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+def relevance_metrics(W, valid, stale):
+    """Per-client observables of one server relevance step: ``W`` (C, C)
+    relevance, ``valid`` the (C, k) ring validity, ``stale`` the (C,)
+    rounds-since-last-contribution counter -> (C,) row mass, row density
+    (the share of peers attended), self weight (Eq. 5 self-affinity), ring
+    fill and staleness."""
+    return {"row_mass": W.sum(dim=1),
+            "row_density": (W > 0).float().mean(dim=1),
+            "self_weight": torch.diagonal(W),
+            "hist_fill": valid.sum(dim=1),
+            "staleness": stale}
+
+
+def update_staleness(stale, mask):
+    """Advance the per-client staleness counter: clients that pushed a
+    feature this round (mask > 0) reset to 0, absent clients age by 1."""
+    return torch.where(mask > 0, torch.zeros_like(stale), stale + 1.0)
+
+
+def codec_metrics(residual, kept):
+    """Keep-rate + residual-norm of one encode step, per client row:
+    ``residual`` the (C, P) pre-sparsification delta, ``kept`` the (C, P)
+    reconstruction the decoder sees; ``kept_energy`` is the share of the
+    residual's energy the wire kept."""
+    r2 = torch.sum(torch.square(residual), dim=1)
+    k2 = torch.sum(torch.square(kept), dim=1)
+    return {"residual_norm": torch.sqrt(r2),
+            "kept_energy": k2 / torch.clamp(r2, min=1e-12),
+            "keep_rate": (kept != 0).float().mean(dim=1)}
 
 
 def ivf_metrics(ids, qmask, idx, bcap: int, nprobe: int):

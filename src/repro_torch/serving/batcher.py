@@ -1,6 +1,6 @@
 """Continuous batching front end for the retrieval engine (a copy of
-``repro/serving/batcher.py``, host-side numpy; the telemetry span around
-each launch comes with the telemetry slice).
+``repro/serving/batcher.py``, host-side numpy; each launch is traced as a
+``serve.batch`` span when a tracer is active).
 
 Queries arrive one at a time, tagged with a client; the batcher coalesces
 them into the engine's fixed-shape (C, B, proto_dim) batches — padding +
@@ -31,6 +31,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import ServeStats
 
 
@@ -164,9 +165,11 @@ class ContinuousBatcher:
             taken.append(row)
         if not any(taken):
             return []
+        n_slots = sum(len(row) for row in taken)
         launch = time.perf_counter()
-        # query_batch returns numpy: the readback IS the sync boundary
-        ids, dists = self.engine.query_batch(self._qp, self._qmask)
+        with obs.span("serve.batch", cat="serve", slots=n_slots):
+            # query_batch returns numpy: the readback IS the sync boundary
+            ids, dists = self.engine.query_batch(self._qp, self._qmask)
         done = time.perf_counter()
         out = []
         for c, row in enumerate(taken):

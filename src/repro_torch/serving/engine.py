@@ -27,6 +27,7 @@ from repro_torch.core import edge_model as EM
 from repro_torch.core.convert import theta_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REF
+from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import ivf_metrics
 from repro_torch.serving.index import GalleryIndex, l2n
 
@@ -268,7 +269,10 @@ class RetrievalEngine:
     def update(self, theta_stacked):
         """A federated round landed: swap the head, rebuild the index."""
         self.theta = self._on_device(theta_stacked)
-        self.index.refresh(self.theta)
+        with obs.span("serve.index_refresh", cat="serve",
+                      mode=self.mode) as sp:
+            self.index.refresh(self.theta)
+            sp.sync(self.index.gq)
 
     def extend(self, client: int, protos, ids):
         """Append gallery rows for one client and re-land the index."""
@@ -283,9 +287,15 @@ class RetrievalEngine:
         qp = torch.as_tensor(qp, dtype=torch.float32, device=ix.device)
         qmask = torch.as_tensor(qmask, dtype=torch.float32, device=ix.device)
         if self.mode == "ivf":
-            ids, d = query_ivf(self.theta, ix.bn_mu, ix.bn_sd, qp, qmask,
-                               ix.cent, ix.cn2, ix.bq, ix.pack, k=k,
-                               nprobe=self.nprobe)
+            # under a tracer the same pass also returns the probe hit-rates
+            # and rows scored
+            traced = obs.is_active()
+            out = query_ivf(self.theta, ix.bn_mu, ix.bn_sd, qp, qmask,
+                            ix.cent, ix.cn2, ix.bq, ix.pack, k=k,
+                            nprobe=self.nprobe, with_metrics=traced)
+            if traced:
+                obs.metric("serve.ivf", out[2], nprobe=self.nprobe)
+            ids, d = out[:2]
             return ids.cpu().numpy(), d.cpu().numpy()
         qf = featurize(self.theta, ix.bn_mu, ix.bn_sd, qp)
         if self.mode == "int8":

@@ -45,6 +45,7 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,
                                            batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
+from repro_torch.obs import trace as POBS
 
 BACKENDS = ["ref", "interpret"]
 GROUP = 8
@@ -680,7 +681,8 @@ def test_batched_codec_stream_matches_jax_and_host(spec, opts):
     enc_only = BatchedCodec(CODEC.make_codec(spec, **opts), P)
     for r in range(3):
         mat = _codec_input(rng, C, P) * np.float32(1 + r)
-        recon, buffers = port.roundtrip(torch.from_numpy(mat))
+        with POBS.active(POBS.Tracer()):     # the encode's metrics too
+            recon, buffers = port.roundtrip(torch.from_numpy(mat))
         jrecon, jbuf = jref.roundtrip(jnp.asarray(mat))
         sparse = port.topk and (r > 0 or not port.delta)
         assert ("idx_bits" in buffers) == sparse
@@ -711,6 +713,7 @@ def test_batched_codec_stream_matches_jax_and_host(spec, opts):
                 np.testing.assert_array_equal(payload.buffers[name],
                                               _bits(buffers[name][c]))
             np.testing.assert_array_equal(decoded, recon[c].numpy())
+    assert enc_only.last_metrics is None          # untraced: none computed
     assert set(port.last_metrics) == {"residual_norm", "kept_energy",
                                       "keep_rate"}
     for name, v in port.last_metrics.items():

@@ -40,6 +40,7 @@ from repro.data import FederatedReIDBenchmark as JBench
 from repro.federated import FedAvg as JFedAvg
 from repro.federated import run_simulation as j_run
 from repro.lifelong import STL as JSTL
+from repro.obs import trace as JOBS
 from repro_torch.comm import batched as PBATCHED
 from repro_torch.common import pytree as PT
 from repro_torch.core.adaptive import AdaptiveState, init_adaptive
@@ -54,6 +55,7 @@ from repro_torch.data import FederatedReIDBenchmark
 from repro_torch.federated import FedAvg, run_simulation
 from repro_torch.federated.base import Strategy
 from repro_torch.lifelong import STL
+from repro_torch.obs import trace as POBS
 
 BENCH_KW = dict(n_clients=3, n_tasks=3, n_identities=60, ids_per_task=10,
                 samples_per_id=8)
@@ -75,6 +77,24 @@ def _setup(seed):
                                 [JEM.init_adaptive_layers(k, cfg)
                                  for k in keys])
     return jb, pb, cfg, init
+
+
+def _event_key(e):
+    """What a traced run's event says, without its times and values."""
+    return (e["kind"], e.get("name"), e.get("cat"), e.get("round"),
+            e.get("direction"), e.get("peer"))
+
+
+def _same_events(jtracer, ptracer):
+    """Both packages' traced runs emit the same events in the same order,
+    the meta events' fields too (bar the epoch). The host engine emits no
+    metric."""
+    je, pe = jtracer.events, ptracer.events
+    assert [_event_key(e) for e in pe] == [_event_key(e) for e in je]
+    strip = lambda e: {k: v for k, v in e.items() if k != "epoch"}
+    assert [strip(e) for e in pe if e["kind"] == "meta"] == \
+        [strip(e) for e in je if e["kind"] == "meta"]
+    assert not any(e["kind"] == "metric" for e in pe)
 
 
 def _port_run(strategy, bench, init, **kw):
@@ -297,15 +317,20 @@ def test_host_engine_matches_jax_host_engine(name, eval_backend):
     jb, pb, cfg, init = _setup(TIE_FREE_SEED)
     J, P, kw = STRATEGIES[name]
     js, ps = J(cfg, epochs=2, **kw), P(cfg, epochs=2, **kw)
-    jr = j_run(js, jb, rounds=4, eval_every=2, eval_backend=eval_backend)
+    jt, pt = JOBS.Tracer(), POBS.Tracer()
+    jr = j_run(js, jb, rounds=4, eval_every=2, eval_backend=eval_backend,
+               trace=jt)
     pr = _port_run(ps, pb, init, rounds=4, eval_every=2, engine="host",
-                   eval_backend=eval_backend)
+                   eval_backend=eval_backend, trace=pt)
     _close(jr, pr, 1e-4)
     _same_bytes(jr, pr)
+    _same_events(jt, pt)
     assert {"local_train", "eval"} <= set(pr.stage_ms[-1])
     if name == "fedstil":
         np.testing.assert_allclose(ps.last_W, js.last_W, atol=1e-4)
-        assert set(ps.server_ms) == {"relevance", "aggregate"}
+        # the host server round has no stage span, as the reference's
+        assert "server" in pr.stage_ms[-1]
+        assert not any(k.startswith("server.") for k in pr.stage_ms[-1])
     if name == "stl":
         assert pr.comm.total == 0
 
@@ -317,12 +342,37 @@ def test_host_engine_is_the_default_and_runs_the_loop_oracle():
     _, pb, cfg, init = _setup(TIE_FREE_SEED)
     fast, loop = FedSTIL(cfg, n_clients=3, epochs=1), \
         FedSTIL(cfg, n_clients=3, epochs=1, server_backend="loop")
-    rf = _port_run(fast, pb, init, rounds=3, eval_every=3)
+    rf = _port_run(fast, pb, init, rounds=3, eval_every=3,
+                   trace=POBS.Tracer())
     rl = _port_run(loop, pb, init, rounds=3, eval_every=3, engine="host")
     assert "gather" not in rf.stage_ms[0]           # the host loop's stages
     _close(rl, rf, 1e-5)
     np.testing.assert_allclose(fast.last_W, loop.last_W, atol=1e-5)
     assert fast._ring is None and fast.tracker._ring is not None
+
+
+def test_traced_host_run_with_a_codec_emits_the_jax_events():
+    """FedSTIL with ``delta+topk`` on the host engine of both packages,
+    traced: the same events (each client's C2S roundtrip inside local
+    training, each S2C roundtrip inside the apply), bytes equal, every
+    eval round within 1e-4; the codec spans summed per direction in
+    ``stage_ms``."""
+    jb, pb, cfg, init = _setup(TIE_FREE_SEED)
+    kw = dict(n_clients=3, epochs=1, codec="delta+topk")
+    jt, pt = JOBS.Tracer(), POBS.Tracer()
+    jr = j_run(JFedSTIL(cfg, **kw), jb, rounds=3, eval_every=2, trace=jt)
+    pr = _port_run(FedSTIL(cfg, **kw), pb, init, rounds=3, eval_every=2,
+                   engine="host", trace=pt)
+    _close(jr, pr, 1e-4)
+    _same_bytes(jr, pr)
+    _same_events(jt, pt)
+    peers = [e["peer"] for e in pt.events if e.get("name") == "comm.roundtrip"]
+    assert peers[:3] == [["c2s", c] for c in range(3)]
+    assert all(r["encode_c2s"] > 0.0 for r in pr.stage_ms)
+    total = sum(e["dur"] for e in pt.events
+                if e.get("peer", [None])[0] == "s2c") * 1e3
+    assert sum(r.get("encode_s2c", 0.0) for r in pr.stage_ms) == \
+        pytest.approx(total, rel=1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +447,7 @@ def test_topk_int8_rounds_match_jax(engine):
     kw = dict(n_clients=3, epochs=2, codec="topk+int8")
     jr = j_run(JFedSTIL(cfg, **kw), jb, rounds=4, eval_every=2, engine=engine)
     pr = _port_run(FedSTIL(cfg, **kw), pb, init, rounds=4, eval_every=2,
-                   engine=engine)
+                   engine=engine, trace=POBS.Tracer())
     _close(jr, pr, CODED_TOL)
     _same_bytes(jr, pr)
     assert pr.comm.total < 0.5 * pr.comm.total_formula

@@ -41,6 +41,7 @@ from repro.core.rehearsal import PrototypeMemory as JMemory
 from repro.data import FederatedReIDBenchmark as JBench
 from repro.evalreid import evaluate_retrieval_batched
 from repro.federated import run_simulation as j_run
+from repro.obs import trace as JT
 from repro.train import optimizer as JOPT
 from repro_torch.comm import batched as PBATCHED
 from repro_torch.common.pytree import (flatten_stacked, tree_bytes,
@@ -57,6 +58,7 @@ from repro_torch.evalreid.batched import (batched_retrieval_metrics,
                                           max_match_bound)
 from repro_torch.federated import run_simulation
 from repro_torch.kernels.ref import batched_topk_pack_ref
+from repro_torch.obs import trace as PT
 from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
 
 BACKENDS = ["ref", "interpret"]
@@ -64,6 +66,30 @@ BENCH_KW = dict(n_clients=3, n_tasks=3, n_identities=60, ids_per_task=10,
                 samples_per_id=8, seed=1)
 TIE_FREE_SEED = 0      # BENCH_KW's shapes; no identity has 2 train samples
 METRICS = ("mAP", "R1", "R5", "forgetting_mAP")
+
+
+def _event_key(e):
+    """What a traced run's event says, without its times and values."""
+    return (e["kind"], e.get("name"), e.get("cat"), e.get("round"),
+            e.get("direction"), e.get("peer"))
+
+
+def _same_events(jevents, pevents, tol=1e-4):
+    """Both packages' traced runs emit the same events in the same order
+    (the meta events' fields too, bar the epoch), each metric's values
+    within ``tol``."""
+    assert [_event_key(e) for e in pevents] == [_event_key(e)
+                                                for e in jevents]
+    for a, b in zip(jevents, pevents):
+        if a["kind"] == "meta":
+            a, b = ({k: v for k, v in e.items() if k != "epoch"}
+                    for e in (a, b))
+            assert a == b
+        elif a["kind"] == "metric":
+            assert set(a["values"]) == set(b["values"]), a["name"]
+            for k, v in a["values"].items():
+                np.testing.assert_allclose(b["values"][k], v, rtol=tol,
+                                           atol=tol, err_msg=(a["name"], k))
 
 
 def _jax_backend(name):
@@ -333,25 +359,31 @@ def test_server_round_stacked_matches_jax(cfg, backend):
     jf = JFedSTIL(cfg, n_clients=C, server_backend=_jax_backend(backend))
     pf = FedSTIL(cfg, n_clients=C)
     heads = _stacked_jax_heads(C, cfg)
+    jt, pt = JT.Tracer(), PT.Tracer()
     for rnd in range(3):
         theta = jax.tree.map(
             lambda l: (l + 0.1 * rng.standard_normal(l.shape)).astype(
                 np.float32), heads)
         feats = np.tanh(rng.standard_normal((C, cfg.proto_dim))
                         ).astype(np.float32)
-        jd = jf.server_round_stacked(rnd, {"theta": theta,
-                                           "task_feature": jnp.asarray(feats)})
-        pd = pf.server_round_stacked(rnd, {
-            "theta": theta_from_jax(theta, "cpu"),
-            "task_feature": torch.from_numpy(feats)})
+        with JT.active(jt):
+            jd = jf.server_round_stacked(
+                rnd, {"theta": theta, "task_feature": jnp.asarray(feats)})
+        with PT.active(pt):
+            pd = pf.server_round_stacked(rnd, {
+                "theta": theta_from_jax(theta, "cpu"),
+                "task_feature": torch.from_numpy(feats)})
         np.testing.assert_allclose(pf.last_W, jf.last_W, atol=1e-5)
         np.testing.assert_array_equal(pd["nz"].numpy(), np.asarray(jd["nz"]))
         jB = theta_from_jax(jax.tree.map(np.asarray, jd["B"]), "cpu")
         for k, v in pd["B"].items():
             np.testing.assert_allclose(v.numpy(), jB[k].numpy(), atol=1e-4,
                                        err_msg=k)
-    assert set(pf.server_ms) == {"relevance", "flatten", "aggregate",
-                                 "unflatten"}
+    # the server's stage spans and relevance metrics, as the reference's
+    assert {e["name"] for e in pt.events if e["kind"] == "span"} == {
+        "server.relevance", "server.flatten", "server.aggregate",
+        "server.unflatten"}
+    _same_events(jt.events, pt.events)
 
     class _St:
         extras = {"reg_B": {k: torch.zeros_like(v) for k, v in pd["B"].items()}}
@@ -552,11 +584,12 @@ def test_whole_round_matches_jax_stacked_engine(backend, case):
         assert _two_sample_identities(pb) > 0
     jf = JFedSTIL(cfg, n_clients=3, epochs=2, rehearsal=rehearsal,
                   server_backend=_jax_backend(backend), codec=codec)
-    jr = j_run(jf, jb, rounds=4, eval_every=2, engine="stacked")
+    jt, pt = JT.Tracer(), PT.Tracer()
+    jr = j_run(jf, jb, rounds=4, eval_every=2, engine="stacked", trace=jt)
     pf = FedSTIL(cfg, n_clients=3, epochs=2, rehearsal=rehearsal, codec=codec)
     pr = run_simulation(pf, pb, rounds=4, eval_every=2, engine="stacked",
                         eval_backend="device", device="cpu",
-                        init_params=init)
+                        init_params=init, trace=pt)
     assert [r["round"] for r in pr.rounds] == [r["round"] for r in jr.rounds]
     for i, (a, b) in enumerate(zip(jr.rounds, pr.rounds)):
         tol = 1e-4 if n_tight is None or i < n_tight else 1e-2
@@ -573,6 +606,71 @@ def test_whole_round_matches_jax_stacked_engine(backend, case):
     if codec is not None:
         assert {"encode_c2s", "encode_s2c"} <= set(pr.stage_ms[-1])
         assert pr.comm.total < pr.comm.total_formula
+    # traced, both packages emit the same events; the relevance and
+    # encode metrics within 1e-4
+    _same_events(jt.events, pt.events)
+
+
+@pytest.mark.parametrize("codec", [None, "delta+topk"])
+@pytest.mark.parametrize("engine", ["stacked", "host"])
+def test_tracing_changes_no_result_and_untraced_does_no_work(
+        slice_setup, monkeypatch, engine, codec):
+    """The same port run untraced and traced: equal metrics, bytes, last W
+    and delta-codec references, bit for bit. Untraced, no span waits on
+    the device, the encode computes no metric and ``stage_ms`` is empty;
+    traced, each round's ``stage_ms`` entries are its spans' totals."""
+    _, pb, cfg, init = slice_setup
+    calls = {"sync": 0, "enc_metrics": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(PT._Span, "sync", counted("sync", PT._Span.sync))
+    monkeypatch.setattr(PBATCHED.BatchedCodec, "_enc_metrics", counted(
+        "enc_metrics", PBATCHED.BatchedCodec._enc_metrics))
+
+    def run(trace):
+        st = FedSTIL(cfg, n_clients=3, epochs=1, codec=codec)
+        res = run_simulation(st, pb, rounds=3, eval_every=2, engine=engine,
+                             device="cpu", init_params=init, trace=trace)
+        return st, res
+
+    su, ru = run(None)
+    assert calls == {"sync": 0, "enc_metrics": 0} and ru.stage_ms == []
+    tracer = PT.Tracer()
+    st, rt = run(tracer)
+    # the host engine's spans wait on the device only around its codec, as
+    # the reference's do
+    assert (calls["sync"] > 0) == (engine == "stacked" or codec is not None)
+    assert (calls["enc_metrics"] > 0) == (codec is not None
+                                          and engine == "stacked")
+    assert rt.rounds == ru.rounds
+    assert rt.comm_breakdown() == ru.comm_breakdown()
+    assert rt.storage_bytes == ru.storage_bytes
+    np.testing.assert_array_equal(st.last_W, su.last_W)
+    for key, prog in su._wire_programs.items():
+        assert torch.equal(st._wire_programs[key]._enc_ref, prog._enc_ref)
+
+    spans = [e for e in tracer.events if e["kind"] == "span"]
+    stage_of = {"comm.upload": "encode_c2s", "comm.dispatch": "encode_s2c",
+                "round.gather": "gather", "round.local_train": "local_train",
+                "round.server": "server", "round.apply": "apply",
+                "round.eval": "eval"}
+    want = {}
+    for e in spans:
+        key = ("encode_" + e["peer"][0] if "peer" in e
+               else stage_of.get(e["name"], e["name"]))
+        want[key] = want.get(key, 0.0) + e["dur"] * 1e3
+    want.pop("round.encode", None)
+    got = {k: sum(r.get(k, 0.0) for r in rt.stage_ms) for k in want}
+    assert got == pytest.approx(want, rel=1e-12)
+    assert [r["round"] for r in rt.stage_ms] == [0, 1, 2]
+    assert all(r["wall_ms"] >= r["local_train"] > 0.0 for r in rt.stage_ms)
+    assert ({"encode_c2s", "encode_s2c"} <= set(rt.stage_ms[-1])) == (
+        codec is not None)
 
 
 # (codec, options, metric tolerance). Stateless top-k sparsifies the
@@ -667,7 +765,8 @@ def test_run_simulation_refuses_what_later_slices_bring(slice_setup):
     for kw in ({}, {"engine": "host", "eval_backend": "host"},
                {"engine": "stacked", "eval_backend": "host"}):
         res = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1), pb,
-                             rounds=1, device="cpu", init_params=init, **kw)
+                             rounds=1, device="cpu", init_params=init,
+                             trace=PT.Tracer(), **kw)
         assert len(res.rounds) == 1
         assert ("gather" in res.stage_ms[0]) == (kw.get("engine") == "stacked")
     for codec, quant in (("topk+int8", "int8"), ("int8", "int8"),
