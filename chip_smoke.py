@@ -4,8 +4,8 @@ ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
 FedSTIL federated round (stacked engine, device evaluation), the same
 round with the ``delta+topk`` wire codec, on the host engine, and with the
 ``topk+int8`` wire codec, the paper's Table II baselines (the strategy
-zoo), and the dense LM's FedSTIL edge train step (qwen3-1.7b at full
-width).
+zoo), the round on the sharded engine (a world of one), and the dense
+LM's FedSTIL edge train step (qwen3-1.7b at full width).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -25,7 +25,9 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  1001, K = C off the 32-deep step, ragged P, misaligned
                  bases: all three variants, skinny, tiled and ragged; an
                  all-zero W and a NaN diagonal at C = 6 and 1000; their
-                 tile kernels spill nothing), IVF cluster distances and
+                 tile kernels spill nothing; the normalize entry's Wn
+                 within 1e-6 and bit for bit the fused entry's at C = 1
+                 to 1001), IVF cluster distances and
                  shortlist scores within 1e-5 (shortlist ids equal, ragged
                  shapes with an empty bucket and an all-invalid client);
                  the codec's grouped top-k pack / unpack and index bit-pack
@@ -208,6 +210,25 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  other kernel (counts zeroed just before the card runs),
                  held against its plain version on its last on-path
                  operands. Per-round tables in ``build/round_zoo.json``
+     round_sharded: the sharded engine (``engine="sharded"``) on a world
+                 of one (NCCL): round_fedstil's protocol with the float32
+                 wire against round_fedstil's card run (every eval round's
+                 mAP / R1 within 1e-4, bytes equal, round 0's Wn within
+                 1e-6; kl_similarity, batched_pairwise_dist and the
+                 combine launched as there, Wn on normalize_relevance and
+                 Eq. 6 on relevance_aggregate once a round each, never
+                 the fused entry), with the default
+                 bf16 wire (bytes equal, final mAP / R1 within 0.01), and
+                 with topk+int8 against round_fedstil_codec_int8's card
+                 run (every round's bytes equal, final within 0.03), each
+                 kernel of the path against its plain version on its last
+                 operands; the sharded aggregate at C = 5, 100 and 1000
+                 against the fused kernel (B within 2e-5, Wn within 1e-6,
+                 bit-equality reported) with both times, the server round
+                 sharded and stacked (host wall, peak bytes), fed_round on
+                 the one-rank mesh; a traced sharded run's events equal to
+                 the stacked engine's. Per-round tables in
+                 ``build/round_sharded.json``
   9. server_round_scale  the stacked server step alone (ring push, KL
                  relevance, flatten, fused aggregate, unflatten) at C=100
                  and C=1000, P=57664, D=128, k=6: device ms of each stage
@@ -259,6 +280,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -282,7 +304,8 @@ from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import edge_model as EM  # noqa: E402
 from repro_torch.core.adaptive import combine, split_params  # noqa: E402
-from repro_torch.core.fedstil import FedSTIL  # noqa: E402
+from repro_torch.core.fedstil import (FedSTIL,  # noqa: E402
+                                      sharded_fused_aggregate)
 from repro_torch.core.relevance import ring_push, ring_relevance  # noqa: E402
 from repro_torch.data import FederatedReIDBenchmark  # noqa: E402
 from repro_torch.data.tokens import synthetic_lm_batch  # noqa: E402
@@ -311,7 +334,7 @@ from repro_torch.kernels.quantize import (  # noqa: E402
     batched_dequantize, batched_quantize)
 from repro_torch.kernels import relevance_aggregate as RA  # noqa: E402
 from repro_torch.kernels.relevance_aggregate import (  # noqa: E402
-    fused_relevance_aggregate, relevance_aggregate)
+    fused_relevance_aggregate, normalize_relevance, relevance_aggregate)
 from repro_torch.kernels import topk_pack as TP  # noqa: E402
 from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_idx_bitunpack,
@@ -320,6 +343,7 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
+from repro_torch.launch import fed_round as FR  # noqa: E402
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.lifelong import EWC, ICaRL, MAS, STL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -332,6 +356,7 @@ from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
 from repro_torch.serving.engine import (featurize, rank_shortlist,  # noqa: E402
                                         rank_topk)
 from repro_torch.serving.index import index_features  # noqa: E402
+from repro_torch.sharding import specs as SH  # noqa: E402
 from repro_torch.train.optimizer import adam, cosine_schedule  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
     adaptive_loss_and_grads, init_opt_state, init_train_state,
@@ -468,6 +493,16 @@ TAX_CLIENTS, TAX_ITERS, TAX_REPEATS = 100, 8, 3
 OVERHEAD_GATE = 0.02
 NULL_HOOK_CALLS = 100_000
 TRACE_OUT = ROOT / "build" / "telemetry_trace.json"
+# round_sharded: the sharded engine on a world of one (NCCL) against the
+# stacked card runs of round_fedstil and round_fedstil_codec_int8: every
+# eval round with the float32 wire (only Eq. 6's kernel and sum order
+# differ), the traced check's rounds
+SHARDED_TOL = 1e-4
+SHARDED_TRACE_ROUNDS = 2
+SHARDED_KERNELS = ("kl_similarity", "normalize_relevance",
+                   "relevance_aggregate", "batched_pairwise_dist",
+                   "adaptive_combine")
+SHARDED_OUT = ROOT / "build" / "round_sharded.json"
 
 SLEEP_CYCLES = 5_000_000   # device-side sleep ahead of each timed launch
 REPS, WARMUP = 30, 3
@@ -482,13 +517,15 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
 KERNELS = {
     "batched_quantize": {
         "fn": batched_quantize,
-        "paths": ("serve", "serve_ivf", "round_fedstil_codec_int8"),
+        "paths": ("serve", "serve_ivf", "round_fedstil_codec_int8",
+                  "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:58"},
     # the int8 path's two dense keyframes; its residuals dequantize in
     # batched_topk_decode_int8's prologue
     "batched_dequantize": {
-        "fn": batched_dequantize, "paths": ("round_fedstil_codec_int8",),
+        "fn": batched_dequantize,
+        "paths": ("round_fedstil_codec_int8", "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:94"},
     "batched_int8_pairwise_dist": {
@@ -499,7 +536,7 @@ KERNELS = {
         "fn": batched_pairwise_dist,
         "paths": ("serve", "round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
-                  "round_zoo"),
+                  "round_zoo", "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
         "replaces": "src/repro/kernels/pairwise_dist.py:91"},
     # no main path of either package calls the 2-D form: the per-query
@@ -511,7 +548,8 @@ KERNELS = {
     "kl_similarity": {
         "fn": kl_similarity,
         "paths": ("round_fedstil", "round_fedstil_codec",
-                  "round_fedstil_host", "round_fedstil_codec_int8"),
+                  "round_fedstil_host", "round_fedstil_codec_int8",
+                  "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/kl_similarity.cu",
         "replaces": "src/repro/kernels/kl_similarity.py:53"},
     "fused_relevance_aggregate": {
@@ -521,9 +559,17 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
     "relevance_aggregate": {
-        "fn": relevance_aggregate, "paths": ("round_fedstil_host",),
+        "fn": relevance_aggregate,
+        "paths": ("round_fedstil_host", "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
         "replaces": "src/repro/kernels/relevance_aggregate.py:43"},
+    # the fused kernel's first stage alone (W -> Wn): the sharded server
+    # round normalizes the replicated W once, then each rank runs the
+    # plain entry on its block of Wn's columns
+    "normalize_relevance": {
+        "fn": normalize_relevance, "paths": ("round_sharded",),
+        "source": "src/repro_torch/kernels/csrc/relevance_aggregate.cu",
+        "replaces": "src/repro/kernels/relevance_aggregate.py:96"},
     # every combine is one launch per dtype group over all its leaves
     # (``ops.adaptive_combine_tree``; the reference's leaf-wise tree,
     # adaptive_combine.py:47, calls the kernel below once a leaf)
@@ -531,7 +577,7 @@ KERNELS = {
         "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
-                  "lm_train"),
+                  "round_sharded", "lm_train"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
         "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
@@ -550,7 +596,8 @@ KERNELS = {
     # caller
     "batched_topk_encode": {
         "fn": batched_topk_encode,
-        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8"),
+        "paths": ("round_fedstil_codec", "round_fedstil_codec_int8",
+                  "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/topk_pack.py:78",
         "also_replaces": ["src/repro/kernels/topk_pack.py:128"]},
@@ -561,7 +608,7 @@ KERNELS = {
         "also_replaces": ["src/repro/kernels/topk_pack.py:161"]},
     "batched_topk_decode_int8": {
         "fn": batched_topk_decode_int8,
-        "paths": ("round_fedstil_codec_int8",),
+        "paths": ("round_fedstil_codec_int8", "round_sharded"),
         "source": "src/repro_torch/kernels/csrc/topk_pack.cu",
         "replaces": "src/repro/kernels/quantize.py:94",
         "also_replaces": ["src/repro/kernels/topk_pack.py:161",
@@ -1186,7 +1233,57 @@ def relevance_kernel_rows(gen, dev, peak):
                 "by_shape": aggregate_timings(gen, dev, peak, True),
                 "skinny_vs_tiled": skinny_vs_tiled(gen, dev),
                 "sass": kernel_sass("relevance_aggregate")})
+
+    # normalize_relevance: the sharded path's C = 5, both sides of the
+    # skinny variant's largest C (the fused Wn it must equal bit for bit
+    # comes from the skinny or the tiled variant), the fleet's C; finite
+    # junk or NaN on the diagonal, an all-zero row, a NaN off the diagonal
+    err = 0.0
+    for c in (1, 5, 6, 32, 33, 100, 257, C, C + 1):
+        w = relevance(c)
+        w.fill_diagonal_(7.5 if c % 2 else float("nan"))
+        if c > 2:
+            w[1] = 0.0
+            w[2, 0] = float("nan")
+        err = max(err, normalize_err(w))
+    w = relevance(C)
+    rows["normalize_relevance"] = dict(
+        max_abs_err=max(err, normalize_err(w)),
+        bound=bound(*normalize_work(C), peak),
+        ms=time_ms(lambda: normalize_relevance(w)),
+        plain_ms=time_ms(lambda: REF.normalized_relevance_ref(w)),
+        library_ms=None, shape=[C, C],
+        detail={"library": "none: no one PyTorch call masks the diagonal "
+                "and normalizes the rows",
+                "by_C": {c: time_ms(functools.partial(normalize_relevance,
+                                                      relevance(c)))
+                         for c in (N_CLIENTS, 100)}})
     return rows
+
+
+def normalize_err(w):
+    """normalize_relevance against its plain version (within WN_TOL) and
+    against the fused entry's Wn (bit for bit: the same normalize_kernel,
+    or at C <= 32 the skinny variant's one-warp sum in the same order)."""
+    C = w.shape[0]
+    wn_k = normalize_relevance(w)
+    wn_r = REF.normalized_relevance_ref(w)
+    _, wn_f = fused_relevance_aggregate(
+        w, torch.zeros((C, 4), dtype=torch.float32, device=w.device))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(wn_k).all()), "normalize_relevance: non-finite")
+    check(torch.equal(wn_k, wn_f), f"normalize_relevance C={C}: Wn differs "
+          "from the fused entry's")
+    err = float((wn_k - wn_r).abs().max())
+    check(err <= WN_TOL, f"normalize_relevance C={C}: max_abs_err {err} > "
+          f"{WN_TOL}")
+    return err
+
+
+def normalize_work(c):
+    """(bytes, FLOPs) of Wn from W (c, c): W read once, Wn written once; an
+    add into the row sum and a divide an entry."""
+    return 8.0 * c * c, 2.0 * c * c
 
 
 def skinny_vs_tiled(gen, dev):
@@ -2853,8 +2950,8 @@ class RecordingFedSTIL(FedSTIL):
         self.last_eval_theta = super().eval_theta_stacked(stacked)
         return self.last_eval_theta
 
-    def server_round_stacked(self, rnd, upload):
-        dispatch = super().server_round_stacked(rnd, upload)
+    def server_round_stacked(self, rnd, upload, valid=None):
+        dispatch = super().server_round_stacked(rnd, upload, valid=valid)
         if rnd == 0:
             self.round0 = (self.last_W.copy(),
                            flatten_stacked(dispatch["B"])[0].cpu().numpy())
@@ -2904,6 +3001,8 @@ def path_work(name, args):
         return dist_work(name, c, q, g, f)
     if name == "kl_similarity":
         return kl_work(args[0].shape[0], args[1].shape[0], args[0].shape[1])
+    if name == "normalize_relevance":
+        return normalize_work(args[0].shape[0])
     if name in ("fused_relevance_aggregate", "relevance_aggregate"):
         (r, c), p = args[0].shape, args[1].shape[1]
         return aggregate_work(r, c, p, name == "fused_relevance_aggregate")
@@ -2928,6 +3027,7 @@ def path_operand_errs(seen):
             dist_variant_errs("batched_pairwise_dist", *a)[0]),
         "kl_similarity": kl_err,
         "fused_relevance_aggregate": aggregate_err,
+        "normalize_relevance": normalize_err,
         "relevance_aggregate": plain_aggregate_err,
         "adaptive_combine": combine_tree_err,
         "batched_quantize": lambda x: quantize_err(x, 256),
@@ -3526,7 +3626,235 @@ def phase_round_fedstil_codec_int8(dev, card, uncoded):
           f"{CODEC_METRIC_TOL}")
     check(all(launches[k] == n for k, n in expect.items()),
           f"round_fedstil_codec_int8 launches {launches}, expected {expect}")
-    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}, res
+
+
+# ---------------------------------------------------------------------------
+# path 8: the sharded engine on a world of one
+# ---------------------------------------------------------------------------
+
+
+def sharded_sim(bench, dev, rounds=None, **kw):
+    """One traced sharded run of the protocol from SEED's weights on a
+    world of one (NCCL on the card, created and destroyed by the run)."""
+    strategy = RecordingFedSTIL(EM.EdgeModelConfig(n_classes=bench.n_classes),
+                                n_clients=N_CLIENTS, **kw)
+    return simulate(bench, dev, engine="sharded", strategy=strategy,
+                    rounds=rounds)
+
+
+def sharded_server_scale(dev):
+    """The sharded Eq. 5 -> 6 (``sharded_fused_aggregate``: Wn by
+    normalize_relevance, row 10's kernel on Wn's one column block, one
+    reduce-scatter) at the round's
+    and the fleet's shapes against the one-device fused kernel (row 9):
+    B within AGG_TOL, Wn within WN_TOL, whether B is bit for bit row 9's;
+    device ms of both; the FedSTIL server round, sharded and stacked: its
+    host wall (median of rounds past a full ring) and the peak bytes it
+    allocates above what is held; and fed_round on the one-rank mesh
+    against the numpy server."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = EM.EdgeModelConfig()
+    out = {}
+    with SH.engine_world(dev), SH.engine_mesh(device=dev) as mesh:
+        for C, P in ((N_CLIENTS, P_ROUND),) + tuple(
+                (c, P_EDGE) for c in SCALE_CLIENTS):
+            w = torch.rand((C, C), generator=gen, device=dev)
+            th = torch.randn((C, P), generator=gen, device=dev)
+            B, Wn = sharded_fused_aggregate(w, th, mesh)
+            Bf, Wnf = fused_relevance_aggregate(w, th)
+            row = {"B_err": float((B - Bf).abs().max()),
+                   "Wn_err": float((Wn - Wnf).abs().max()),
+                   "B_bit_equal_row9": bool(torch.equal(B, Bf)),
+                   "Wn_bit_equal_row9": bool(torch.equal(Wn, Wnf)),
+                   "sharded_ms": time_ms(
+                       lambda: sharded_fused_aggregate(w, th, mesh)),
+                   "fused_ms": time_ms(
+                       lambda: fused_relevance_aggregate(w, th))}
+            check(row["B_err"] <= AGG_TOL and row["Wn_err"] <= WN_TOL,
+                  f"round_sharded aggregate at C={C}: {row}")
+            if P == P_EDGE:
+                heads = EM.stack_heads([EM.init_adaptive_layers(cfg, gen)
+                                        for _ in range(C)], dev)
+                for name in ("stacked", "sharded"):
+                    strat = FedSTIL(cfg, n_clients=C, history_len=HIST_K)
+                    kw = ({"valid": strat.bind_mesh(mesh, C)}
+                          if name == "sharded" else {})
+                    walls, peaks_b = [], []
+                    for rnd in range(HIST_K + 2):
+                        up = {"theta": heads,
+                              "task_feature": task_features(gen, dev, C)}
+                        torch.cuda.synchronize()
+                        held = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        t0 = time.perf_counter()
+                        strat.server_round_stacked(rnd, up, **kw)
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                        peaks_b.append(torch.cuda.max_memory_allocated()
+                                       - held)
+                    row[f"{name}_server_round_wall_ms"] = float(
+                        np.median(walls[2:]))
+                    row[f"{name}_server_round_peak_bytes"] = int(
+                        max(peaks_b))
+                    del strat
+                del heads
+            out[f"C={C},P={P}"] = row
+            del w, th, B, Bf
+            torch.cuda.empty_cache()
+        thetas, feats, hists = FR.demo_inputs(1, 128, P_EDGE, HIST_K)
+        B, w_row = FR.fed_round(
+            {"w": torch.from_numpy(thetas[0]).to(dev)},
+            torch.from_numpy(feats[0]).to(dev),
+            torch.from_numpy(hists[0]).to(dev), mesh=mesh)
+        Wref, Bref = FR.server_oracle(thetas, feats, hists)
+        out["fed_round_world_1"] = {
+            "B_err": float(np.abs(B["w"].cpu().numpy() - Bref[0]).max()),
+            "W_err": float(np.abs(w_row.cpu().numpy() - Wref[0]).max())}
+        check(out["fed_round_world_1"]["B_err"] <= AGG_TOL
+              and out["fed_round_world_1"]["W_err"] <= WN_TOL,
+              f"fed_round on one rank: {out['fed_round_world_1']}")
+    return out
+
+
+def phase_round_sharded(dev, card, stacked, res_int8, stacked_launches):
+    """The sharded engine (``run_simulation(engine="sharded")``) on a world
+    of one on the card (NCCL), five things: (1) round_fedstil's protocol
+    with the float32 wire against round_fedstil's stacked card run (every
+    eval round's mAP / R1 within SHARDED_TOL, bytes equal, round 0's Wn
+    within WN_TOL, the launches: kl_similarity, batched_pairwise_dist and
+    the combine as round_fedstil's, Eq. 5 -> 6 on normalize_relevance and
+    relevance_aggregate (row 10) once a round each and never on the fused
+    entry); (2) the default bf16 wire
+    (bytes equal, final mAP / R1 within ROUND_METRIC_TOL); (3) topk+int8
+    with the float32 wire against round_fedstil_codec_int8's card run
+    (every round's wire and formula bytes equal, final within
+    CODEC_METRIC_TOL); (4) ``sharded_server_scale``; (5) a traced sharded
+    run's events against the stacked engine's. Counts are zeroed just
+    before each of runs 1-3 and read just after; the path's launches are
+    their sum. Returns (launches, on-path errors)."""
+    strat0, res0 = stacked
+    bench = FederatedReIDBenchmark(seed=SEED)
+    runs, launches = {}, {}
+    zero_counts()
+    with last_operands(SHARDED_KERNELS) as seen:
+        runs["float32"] = sharded_sim(bench, dev, wire_dtype="float32")
+    launches["float32"] = counts()
+    on_path = path_operand_errs(seen)
+    del seen
+    zero_counts()
+    runs["bfloat16"] = sharded_sim(bench, dev)
+    launches["bfloat16"] = counts()
+    zero_counts()
+    runs["topk+int8"] = sharded_sim(bench, dev, wire_dtype="float32",
+                                    codec=CODEC_INT8)
+    launches["topk+int8"] = counts()
+    path = {k: sum(c[k] for c in launches.values()) for k in KERNELS}
+
+    strat1, res1, wall1 = runs["float32"]
+    n_eval = len(res1.rounds)
+    keys = ("mAP", "R1", "R5", "forgetting_mAP")
+    deltas = {name: metric_deltas(res0.rounds if name != "topk+int8"
+                                  else res_int8.rounds, r.rounds, keys)
+              for name, (_, r, _) in runs.items()}
+    w_err = float(np.abs(strat1.round0[0] - strat0.round0[0]).max())
+    same_bytes = {name: (r.comm.total_c2s, r.comm.total_s2c,
+                         r.storage_bytes) == (ref.comm.total_c2s,
+                                              ref.comm.total_s2c,
+                                              ref.storage_bytes)
+                  for name, (_, r, _), ref in zip(
+                      runs, runs.values(), (res0, res0, res_int8))}
+    rows_equal = runs["topk+int8"][1].comm_breakdown() == \
+        res_int8.comm_breakdown()
+    scale = sharded_server_scale(dev)
+
+    # (5) a traced sharded run emits the stacked engine's events
+    tr_sh, tr_st = obs.Tracer(), obs.Tracer()
+    for tracer, engine in ((tr_sh, "sharded"), (tr_st, "stacked")):
+        run_simulation(RecordingFedSTIL(EM.EdgeModelConfig(
+            n_classes=bench.n_classes), n_clients=N_CLIENTS), bench,
+            rounds=SHARDED_TRACE_ROUNDS, seed=SEED, engine=engine,
+            device=dev, trace=tracer)
+    event_key = lambda e: (e["kind"], e.get("name"), e.get("cat"),
+                           e.get("round"), e.get("direction"))
+    ev_sh = [event_key(e) for e in tr_sh.events]
+    ev_st = [event_key(e) for e in tr_st.events]
+
+    SHARDED_OUT.parent.mkdir(parents=True, exist_ok=True)
+    SHARDED_OUT.write_text(json.dumps({
+        "card": card, **{name: {"rounds": r.rounds,
+                                "comm_rows": r.comm_breakdown(),
+                                "stage_ms": r.stage_ms}
+                         for name, (_, r, _) in runs.items()}}))
+    shown = ("kl_similarity", "normalize_relevance", "relevance_aggregate",
+             "fused_relevance_aggregate", "batched_pairwise_dist",
+             "adaptive_combine", "batched_quantize", "batched_dequantize",
+             "batched_topk_encode", INT8_DECODE)
+    emit({"phase": "round_sharded", "card": card, "world": 1,
+          "backend": SH.BACKENDS[dev.type], "clients": N_CLIENTS,
+          "rounds": ROUNDS,
+          "eval_rounds": [r["round"] for r in res1.rounds],
+          **{f"{k}_float32": [r[k] for r in res1.rounds] for k in keys},
+          "per_round_max_delta": {n: d[0] for n, d in deltas.items()},
+          "final_abs_delta": {n: d[1] for n, d in deltas.items()},
+          "reference": {"float32": "round_fedstil (stacked, card)",
+                        "bfloat16": "round_fedstil (stacked, card)",
+                        "topk+int8": "round_fedstil_codec_int8 (card)"},
+          "round0_Wn_err": w_err, "bytes_equal": same_bytes,
+          "int8_comm_rows_equal": rows_equal,
+          "sim_wall_s": {n: r[2] for n, r in runs.items()},
+          "round_wall_ms": {n: summarize([st["wall_ms"]
+                                          for st in r[1].stage_ms])
+                            for n, r in runs.items()},
+          "server_ms": {n: summarize([st.get("server", 0.0)
+                                      for st in r[1].stage_ms])
+                        for n, r in runs.items()},
+          "launches_per_round": {n: {k: c[k] / ROUNDS for k in shown}
+                                 for n, c in launches.items()},
+          "launches": {n: {k: c[k] for k in shown}
+                       for n, c in launches.items()},
+          "launches_round_fedstil": {k: stacked_launches[k] for k in (
+              "kl_similarity", "fused_relevance_aggregate",
+              "batched_pairwise_dist", "adaptive_combine")},
+          "eq6_kernels": "normalize_relevance (row 9's normalize stage), "
+                         "then relevance_aggregate (row 10)",
+          "server_scale": scale,
+          "traced": {"rounds": SHARDED_TRACE_ROUNDS,
+                     "events_equal_stacked": ev_sh == ev_st,
+                     "events": len(ev_sh), "spans_round0": [
+                         e[1] for e in ev_sh
+                         if e[0] == "span" and e[3] == 0]},
+          "kernel_vs_plain_on_path": on_path,
+          "detail": str(SHARDED_OUT.relative_to(ROOT))})
+    f32 = launches["float32"]
+    check(deltas["float32"][0]["mAP"] <= SHARDED_TOL
+          and deltas["float32"][0]["R1"] <= SHARDED_TOL,
+          f"round_sharded float32 wire vs stacked: {deltas['float32'][0]}")
+    check(w_err <= WN_TOL, f"round_sharded round 0 Wn err {w_err}")
+    check(all(same_bytes.values()) and rows_equal,
+          f"round_sharded bytes differ: {same_bytes}, int8 rows "
+          f"{rows_equal}")
+    check(deltas["bfloat16"][1]["mAP"] <= ROUND_METRIC_TOL
+          and deltas["bfloat16"][1]["R1"] <= ROUND_METRIC_TOL,
+          f"round_sharded bf16 final: {deltas['bfloat16'][1]}")
+    check(deltas["topk+int8"][1]["mAP"] <= CODEC_METRIC_TOL
+          and deltas["topk+int8"][1]["R1"] <= CODEC_METRIC_TOL,
+          f"round_sharded topk+int8 final: {deltas['topk+int8'][1]}")
+    check(all(f32[k] == stacked_launches[k] for k in (
+        "kl_similarity", "batched_pairwise_dist", "adaptive_combine"))
+          and f32["relevance_aggregate"] == ROUNDS
+          and f32["normalize_relevance"] == ROUNDS
+          and f32["fused_relevance_aggregate"] == 0
+          and f32["batched_pairwise_dist"] == n_eval,
+          f"round_sharded launches {f32}")
+    check(launches["topk+int8"]["fused_relevance_aggregate"] == 0
+          and launches["topk+int8"]["relevance_aggregate"] == ROUNDS
+          and launches["topk+int8"]["normalize_relevance"] == ROUNDS,
+          f"round_sharded topk+int8 launches {launches['topk+int8']}")
+    check(ev_sh == ev_st, "round_sharded: the traced sharded run's events "
+          "differ from the stacked engine's")
+    return path, {n: r["max_abs_err"] for n, r in on_path.items()}
+
 
 
 # ---------------------------------------------------------------------------
@@ -4367,12 +4695,17 @@ def main():
     fold(errs)
     phase_round_host_variants(dev, card)
     # path 6: the round with the topk+int8 wire codec (counts zeroed inside)
-    launches["round_fedstil_codec_int8"], errs = \
+    launches["round_fedstil_codec_int8"], errs, res_int8 = \
         phase_round_fedstil_codec_int8(dev, card, res)
     fold(errs)
     # path 7: the Table II strategy zoo (counts zeroed inside)
     launches["round_zoo"], errs = phase_round_zoo(dev, card)
     fold(errs)
+    # path 8: the sharded engine on a world of one (counts zeroed inside)
+    launches["round_sharded"], errs = phase_round_sharded(
+        dev, card, (strat, res), res_int8, launches["round_fedstil"])
+    fold(errs)
+    del res_int8
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     del strat, res

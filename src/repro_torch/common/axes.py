@@ -5,7 +5,7 @@ The layers take an ``AxisCtx`` as the reference's do, so their signatures
 and call sites carry over; every collective helper is the identity. A
 context that names a mesh axis raises ``NotImplementedError``: the sharded
 regime (tensor, data and FSDP parallel over ``torch.distributed``) is
-ROADMAP Queue 1 item 5, scale-out.
+ROADMAP Queue 1 item 3, the LM scale-out.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ class AxisCtx:
         if named:
             raise NotImplementedError(
                 f"AxisCtx({', '.join(named)}): sharded model code is not "
-                "ported yet (ROADMAP Queue 1 item 5, scale-out); use "
+                "ported yet (ROADMAP Queue 1 item 3, the LM scale-out); use "
                 "UNSHARDED")
 
     def tp_index(self) -> int:

@@ -24,6 +24,20 @@ one (|nz|, C) x (C, P) product (``core.aggregation.personalized_aggregate``,
 per-pair loop and the per-leaf einsum aggregate instead, the reference's
 oracle; the stacked server ignores it, as the reference's does.
 
+On the sharded engine (``run_simulation(engine="sharded")``) each rank
+holds a block of the Cp padded client rows. The server round all-gathers
+the task features and validity of every row, keeps the relevance ring
+replicated (Eq. 4 contracts every row against every history, and the ring
+is only Cp x k x D), so W and Wn are the same on every rank, and forms
+Eq. 6 as ``sharded_fused_aggregate``: Wn through
+``ops.normalize_relevance``, each rank's partial product of its own column
+block of Wn and its rows of Theta through ``ops.relevance_aggregate``, then
+one reduce-scatter over "data". Each rank casts its flattened rows to
+``wire_dtype`` (bf16 by default, ``common/precision.py``) and upcasts them
+to fp32 for its partial product: the cast keeps the reference's precision
+rule, and saves no bytes here, since no bf16 tensor crosses ranks (the one
+transfer of Eq. 6 is the fp32 (Cp, P) partial of the reduce-scatter).
+
 Ablation switches (Table III): ``st_integration``, ``rehearsal``,
 ``tying``; the similarity switch (Table VI): ``metric``.
 """
@@ -34,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.common.precision import to_bf16, to_f32
 from repro_torch.common.pytree import (device_of, flatten_stacked,
                                        tree_bytes, unflatten_stacked)
 from repro_torch.core import edge_model as EM
@@ -49,6 +64,71 @@ from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import relevance_metrics
 
 
+def sharded_fused_aggregate(w, thetas, mesh):
+    """Eq. 5 -> 6 over the engine mesh (the layouts of
+    ``sharding.specs.stacked_aggregate_specs``): ``w`` the replicated raw
+    relevance (C, C), ``thetas`` this rank's (C / d, P / m) block of the
+    stacked parameters (client rows over "data", columns over "model").
+
+    Wn (the diagonal masked, rows normalized, zero rows kept zero:
+    ``ops.normalize_relevance``, the fused kernel's first stage, so on the
+    card Wn is the fused kernel's bit for bit) is the same on every rank.
+    Rank r contracts its own column block of Wn against its rows:
+    ``ops.relevance_aggregate(Wn[:, block_r], thetas)``, a (C, P / m) fp32
+    partial product through the hand-written Eq. 6 kernel; one
+    reduce-scatter over "data" sums the partials and leaves rank r with
+    its own rows of B (on one rank, the fused kernel's B bit for bit).
+    Returns (B block (C / d, P / m) fp32, Wn (C, C))."""
+    wn = ops.normalize_relevance(w)
+    lo, hi = mesh.block(wn.shape[0])
+    partial = ops.relevance_aggregate(wn[:, lo:hi].contiguous(),
+                                      thetas.contiguous())
+    return mesh.reduce_scatter_rows(partial), wn
+
+
+class _StackedServer:
+    """Where the stacked engine's server round differs from the sharded
+    one's: every row is here and real, the flatten stays fp32, and Eq. 6
+    is the one fused launch."""
+
+    @staticmethod
+    def gather(feats):
+        return feats, None
+
+    @staticmethod
+    def wire(flat):
+        return flat
+
+    @staticmethod
+    def aggregate(w, flat):
+        """(B (C, P), Wn (C, C), this rank's rows of Wn)."""
+        B, Wn = ops.fused_relevance_aggregate(w, flat)
+        return B, Wn, Wn
+
+
+class _ShardedServer:
+    """The same steps on the sharded engine, for this rank's rows of
+    ``mesh`` with validity ``valid`` (1.0 real, 0.0 padding)."""
+
+    def __init__(self, mesh, valid, wire_dtype):
+        self.mesh, self.valid, self.wire_dtype = mesh, valid, wire_dtype
+
+    def gather(self, feats):
+        """Every row's task feature and validity: ((Cp, D), (Cp,))."""
+        D = feats.shape[1]
+        both = self.mesh.all_gather_rows(
+            torch.cat([feats, self.valid[:, None].to(feats.dtype)], 1))
+        return both[:, :D], both[:, D]
+
+    def wire(self, flat):
+        return to_bf16(flat) if self.wire_dtype == "bfloat16" else flat
+
+    def aggregate(self, w, flat):
+        B, Wn = sharded_fused_aggregate(w, to_f32(flat), self.mesh)
+        lo, hi = self.mesh.block(Wn.shape[0])
+        return B, Wn, Wn[lo:hi]
+
+
 class FedSTIL(Strategy):
     name = "fedstil"
     uses_server = True
@@ -57,8 +137,19 @@ class FedSTIL(Strategy):
     def __init__(self, cfg, *, n_clients=5, metric="kl", forgetting_ratio=0.5,
                  history_len=6, memory_size=2000, per_identity=8,
                  lam_tie=1e-4, st_integration=True, rehearsal=True,
-                 tying=True, server_backend=None, **kw):
+                 tying=True, server_backend=None, wire_dtype="bfloat16",
+                 **kw):
         super().__init__(cfg, **kw)
+        if wire_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"wire_dtype {wire_dtype!r}: 'bfloat16' or "
+                             "'float32'")
+        # the sharded engine casts each rank's flattened rows to
+        # wire_dtype and upcasts them to fp32 for the aggregate: bf16 (the
+        # default) keeps the reference's precision rule but saves no bytes
+        # here, as no bf16 tensor crosses ranks (module docstring);
+        # "float32" turns the cast off. The host and stacked engines
+        # ignore it, as the reference's do.
+        self.wire_dtype = wire_dtype
         self.n_clients = n_clients
         self.metric = metric
         self.forgetting_ratio = forgetting_ratio
@@ -179,44 +270,66 @@ class FedSTIL(Strategy):
         theta = self.eval_theta_stacked(stacked)
         stacked.extras["reg_prev_theta"] = theta
         dev = bx.device
+        C = len(protos_list)
         if self.use_rehearsal:
-            protos = torch.from_numpy(np.stack(protos_list)).to(dev)
+            # every rank keeps all C memories (its rng draws must stay the
+            # reference's), so the head outputs of every client's
+            # prototypes are gathered from the ranks that hold them
+            protos = self.place_rows(torch.from_numpy(np.stack(protos_list)),
+                                     dev)
             with torch.no_grad():
-                outputs = EM.adaptive_forward(theta, protos)[0].cpu().numpy()
+                outputs = EM.adaptive_forward(theta, protos)[0]
+                if self.mesh is not None:
+                    outputs = self.mesh.all_gather_rows(outputs)
+            outputs = outputs[:C].cpu().numpy()
             for c, mem in enumerate(stacked.host["memory"]):
                 mem.add_task(protos_list[c], labels_list[c], outputs[c],
                              task_id=rnd)
-        # upload: the heads + the task feature (Eq. 3)
-        feats = np.stack([np.asarray(p, np.float32).mean(0)
-                          for p in protos_list])
+        # upload: the heads + the task feature (Eq. 3); padding rows get a
+        # zero feature, which their validity keeps out of the ring
+        feats = torch.from_numpy(np.stack([np.asarray(p, np.float32).mean(0)
+                                           for p in protos_list]))
+        if self.mesh is not None:
+            feats = torch.cat([feats, feats.new_zeros(
+                (self.padded_clients - C, feats.shape[1]))])
         return stacked, {"theta": theta,
-                         "task_feature": torch.from_numpy(feats).to(dev)}
+                         "task_feature": self.place_rows(feats, dev)}
 
     # ---- stacked engine: server round ----------------------------------------
-    def server_round_stacked(self, rnd, upload):
+    def server_round_stacked(self, rnd, upload, valid=None):
         """Eq. 4/5 -> Eq. 6 over the device-resident ring. The only host
         readback is the (C, C) ``last_W``. Returns {"B": stacked bases,
-        "nz": (C,) bool rows with relevant neighbours}."""
+        "nz": (C,) bool rows with relevant neighbours}.
+
+        On the sharded engine (``valid``: this rank's rows' validity) the
+        upload holds this rank's rows: the task features and validity of
+        every row are gathered, the replicated (Cp, k, D) ring takes a
+        push of the valid rows only (padding never acquires history, so
+        its W rows and columns stay zero and it keeps its base), the
+        flatten is cast to ``wire_dtype`` and the aggregate is
+        ``sharded_fused_aggregate``; "B" and "nz" are this rank's rows and
+        ``last_W`` the (Cp, Cp) Wn."""
         if not self.st_integration:
             return None
-        feats = upload["task_feature"]                       # (C, D)
-        C, D = feats.shape
+        io = (_StackedServer if valid is None
+              else _ShardedServer(self.mesh, valid, self.wire_dtype))
         with torch.no_grad():
-            if self._ring is None:
-                self._ring = DeviceRingHistory(C, self.history_len, D,
-                                               feats.device)
-            ring = self._ring
             with obs.span("server.relevance", cat="stage", round=rnd) as sp:
-                ring.push_all(feats)
+                feats, mask = io.gather(upload["task_feature"])  # (C, D)
+                if self._ring is None:
+                    C, D = feats.shape
+                    self._ring = DeviceRingHistory(C, self.history_len, D,
+                                                   feats.device)
+                ring = self._ring
+                ring.push_all(feats, mask)
                 W_raw = sp.sync(ring.raw_relevance(
                     forgetting_ratio=self.forgetting_ratio,
                     metric=self.metric))
             with obs.span("server.flatten", cat="stage", round=rnd) as sp:
                 flat, meta = flatten_stacked(upload["theta"])  # (C, P)
-                sp.sync(flat)
+                flat = sp.sync(io.wire(flat))
             with obs.span("server.aggregate", cat="stage", round=rnd) as sp:
-                B_flat, Wn = sp.sync(ops.fused_relevance_aggregate(W_raw,
-                                                                   flat))
+                B_flat, Wn, Wn_mine = sp.sync(io.aggregate(W_raw, flat))
             # per-client round observables (staleness, ring fill, W row
             # mass / density): computed and read back only under a tracer
             if obs.is_active():
@@ -225,7 +338,7 @@ class FedSTIL(Strategy):
                            round=rnd)
             self.last_W = Wn.cpu().numpy()
             # all-zero rows (no relevant neighbours yet) keep their old base
-            nz = torch.sum(Wn, 1) > 0
+            nz = torch.sum(Wn_mine, 1) > 0
             with obs.span("server.unflatten", cat="stage", round=rnd) as sp:
                 B = sp.sync(unflatten_stacked(B_flat, meta))
         return {"B": B, "nz": nz}

@@ -34,6 +34,15 @@ per-client ``host`` lists. A stacked round is:
     decoded at once by a ``comm.batched.BatchedCodec``;
   * ``eval_round_stacked``: every (client, task) retrieval evaluation in
     one pass (``stacked_eval_program`` of the reference).
+
+The sharded engine (``run_simulation(engine="sharded")``) runs the same
+stacked round on each rank of a ``torch.distributed`` world over the
+rank's block of client rows (``sharding.specs``): ``shard_stacked_state``
+pads the stacked state to Cp rows (``pad_client_rows``) and keeps the
+rank's block, ``place_rows`` does the same to each round's minibatches
+(drawn for all C clients on every rank, so the rng stream stays one), the
+server round gets the rows' validity mask, and ``sharded_eval`` evaluates
+the rank's rows and gathers the (Cp, T) metrics.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.common.pytree import (device_of, tree_bytes,
 from repro_torch.core import edge_model as EM
 from repro_torch.evalreid.batched import _PAD_QID, batched_retrieval_metrics
 from repro_torch.obs import trace as obs
+from repro_torch.sharding import specs as shard_specs
 from repro_torch.train.optimizer import adam, apply_updates, clip_by_global_norm
 
 
@@ -68,13 +78,16 @@ class ClientState:
 @dataclasses.dataclass
 class StackedClientState:
     """All C clients' states as one tree of (C, ...) tensors; ``host``
-    keeps per-client objects as length-C lists."""
+    keeps per-client objects as length-C lists. On the sharded engine the
+    tensors hold this rank's block of the Cp padded rows, the first of
+    them client ``row0``; ``host`` keeps all C real clients."""
 
     n_clients: int
     trainable: Any
     opt_state: Any
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
     host: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
+    row0: int = 0
 
 
 def _is_stackable(value) -> bool:
@@ -167,6 +180,42 @@ def eval_round_stacked(theta, qp, qids, task_mask, gp, gids, gmask, *,
                                          max_matches=max_matches)
 
 
+def sharded_eval(mesh, theta, qp, qids, task_mask, gp, gids, gmask, *,
+                 ranks=(1, 3, 5), max_matches=None):
+    """``eval_round_stacked`` on this rank's block of client rows (every
+    input placed with ``sharding.specs.stacked_eval_specs``), then one
+    gather over "data" of each (Cp / d, T) metric: every rank returns the
+    (Cp, T) metrics of all rows. ``max_matches`` is the global bound.
+    The one sharded evaluation of the port: the sharded engine and
+    ``launch/eval_round`` both call it."""
+    out = eval_round_stacked(theta, qp, qids, task_mask, gp, gids, gmask,
+                             ranks=ranks, max_matches=max_matches)
+    return {k: mesh.all_gather_rows(v) for k, v in out.items()}
+
+
+def pad_client_rows(tree, n_to: int):
+    """Pad every leaf's leading client dim to ``n_to`` by repeating the
+    last row. Repetition, not zeros, keeps padding clients numerically
+    boring: their forward and backward passes and eval rows compute real
+    values (no 0/0 BN statistics), and the validity mask keeps them from
+    ever reaching a real client."""
+    def pad(t):
+        C = t.shape[0]
+        if C == n_to:
+            return t
+        return torch.cat([t, t[-1:].expand((n_to - C,) + t.shape[1:])])
+    return tree_map(pad, tree)
+
+
+def place_client_rows(tree, mesh, n_to: int, device=None):
+    """A stacked (C, ...) tree padded to ``n_to`` rows (``pad_client_rows``),
+    of which this rank keeps its block (``sharding.specs``' client-row
+    layout) on ``device`` (the mesh's by default)."""
+    padded = pad_client_rows(tree, n_to)
+    return shard_specs.place_tree(padded, shard_specs.stacked_tree_specs(
+        padded), mesh, device)
+
+
 def not_in_this_slice(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with {where} (ROADMAP, Queue 1)")
@@ -200,6 +249,9 @@ class Strategy:
         self.upload_codec = make_codec(codec, **opts)
         self.dispatch_codec = make_codec(codec, **opts)
         self._wire_programs: Dict[Tuple[str, int], BatchedCodec] = {}
+        # engine="sharded": set by bind_mesh (None elsewhere)
+        self.mesh: Optional[shard_specs.EngineMesh] = None
+        self.padded_clients: Optional[int] = None
 
     # ---- loss ----------------------------------------------------------------
     def make_theta(self, trainable, extras):
@@ -323,12 +375,50 @@ class Strategy:
                                   extras=extras, host=host)
 
     def client_view(self, stacked: StackedClientState, c: int) -> ClientState:
-        """Client c's slice of the stacked state (storage accounting)."""
-        ex = {k: tree_slice(v, c) for k, v in stacked.extras.items()}
+        """Client c's slice of the stacked state (storage accounting; on
+        the sharded engine c must be one of this rank's rows)."""
+        row = c - stacked.row0
+        ex = {k: tree_slice(v, row) for k, v in stacked.extras.items()}
         for k, vals in stacked.host.items():
             ex[k] = vals[c]
-        return ClientState(theta=tree_slice(stacked.trainable, c),
+        return ClientState(theta=tree_slice(stacked.trainable, row),
                            extras=ex)
+
+    # ---- sharded engine: layout ----------------------------------------------
+    def shard_stacked_state(self, stacked: StackedClientState, mesh):
+        """Pad the stacked state to Cp rows (``padded_clients``) and keep
+        this rank's block of them on the mesh's device. Returns (stacked,
+        valid), valid the rank's (Cp / d,) rows of the client-validity mask
+        (1.0 real, 0.0 padding). Host lists stay length C: padding rows
+        have no host-side identity."""
+        valid = self.bind_mesh(mesh, stacked.n_clients)
+        Cp = self.padded_clients
+        stacked.trainable = place_client_rows(stacked.trainable, mesh, Cp)
+        stacked.opt_state = place_client_rows(stacked.opt_state, mesh, Cp)
+        stacked.extras = {k: place_client_rows(v, mesh, Cp)
+                          for k, v in stacked.extras.items()}
+        stacked.row0 = mesh.block(Cp)[0]
+        return stacked, valid
+
+    def bind_mesh(self, mesh, n_clients: int) -> torch.Tensor:
+        """Run this strategy's stacked rounds on ``mesh`` (the sharded
+        engine) over ``n_clients`` real clients, padded to Cp
+        (``padded_clients``). Returns this rank's (Cp / d,) rows of the
+        client-validity mask (1.0 real, 0.0 padding), the ``valid`` of
+        ``server_round_stacked``."""
+        Cp = shard_specs.padded_clients(n_clients, mesh)
+        self.mesh, self.padded_clients = mesh, Cp
+        valid = (torch.arange(Cp) < n_clients).float()
+        return shard_specs.place(valid, ("data",), mesh)
+
+    def place_rows(self, t: torch.Tensor, device) -> torch.Tensor:
+        """A (C, ...) tensor of all real clients (a round's minibatches,
+        the reference's ``place_batches``; prototypes, task features) on
+        ``device``: on the sharded engine padded to Cp rows first, of which
+        the rank keeps its block."""
+        if self.mesh is None:
+            return t.to(device)
+        return place_client_rows(t, self.mesh, self.padded_clients, device)
 
     def storage_bytes(self, state: ClientState) -> int:
         return tree_bytes(state.theta)
@@ -343,7 +433,8 @@ class Strategy:
                              labels_list, device) -> Tuple[torch.Tensor,
                                                            torch.Tensor]:
         """(C, epochs, B, D) fp32 prototypes + (C, epochs, B) int64 labels
-        on ``device``, drawn in the reference's order."""
+        on ``device``, drawn in the reference's order (``place_rows``: the
+        rank's rows on the sharded engine)."""
         bxs, bys = [], []
         for c in range(len(protos_list)):
             p, l = protos_list[c], labels_list[c]
@@ -371,7 +462,7 @@ class Strategy:
                 f"got {sorted(shapes)} (ragged tasks/rehearsal pools)")
         bx = torch.from_numpy(np.stack(bxs).astype(np.float32))
         by = torch.from_numpy(np.stack(bys).astype(np.int64))
-        return bx.to(device), by.to(device)
+        return self.place_rows(bx, device), self.place_rows(by, device)
 
     def _stacked_loss_extras(self, stacked: StackedClientState):
         return {k: v for k, v in stacked.extras.items() if k.startswith("reg_")}
@@ -388,6 +479,16 @@ class Strategy:
         stacked.trainable = trainable
         stacked.opt_state = opt_state
         return stacked, None
+
+    def server_round_stacked(self, rnd: int, upload, valid=None):
+        """The server round over the stacked upload (None = no dispatch).
+        ``valid`` is the sharded engine's (rows,) client-validity mask of
+        this rank's rows (1.0 real, 0.0 padding); None means every row is
+        real (the stacked engine)."""
+        return None
+
+    def apply_dispatch_stacked(self, stacked: StackedClientState, dispatch):
+        return stacked
 
     # ---- evaluation and byte accounting --------------------------------------
     def eval_theta_stacked(self, stacked: StackedClientState):

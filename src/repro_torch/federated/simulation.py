@@ -15,6 +15,20 @@ engines drive the rounds:
     clients as one (C, ...) state, gather the round's minibatches up front
     (the host engine's rng draw order, so both train on the same batches)
     and train, serve and dispatch for all C at once.
+  * ``engine="sharded"``: the stacked round over the ranks of a
+    ``torch.distributed`` world (NCCL on the card, gloo on the CPU; the
+    default group under ``torchrun``, else a world of one). C is padded to
+    Cp, a multiple of the ranks (``sharding.specs.padded_clients``), and
+    each rank holds its block of the Cp rows of the state, the minibatches
+    and the evaluation inputs; the padding rows train on the last client's
+    data and are masked out of the relevance ring. Every rank draws the
+    minibatches and keeps the rehearsal memories and the lifelong tracker
+    of all C clients, so the one rng stream stays the reference's. The
+    server gathers the task features and forms Eq. 6 as per-rank partial
+    products and one reduce-scatter (``core.fedstil``); a codec encodes
+    each rank's rows; the evaluation gathers the (Cp, T) metrics. Bytes
+    count the C real clients; every rank returns the same result. Rank 0
+    alone traces.
 
 A strategy with wire codecs (``FedSTIL(..., codec="topk+int8")``) sends the
 upload and the dispatch through them (the host codec one client at a time
@@ -48,20 +62,24 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.accounting import CommLog
 from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import tree_map, tree_slice
 from repro_torch.core import edge_model as EM
 from repro_torch.data.synthetic import FederatedReIDBenchmark
 from repro_torch.evalreid.batched import max_match_bound
 from repro_torch.evalreid.retrieval import evaluate_retrieval
 from repro_torch.federated.base import (Strategy, eval_round_stacked,
-                                        not_in_this_slice)
+                                        forward_one, place_client_rows,
+                                        sharded_eval)
 from repro_torch.obs import trace as obs
+from repro_torch.sharding import specs as shard_specs
 from repro_torch.train.metrics import LifelongTracker
 
 EVAL_RANKS = (1, 3, 5)
-ENGINES_LATER = {"sharded": "the scale-out slice (telemetry and scale-out)"}
+ENGINES = ("host", "stacked", "sharded")
 
 
 @dataclasses.dataclass
@@ -128,6 +146,8 @@ class _EvalCache:
         self.protos = protos
         self.device = device
         C, T = bench.n_clients, bench.n_tasks
+        self.mesh: Optional[shard_specs.EngineMesh] = None
+        self._padded: Optional[int] = None
         self._dev_t: Optional[int] = None
         self._dev_gal: Optional[Tuple[torch.Tensor, ...]] = None
         self._host_gal: Dict[Tuple[int, int], Tuple[np.ndarray, ...]] = {}
@@ -149,6 +169,23 @@ class _EvalCache:
             max_match_bound(qids[c][None], np.concatenate(
                 [protos[k][3] for k in bench.gallery_members(c, T - 1)])[None])
             for c in range(C))
+
+    def place(self, mesh, padded: int):
+        """The sharded engine: every stacked input's client dim padded to
+        Cp (the last client's row repeated: padding rows are evaluated and
+        never read) and cut to this rank's block. ``max_matches`` stays the
+        bound over all C clients."""
+        if not self.device_ready:
+            return
+        self.mesh, self._padded = mesh, padded
+        self.qp = self._rows(self.qp)
+        self.qids = self._rows(self.qids)
+        self._dev_t = None
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        return place_client_rows(t, self.mesh, self._padded, self.device)
 
     def host_gallery(self, c: int, t: int):
         """(gallery prototypes, ids) of client c at task t: the other
@@ -178,15 +215,15 @@ class _EvalCache:
                 gids[c, :len(y)] = y
                 gmask[c, :len(p)] = 1.0
             self._dev_t = t
-            self._dev_gal = tuple(torch.from_numpy(a).to(self.device)
-                                  for a in (gp, gids, gmask))
+            self._dev_gal = tuple(self._rows(torch.from_numpy(a).to(
+                self.device)) for a in (gp, gids, gmask))
         return self._dev_gal
 
     def task_mask(self, t: int) -> torch.Tensor:
         C, T = self.bench.n_clients, self.bench.n_tasks
         m = torch.zeros((C, T), device=self.device)
         m[:, :t + 1] = 1.0
-        return m
+        return self._rows(m)
 
 
 def _round_summary(tracker, rnd):
@@ -198,17 +235,16 @@ def _round_summary(tracker, rnd):
     return per_round
 
 
-def _eval_round(strategy, get_state, cache, tracker, rnd, t):
+def _eval_round(features, cache, tracker, rnd, t):
     """The host evaluation (Eq. 7/8), the oracle: per client and trained
-    task, features on the card (``strategy.features``) and the numpy
-    retrieval metrics. ``get_state(c)`` gives client c's state."""
+    task, features on the card (``features(c, protos)``, client c's head on
+    host prototypes) and the numpy retrieval metrics."""
     for c in range(cache.bench.n_clients):
-        state = get_state(c)
         gal_p, gal_y = cache.host_gallery(c, t)
-        gal_f = strategy.features(state, gal_p)
+        gal_f = features(c, gal_p)
         for tt in range(t + 1):
             _, _, qx, qy = cache.protos[(c, tt)]
-            qf = strategy.features(state, qx)
+            qf = features(c, qx)
             m = evaluate_retrieval(qf, qy, gal_f, gal_y, ranks=EVAL_RANKS)
             tracker.record(c, tt, rnd, m)
     return _round_summary(tracker, rnd)
@@ -218,9 +254,11 @@ def _eval_round_device(theta_stacked, cache, tracker, rnd, t):
     """Every (client, trained task) mAP/CMC in one batched pass; only the
     (C, T) metrics come back to feed the lifelong tracker (Eq. 8)."""
     gp, gids, gmask = cache.device_gallery(t)
-    out = eval_round_stacked(
-        theta_stacked, cache.qp, cache.qids, cache.task_mask(t), gp, gids,
-        gmask, ranks=EVAL_RANKS, max_matches=cache.max_matches)
+    args = (theta_stacked, cache.qp, cache.qids, cache.task_mask(t), gp,
+            gids, gmask)
+    kw = dict(ranks=EVAL_RANKS, max_matches=cache.max_matches)
+    out = (eval_round_stacked(*args, **kw) if cache.mesh is None
+           else sharded_eval(cache.mesh, *args, **kw))
     out = {k: v.cpu().numpy() for k, v in out.items()}
     for c in range(cache.bench.n_clients):
         for tt in range(t + 1):
@@ -276,9 +314,10 @@ class _Run:
     def task(self, rnd: int) -> int:
         return min(rnd // self.rounds_per_task, self.bench.n_tasks - 1)
 
-    def evaluate(self, rnd, t, stacked_theta, get_state, engine):
+    def evaluate(self, rnd, t, stacked_theta, features, engine):
         """The round's evaluation when it is due: batched on the device
-        (``stacked_theta()``) or per client on the host (``get_state``)."""
+        (``stacked_theta()``) or per client on the host (``features(c,
+        protos)``)."""
         if (rnd + 1) % self.eval_every and rnd != self.rounds - 1:
             return
         with obs.span("round.eval", cat="phase", round=rnd):
@@ -286,8 +325,8 @@ class _Run:
                 per_round = _eval_round_device(stacked_theta(), self.cache,
                                                self.tracker, rnd, t)
             else:
-                per_round = _eval_round(self.strategy, get_state, self.cache,
-                                        self.tracker, rnd, t)
+                per_round = _eval_round(features, self.cache, self.tracker,
+                                        rnd, t)
         self.eval_rounds.append(per_round)
         if self.verbose:
             print(f"  [{self.strategy.name}/{engine}/{self.device.type}] "
@@ -305,9 +344,12 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
     """Drive ``rounds`` federated rounds of ``strategy`` over ``bench`` on
     ``device`` (the card by default; ``"cpu"`` runs the plain versions).
 
-    ``engine``: ``"host"`` (the default, as in the reference) or
-    ``"stacked"`` (strategies with ``supports_stacked``); ``"sharded"``
-    raises NotImplementedError. ``eval_backend``: ``"device"`` (batched) or
+    ``engine``: ``"host"`` (the default, as in the reference),
+    ``"stacked"`` (strategies with ``supports_stacked``) or ``"sharded"``
+    (the stacked round over the ranks of the ``torch.distributed`` world:
+    the initialized default group, whose rank ``device="cuda"`` runs on
+    ``cuda:LOCAL_RANK``, else a world of one; rank 0 alone traces, the
+    others run the null tracer). ``eval_backend``: ``"device"`` (batched) or
     ``"host"`` (per client, the numpy oracle). ``init_params`` =
     {"extraction": {"w1", "w2"}, "theta0": [C flat head dicts]} of numpy
     arrays starts from given weights instead of a CPU torch generator
@@ -324,12 +366,26 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
     kw = dict(rounds=rounds, eval_every=eval_every, seed=seed,
               verbose=verbose, engine=engine, eval_backend=eval_backend,
               device=device, init_params=init_params)
+    if engine != "sharded":
+        return _traced(strategy, bench, trace, kw)
+    with shard_specs.engine_world(device) as dev:
+        kw["device"] = dev
+        if dist.get_rank() == 0:
+            return _traced(strategy, bench, trace, kw)
+        with obs.suspended():
+            return _run_simulation(strategy, bench, **kw)
+
+
+def _traced(strategy, bench, trace, kw):
+    """``_run_simulation`` under the tracer ``trace`` asks for (None: the
+    active one)."""
     if trace is None:
         return _run_simulation(strategy, bench, **kw)
     owns = not isinstance(trace, obs.Tracer)
     tracer = obs.Tracer(trace) if owns else trace
-    tracer.meta(kind_detail="run_simulation", engine=engine, rounds=rounds,
-                n_clients=bench.n_clients, strategy=strategy.name)
+    tracer.meta(kind_detail="run_simulation", engine=kw["engine"],
+                rounds=kw["rounds"], n_clients=bench.n_clients,
+                strategy=strategy.name)
     try:
         with obs.active(tracer):
             return _run_simulation(strategy, bench, **kw)
@@ -340,13 +396,11 @@ def run_simulation(strategy: Strategy, bench: FederatedReIDBenchmark, *,
 
 def _run_simulation(strategy, bench, *, rounds, eval_every, seed, verbose,
                     engine, eval_backend, device, init_params):
-    if engine in ENGINES_LATER:
-        raise not_in_this_slice(f"engine={engine!r}", ENGINES_LATER[engine])
-    if engine not in ("host", "stacked"):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if eval_backend not in ("device", "host"):
         raise ValueError(f"unknown eval_backend {eval_backend!r}")
-    if engine == "stacked" and not strategy.supports_stacked:
+    if engine != "host" and not strategy.supports_stacked:
         raise ValueError(f"strategy {strategy.name!r} does not implement the "
                          "stacked engine API; use engine='host'")
     dev = resolve_device(device)
@@ -361,8 +415,17 @@ def _run_simulation(strategy, bench, *, rounds, eval_every, seed, verbose,
                _EvalCache(bench, protos, dev, eval_backend == "device"),
                g_params, dev, rounds, eval_every, verbose,
                LifelongTracker(bench.n_clients))
-    storage = (_stacked_rounds(run, states) if engine == "stacked"
-               else _host_rounds(run, states))
+    if engine == "host":
+        storage = _host_rounds(run, states)
+    elif engine == "stacked":
+        storage = _stacked_rounds(run, states)
+    else:
+        # the run's mesh: its groups go when the run ends, the world stays
+        with shard_specs.engine_mesh(device=dev) as mesh:
+            try:
+                storage = _stacked_rounds(run, states, mesh)
+            finally:
+                strategy.mesh = None
     stage_ms = (_stage_ms(tracer.events[first_event:], run.wall_ms)
                 if tracer.active else [])
     return SimulationResult(strategy.name, run.tracker, run.comm, storage,
@@ -458,18 +521,27 @@ def _host_rounds(run: _Run, states) -> int:
                     states[c] = strategy.apply_dispatch(states[c], d)
 
         run.evaluate(rnd, t, lambda: strategy.stack_eval_thetas(states),
-                     lambda c: states[c], "host")
+                     lambda c, p: strategy.features(states[c], p), "host")
         run.wall_ms.append((time.perf_counter() - t_round) * 1e3)
     return max(strategy.storage_bytes(states[c]) for c in range(C))
 
 
-def _stacked_rounds(run: _Run, states) -> int:
+def _stacked_rounds(run: _Run, states, mesh=None) -> int:
     """The stacked engine: every round gathers all clients' minibatches,
     trains them at once, and runs the upload codec, the server, the
-    dispatch codec and the dispatch over all C rows. Returns the largest
-    client storage."""
+    dispatch codec and the dispatch over all C rows. With ``mesh`` (the
+    sharded engine) the same over this rank's block of the Cp padded rows:
+    the formulas are per row, the counts the C real clients', the
+    dispatches with relevant neighbours and the storage gathered over the
+    ranks. Returns the largest client storage."""
     strategy, C, dev = run.strategy, run.bench.n_clients, run.device
     stacked = strategy.stack_states(states)
+    valid, rows = None, C                   # this rank's rows
+    if mesh is not None:
+        stacked, valid = strategy.shard_stacked_state(stacked, mesh)
+        run.cache.place(mesh, strategy.padded_clients)
+        rows = strategy.padded_clients // mesh.size("data")
+    lo = stacked.row0
     for rnd in range(run.rounds):
         t = run.task(rnd)
         t_round = time.perf_counter()
@@ -483,7 +555,7 @@ def _stacked_rounds(run: _Run, states) -> int:
                 stacked, bx, by, protos_list, labels_list, rnd)
             sp.sync(stacked.trainable)
         if upload is not None:
-            formula = strategy.stacked_upload_bytes(upload, C)
+            formula = strategy.stacked_upload_bytes(upload, rows)
             if strategy.upload_codec is not None:
                 # one batched encode + decode of all C rows; the server
                 # round consumes the decoded (lossy) upload
@@ -496,13 +568,18 @@ def _stacked_rounds(run: _Run, states) -> int:
         if strategy.uses_server and upload is not None:
             t0 = time.perf_counter()
             with obs.span("round.server", cat="phase", round=rnd) as sp:
-                dispatch = strategy.server_round_stacked(rnd, upload)
+                dispatch = strategy.server_round_stacked(rnd, upload,
+                                                         valid=valid)
                 if dispatch is not None:
                     sp.sync(dispatch)
             run.server_s += time.perf_counter() - t0
             if dispatch is not None:
-                per_client = strategy.stacked_dispatch_bytes(dispatch, C)
-                n_nz = int(dispatch["nz"].sum()) if "nz" in dispatch else C
+                per_client = strategy.stacked_dispatch_bytes(dispatch, rows)
+                n_nz = C
+                if "nz" in dispatch:
+                    # padding rows never have relevant neighbours
+                    n_nz = torch.sum(dispatch["nz"])
+                    n_nz = int(n_nz if mesh is None else mesh.all_sum(n_nz))
                 if strategy.dispatch_codec is not None:
                     # the stacked wire model is a BROADCAST stream: all C
                     # rows are encoded (and the delta references advance)
@@ -522,7 +599,27 @@ def _stacked_rounds(run: _Run, states) -> int:
                     sp.sync(stacked.extras)
 
         run.evaluate(rnd, t, lambda: strategy.eval_theta_stacked(stacked),
-                     lambda c: strategy.client_view(stacked, c), "stacked")
+                     _stacked_features(strategy, stacked, mesh), "stacked"
+                     if mesh is None else "sharded")
         run.wall_ms.append((time.perf_counter() - t_round) * 1e3)
-    return max(strategy.storage_bytes(strategy.client_view(stacked, c))
-               for c in range(C))
+    mine = range(lo, min(lo + rows, C))
+    storage = max([strategy.storage_bytes(strategy.client_view(stacked, c))
+                   for c in mine] or [0])
+    return storage if mesh is None else mesh.all_max(storage)
+
+
+def _stacked_features(strategy, stacked, mesh):
+    """``features(c, protos)`` of the host evaluation on a stacked state;
+    on the sharded engine every rank's eval-time heads are gathered first
+    (once per evaluation, when it runs)."""
+    if mesh is None:
+        return lambda c, p: strategy.features(strategy.client_view(stacked,
+                                                                   c), p)
+    gathered = {}
+
+    def features(c, protos):
+        if not gathered:
+            gathered.update(tree_map(mesh.all_gather_rows,
+                                     strategy.eval_theta_stacked(stacked)))
+        return forward_one(tree_slice(gathered, c), protos)
+    return features

@@ -2,8 +2,9 @@
 
 The port of ``repro/federated/strategies.py``:
 
-  * FedAvg  [Konečný+ 16]: upload theta, dispatch the uniform mean; both
-    engines. A client that takes the mean starts a fresh optimizer.
+  * FedAvg  [Konečný+ 16]: upload theta, dispatch the uniform mean; every
+    engine (the sharded one's mean is one all-reduce over the ranks). A
+    client that takes the mean starts a fresh optimizer.
   * FedProx [Li+ 20]: FedAvg + the proximal term mu/2 ||theta - theta_g||^2
     towards the last dispatched mean; both engines.
   * FedCurv [Shoham+ 19]: FedAvg + each client's diagonal Fisher on the
@@ -24,8 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import (device_of, tree_bytes, tree_leaves,
-                                       tree_map, tree_slice, tree_stack)
+from repro_torch.common.pytree import (device_of, tree_bytes,
+                                       tree_flatten_stacked, tree_leaves,
+                                       tree_map, tree_slice, tree_stack,
+                                       tree_unflatten_stacked)
 from repro_torch.core.aggregation import fedavg_aggregate
 from repro_torch.core.tying import _abs
 from repro_torch.federated.base import (ClientState, Strategy, as_one,
@@ -59,13 +62,26 @@ class FedAvg(Strategy):
                                                  rnd)
         return stacked, {"theta": stacked.trainable}
 
-    def server_round_stacked(self, rnd, upload):
+    def server_round_stacked(self, rnd, upload, valid=None):
         """The mean over the C rows, broadcast back to every row (the
-        host's uniform dispatch)."""
+        host's uniform dispatch). On the sharded engine (``valid``: this
+        rank's rows' validity) the mean is over the real clients of every
+        rank: each rank's masked row sum of the flattened heads and its
+        real count go through one all-reduce over "data"; every row,
+        padding included, takes the mean."""
+        theta = upload["theta"]
         with torch.no_grad():
-            return {"theta": tree_map(
-                lambda l: (torch.sum(l, 0) / l.shape[0]).expand_as(l).clone(),
-                upload["theta"])}
+            if valid is None:
+                return {"theta": tree_map(
+                    lambda l: (torch.sum(l, 0) / l.shape[0]).expand_as(
+                        l).clone(), theta)}
+            flat, meta = tree_flatten_stacked(theta)
+            part = torch.cat([torch.sum(flat * valid[:, None], 0),
+                              torch.sum(valid)[None]])
+            total = self.mesh.all_sum(part)
+            mean = total[:-1] / torch.clamp(total[-1], min=1.0)
+            return {"theta": tree_unflatten_stacked(
+                mean.expand_as(flat).contiguous(), meta)}
 
     def apply_dispatch_stacked(self, stacked, dispatch):
         stacked.trainable = dispatch["theta"]

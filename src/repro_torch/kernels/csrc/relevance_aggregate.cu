@@ -1,5 +1,5 @@
 // The server's Eq. 6 aggregate, in two entry points over three variants of
-// one product.
+// one product, and a third entry with the fused one's normalize stage alone.
 //
 // repro_fused_relevance_aggregate replaces the Pallas TPU kernel
 // src/repro/kernels/relevance_aggregate.py:fused_relevance_aggregate
@@ -15,9 +15,15 @@
 //
 // repro_relevance_aggregate replaces
 // src/repro/kernels/relevance_aggregate.py:relevance_aggregate
-// (_agg_kernel), the host server's plain product B = W @ Theta with W
-// (R, C) already normalized, R <= C (the rows of clients with relevant
-// neighbours), B (R, P).
+// (_agg_kernel), the plain product B = W @ Theta with W (R, C) already
+// normalized, B (R, P): on the host server the rows of clients with
+// relevant neighbours (R <= C), on the sharded engine one rank's column
+// block of Wn (R = Cp rows over its C = Cp / d clients).
+//
+// repro_normalize_relevance is the fused entry's first stage alone (W ->
+// Wn): the sharded engine normalizes the replicated W once, and each rank
+// then runs repro_relevance_aggregate on its block of Wn's columns against
+// its rows of Theta.
 //
 // What bounds them on an H100: B does 2 R C P FLOPs over about 4 (R + C) P
 // bytes, about R / 4 FLOP per byte at R = C, against the card's fp32 ridge
@@ -518,6 +524,22 @@ extern "C" int repro_fused_relevance_aggregate(const void* w,
     return err;
   return run_tile(variant, (const float*)wt, ld, (const float*)theta,
                   (float*)b, C, C, P, grid, s);
+}
+
+// the fused entry's first stage alone: w (C, C) raw relevance -> wn (C, C)
+// (the diagonal masked, rows normalized, zero rows kept zero), fp32,
+// contiguous, on the current device; one normalize_kernel launch, so wn is
+// the fused entry's Wn bit for bit (the skinny variant's one-warp sum adds
+// the same terms in the same order at C <= 32). The sharded engine's
+// server round runs it once, then repro_relevance_aggregate on its block of
+// wn's columns. Returns cudaGetLastError().
+extern "C" int repro_normalize_relevance(const void* w, void* wn, int C,
+                                         void* stream) {
+  if (C == 0) return 0;
+  if (C < 0) return (int)cudaErrorInvalidValue;
+  normalize_kernel<<<C, kPrepThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (float*)wn, C);
+  return (int)cudaGetLastError();
 }
 
 // w (R, C) normalized rows, theta (C, P), b (R, P); wt the scratch (C, ld)

@@ -26,6 +26,8 @@ from repro_torch.kernels.quantize import batched_quantize as _bquant
 from repro_torch.kernels.relevance_aggregate import \
     fused_relevance_aggregate as _fused_agg
 from repro_torch.kernels.relevance_aggregate import \
+    normalize_relevance as _normalize
+from repro_torch.kernels.relevance_aggregate import \
     relevance_aggregate as _agg
 from repro_torch.kernels.topk_pack import batched_idx_bitpack as _bidxpack
 from repro_torch.kernels.topk_pack import batched_idx_bitunpack as _bidxunpack
@@ -168,6 +170,14 @@ def fused_relevance_aggregate(w, thetas):
     if _on_cuda(w, thetas):
         return _fused_agg(w, thetas)
     return REF.fused_relevance_aggregate_ref(w, thetas)
+
+
+def normalize_relevance(w):
+    """Raw relevance (C, C) -> Wn (C, C) fp32, ``fused_relevance_aggregate``'s
+    Wn alone: diagonal masked, rows normalized, zero rows kept zero."""
+    if _on_cuda(w):
+        return _normalize(w)
+    return REF.normalized_relevance_ref(w)
 
 
 def batched_cluster_assign(qf, cent, cn2, *, nprobe: int):

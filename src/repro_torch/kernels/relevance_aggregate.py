@@ -5,8 +5,11 @@
 
     fused:  Wn = row-normalized W with the diagonal masked (zero rows stay
             zero), B = Wn @ Theta          (the stacked server round)
-    plain:  B = W @ Theta, W (R, C) rows already normalized, R <= C
-                                            (the host server round)
+    plain:  B = W @ Theta, W (R, C) rows already normalized
+                                            (the host server round; on
+                                            the sharded engine a rank's
+                                            column block of Wn)
+    normalize: the fused entry's Wn alone   (the sharded server round)
 
 Both entries run one of three variants of the product, which ``_plan``
 picks from the shapes and Theta's alignment: ``skinny`` (C at most
@@ -15,8 +18,9 @@ tiles fed by TMA from a k-major copy of W's rows in scratch) and
 ``ragged`` (the same tile fed by 4-byte copies, where P % 4 != 0 or Theta's
 base is off 16 bytes and no TMA map can be encoded).
 
-Take CUDA tensors only; ``ops.fused_relevance_aggregate`` and
-``ops.relevance_aggregate`` send CPU tensors to the plain versions.
+Take CUDA tensors only; ``ops.fused_relevance_aggregate``,
+``ops.relevance_aggregate`` and ``ops.normalize_relevance`` send CPU
+tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -162,3 +166,28 @@ def relevance_aggregate(w, thetas):
 
 
 relevance_aggregate.launches = 0
+
+
+def normalize_relevance(w):
+    """w (C, C) raw relevance fp32 -> Wn (C, C) fp32: the fused entry's Wn
+    bit for bit (one ``normalize_kernel`` launch: the diagonal masked, rows
+    normalized, rows that do not sum above zero kept zero)."""
+    if w.dim() != 2:
+        raise ValueError(f"expected w (C, C), got {tuple(w.shape)}")
+    C = w.shape[0]
+    _build.check_operand("w", w, torch.float32, (C, C), w.device)
+    wn = torch.empty((C, C), dtype=torch.float32, device=w.device)
+    if C == 0:
+        return wn
+    fn = _build.kernel("relevance_aggregate", "repro_normalize_relevance",
+                       (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p))
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(w.data_ptr(), wn.data_ptr(), C, stream)
+    _build.raise_on_error("normalize_relevance", rc)
+    normalize_relevance.launches += 1
+    return wn
+
+
+normalize_relevance.launches = 0

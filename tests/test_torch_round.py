@@ -754,21 +754,22 @@ def test_stateless_topk_selection_flips_are_last_bit_ties(slice_setup,
 
 
 def test_run_simulation_refuses_what_later_slices_bring(slice_setup):
-    """Only the sharded engine is still refused (the scale-out slice); what
-    the host-engine slice brought runs: the host engine (the default, as
-    in the reference), host evaluation on both engines, the quantized
-    codecs and the loop server backend."""
+    """No engine is refused any more: the scale-out slice brought the
+    sharded engine (a world of one here; ``test_torch_sharded.py`` holds
+    it to JAX); what the host-engine slice brought runs: the host engine
+    (the default, as in the reference), host evaluation on every engine,
+    the quantized codecs and the loop server backend."""
     _, pb, cfg, init = slice_setup
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        run_simulation(FedSTIL(cfg, n_clients=3), pb, rounds=1, device="cpu",
-                       engine="sharded")
     for kw in ({}, {"engine": "host", "eval_backend": "host"},
-               {"engine": "stacked", "eval_backend": "host"}):
+               {"engine": "stacked", "eval_backend": "host"},
+               {"engine": "sharded"},
+               {"engine": "sharded", "eval_backend": "host"}):
         res = run_simulation(FedSTIL(cfg, n_clients=3, epochs=1), pb,
                              rounds=1, device="cpu", init_params=init,
                              trace=PT.Tracer(), **kw)
         assert len(res.rounds) == 1
-        assert ("gather" in res.stage_ms[0]) == (kw.get("engine") == "stacked")
+        assert ("gather" in res.stage_ms[0]) == (kw.get("engine", "host")
+                                                 != "host")
     for codec, quant in (("topk+int8", "int8"), ("int8", "int8"),
                          ("bf16", "bf16")):
         st = FedSTIL(cfg, n_clients=3, codec=codec)
