@@ -4,8 +4,10 @@ ReID retrieval serving (int8 and fp32 modes), IVF shortlist serving, the
 FedSTIL federated round (stacked engine, device evaluation), the same
 round with the ``delta+topk`` wire codec, on the host engine, and with the
 ``topk+int8`` wire codec, the paper's Table II baselines (the strategy
-zoo), the round on the sharded engine (a world of one), and the dense
-LM's FedSTIL edge train step (qwen3-1.7b at full width).
+zoo), the round on the sharded engine (a world of one), the dense LM's
+FedSTIL edge train step (qwen3-1.7b at full width), LM decode serving
+with its bf16 / int8 KV cache and ring window, and the moe, ssm and
+hybrid families (plus vlm and encdec, reduced).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -188,7 +190,7 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  neither the fp32 decode nor the four one-stage codec
                  kernels, each kernel against
                  its plain version on its last on-path operands, the coded
-                 minus the uncoded final mAP; then 12 rounds of the same on
+                 minus the uncoded final mAP; then 6 rounds of the same on
                  the card and on the CPU: equal wire bytes, final mAP / R1
                  within 0.03; per-round tables in
                  ``build/round_fedstil_codec_int8.json``
@@ -272,6 +274,32 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  loss within 1e-4, every stage on the FMA kernels; then one
                  full fine-tuning step on both (forward + lse, dQ and dK/dV
                  on every layer)
+ 12. lm_decode   decode serving (``decode_step``, ``launch/serve_lm.py``)
+                 on qwen1.5-0.5b whole (24 layers, d 1024, 16 / 16 heads,
+                 vocab 151936): the reference's decode-equals-forward gate
+                 in fp32 params at B 4 x S 64 (fp32 and int8 caches,
+                 agreement >= 0.95; the forward on the fp32 flash kernel,
+                 decode on none), the same in bf16 params (agreement and
+                 the decode-vs-forward logits' relative L2), ``serve_lm
+                 --full-model`` (B 4, prompt 16, gen 32), then the median
+                 ms of 20 decode steps beside their bound (weights + cache
+                 read once at 3.35 TB/s): decode_32k's 32768-slot cache at
+                 B 8 (its 128 cut to fit) in bf16 and int8, long_500k's
+                 ring (B 1, window 8192, pos 524287), and the bf16 32k
+                 step's device ms by kernel group (torch.profiler)
+ 13. lm_families the LM zoo at full width: rwkv6-1.6b and zamba2-2.7b
+                 whole, qwen3-moe-235b-a22b cut to 2 trunk + 1 adaptive
+                 layers of 94: each one's fp32 decode-equals-forward gate
+                 (B 2 x S 32, >= 0.95), a bf16 decode step's ms at B 8 (a
+                 4096-slot cache; rwkv's O(1) state) beside its bound, the
+                 rwkv and mamba time loops' ms, and for rwkv6 and zamba2
+                 one full-width split train step (finite loss, trainable
+                 tree changed; zamba2's 9 shared-attention calls on the
+                 tensor-core flash kernels at its head dim 80, padded);
+                 then the split train step of every registered arch
+                 reduced, and of the vlm and encdec variants, 3 steps on
+                 the card and on the CPU (per step |delta loss| <= 1e-4).
+                 Flash launches are checked a forward and a step
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -301,7 +329,8 @@ from repro_torch.comm.codec import make_codec  # noqa: E402
 from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
                                        leaf_paths, tree_leaves, tree_map,
                                        unflatten_stacked)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, LONG_CONTEXT_WINDOW,  # noqa: E402
+                                 get_config, get_shape)
 from repro_torch.core import edge_model as EM  # noqa: E402
 from repro_torch.core.adaptive import combine, split_params  # noqa: E402
 from repro_torch.core.fedstil import (FedSTIL,  # noqa: E402
@@ -344,9 +373,14 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_topk_pack,
                                            batched_topk_unpack)
 from repro_torch.launch import fed_round as FR  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.lifelong import EWC, ICaRL, MAS, STL  # noqa: E402
+from repro_torch.models import layers as LMLAYERS  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as MOEM  # noqa: E402
+from repro_torch.models import rwkv as RWKVM  # noqa: E402
+from repro_torch.models import ssm as SSMM  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.obs import trace as obs  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
@@ -473,9 +507,9 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # depth (its 60-round card run is held to the byte prediction): the CPU
 # rerun of the whole protocol took 20.5 s on the card's host, the largest
 # share of the script's time; 30 rounds took 11.6-14.0 s, 24 paid for the
-# int8 decode's phase-3 checks (~3 s), and 12 (two a task) for the
-# telemetry phase
-INT8_CPU_ROUNDS = 12
+# int8 decode's phase-3 checks (~3 s), 12 (two a task) for the
+# telemetry phase, and 6 (one a task) for lm_decode and lm_families
+INT8_CPU_ROUNDS = 6
 # round_zoo: the Table II baselines at benchmarks/common.py's epochs, one
 # round a task (the protocol's 60 rounds cut to 6), evaluated every 2
 ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
@@ -577,7 +611,7 @@ KERNELS = {
         "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
-                  "round_sharded", "lm_train"),
+                  "round_sharded", "lm_train", "lm_families"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
         "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
@@ -631,24 +665,28 @@ KERNELS = {
         "replaces": "src/repro/kernels/topk_pack.py:161"},
     # every bf16 stage runs on a tensor-core kernel (counted in
     # ``tc_launches``); fp32 keeps flash_attention.cu's FMA kernels
-    # (lm_train_reduced, phase 3's fp32 edge shapes)
+    # (lm_train_reduced, phase 3's fp32 edge shapes). lm_train's count is
+    # the tensor-core one; lm_decode's and lm_families' count every launch
+    # (their fp32 gates and reduced steps on the FMA kernels, their bf16
+    # forwards and steps on the tensor cores)
     "flash_attention_fwd": {
-        "fn": flash_attention_fwd, "paths": ("lm_train",),
+        "fn": flash_attention_fwd,
+        "paths": ("lm_train", "lm_decode", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention_fwd_lse": {
-        "fn": flash_attention_fwd_lse, "paths": ("lm_train",),
+        "fn": flash_attention_fwd_lse, "paths": ("lm_train", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
     "flash_attention_dq": {
-        "fn": flash_attention_dq, "paths": ("lm_train",),
+        "fn": flash_attention_dq, "paths": ("lm_train", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:209"},
     "flash_attention_dkv": {
-        "fn": flash_attention_dkv, "paths": ("lm_train",),
+        "fn": flash_attention_dkv, "paths": ("lm_train", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
@@ -2281,7 +2319,8 @@ FLASH_BF16_LSE_TOL = 1e-4
 # the bf16 edge shapes of all four stages (B, Hq, Hkv, Sq, Sk, hd, causal,
 # window): the fp32 list, a causal R = 2 at hd 128, kv rows that no query
 # sees (causal, Sq < Sk: kpos >= Sq), and rows that see no key (Sq > Sk,
-# non-causal, window 5: qpos >= Sk + window - 1)
+# non-causal, window 5: qpos >= Sk + window - 1), and zamba2's head dim
+# 80 (the wrappers pad it to 128 with the scale of 80)
 BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
               (1, 2, 2, 1000, 1000, 128, True, 0),
               (1, 4, 2, 1000, 1000, 128, True, 0),
@@ -2290,7 +2329,9 @@ BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
               (1, 2, 2, 130, 77, 64, False, 0),
               (1, 2, 1, 77, 130, 128, False, 5),
               (1, 4, 2, 77, 130, 64, True, 0),
-              (1, 4, 2, 130, 77, 128, False, 5))
+              (1, 4, 2, 130, 77, 128, False, 5),
+              (1, 4, 2, 130, 130, 80, True, 0),
+              (1, 2, 1, 77, 130, 80, False, 5))
 # the step on the kernels vs the same step on the plain versions, on the
 # card: |loss delta|, and the relative L2 error of each adaptive gradient
 # leaf (the worst leaf is held, so the attention weights' gradients,
@@ -2299,6 +2340,21 @@ BF16_EDGES = ((1, 2, 1, 16, 16, 64, True, 0), (1, 4, 2, 16, 16, 128, True, 0),
 LM_SWAP_LOSS_TOL, LM_SWAP_GRAD_TOL = 2e-2, 2e-2
 # lm_train_reduced: the GQA-reduced config (fp32), card vs CPU per step
 LM_RED_STEPS, LM_RED_BATCH, LM_RED_SEQ, LM_RED_TOL = 10, 4, 200, 1e-4
+
+
+def lm_path_flash_shapes():
+    """The flash shapes (B, Hq, Hkv, Sq, Sk, hd, causal, window) that the
+    lm_decode and lm_families paths send at full width: the gates'
+    teacher-forced forwards and the families' split train steps, all
+    causal with no window."""
+    runs = [(get_config(DECODE_ARCH), DECODE_GATE_BATCH, DECODE_GATE_SEQ)]
+    for arch in FAMILY_ARCHS:
+        cfg = family_config(arch)
+        runs.append((cfg, FAMILY_GATE_BATCH, FAMILY_GATE_SEQ))
+        if cfg.family in ("ssm", "hybrid"):
+            runs.append((cfg, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ))
+    return sorted({(B, c.n_heads, c.n_kv_heads, S, S, c.hd, True, 0)
+                   for c, B, S in runs if any(attention_layers(c))})
 
 
 def flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd, dtype):
@@ -2440,9 +2496,11 @@ def flash_kernel_rows(gen, dev, peak):
     """The four flash-attention kernels against their plain versions: fp32
     at edge shapes (S 16 and 1000, ragged S, hd 64 and 128, R 1 and 2,
     non-causal with Sq != Sk, a window), all four in bf16 (the tensor-core
-    kernels) at ``BF16_EDGES`` and at the train step's shape (B 2, 16 q /
-    8 kv heads, S 4096, hd 128, causal), where they are timed beside their
-    plain versions and PyTorch's ``scaled_dot_product_attention``
+    kernels) at ``BF16_EDGES``, all four in both dtypes at the shapes of
+    the lm_decode and lm_families paths (``lm_path_flash_shapes``), and
+    in bf16 at the train step's shape (B 2, 16 q / 8 kv heads, S 4096, hd
+    128, causal), where they are timed beside their plain versions and
+    PyTorch's ``scaled_dot_product_attention``
     (forward; its autograd backward for dQ and dK/dV). Bounds at the bf16
     tensor-core rate."""
     errs = dict.fromkeys(FLASH_STAGES, 0.0)
@@ -2457,7 +2515,8 @@ def flash_kernel_rows(gen, dev, peak):
             (2, 4, 2, 1000, 1000, 64, True, 37),
             (1, 2, 1, 1000, 1000, 128, False, 0),
             (1, 2, 2, 130, 77, 64, False, 0),
-            (1, 2, 1, 77, 130, 128, False, 5)):
+            (1, 2, 1, 77, 130, 128, False, 5),
+            (1, 4, 4, 77, 77, 80, True, 0)):
         q, k, v, do = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
                                    torch.float32)
         fold(flash_errs(q, k, v, do, dict(causal=causal, window=window),
@@ -2483,6 +2542,19 @@ def flash_kernel_rows(gen, dev, peak):
                                         blind_rows_check(got, sq, sk, kw))]
     check(all(masked), f"BF16_EDGES hold no blind q row or no unseen kv "
           f"row: {masked}")
+    # the shapes that lm_decode and lm_families send, all four stages in
+    # fp32 (the FMA kernels) and in bf16 (the tensor-core kernels)
+    lm_paths = {name: {} for name in FLASH_STAGES}
+    for shape in lm_path_flash_shapes():
+        B, hq, hkv, sq, sk, hd, causal, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_inputs(gen, dev, B, hq, hkv, sq, sk, hd,
+                                       dtype)
+            e = flash_errs(q, k, v, do, dict(causal=causal, window=window),
+                           dtype == torch.bfloat16)[0]
+            fold(e)
+            for n, r in e.items():
+                lm_paths[n][f"{list(shape)} {dtype}"] = r
     hq, hkv, hd = 16, 8, 128
     q, k, v, do = flash_inputs(gen, dev, LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ,
                                hd, torch.bfloat16)
@@ -2554,6 +2626,7 @@ def flash_kernel_rows(gen, dev, peak):
                     "kernel": f"tensor cores ({TC_SOURCE[name]}.cu) in bf16, "
                               "FMA (flash_attention.cu) in fp32",
                     "bf16_edge": bf16_edge[name],
+                    "lm_path_shapes": lm_paths[name],
                     "sass": sass[TC_SOURCE[name]],
                     "design_floor_ms": DESIGN_FLOOR[name] * b[0],
                     "sdpa_vs_plain": sdpa_vs_plain if name in FWD_STAGES
@@ -4374,13 +4447,8 @@ def phase_telemetry(dev, card, codec_peaks):
 # ---------------------------------------------------------------------------
 
 
-def lm_batches(rng, n, batch, seq, vocab, dev):
-    out = []
-    for _ in range(n):
-        toks, labels = synthetic_lm_batch(rng, batch, seq, vocab)
-        out.append({"tokens": torch.from_numpy(toks).to(dev),
-                    "labels": torch.from_numpy(labels).to(dev)})
-    return out
+def lm_batches(rng, n, batch, seq, cfg, dev):
+    return [lm_batch_on(cfg, rng, batch, seq, dev) for _ in range(n)]
 
 
 def rel_l2_by_leaf(got, want):
@@ -4427,34 +4495,13 @@ LM_KERNEL_GROUPS = (("flash_fwd_tensor_cores", ("fwd_kernel_sm90",)),
 
 
 def lm_step_profile(step, st, batch):
-    """One more split step under torch.profiler: device ms by kernel
-    group (the tensor-core flash forward, the tensor-core flash dQ and
-    dK/dV, the FMA flash kernels, cuBLAS matmuls, the combine, copies and
-    casts, other elementwise and reduction kernels, the rest) and the
-    device's idle share of the window (an upper bound: the profiler slows
-    the host)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(st.frozen, st.B, st.trainable, st.opt_state, batch)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    by_group, by_name = {}, {}
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    for e in on_card:
-        us = e.time_range.elapsed_us()
-        group = next((g for g, keys in LM_KERNEL_GROUPS
-                      if any(k in e.name for k in keys)), "other")
-        by_group[group] = by_group.get(group, 0.0) + us / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-    busy = sum(by_group.values())
-    return {"window_ms": window_ms, "device_events": len(on_card),
-            "device_busy_ms": busy if on_card else None,
-            "device_idle_share": (1.0 - busy / window_ms) if on_card
-            else None, "device_ms_by_group": by_group,
-            "top_device_ms": [[n[:70], ms] for n, ms in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    """One more split step under torch.profiler (``device_profile``):
+    device ms by kernel group (the tensor-core flash forward, the
+    tensor-core flash dQ and dK/dV, the FMA flash kernels, cuBLAS
+    matmuls, the combine, copies and casts, other elementwise and
+    reduction kernels, the rest) and the device's idle share."""
+    return device_profile(lambda: step(st.frozen, st.B, st.trainable,
+                                       st.opt_state, batch))
 
 
 def phase_lm_train(dev, card):
@@ -4474,7 +4521,7 @@ def phase_lm_train(dev, card):
     st = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
                           optimizer=opt)
     batches = lm_batches(np.random.default_rng(SEED), LM_STEPS, LM_BATCH,
-                         LM_SEQ, cfg.vocab_size, dev)
+                         LM_SEQ, cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(st.frozen)) + sum(
@@ -4577,7 +4624,7 @@ def phase_lm_train_reduced(dev, card):
     cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), n_kv_heads=2)
     params = lm.init_params(cfg, torch.Generator().manual_seed(SEED))
     host = lm_batches(np.random.default_rng(SEED), LM_RED_STEPS,
-                      LM_RED_BATCH, LM_RED_SEQ, cfg.vocab_size, "cpu")
+                      LM_RED_BATCH, LM_RED_SEQ, cfg, "cpu")
 
     def opt():
         return adam(lr=1e-3, weight_decay=1e-5,
@@ -4624,6 +4671,563 @@ def phase_lm_train_reduced(dev, card):
           f"lm_train_reduced launches {launches}, expected {expect}")
     check(not any(tc.values()), f"lm_train_reduced (fp32) ran a bf16 "
           f"tensor-core kernel: {tc}; fp32 takes the FMA kernels")
+
+
+# ---------------------------------------------------------------------------
+# lm_decode and lm_families: decode serving and the LM zoo
+# ---------------------------------------------------------------------------
+
+DECODE_ARCH = "qwen1.5-0.5b"            # serve_lm's default arch
+DECODE_GATE_BATCH, DECODE_GATE_SEQ = 4, 64
+DECODE_GATE = 0.95                      # tests/test_models_smoke.py's bar
+# the bf16 decode-vs-forward logits' relative L2 (over the true vocab):
+# 10x the reading of the first full H100 run, 0.0162 (PERF.md);
+# decode and forward round their bf16 activations at different points
+DECODE_BF16_REL_L2 = 0.16
+DECODE_TIMED, DECODE_WARMUP = 20, 1
+DECODE_32K_BATCH = 8                    # decode_32k's global batch 128, cut
+DECODE_RING_WINDOW = LONG_CONTEXT_WINDOW
+DECODE_RING_POS = get_shape("long_500k").seq_len - 1
+FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b", "qwen3-moe-235b-a22b")
+FAMILY_MOE_LAYERS = 3                   # 2 trunk + 1 adaptive of its 94
+FAMILY_GATE_BATCH, FAMILY_GATE_SEQ = 2, 32
+FAMILY_DECODE_BATCH, FAMILY_DECODE_SLOTS = 8, 4096
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 32
+FAMILY_RED_STEPS, FAMILY_RED_BATCH, FAMILY_RED_SEQ = 3, 2, 32
+FAMILY_RED_TOL = 1e-4                   # lm_train_reduced's bar
+
+
+def family_variant(base, family):
+    """The vlm and encdec variants of a reduced config (no registered arch
+    has either family): 8 stub vision tokens; a whisper-like 2-layer
+    encoder over 16 stub frames with sinusoidal positions."""
+    if family == "vlm":
+        return dataclasses.replace(base, family="vlm", n_vision_tokens=8)
+    return dataclasses.replace(base, family="encdec", n_enc_layers=2,
+                               enc_seq=16, rope_theta=0.0, norm="layernorm",
+                               act="gelu")
+
+
+def fp32_config(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def lm_batch_on(cfg, rng, batch, seq, dev):
+    """Tokens and labels from ``synthetic_lm_batch``, plus stub vision
+    embeds (vlm) or frames (encdec), on ``dev``."""
+    toks, labels = synthetic_lm_batch(rng, batch, seq, cfg.vocab_size)
+    b = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        b["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return tree_map(lambda t: t.to(dev), b)
+
+
+@contextlib.contextmanager
+def captured_logits():
+    """Record the fp32 masked logits of every greedy read-out
+    (``layers.lm_head_logits``) inside the block."""
+    seen, orig = [], LMLAYERS.lm_head_logits
+
+    def keep(cfg, p, x, ax=LMLAYERS.UNSHARDED):
+        seen.append(LMLAYERS._masked_logits(cfg, p, x, ax))
+        return orig(cfg, p, x, ax)
+
+    LMLAYERS.lm_head_logits = keep
+    try:
+        yield seen
+    finally:
+        LMLAYERS.lm_head_logits = orig
+
+
+def flash_launches():
+    """{stage: (all launches, tensor-core launches)} so far."""
+    return {n: (KERNELS[n]["fn"].launches, KERNELS[n]["fn"].tc_launches)
+            for n in FLASH_STAGES}
+
+
+def flash_delta(before):
+    now = flash_launches()
+    return {n: now[n][0] - before[n][0] for n in FLASH_STAGES}, \
+        {n: now[n][1] - before[n][1] for n in FLASH_STAGES}
+
+
+def attention_layers(cfg):
+    """Attention calls of one forward: (frozen ones, adaptive ones)."""
+    n_ad = cfg.n_adaptive_layers
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        return 0, cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":       # encoder; self + cross a decoder layer
+        return cfg.n_enc_layers + 2 * (cfg.n_layers - n_ad), 2 * n_ad
+    return cfg.n_layers - n_ad, n_ad
+
+
+def expected_flash(cfg, *, train):
+    """Flash launches of one forward (``train=False``: no gradients, every
+    attention the forward alone) or one split train step (the frozen
+    calls the forward alone, the adaptive ones forward + lse, dQ, dK/dV)."""
+    frozen, adaptive = attention_layers(cfg)
+    if not train:
+        frozen, adaptive = frozen + adaptive, 0
+    return {"flash_attention_fwd": frozen,
+            "flash_attention_fwd_lse": adaptive,
+            "flash_attention_dq": adaptive, "flash_attention_dkv": adaptive}
+
+
+def decode_run(cfg, params, batch, *, cache_dtype, slots, enc_len=None):
+    """Feed ``batch``'s tokens one by one through ``decode_step`` from an
+    empty cache -> (B, S) predicted next tokens."""
+    toks = batch["tokens"]
+    B, S = toks.shape
+    cache = lm.init_cache(cfg, B, slots, enc_seq=cfg.enc_seq,
+                          dtype=cache_dtype, device=toks.device)
+    if cfg.family == "encdec":
+        cache, _ = lm.prefill_cross_cache(cfg, params, batch["frames"], cache)
+    preds = []
+    for t in range(S):
+        nxt, cache = lm.decode_step(cfg, params, cache, toks[:, t:t + 1], t,
+                                    enc_len=enc_len)
+        preds.append(nxt)
+    return torch.cat(preds, 1)
+
+
+def forward_argmax(cfg, params, batch):
+    """The teacher-forced forward's greedy tokens (vlm: past its vision
+    tokens) and their fp32 logits."""
+    x, _ = lm.forward(cfg, params, batch)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_vision_tokens:]
+    return (LMLAYERS.lm_head_logits(cfg, params["head"], x)[0],
+            LMLAYERS._masked_logits(cfg, params["head"], x,
+                                    LMLAYERS.UNSHARDED))
+
+
+def decode_gate(cfg, params, batch, cache_dtype):
+    """The reference's decode-equals-forward gate on the card: the share of
+    greedy decode tokens equal to the forward's argmax, and the flash
+    launches of the forward (decode launches none)."""
+    with torch.no_grad():
+        before = flash_launches()
+        want, _ = forward_argmax(cfg, params, batch)
+        launches, tc = flash_delta(before)
+        got = decode_run(cfg, params, batch, cache_dtype=cache_dtype,
+                         slots=batch["tokens"].shape[1] + 1,
+                         enc_len=cfg.enc_seq or None)
+        decode_launches, _ = flash_delta(before)
+    return float((got == want).float().mean()), launches, tc, \
+        decode_launches == launches
+
+
+def randomized_cache(cfg, batch, slots, dtype, dev, gen):
+    """A cache of random values (attention k / v N(0, 1), int8 codes
+    uniform in [-127, 127] with scales in (0, 0.02], recurrent states
+    N(0, 0.1)): the timed steps read it; no token is checked there."""
+    cache = lm.init_cache(cfg, batch, slots, dtype=dtype, device=dev)
+    for leaf in tree_leaves(cache):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device=dev, dtype=torch.int8))
+        elif leaf.dtype == torch.bfloat16 and leaf.dim() == 5:
+            leaf.normal_(generator=gen)
+        elif leaf.dtype == torch.bfloat16:          # int8 scales
+            leaf.uniform_(1e-4, 0.02, generator=gen)
+        else:
+            leaf.normal_(0.0, 0.1, generator=gen)
+    return cache
+
+
+def timed_decode(cfg, params, cache, pos, *, window=0, ring=False):
+    """Median device ms of a ``decode_step`` at ``pos`` (CUDA events,
+    ``DECODE_WARMUP`` warm-up steps then ``DECODE_TIMED``), with the
+    tokens/s it gives."""
+    B = tree_leaves(cache)[0].shape[1]
+    tok = torch.ones((B, 1), dtype=torch.int32, device=tree_leaves(
+        cache)[0].device)
+    ms = []
+    with torch.no_grad():
+        for i in range(DECODE_WARMUP + DECODE_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lm.decode_step(cfg, params, cache, tok, pos, window=window,
+                           ring=ring)
+            end.record()
+            end.synchronize()
+            if i >= DECODE_WARMUP:
+                ms.append(start.elapsed_time(end))
+    med = float(np.median(ms))
+    return {"median_ms": med, "ms": ms, "tokens_per_s": B / (med / 1e3)}
+
+
+@contextlib.contextmanager
+def routed_experts():
+    """Record the (tokens, top_k) expert ids of every ``moe_block`` call
+    (one a MoE layer) inside the block."""
+    seen, orig = [], MOEM.top_k_lowest
+
+    def keep(x, k):
+        vals, idx = orig(x, k)
+        seen.append(idx)
+        return vals, idx
+
+    MOEM.top_k_lowest = keep
+    try:
+        yield seen
+    finally:
+        MOEM.top_k_lowest = orig
+
+
+def decode_bytes(params, cache, routed=None):
+    """Bytes a decode step must read: every weight but the embedding
+    table (a row of it), of the experts only those that ``routed`` (each
+    MoE layer's expert ids in the step) names, once each; and the whole
+    cache (its KV, scales and states once)."""
+    w = experts = 0
+    for path, t in zip(leaf_paths(params), tree_leaves(params)):
+        b = t.numel() * t.element_size()
+        if path[-2:] in (("moe", "wi"), ("moe", "wg"), ("moe", "wo")):
+            experts += b
+            n_experts = t.shape[-3]
+        else:
+            w += b
+    table = params["embed"]["table"]
+    w -= table.numel() * table.element_size()
+    if experts and routed is not None:      # each layer's share of experts
+        used = sum(len(torch.unique(idx)) for idx in routed)
+        experts = experts * used / (len(routed) * n_experts)
+    return w + experts, sum(t.numel() * t.element_size()
+                            for t in tree_leaves(cache))
+
+
+def device_profile(fn):
+    """``fn()`` once under torch.profiler: device ms by kernel group
+    (``LM_KERNEL_GROUPS``), the top kernels and the device's idle share of
+    the window (an upper bound: the profiler slows the host)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_group, by_name = {}, {}
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in on_card:
+        us = e.time_range.elapsed_us()
+        group = next((g for g, keys in LM_KERNEL_GROUPS
+                      if any(k in e.name for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(by_group.values())
+    return {"window_ms": window_ms, "device_events": len(on_card),
+            "device_busy_ms": busy if on_card else None,
+            "device_idle_share": (1.0 - busy / window_ms) if on_card
+            else None, "device_ms_by_group": by_group,
+            "top_device_ms": [[n[:70], ms] for n, ms in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def phase_lm_decode(dev, card, peak):
+    """Decode serving of qwen1.5-0.5b (``serve_lm``'s default arch) at full
+    width: the reference's decode-equals-forward gate in fp32 params (B 4
+    x S 64, fp32 and int8 caches, >= 0.95), the same run in bf16 (the
+    agreement and the decode-vs-forward logits' relative L2),
+    ``serve_lm.main --full-model`` (B 4, prompt 16, gen 32), then timed
+    steps beside their bounds: decode_32k's cache (32768 slots, B 8, bf16
+    and int8) and long_500k's ring (B 1, window 8192, pos 524287), and a
+    profile of the bf16 32k step. Returns the path's launches."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    cfg = get_config(DECODE_ARCH)
+    cfg32 = fp32_config(cfg)
+    batch = lm_batch_on(cfg, np.random.default_rng(SEED), DECODE_GATE_BATCH,
+                        DECODE_GATE_SEQ, dev)
+    params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        SEED))
+    gate = {}
+    for name, dt in (("fp32_cache", torch.float32), ("int8_cache",
+                                                     torch.int8)):
+        agree, fwd, fwd_tc, dec_none = decode_gate(cfg32, params, batch, dt)
+        gate[name] = {"agreement": agree, "forward_launches": fwd,
+                      "forward_tc_launches": fwd_tc}
+        check(agree >= DECODE_GATE, f"lm_decode fp32 params, {name}: "
+              f"decode/forward agreement {agree} < {DECODE_GATE}")
+        check(fwd == expected_flash(cfg32, train=False) and dec_none
+              and not any(fwd_tc.values()),
+              f"lm_decode {name}: flash launches {fwd} (tc {fwd_tc}), "
+              f"decode added none: {dec_none}")
+    del params
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        before = flash_launches()
+        want, fwd_logits = forward_argmax(cfg, params, batch)
+        fwd16, fwd16_tc = flash_delta(before)
+        with captured_logits() as seen:
+            got = decode_run(cfg, params, batch, cache_dtype=torch.bfloat16,
+                             slots=DECODE_GATE_SEQ + 1)
+        dec_logits = torch.cat(seen, 1)
+    # over the true vocab (the padding columns sit at -1e30 on both sides)
+    dec_logits, fwd_logits = (t[..., :cfg.vocab_size]
+                              for t in (dec_logits, fwd_logits))
+    rel = float(torch.linalg.vector_norm(dec_logits - fwd_logits)
+                / torch.linalg.vector_norm(fwd_logits))
+    bf16 = {"agreement": float((got == want).float().mean()),
+            "logits_rel_l2": rel, "forward_launches": fwd16,
+            "forward_tc_launches": fwd16_tc}
+    del dec_logits, fwd_logits, seen
+    check(fwd16 == fwd16_tc == expected_flash(cfg, train=False),
+          f"lm_decode bf16 forward: flash launches {fwd16} (tc {fwd16_tc})")
+    check(np.isfinite(rel) and rel <= DECODE_BF16_REL_L2,
+          f"lm_decode bf16: logits relative L2 {rel} > {DECODE_BF16_REL_L2}")
+
+    before = flash_launches()
+    t0 = time.perf_counter()
+    served = serve_lm.main(["--full-model", "--batch", "4", "--prompt-len",
+                            "16", "--gen", "32"])
+    serve_s = time.perf_counter() - t0
+    check(served.shape == (4, 32) and served.min() >= 0
+          and served.max() < cfg.vocab_size,
+          f"lm_decode serve_lm: tokens {served.shape} in "
+          f"[{served.min()}, {served.max()}]")
+    check(flash_delta(before)[0] == dict.fromkeys(FLASH_STAGES, 0),
+          "lm_decode: serve_lm's decode launched a flash kernel")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    timed, profile_row = {}, None
+    seq32k = get_shape("decode_32k").seq_len
+    for name, dt, B, slots, pos, kw in (
+            ("decode_32k_bf16", torch.bfloat16, DECODE_32K_BATCH, seq32k,
+             seq32k - 1, {}),
+            ("decode_32k_int8", torch.int8, DECODE_32K_BATCH, seq32k,
+             seq32k - 1, {}),
+            ("long_500k_ring_bf16", torch.bfloat16, 1, DECODE_RING_WINDOW,
+             DECODE_RING_POS, dict(window=DECODE_RING_WINDOW, ring=True))):
+        torch.cuda.empty_cache()
+        cache = randomized_cache(cfg, B, slots, dt, dev, gen)
+        torch.cuda.reset_peak_memory_stats(dev)
+        row = timed_decode(cfg, params, cache, pos, **kw)
+        wb, cb = decode_bytes(params, cache)
+        b = bound(wb + cb, 0.0, peak)
+        row.update(batch=B, cache_slots=slots, pos=pos, cache_dtype=str(dt),
+                   weight_bytes=wb, cache_bytes=cb, bound_ms=b[0],
+                   bound_share=b[0] / row["median_ms"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+        timed[name] = row
+        if name == "decode_32k_bf16":
+            tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+            with torch.no_grad():
+                profile_row = device_profile(lambda: lm.decode_step(
+                    cfg, params, cache, tok, pos))
+        del cache
+    torch.cuda.empty_cache()
+    launches = {n: KERNELS[n]["fn"].launches for n in KERNELS}
+    emit({"phase": "lm_decode", "card": card, "arch": DECODE_ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab_size,
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "gate_batch": [DECODE_GATE_BATCH, DECODE_GATE_SEQ],
+          "fp32_gate": gate, "bf16": bf16,
+          "bf16_rel_l2_bar": DECODE_BF16_REL_L2,
+          "serve_lm": {"argv": "--full-model --batch 4 --prompt-len 16 "
+                               "--gen 32", "seconds": serve_s,
+                       "sample": served[0][:8].tolist()},
+          "timed": timed, "decode_32k_bf16_profile": profile_row,
+          "launches": {n: launches[n] for n in FLASH_STAGES},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def family_config(arch):
+    """A family's full-width config; the MoE cut to 2 trunk + 1 adaptive
+    layers."""
+    cfg = get_config(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_MOE_LAYERS)
+    return cfg
+
+
+def recurrence_ms(cfg, dev, gen, B, S):
+    """Device ms of the family's plain time loop at (B, S): rwkv's WKV or
+    mamba's selective scan, on random fp32 operands."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if cfg.family == "ssm":
+        nh, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+        w = torch.rand((B, S, nh, hs), generator=gen, device=dev)
+        args = (rnd(B, S, nh, hs), rnd(B, S, nh, hs), rnd(B, S, nh, hs), w,
+                rnd(nh, hs), torch.zeros((B, nh, hs, hs), device=dev))
+        return time_ms(lambda: RWKVM.wkv_recurrence(*args))
+    nh, hd, ds = cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    args = (rnd(B, S, nh, hd), rnd(B, S, ds), rnd(B, S, ds),
+            torch.rand((B, S, nh), generator=gen, device=dev),
+            torch.rand((B, S, nh), generator=gen, device=dev),
+            torch.zeros((B, nh, hd, ds), device=dev))
+    return time_ms(lambda: SSMM.ssm_recurrence(*args))
+
+
+def family_train_step(cfg, dev):
+    """One split train step at full width (bf16, seed-0 weights, B 2 x S
+    32): its loss, whether the trainable tree changed, its flash launches
+    and its ms."""
+    st = init_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = lm_batch_on(cfg, np.random.default_rng(SEED), FAMILY_TRAIN_BATCH,
+                        FAMILY_TRAIN_SEQ, dev)
+    step = make_train_step(cfg, tie_lambda=LM_TIE)
+    before = flash_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    tr, _, m = step(st.frozen, st.B, st.trainable, st.opt_state, batch)
+    end.record()
+    end.synchronize()
+    launches, tc = flash_delta(before)
+    changed = any(bool((a != b).any()) for a, b in zip(
+        tree_leaves(tr), tree_leaves(st.trainable)))
+    return {"loss": float(m["loss"]), "trainable_changed": changed,
+            "step_ms": start.elapsed_time(end), "launches": launches,
+            "tc_launches": tc}
+
+
+def reduced_family_steps(dev):
+    """Every registered arch reduced, plus the vlm and encdec variants:
+    ``FAMILY_RED_STEPS`` split train steps (fp32, the FMA kernels) on the
+    card and on the CPU from the same weights and batches -> {name: row}
+    with per-step |delta loss| and the card's flash launches a step."""
+    cfgs = [get_config(a).reduced() for a in ARCH_IDS]
+    base = get_config(DECODE_ARCH).reduced()
+    cfgs += [family_variant(base, "vlm"), family_variant(base, "encdec")]
+    rows = {}
+    for cfg in cfgs:
+        name = cfg.name if cfg.family not in ("vlm", "encdec") else \
+            f"{cfg.family}-reduced"
+        params = lm.init_params(cfg, torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED)
+        host = [lm_batch_on(cfg, rng, FAMILY_RED_BATCH, FAMILY_RED_SEQ, "cpu")
+                for _ in range(FAMILY_RED_STEPS)]
+
+        def run(device):
+            st = train_state_from_params(
+                cfg, tree_map(lambda t: t.to(device), params))
+            step = make_train_step(cfg, tie_lambda=LM_TIE)
+            tr, os_, losses, per_step = st.trainable, st.opt_state, [], []
+            for b in host:
+                before = flash_launches()
+                tr, os_, m = step(st.frozen, st.B, tr, os_,
+                                  tree_map(lambda t: t.to(device), b))
+                losses.append(float(m["loss"]))
+                per_step.append(flash_delta(before))
+            return losses, per_step
+
+        card_losses, per_step = run(dev)
+        cpu_losses, _ = run("cpu")
+        deltas = [abs(a - b) for a, b in zip(card_losses, cpu_losses)]
+        want = expected_flash(cfg, train=True)
+        rows[name] = {"family": cfg.family, "card_losses": card_losses,
+                      "cpu_losses": cpu_losses, "max_step_delta": max(deltas),
+                      "launches_per_step": per_step[0][0]}
+        check(max(deltas) <= FAMILY_RED_TOL,
+              f"lm_families reduced {name}: card vs CPU step deltas {deltas}")
+        check(all(a == want and not any(tc.values()) for a, tc in per_step),
+              f"lm_families reduced {name}: flash launches a step "
+              f"{per_step}, expected {want} on the FMA kernels")
+    return rows
+
+
+def phase_lm_families(dev, card, peak):
+    """The LM zoo at full width on the card: rwkv6-1.6b and zamba2-2.7b
+    whole, qwen3-moe-235b-a22b cut to 2 trunk + 1 adaptive layers. Each:
+    the decode-equals-forward gate in fp32 params (B 2 x S 32, >= 0.95), a
+    bf16 decode step's ms at B 8 (a 4096-slot cache; rwkv its O(1) state)
+    and its bound, the time loop's ms (rwkv, mamba); rwkv6 and zamba2 one
+    full-width split train step (finite loss, trainable tree changed).
+    Then every registered arch reduced, with the vlm and encdec variants:
+    split train steps card vs CPU within 1e-4. Flash launches checked a
+    forward and a step. Returns the path's launches."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    for arch in FAMILY_ARCHS:
+        cfg = family_config(arch)
+        cfg32 = fp32_config(cfg)
+        batch = lm_batch_on(cfg, np.random.default_rng(SEED),
+                            FAMILY_GATE_BATCH, FAMILY_GATE_SEQ, dev)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg32, torch.Generator(
+            device=dev).manual_seed(SEED))
+        agree, fwd, fwd_tc, dec_none = decode_gate(cfg32, params, batch,
+                                                   torch.float32)
+        gate_s = time.perf_counter() - t0
+        check(agree >= DECODE_GATE, f"lm_families {arch}: fp32 decode/"
+              f"forward agreement {agree} < {DECODE_GATE}")
+        check(fwd == expected_flash(cfg32, train=False) and dec_none
+              and not any(fwd_tc.values()),
+              f"lm_families {arch}: forward flash launches {fwd} (tc "
+              f"{fwd_tc}), decode added none: {dec_none}")
+        del params
+        torch.cuda.empty_cache()
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED))
+        cache = randomized_cache(cfg, FAMILY_DECODE_BATCH,
+                                 FAMILY_DECODE_SLOTS, torch.bfloat16, dev,
+                                 gen)
+        before = flash_launches()
+        step = timed_decode(cfg, params, cache, FAMILY_DECODE_SLOTS - 1)
+        check(flash_delta(before)[0] == dict.fromkeys(FLASH_STAGES, 0),
+              f"lm_families {arch}: decode launched a flash kernel")
+        # the timed step once more, its routing recorded (MoE: the bound
+        # reads the routed experts alone)
+        tok = torch.ones((FAMILY_DECODE_BATCH, 1), dtype=torch.int32,
+                         device=dev)
+        with torch.no_grad(), routed_experts() as routed:
+            lm.decode_step(cfg, params, cache, tok, FAMILY_DECODE_SLOTS - 1)
+        wb, cb = decode_bytes(params, cache, routed)
+        b = bound(wb + cb, 0.0, peak)
+        step.update(weight_bytes=wb, cache_bytes=cb, bound_ms=b[0],
+                    bound_share=b[0] / step["median_ms"])
+        if routed:
+            step["routed_experts_by_layer"] = [len(torch.unique(idx))
+                                               for idx in routed]
+        del routed
+        del cache
+        row = {"family": cfg.family, "layers": cfg.n_layers,
+               "d_model": cfg.d_model,
+               "params": sum(t.numel() for t in tree_leaves(params)),
+               "fp32_gate": {"agreement": agree, "forward_launches": fwd,
+                             "seconds": gate_s},
+               "decode_step": step}
+        del params
+        torch.cuda.empty_cache()
+        if cfg.family in ("ssm", "hybrid"):
+            row["recurrence_ms"] = {
+                f"B{B}xS{S}": recurrence_ms(cfg, dev, gen, B, S)
+                for B, S in ((FAMILY_GATE_BATCH, FAMILY_GATE_SEQ),
+                             (FAMILY_DECODE_BATCH, 1))}
+            tr = family_train_step(cfg, dev)
+            row["train_step"] = tr
+            check(np.isfinite(tr["loss"]) and tr["trainable_changed"],
+                  f"lm_families {arch}: train step {tr}")
+            want = expected_flash(cfg, train=True)
+            check(tr["launches"] == want == tr["tc_launches"],
+                  f"lm_families {arch}: train step flash launches "
+                  f"{tr['launches']} (tc {tr['tc_launches']}), expected "
+                  f"{want} on the tensor cores")
+            torch.cuda.empty_cache()
+        rows[arch] = row
+    reduced = reduced_family_steps(dev)
+    launches = {n: KERNELS[n]["fn"].launches for n in KERNELS}
+    emit({"phase": "lm_families", "card": card, "archs": rows,
+          "moe_cut": f"{FAMILY_MOE_LAYERS} of "
+                     f"{get_config('qwen3-moe-235b-a22b').n_layers} layers",
+          "reduced_train_steps": reduced,
+          "launches": {n: launches[n] for n in FLASH_STAGES},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def main():
@@ -4720,6 +5324,11 @@ def main():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     torch.cuda.empty_cache()
     phase_lm_train_reduced(dev, card)
+    # path 9: decode serving; path 10: the LM zoo (counts zeroed inside)
+    torch.cuda.empty_cache()
+    launches["lm_decode"] = phase_lm_decode(dev, card, peaks(kind))
+    torch.cuda.empty_cache()
+    launches["lm_families"] = phase_lm_families(dev, card, peaks(kind))
 
     kernels = []
     for name, spec in KERNELS.items():

@@ -10,10 +10,13 @@
 
 q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd) with Hq a multiple of Hkv (q
 head h reads kv head h // R), all fp32 or all bf16, contiguous, on one
-CUDA device; hd 64 or 128. Outputs in the operands' dtype, lse and delta
-fp32 (B, Hq, Sq). The causal mask is aligned top-left (``ref.py`` states
-the convention). Takes CUDA tensors only; ``ops`` sends CPU tensors to
-the plain versions in ``ref``.
+CUDA device; hd up to 128. The kernels are built for hd 64 and 128: any
+other hd is zero-padded to the next of the two and the softmax scale
+stays 1/sqrt(hd) (the padded products are zeros; the padded output
+columns are dropped), which is how zamba2's hd 80 runs. Outputs in the
+operands' dtype, lse and delta fp32 (B, Hq, Sq). The causal mask is
+aligned top-left (``ref.py`` states the convention). Takes CUDA tensors
+only; ``ops`` sends CPU tensors to the plain versions in ``ref``.
 
 Every stage picks its kernel by dtype: bf16 runs on the tensor cores
 (wgmma + TMA: the forwards in ``flash_fwd_sm90.cu``, dQ and dK/dV in
@@ -27,6 +30,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -38,8 +42,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _TC_DIMS = (_I,) * 8 + (ctypes.c_float, _P)
 
 
-def _dims(q, k, v, *, causal, window):
-    """Check q, k, v and return the kernels' int arguments."""
+def _dims(q, k, v, *, causal, window, hd_true=None):
+    """Check q, k, v and return the kernels' int arguments; the softmax
+    scale is 1/sqrt(``hd_true``), the head dim before padding."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}: expected (B, H, S, hd)")
@@ -62,8 +67,28 @@ def _dims(q, k, v, *, causal, window):
     _build.check_operand("q", q, q.dtype, (B, hq, sq, hd), dev)
     _build.check_operand("k", k, q.dtype, (B, hkv, sk, hd), dev)
     _build.check_operand("v", v, q.dtype, (B, hkv, sk, hd), dev)
+    scale = 1.0 / math.sqrt(hd_true or hd)
     return (B, hq, hkv, sq, sk, hd, int(bool(causal)), int(window),
-            ctypes.c_float(1.0 / math.sqrt(hd)), int(q.dtype == torch.bfloat16))
+            ctypes.c_float(scale), int(q.dtype == torch.bfloat16))
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim a kernel runs at: 64 up to 64, else 128 (up to 128)."""
+    if not 1 <= hd <= 128:
+        raise ValueError(f"flash attention: head dim {hd}, the kernels take "
+                         "1 to 128 (padded to 64 or 128)")
+    return 64 if hd <= 64 else 128
+
+
+def _padded(hd, *ts):
+    """The operands with their last dim zero-padded from ``hd`` to
+    ``kernel_head_dim(hd)`` (the same tensors when it is 64 or 128)."""
+    extra = kernel_head_dim(hd) - hd
+    return ts if not extra else tuple(F.pad(t, (0, extra)) for t in ts)
+
+
+def _unpadded(hd, t):
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
 
 
 def _stream(dev):
@@ -97,7 +122,9 @@ def _launch(name, q, ptrs, dims, tc, fma):
 
 def _forward(name, q, k, v, *, causal, window, with_lse):
     """Launch the forward of q's dtype -> (o, lse or None)."""
-    dims = _dims(q, k, v, causal=causal, window=window)
+    hd = q.shape[-1]
+    q, k, v = _padded(hd, q, k, v)
+    dims = _dims(q, k, v, causal=causal, window=window, hd_true=hd)
     o = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -108,7 +135,7 @@ def _forward(name, q, k, v, *, causal, window, with_lse):
         ptrs += (lse.data_ptr(),)
     _launch(name, q, ptrs, dims, ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
             "repro_flash_fwd_lse" if with_lse else "repro_flash_fwd")
-    return o, lse
+    return _unpadded(hd, o), lse
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
@@ -130,20 +157,23 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool, window: int = 0):
 
 
 def _backward_operands(q, k, v, do, lse, delta, *, causal, window):
-    """Check the backward stages' operands -> the kernels' int
-    arguments."""
-    dims = _dims(q, k, v, causal=causal, window=window)
+    """Check the backward stages' operands -> (the operands padded to the
+    kernels' head dim, the kernels' int arguments)."""
+    hd = q.shape[-1]
+    q, k, v, do = _padded(hd, q, k, v, do)
+    dims = _dims(q, k, v, causal=causal, window=window, hd_true=hd)
     _build.check_operand("do", do, q.dtype, tuple(q.shape), q.device)
     _stats(q, "lse", lse)
     _stats(q, "delta", delta)
-    return dims
+    return (q, k, v, do), dims
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
                        window: int = 0):
     """dQ from dO, the forward's lse and delta = rowsum(O dO)."""
-    dims = _backward_operands(q, k, v, do, lse, delta, causal=causal,
-                              window=window)
+    hd = q.shape[-1]
+    (q, k, v, do), dims = _backward_operands(q, k, v, do, lse, delta,
+                                             causal=causal, window=window)
     dq = torch.empty_like(q)
     _launch("flash_attention_dq", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -151,14 +181,15 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
             ("flash_bwd_sm90", "repro_flash_dq_sm90"), "repro_flash_dq")
     flash_attention_dq.launches += 1
     flash_attention_dq.tc_launches += uses_tensor_cores(q.dtype)
-    return dq
+    return _unpadded(hd, dq)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
                         window: int = 0):
     """(dK, dV), each summed over the R q heads of its kv head."""
-    dims = _backward_operands(q, k, v, do, lse, delta, causal=causal,
-                              window=window)
+    hd = q.shape[-1]
+    (q, k, v, do), dims = _backward_operands(q, k, v, do, lse, delta,
+                                             causal=causal, window=window)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_attention_dkv", q,
@@ -168,7 +199,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
             "repro_flash_dkv")
     flash_attention_dkv.launches += 1
     flash_attention_dkv.tc_launches += uses_tensor_cores(q.dtype)
-    return dk, dv
+    return _unpadded(hd, dk), _unpadded(hd, dv)
 
 
 flash_attention_fwd.launches = 0

@@ -1,5 +1,5 @@
-"""Training launcher for the dense LMs: the port of ``repro/launch/train.py``
-(its flags, plus ``--device``).
+"""Training launcher for the LMs (any registered arch): the port of
+``repro/launch/train.py`` (its flags, plus ``--device``).
 
 Runs real steps of the FedSTIL split step (frozen trunk; the adaptive last
 block + head as theta = B * alpha + A, ``tie_lambda`` 1e-4) or, with

@@ -89,17 +89,18 @@ def train_state_from_params(cfg: ModelConfig, params, optimizer=None):
 
 
 def adaptive_loss_and_grads(cfg: ModelConfig, frozen, B, trainable, batch,
-                            ax: AxisCtx = UNSHARDED, *,
+                            ax: AxisCtx = UNSHARDED, *, window: int = 0,
                             tie_lambda: float = 0.0):
     """The split step's objective and its gradient in (alpha, A):
     -> ((loss, ce, aux), grads shaped as ``trainable``). The reported
-    loss excludes the tying term, as in the reference."""
+    loss excludes the tying term, as in the reference. ``window > 0``:
+    sliding-window attention."""
     paths = leaf_paths(trainable)
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(trainable)]
     tr = tree_from_paths(paths, leaves)
     theta = combine(B, tr["alpha"], tr["A"])
     total, (ce, aux) = lm.loss_fn(cfg, merge_params(frozen, theta), batch,
-                                  ax)
+                                  ax, window=window)
     total = ax.pmean_dp(total)
     reported = total.detach()
     if tie_lambda:
@@ -111,14 +112,15 @@ def adaptive_loss_and_grads(cfg: ModelConfig, frozen, B, trainable, batch,
 
 
 def make_train_step(cfg: ModelConfig, optimizer=None, ax: AxisCtx = UNSHARDED,
-                    *, tie_lambda: float = 0.0):
+                    *, window: int = 0, tie_lambda: float = 0.0):
     """Returns train_step(frozen, B, trainable, opt_state, batch) ->
     (trainable, opt_state, metrics). Grads flow only into (alpha, A)."""
     opt = optimizer or adam(lr=1e-3, weight_decay=1e-5)
 
     def train_step(frozen, B, trainable, opt_state, batch):
         (loss, ce, aux), grads = adaptive_loss_and_grads(
-            cfg, frozen, B, trainable, batch, ax, tie_lambda=tie_lambda)
+            cfg, frozen, B, trainable, batch, ax, window=window,
+            tie_lambda=tie_lambda)
         trainable, opt_state, gnorm = _opt_step(opt, trainable, grads,
                                                 opt_state)
         return trainable, opt_state, {"loss": loss, "ce": ce, "moe_aux": aux,
@@ -128,7 +130,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None, ax: AxisCtx = UNSHARDED,
 
 
 def make_full_train_step(cfg: ModelConfig, optimizer=None,
-                         ax: AxisCtx = UNSHARDED):
+                         ax: AxisCtx = UNSHARDED, *, window: int = 0):
     """Beyond-paper: full fine-tuning of every parameter. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, metrics);
     ``opt_state`` from ``init_opt_state(optimizer, params)``."""
@@ -138,7 +140,7 @@ def make_full_train_step(cfg: ModelConfig, optimizer=None,
         paths = leaf_paths(params)
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         total, (ce, aux) = lm.loss_fn(cfg, tree_from_paths(paths, leaves),
-                                      batch, ax)
+                                      batch, ax, window=window)
         loss = ax.pmean_dp(total)
         grads = tree_from_paths(paths, list(torch.autograd.grad(loss, leaves)))
         params, opt_state, gnorm = _opt_step(opt, params, grads, opt_state)

@@ -224,15 +224,17 @@ def test_row_with_no_visible_key_is_zero():
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The CUDA wrappers check their operands before any build or launch:
-    CPU tensors, head dims other than 64 / 128, q heads that are not a
-    multiple of kv heads, mixed dtypes."""
+    CPU tensors, head dims above 128 (the kernels run at 64 or 128, any
+    smaller hd zero-padded up), q heads that are not a multiple of kv
+    heads, mixed dtypes."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 4, 8, 8, 64, hkv=2))
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_fwd(q, k, v, causal=True)
-    q96, k96, v96 = (torch.from_numpy(x) for x in _qkv(1, 1, 2, 8, 8, 96))
+    q160, k160, v160 = (torch.from_numpy(x)
+                        for x in _qkv(1, 1, 2, 8, 8, 160))
     with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention_fwd_lse(q96, k96, v96, causal=True)
+        FA.flash_attention_fwd_lse(q160, k160, v160, causal=True)
     with pytest.raises(ValueError, match="multiple"):
         FA.flash_attention_fwd(q[:, :3].contiguous(), k, v, causal=True)
     with pytest.raises(TypeError):
@@ -243,11 +245,34 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_dq(q, k, v, q, lse, lse, causal=True)
     with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention_dq(q96, k96, v96, q96, lse[:, :2], lse[:, :2],
+        FA.flash_attention_dq(q160, k160, v160, q160, lse[:, :2], lse[:, :2],
                               causal=True)
     for fn in (FA.flash_attention_fwd, FA.flash_attention_fwd_lse,
                FA.flash_attention_dq, FA.flash_attention_dkv):
         assert fn.launches == 0 and fn.tc_launches == 0
+
+
+@pytest.mark.parametrize("hd,kernel_hd", [(32, 64), (64, 64), (80, 128),
+                                           (128, 128)])
+def test_head_dims_pad_to_the_kernels_with_their_own_scale(hd, kernel_hd):
+    """The wrappers run a head dim the kernels are not built for (zamba2's
+    80) zero-padded to 64 or 128, with the softmax scale of the true hd:
+    the padded q k^T equals the unpadded one, so attention over the padded
+    operands, cut back to hd, is the plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    assert FA.kernel_head_dim(hd) == kernel_hd
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 1, 4, 9, 11, hd, hkv=2))
+    qp, kp, vp = FA._padded(hd, q, k, v)
+    assert qp.shape[-1] == kernel_hd and torch.equal(qp[..., :hd], q)
+    assert not qp[..., hd:].any() and not vp[..., hd:].any()
+    s = (qp * (1.0 / np.sqrt(hd))) @ kp.repeat_interleave(2, 1).transpose(
+        -1, -2)
+    mask = ref.flash_mask(9, 11, causal=False, window=0, device="cpu")
+    p = torch.softmax(torch.where(mask, s, ref.FLASH_NEG_INF), -1)
+    o = FA._unpadded(hd, p @ vp.repeat_interleave(2, 1))
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(o.numpy(), want.numpy(), atol=TOL["float32"],
+                               rtol=TOL["float32"])
 
 
 def _emulate_tc_forward(q, k, v, *, causal, window, split=True, bk=128):

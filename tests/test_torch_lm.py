@@ -145,10 +145,26 @@ def test_greedy_readout_matches_jax():
                                rtol=FWD_TOL)
 
 
-def test_other_families_raise():
-    cfg = CFG.get_config("qwen3-moe-235b-a22b").reduced()
-    with pytest.raises(NotImplementedError, match="6b"):
-        lm.init_params(cfg, torch.Generator().manual_seed(0))
+def test_init_params_builds_every_family():
+    """Every registered arch (dense, moe, ssm, hybrid) and the vlm and
+    encdec variants: ``init_params`` builds its family's tree, finite,
+    with the trunk / adaptive split the split step trains."""
+    from repro_torch.core.adaptive import split_params
+    cfgs = [CFG.get_config(a).reduced() for a in CFG.ARCH_IDS]
+    base = CFG.get_config("qwen1.5-0.5b").reduced()
+    cfgs += [dataclasses.replace(base, family="vlm", n_vision_tokens=8),
+             dataclasses.replace(base, family="encdec", n_enc_layers=2,
+                                 enc_seq=16, rope_theta=0.0)]
+    assert {c.family for c in cfgs} == {"dense", "moe", "ssm", "hybrid",
+                                        "vlm", "encdec"}
+    for cfg in cfgs:
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+        assert all(torch.isfinite(t).all() for t in tree_leaves(params))
+        frozen, adaptive = split_params(cfg, params)
+        want = {"hybrid": {"head", "final_norm", "shared_attn"}}.get(
+            cfg.family, {"head", "final_norm", "adaptive_layers"})
+        assert set(adaptive) == want, cfg.name
+        assert "embed" in frozen and "layers" in frozen
 
 
 def _jax_split_grads(jc, st, jbatch, tie_lambda):
