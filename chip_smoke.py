@@ -6,10 +6,17 @@ round with the ``delta+topk`` wire codec, on the host engine, and with the
 ``topk+int8`` wire codec, the paper's Table II baselines (the strategy
 zoo), the round on the sharded engine (a world of one), the dense LM's
 FedSTIL edge train step (qwen3-1.7b at full width), LM decode serving
-with its bf16 / int8 KV cache and ring window, and the moe, ssm and
-hybrid families (plus vlm and encdec, reduced).
+with its bf16 / int8 KV cache and ring window, the LM's sharded steps
+on a world of one (``launch/steps.py``), and the moe, ssm and hybrid
+families (plus vlm and encdec, reduced).
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --only lm_scaleout    # some groups of phases
+
+``--only`` takes groups of phases, comma-separated (``ONLY_GROUPS``: the
+kernels, serving, the rounds, lm_train, lm_decode, lm_scaleout,
+lm_families), with the groups each needs; its last line carries the
+groups, and it prints no kernels line (not every path ran).
 
 Phases, each printing one JSON line; any failure exits nonzero. Every
 federated run that reports stage ms is traced (``run_simulation(...,
@@ -190,7 +197,7 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  neither the fp32 decode nor the four one-stage codec
                  kernels, each kernel against
                  its plain version on its last on-path operands, the coded
-                 minus the uncoded final mAP; then 6 rounds of the same on
+                 minus the uncoded final mAP; then 4 rounds of the same on
                  the card and on the CPU: equal wire bytes, final mAP / R1
                  within 0.03; per-round tables in
                  ``build/round_fedstil_codec_int8.json``
@@ -287,6 +294,22 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  B 8 (its 128 cut to fit) in bf16 and int8, long_500k's
                  ring (B 1, window 8192, pos 524287), and the bf16 32k
                  step's device ms by kernel group (torch.profiler)
+     lm_scaleout the LM's sharded steps (``launch/steps.py``) on a world
+                 of one over NCCL, on the models lm_train and lm_decode
+                 hold: qwen3-1.7b's train step at lm_train's state and
+                 batch through ``build_train_step`` on
+                 ``make_production_mesh(model=1)``, layouts "tp" and "dp",
+                 one SGD(lr = 1) step each against lm_train's unsharded
+                 step from the same state (loss and every adaptive
+                 gradient leaf as old - new: bit for bit, else relative
+                 L2 <= 1e-3), 1 warm-up + 3 timed steps (CUDA events)
+                 beside lm_train's, flash launches 27 / 1 / 1 / 1 a step;
+                 qwen1.5-0.5b at lm_decode's gate shape (B 4 x S 64):
+                 ``build_prefill_step`` and 8 ``build_decode_step`` steps
+                 in bf16 and int8 caches, then with FSDP and
+                 weight-stationary decode, tokens and caches bit for bit
+                 the unsharded ``decode_step``'s in every mode, each
+                 step's host ms beside the unsharded step's
  13. lm_families the LM zoo at full width: rwkv6-1.6b and zamba2-2.7b
                  whole, qwen3-moe-235b-a22b cut to 2 trunk + 1 adaptive
                  layers of 94: each one's fp32 decode-equals-forward gate
@@ -372,8 +395,11 @@ from repro_torch.kernels.topk_pack import (batched_idx_bitpack,  # noqa: E402
                                            batched_topk_encode,
                                            batched_topk_pack,
                                            batched_topk_unpack)
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import fed_round as FR  # noqa: E402
 from repro_torch.launch import serve_lm  # noqa: E402
+from repro_torch.launch import steps as STEPS  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import stacked_heads  # noqa: E402
 from repro_torch.lifelong import EWC, ICaRL, MAS, STL  # noqa: E402
 from repro_torch.models import layers as LMLAYERS  # noqa: E402
@@ -391,7 +417,8 @@ from repro_torch.serving.engine import (featurize, rank_shortlist,  # noqa: E402
                                         rank_topk)
 from repro_torch.serving.index import index_features  # noqa: E402
 from repro_torch.sharding import specs as SH  # noqa: E402
-from repro_torch.train.optimizer import adam, cosine_schedule  # noqa: E402
+from repro_torch.train.optimizer import (adam, apply_updates,  # noqa: E402
+                                         cosine_schedule, sgd)
 from repro_torch.train.trainer import (  # noqa: E402
     adaptive_loss_and_grads, init_opt_state, init_train_state,
     make_full_train_step, make_train_step, train_state_from_params)
@@ -508,8 +535,9 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # rerun of the whole protocol took 20.5 s on the card's host, the largest
 # share of the script's time; 30 rounds took 11.6-14.0 s, 24 paid for the
 # int8 decode's phase-3 checks (~3 s), 12 (two a task) for the
-# telemetry phase, and 6 (one a task) for lm_decode and lm_families
-INT8_CPU_ROUNDS = 6
+# telemetry phase, 6 (one a task) for lm_decode and lm_families, and 4
+# (tasks 1-4) for lm_scaleout
+INT8_CPU_ROUNDS = 4
 # round_zoo: the Table II baselines at benchmarks/common.py's epochs, one
 # round a task (the protocol's 60 rounds cut to 6), evaluated every 2
 ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
@@ -611,7 +639,8 @@ KERNELS = {
         "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
-                  "round_sharded", "lm_train", "lm_families"),
+                  "round_sharded", "lm_train", "lm_scaleout",
+                  "lm_families"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
         "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
@@ -671,22 +700,25 @@ KERNELS = {
     # forwards and steps on the tensor cores)
     "flash_attention_fwd": {
         "fn": flash_attention_fwd,
-        "paths": ("lm_train", "lm_decode", "lm_families"),
+        "paths": ("lm_train", "lm_decode", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention_fwd_lse": {
-        "fn": flash_attention_fwd_lse, "paths": ("lm_train", "lm_families"),
+        "fn": flash_attention_fwd_lse,
+        "paths": ("lm_train", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
     "flash_attention_dq": {
-        "fn": flash_attention_dq, "paths": ("lm_train", "lm_families"),
+        "fn": flash_attention_dq,
+        "paths": ("lm_train", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:209"},
     "flash_attention_dkv": {
-        "fn": flash_attention_dkv, "paths": ("lm_train", "lm_families"),
+        "fn": flash_attention_dkv,
+        "paths": ("lm_train", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
@@ -4610,7 +4642,8 @@ def phase_lm_train(dev, card):
     check(swap["abs_loss_delta"] <= LM_SWAP_LOSS_TOL
           and swap["grad_rel_l2_worst_leaf"] <= LM_SWAP_GRAD_TOL,
           f"lm_train: kernels vs plain attention {swap}")
-    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}
+    return launches, {n: r["max_abs_err"] for n, r in on_path.items()}, \
+        (cfg, st, batches[0], float(np.median(timed)))
 
 
 def phase_lm_train_reduced(dev, card):
@@ -4941,7 +4974,8 @@ def phase_lm_decode(dev, card, peak):
     ``serve_lm.main --full-model`` (B 4, prompt 16, gen 32), then timed
     steps beside their bounds: decode_32k's cache (32768 slots, B 8, bf16
     and int8) and long_500k's ring (B 1, window 8192, pos 524287), and a
-    profile of the bf16 32k step. Returns the path's launches."""
+    profile of the bf16 32k step. Returns (the path's launches, (config,
+    the bf16 params, the gate batch))."""
     t_phase = time.perf_counter()
     zero_counts()
     cfg = get_config(DECODE_ARCH)
@@ -5040,6 +5074,248 @@ def phase_lm_decode(dev, card, peak):
           "timed": timed, "decode_32k_bf16_profile": profile_row,
           "launches": {n: launches[n] for n in FLASH_STAGES},
           "phase_s": time.perf_counter() - t_phase})
+    return launches, (cfg, params, batch)
+
+
+# ---------------------------------------------------------------------------
+# lm_scaleout: the LM's sharded steps on a world of one
+# ---------------------------------------------------------------------------
+
+SCALEOUT_REL_L2 = 1e-3      # where a leaf is not bit for bit
+SCALEOUT_DECODE_STEPS = 8
+
+
+def leaf_compare(got, want):
+    """{leaf: [bit for bit, relative L2]} over two trees."""
+    return {"/".join(map(str, p)): [bool(torch.equal(a, b)), float(
+        torch.linalg.vector_norm(a.float() - b.float()) / max(float(
+            torch.linalg.vector_norm(b.float())), 1e-30))]
+        for p, a, b in zip(leaf_paths(want), tree_leaves(got),
+                           tree_leaves(want))}
+
+
+def sgd_read(old, new):
+    """One SGD(lr = 1) step's gradient, read as old - new per leaf."""
+    return tree_map(lambda a, b: a - b, old, new)
+
+
+def timed_steps(run, n=LM_STEPS):
+    """``run()`` n times (the first a warm-up), each timed by CUDA events
+    -> (ms of each, the first call's result)."""
+    ms, first = [], None
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        first = out if i == 0 else first
+        del out
+    return ms, first
+
+
+def scaleout_train(cfg, st, batch, mesh, layout):
+    """One layout's sharded split step against lm_train's unsharded one
+    from the same state, both as SGD(lr = 1) steps: the first step's loss
+    and gradient (old - new; the unsharded TP reference is the unclipped
+    gradient, as no step clips under TP, the dp layout's the clipped
+    step), each timed 1 + 3 steps (CUDA events), the sharded one's flash
+    launches each step."""
+    shape = ShapeConfig("lm_train", LM_SEQ, LM_BATCH, "train")
+    opt = sgd(1.0)
+    step, _, specs = STEPS.build_train_step(cfg, mesh, shape,
+                                            multi_pod=False, layout=layout,
+                                            optimizer=opt, tie_lambda=LM_TIE)
+    args = [SH.shard_tree(a, s, mesh) for a, s in zip(
+        (st.frozen, st.B, st.trainable, init_opt_state(opt, st.trainable),
+         batch), specs)]
+    per_step = []
+
+    def sharded():
+        before = flash_launches()
+        new, _, m = step(*args)
+        per_step.append(flash_delta(before)[1])
+        return new, m["loss"]
+
+    def unsharded():
+        if layout == "dp":
+            new, _, m = make_train_step(cfg, optimizer=opt,
+                                        tie_lambda=LM_TIE)(
+                st.frozen, st.B, st.trainable,
+                init_opt_state(opt, st.trainable), batch)
+            return new, m["loss"]
+        (loss, _, _), g = adaptive_loss_and_grads(
+            cfg, st.frozen, st.B, st.trainable, batch, tie_lambda=LM_TIE)
+        return apply_updates(st.trainable, opt.update(g, {})[0]), loss
+
+    ms, (new, loss) = timed_steps(sharded)
+    got = sgd_read(st.trainable, SH.gather_tree(new, step.out_specs[0], mesh))
+    loss = float(loss)
+    del new
+    ums, (new, want_loss) = timed_steps(unsharded)
+    want, want_loss = sgd_read(st.trainable, new), float(want_loss)
+    del new
+    by_leaf = leaf_compare(got, want)
+    del got, want
+    return {"loss": [loss, want_loss], "loss_bit_equal": loss == want_loss,
+            "grad_leaves_bit_equal": all(b for b, _ in by_leaf.values()),
+            "grad_rel_l2_worst": max(r for _, r in by_leaf.values()),
+            "grad_by_leaf": by_leaf, "step_ms": ms,
+            "median_step_ms": float(np.median(ms[1:])),
+            "unsharded_step_ms": ums,
+            "unsharded_median_step_ms": float(np.median(ums[1:])),
+            "flash_launches_per_step": per_step}
+
+
+DECODE_CACHES = (("bf16", torch.bfloat16), ("int8", torch.int8))
+
+
+def unsharded_decode(cfg, params, batch):
+    """The unsharded path at the gate batch: the forward's next token, and
+    for each cache dtype ``SCALEOUT_DECODE_STEPS`` decode steps' tokens and
+    final cache."""
+    B, S = batch["tokens"].shape
+    with torch.no_grad():
+        x, _ = lm.forward(cfg, params, {"tokens": batch["tokens"]})
+        out = {"prefill": LMLAYERS.lm_head_logits(
+            cfg, params["head"], x[:, -1:])[0].to(torch.int32)}
+        for name, dt in DECODE_CACHES:
+            cache = lm.init_cache(cfg, B, S, dtype=dt, device=dev_of(params))
+            toks, ms = [], []
+            for t in range(SCALEOUT_DECODE_STEPS):
+                t0 = time.perf_counter()
+                n, cache = lm.decode_step(cfg, params, cache,
+                                          batch["tokens"][:, t:t + 1], t)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                toks.append(n)
+            out[name] = (torch.cat(toks, 1), cache, ms)
+    return out
+
+
+def scaleout_decode(cfg, params, batch, mesh, want, *, fsdp):
+    """``build_prefill_step`` then ``SCALEOUT_DECODE_STEPS`` steps of
+    ``build_decode_step`` (bf16 and int8 caches; FSDP with
+    weight-stationary decode when ``fsdp``) against ``want``, the
+    unsharded path's (``unsharded_decode``): tokens, then each cache leaf
+    bit for bit or its max abs difference, and each decode step's host
+    ms (the call to its device sync) beside the unsharded step's."""
+    cfg = dataclasses.replace(cfg, fsdp=fsdp)
+    B, S = batch["tokens"].shape
+    prefill, _, pspecs = STEPS.build_prefill_step(
+        cfg, mesh, ShapeConfig("gate", S, B, "prefill"), multi_pod=False)
+    tok = prefill(*[SH.shard_tree(a, s, mesh) for a, s in zip(
+        (params, {"tokens": batch["tokens"]}), pspecs)])
+    out = {"prefill_tokens_equal": bool(torch.equal(
+        SH.gather_tree(tok, prefill.out_specs, mesh), want["prefill"]))}
+    for name, dt in DECODE_CACHES:
+        step, args, specs = STEPS.build_decode_step(
+            cfg, mesh, ShapeConfig("gate", S, B, "decode"), multi_pod=False,
+            weight_stationary=fsdp, kv_dtype=dt)
+        cache = SH.shard_tree(tree_map(lambda t: torch.zeros(
+            t.shape, dtype=t.dtype, device=dev_of(params)), args[1]),
+            specs[1], mesh)
+        p = SH.shard_tree(params, specs[0], mesh)
+        got, ms = [], []
+        for t in range(SCALEOUT_DECODE_STEPS):
+            tk = SH.shard_tree(batch["tokens"][:, t:t + 1], specs[2], mesh)
+            t0 = time.perf_counter()
+            n, cache = step(p, cache, tk, t)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(SH.gather_tree(n, step.out_specs[0], mesh))
+        gc = SH.gather_tree(cache, step.out_specs[1], mesh)
+        want_tok, want_cache, want_ms = want[name]
+        by_leaf = {"/".join(k): [bool(torch.equal(a, b)), float(
+            (a.float() - b.float()).abs().max())] for k, a, b in zip(
+            leaf_paths(want_cache), tree_leaves(gc), tree_leaves(want_cache))}
+        out[name] = {"tokens_equal": bool(torch.equal(torch.cat(got, 1),
+                                                      want_tok)),
+                     "cache_bit_equal": all(b for b, _ in by_leaf.values()),
+                     "cache_max_abs_diff": max(d for _, d in
+                                               by_leaf.values()),
+                     "step_host_ms": ms,
+                     "median_step_host_ms": float(np.median(ms[1:])),
+                     "unsharded_step_host_ms": want_ms,
+                     "unsharded_median_step_host_ms": float(
+                         np.median(want_ms[1:]))}
+        del cache, gc
+    return out
+
+
+def dev_of(tree):
+    return tree_leaves(tree)[0].device
+
+
+def phase_lm_scaleout(dev, card, train_ctx, decode_ctx):
+    """The LM's sharded steps (``launch/steps.py``) on a world of one over
+    NCCL, on the models lm_train and lm_decode hold (no new model):
+    qwen3-1.7b's split step at lm_train's state and batch, layouts "tp"
+    and "dp", against lm_train's unsharded step; qwen1.5-0.5b's prefill
+    and decode at lm_decode's gate shape, plain and with FSDP +
+    weight-stationary decode, against the unsharded path. Returns the
+    path's launches."""
+    t_phase = time.perf_counter()
+    cfg, st, batch, lm_train_ms = train_ctx
+    dcfg, dparams, dbatch = decode_ctx
+    zero_counts()
+    seconds = {}
+    t0 = time.perf_counter()
+    with SH.engine_world(dev):
+        with make_production_mesh(model=1, device=dev) as mesh:
+            seconds["world"] = time.perf_counter() - t0
+            train = {}
+            for layout in ("tp", "dp"):
+                t0 = time.perf_counter()
+                train[layout] = scaleout_train(cfg, st, batch, mesh, layout)
+                seconds[f"train_{layout}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = unsharded_decode(dcfg, dparams, dbatch)
+            seconds["decode_unsharded"] = time.perf_counter() - t0
+            decode = {}
+            for kind, fsdp in (("plain", False),
+                               ("fsdp_weight_stationary", True)):
+                t0 = time.perf_counter()
+                decode[kind] = scaleout_decode(dcfg, dparams, dbatch, mesh,
+                                               want, fsdp=fsdp)
+                seconds[f"decode_{kind}"] = time.perf_counter() - t0
+            del want
+            mesh_shape = dict(mesh.shape)
+    launches = counts()
+    n_trunk = cfg.n_layers - cfg.n_adaptive_layers
+    expect_step = {"flash_attention_fwd": n_trunk,
+                   "flash_attention_fwd_lse": cfg.n_adaptive_layers,
+                   "flash_attention_dq": cfg.n_adaptive_layers,
+                   "flash_attention_dkv": cfg.n_adaptive_layers}
+    emit({"phase": "lm_scaleout", "card": card, "world": 1,
+          "mesh": mesh_shape, "train_arch": LM_ARCH,
+          "train_batch": [LM_BATCH, LM_SEQ],
+          "lm_train_median_step_ms": lm_train_ms, "train": train,
+          "decode_arch": DECODE_ARCH,
+          "decode_batch": list(dbatch["tokens"].shape),
+          "decode_steps": SCALEOUT_DECODE_STEPS, "decode": decode,
+          "launches": {n: launches[n] for n in FLASH_STAGES
+                       + ("adaptive_combine",)},
+          "seconds": seconds, "phase_s": time.perf_counter() - t_phase})
+    for layout, r in train.items():
+        got, want = r["loss"]
+        check(np.isfinite(got) and abs(got - want) <= SCALEOUT_REL_L2
+              * abs(want), f"lm_scaleout {layout}: loss {r['loss']}")
+        check(r["grad_rel_l2_worst"] <= SCALEOUT_REL_L2,
+              f"lm_scaleout {layout}: worst gradient leaf's relative L2 "
+              f"{r['grad_rel_l2_worst']}")
+        check(all(p == expect_step for p in r["flash_launches_per_step"]),
+              f"lm_scaleout {layout}: tensor-core flash launches a step "
+              f"{r['flash_launches_per_step']}, expected {expect_step}")
+    for kind, r in decode.items():
+        check(r["prefill_tokens_equal"], f"lm_scaleout {kind}: prefill tokens")
+        for name in ("bf16", "int8"):
+            check(r[name]["tokens_equal"],
+                  f"lm_scaleout {kind} {name}: decode tokens differ")
+            check(r[name]["cache_bit_equal"],
+                  f"lm_scaleout {kind} {name}: cache {r[name]}")
     return launches
 
 
@@ -5230,8 +5506,33 @@ def phase_lm_families(dev, card, peak):
     return launches
 
 
+# the groups of phases ``--only`` selects, in the order main runs them,
+# and the groups each needs first
+ONLY_GROUPS = ("kernels", "serve", "rounds", "lm_train", "lm_decode",
+               "lm_scaleout", "lm_families")
+ONLY_NEEDS = {"lm_scaleout": ("lm_train", "lm_decode")}
+
+
+def selected_groups(argv):
+    """The groups of phases to run: all of them, or ``--only a,b`` and
+    those they need."""
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke of the port.")
+    ap.add_argument("--only", default="",
+                    help="comma-separated groups of phases: "
+                    + ", ".join(ONLY_GROUPS))
+    names = [n for n in ap.parse_args(argv).only.split(",") if n]
+    unknown = sorted(set(names) - set(ONLY_GROUPS))
+    if unknown:
+        ap.error(f"unknown groups {unknown}; choose from {ONLY_GROUPS}")
+    if not names:
+        return set(ONLY_GROUPS)
+    return set(names).union(*(ONLY_NEEDS.get(n, ()) for n in names))
+
+
 def main():
     t_start = time.perf_counter()
+    groups = selected_groups(sys.argv[1:])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a card")
     dev = torch.device("cuda", 0)
@@ -5251,85 +5552,107 @@ def main():
           "dir": str(_build.build_dir().relative_to(ROOT)),
           "nvcc_s_by_source": _build.build_seconds})
 
-    rows = phase_kernels(dev, peaks(kind), card)
-
-    # path 1: serving (counts zeroed just before, read just after)
-    zero_counts()
-    served = {"int8": phase_serve("int8", G_INT8, dev, card),
-              "fp32": phase_serve("fp32", G_FP32, dev, card)}
-    launches = {"serve": {name: spec["fn"].launches
-                          for name, spec in KERNELS.items()}}
-    phase_parity(served, dev, card,
-                 {name: n for name, n in launches["serve"].items()
-                  if "serve" in KERNELS[name]["paths"]})
-    phase_breakdown(served, card)
-
-    # path 2: IVF shortlist serving (counts zeroed just before, read just
-    # after)
-    zero_counts()
-    with last_operands(IVF_OPS, by_reference=IVF_OPS) as seen:
-        ivf = phase_serve("ivf", G_INT8, dev, card)
-    launches["serve_ivf"] = {name: spec["fn"].launches
-                             for name, spec in KERNELS.items()}
-    path_errs = ivf_path_errs(seen)
-    del seen
-    phase_serve_ivf_checks(ivf, served["int8"][5], dev, card)
-    phase_breakdown({"ivf": ivf}, card)
-    del ivf, served
-    torch.cuda.empty_cache()
-
-    # path 3: the federated round (counts zeroed inside, just before)
-    launches["round_fedstil"], round_errs, (strat, res) = phase_round_fedstil(
-        dev, card)
-    path_errs.update(round_errs)
-    phase_serve_round_heads(strat, res, dev, card)
+    rows = phase_kernels(dev, peaks(kind), card) if "kernels" in groups \
+        else None
+    launches, path_errs = {}, {}
 
     def fold(errs):
         for name, err in errs.items():
             path_errs[name] = max(path_errs.get(name, 0.0), err)
 
-    # path 4: the round with the wire codec (counts zeroed inside)
-    launches["round_fedstil_codec"], errs = phase_round_fedstil_codec(
-        dev, card, res)
-    fold(errs)
-    # path 5: the round on the host engine (counts zeroed inside), then the
-    # slice's other host and codec paths, shorter
-    launches["round_fedstil_host"], errs = phase_round_fedstil_host(
-        dev, card, (strat, res))
-    fold(errs)
-    phase_round_host_variants(dev, card)
-    # path 6: the round with the topk+int8 wire codec (counts zeroed inside)
-    launches["round_fedstil_codec_int8"], errs, res_int8 = \
-        phase_round_fedstil_codec_int8(dev, card, res)
-    fold(errs)
-    # path 7: the Table II strategy zoo (counts zeroed inside)
-    launches["round_zoo"], errs = phase_round_zoo(dev, card)
-    fold(errs)
-    # path 8: the sharded engine on a world of one (counts zeroed inside)
-    launches["round_sharded"], errs = phase_round_sharded(
-        dev, card, (strat, res), res_int8, launches["round_fedstil"])
-    fold(errs)
-    del res_int8
+    if "serve" in groups:
+        # path 1: serving (counts zeroed just before, read just after)
+        zero_counts()
+        served = {"int8": phase_serve("int8", G_INT8, dev, card),
+                  "fp32": phase_serve("fp32", G_FP32, dev, card)}
+        launches["serve"] = {name: spec["fn"].launches
+                             for name, spec in KERNELS.items()}
+        phase_parity(served, dev, card,
+                     {name: n for name, n in launches["serve"].items()
+                      if "serve" in KERNELS[name]["paths"]})
+        phase_breakdown(served, card)
+
+        # path 2: IVF shortlist serving (counts zeroed just before, read
+        # just after)
+        zero_counts()
+        with last_operands(IVF_OPS, by_reference=IVF_OPS) as seen:
+            ivf = phase_serve("ivf", G_INT8, dev, card)
+        launches["serve_ivf"] = {name: spec["fn"].launches
+                                 for name, spec in KERNELS.items()}
+        fold(ivf_path_errs(seen))
+        del seen
+        phase_serve_ivf_checks(ivf, served["int8"][5], dev, card)
+        phase_breakdown({"ivf": ivf}, card)
+        del ivf, served
+        torch.cuda.empty_cache()
+
+    if "rounds" in groups:
+        # path 3: the federated round (counts zeroed inside, just before)
+        launches["round_fedstil"], errs, (strat, res) = phase_round_fedstil(
+            dev, card)
+        fold(errs)
+        phase_serve_round_heads(strat, res, dev, card)
+        # path 4: the round with the wire codec (counts zeroed inside)
+        launches["round_fedstil_codec"], errs = phase_round_fedstil_codec(
+            dev, card, res)
+        fold(errs)
+        # path 5: the round on the host engine (counts zeroed inside), then
+        # the slice's other host and codec paths, shorter
+        launches["round_fedstil_host"], errs = phase_round_fedstil_host(
+            dev, card, (strat, res))
+        fold(errs)
+        phase_round_host_variants(dev, card)
+        # path 6: the round with the topk+int8 wire codec (counts zeroed
+        # inside)
+        launches["round_fedstil_codec_int8"], errs, res_int8 = \
+            phase_round_fedstil_codec_int8(dev, card, res)
+        fold(errs)
+        # path 7: the Table II strategy zoo (counts zeroed inside)
+        launches["round_zoo"], errs = phase_round_zoo(dev, card)
+        fold(errs)
+        # path 8: the sharded engine on a world of one (counts zeroed
+        # inside)
+        launches["round_sharded"], errs = phase_round_sharded(
+            dev, card, (strat, res), res_int8, launches["round_fedstil"])
+        fold(errs)
+        del res_int8, strat, res
+        phase_round_profile(dev, card)
+        phase_server_scale(dev, card)
+        codec_peaks = phase_wire_round_scale(dev, card)
+        torch.cuda.empty_cache()
+        phase_telemetry(dev, card, codec_peaks)
+    if "lm_train" in groups:
+        # path 8: the dense LM's edge train step (counts zeroed inside)
+        launches["lm_train"], errs, train_ctx = phase_lm_train(dev, card)
+        fold(errs)
+        torch.cuda.empty_cache()
+        phase_lm_train_reduced(dev, card)
+        torch.cuda.empty_cache()
+    if "lm_decode" in groups:
+        # path 9: decode serving (counts zeroed inside)
+        launches["lm_decode"], decode_ctx = phase_lm_decode(dev, card,
+                                                            peaks(kind))
+        torch.cuda.empty_cache()
+    if "lm_scaleout" in groups:
+        # path 10: the LM's sharded steps on a world of one, on lm_train's
+        # and lm_decode's models (counts zeroed inside)
+        launches["lm_scaleout"] = phase_lm_scaleout(dev, card, train_ctx,
+                                                    decode_ctx)
+    train_ctx = decode_ctx = None
+    torch.cuda.empty_cache()
+    if "lm_families" in groups:
+        # path 11: the LM zoo (counts zeroed inside)
+        launches["lm_families"] = phase_lm_families(dev, card, peaks(kind))
+
+    last = {"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                   "count": torch.cuda.device_count()}}
+    if groups != set(ONLY_GROUPS):
+        emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        emit(dict(last, only=sorted(groups, key=ONLY_GROUPS.index)))
+        return
     for name, err in path_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    del strat, res
-    phase_round_profile(dev, card)
-    phase_server_scale(dev, card)
-    codec_peaks = phase_wire_round_scale(dev, card)
-    torch.cuda.empty_cache()
-    phase_telemetry(dev, card, codec_peaks)
-    # path 8: the dense LM's edge train step (counts zeroed inside)
-    launches["lm_train"], errs = phase_lm_train(dev, card)
-    for name, err in errs.items():
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    torch.cuda.empty_cache()
-    phase_lm_train_reduced(dev, card)
-    # path 9: decode serving; path 10: the LM zoo (counts zeroed inside)
-    torch.cuda.empty_cache()
-    launches["lm_decode"] = phase_lm_decode(dev, card, peaks(kind))
-    torch.cuda.empty_cache()
-    launches["lm_families"] = phase_lm_families(dev, card, peaks(kind))
-
     kernels = []
     for name, spec in KERNELS.items():
         r = rows[name]
@@ -5352,9 +5675,7 @@ def main():
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
-
+    emit(last)
 
 if __name__ == "__main__":
     main()

@@ -77,6 +77,10 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    def padded_heads(self, tp: int) -> int:
+        """Q heads padded so TP divides them (arctic: 56 -> 64 at TP=16)."""
+        return _round_up(self.n_heads, tp)
+
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, 256)
 

@@ -72,9 +72,11 @@ def _tensor_from_numpy(x, device) -> torch.Tensor:
 
 def lm_params_from_jax(params_np, device):
     """The JAX package's LM parameter tree (nested dicts of arrays, layers
-    stacked on a leading L dim), of any family, or its decode cache (int8
-    codes and bf16 scales included) -> the same tree of tensors on
-    ``device``, every leaf bit for bit in its own dtype."""
+    stacked on a leading L dim), of any family and any ``init_params(tp=k)``
+    (q heads padded for k), or its decode cache (int8 codes and bf16
+    scales included) -> the same tree of tensors on ``device``, every leaf
+    bit for bit in its own dtype (a mesh's shards come from
+    ``sharding.specs.shard_tree``)."""
     if isinstance(params_np, dict):
         return {k: lm_params_from_jax(v, device) for k, v in params_np.items()}
     return _tensor_from_numpy(params_np, device)

@@ -30,8 +30,9 @@ On the card (the default device) the world is ``torchrun``'s, one card a
 rank, or one process a card (``--world``, default: every visible card).
 ``--trace out.jsonl`` records a ``repro_torch.obs`` span per action on rank
 0 (read it with ``python -m repro_torch.obs.report out.jsonl``).
-``--arch`` (the production lowering of an LM's federated round) needs the
-LM's tensor-parallel layouts and is not ported yet.
+``--arch`` (the production lowering of an LM's federated round) comes with
+the production lowering (slice 10b: the per-rank program on meta tensors
+under a fake process group) and is not ported yet.
 """
 from __future__ import annotations
 
@@ -213,8 +214,9 @@ def main(argv=None):
     if args.arch:
         raise not_in_this_slice(
             "fed_round --arch (the production lowering of an LM's round)",
-            "the LM scale-out: the model half of sharding/specs.py and "
-            "launch/steps.py")
+            "slice 10b, the production lowering: launch/dryrun.py and "
+            "sharding/{analytic,analysis}.py on meta tensors under a fake "
+            "process group")
     demo = args.demo or not args.stacked_demo
     run = (demo, args.stacked_demo, args.device, args.trace)
     if S.torchrun_world(args.device):

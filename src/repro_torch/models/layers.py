@@ -1,28 +1,41 @@
 """Transformer layers of every LM family: the port of
-``repro/models/layers.py``, unsharded (train, prefill and decode).
+``repro/models/layers.py`` (train, prefill and decode), unsharded or on a
+mesh (Megatron tensor parallel over "model", FSDP over "data").
 
 Conventions kept from the reference, so weights carry over one to one and
 the tests compare like with like:
 
   * params are nested dicts of tensors with the reference's names and
-    layouts (``wq`` is (d, Hq * hd), ``head.w`` is (d, V_padded));
-  * activations are (B, S, d); q is (B, S, KVg, R, hd) out of
-    ``_project_qkv``, kv head g serving q heads g * R .. g * R + R - 1;
-  * every function takes an ``AxisCtx``; only the unsharded one exists
-    (``common/axes.py``).
+    layouts (``wq`` is (d, Hq * hd), ``head.w`` is (d, V_padded)); on a
+    mesh each rank holds its local shards (``sharding.specs``), head,
+    ff and vocab dims divided by TP;
+  * activations are (B, S, d), the same on every TP rank; q is (B, S,
+    KVg, R, hd) out of ``_project_qkv`` (the rank's local GQA layout),
+    kv head g serving q heads g * R .. g * R + R - 1;
+  * every function takes an ``AxisCtx`` (``common/axes.py``); its
+    collectives are identities when unsharded, so one code path serves
+    both. A TP region starts where its input is marked varying
+    (``pvary_tp``: its gradient is summed over the TP ranks) and ends in
+    ``psum_tp``; each replicated value a region consumes directly (q / k
+    norms on local heads, kv heads before their group slice) is marked
+    where it enters.
 
 Train and prefill attention go through ``kernels.ops.flash_attention``
 (the hand-written kernels on the card, their plain versions on the CPU)
-where the reference scans ``chunked_attention``: the same function with
-q0 = k0 = 0, causal or not, with or without a sliding window, Sq = Sk or
-(cross-attention) not. Decode attends one token against the KV cache in
-plain PyTorch, as the reference does with einsums: the whole cache read
-in fp32 (dequantized first when it is int8). The cache is written in
-place: ``decode_attention_block`` stores the new token's k and v into
-its slot and returns the same tensors, where the reference returns an
-updated copy. Initializers draw from a ``torch.Generator`` (the
-reference's ``jax.random`` stream cannot be reproduced; the tests carry
-its weights across instead).
+on the rank's local heads, where the reference scans
+``chunked_attention``: the same function with q0 = k0 = 0, causal or
+not, with or without a sliding window, Sq = Sk or (cross-attention) not.
+Decode attends one token against the KV cache in plain PyTorch, as the
+reference does with einsums: the whole cache read in fp32 (dequantized
+first when it is int8). On a mesh the cache's sequence dim is split over
+TP: every rank attends its chunk for all heads and the partial softmax
+statistics merge across ranks (flash-decoding). The cache is written in
+place: ``decode_attention_block`` stores the new token's k and v into its
+slot (on the rank that owns it) and returns the same tensors, where the
+reference returns an updated copy. Initializers draw from a
+``torch.Generator`` (the reference's ``jax.random`` stream cannot be
+reproduced; the tests carry its weights across instead), or build meta
+tensors (shapes and dtypes alone) from ``SHAPES_ONLY``.
 """
 from __future__ import annotations
 
@@ -43,9 +56,21 @@ def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+class _ShapesOnly:
+    """Stands in for a ``torch.Generator`` where only shapes and dtypes
+    are wanted: every initializer then builds meta tensors."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
     """Normal(0, 1/sqrt(fan_in)) drawn in fp32 on the generator's device,
     then cast (fan_in = shape[0] for a matrix)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     x = torch.randn(shape, generator=gen, device=gen.device,
@@ -109,7 +134,7 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# embeddings
+# embeddings (vocab-split over TP)
 # ---------------------------------------------------------------------------
 
 
@@ -120,7 +145,8 @@ def embed_params(gen, cfg: ModelConfig, vocab_local: int):
 
 def embed_lookup(cfg: ModelConfig, p, ids, ax: AxisCtx = UNSHARDED):
     """ids (B, S) of global vocab ids -> (B, S, d); ids outside the table
-    embed to zeros, as in the reference."""
+    (on a mesh: outside this rank's rows, summed over TP) embed to zeros,
+    as in the reference."""
     table = p["table"]
     v_loc = table.shape[0]
     local = ids.long() - ax.tp_index() * v_loc
@@ -142,7 +168,7 @@ def sinusoidal_positions(seq: int, d: int, offset=0, device=None):
 
 
 # ---------------------------------------------------------------------------
-# LM head: cross entropy (stable, fp32)
+# LM head: vocab-split cross entropy (stable, fp32)
 # ---------------------------------------------------------------------------
 
 
@@ -152,17 +178,20 @@ def head_params(gen, cfg: ModelConfig, vocab_local: int):
 
 
 def _masked_logits(cfg: ModelConfig, p, x, ax: AxisCtx):
-    """fp32 (B, S, V_padded) logits, the vocab-padding columns at -1e30."""
-    logits = (x @ p["w"]).float()
+    """fp32 (B, S, V_local) logits of this rank's vocab columns, the
+    vocab-padding columns at -1e30."""
+    logits = (ax.pvary_tp(x) @ p["w"]).float()
     v_loc = logits.shape[-1]
     gid = ax.tp_index() * v_loc + torch.arange(v_loc, device=logits.device)
     return torch.where(gid < cfg.vocab_size, logits, -1e30)
 
 
 def lm_head_loss(cfg: ModelConfig, p, x, targets, ax: AxisCtx = UNSHARDED):
-    """Mean cross-entropy. x: (B, S, d), targets: (B, S) global ids."""
+    """Mean cross-entropy with the vocab dim split over TP. x: (B, S, d),
+    targets: (B, S) global ids. The softmax's max-shift is the largest
+    logit over every rank, gradient-free."""
     logits = _masked_logits(cfg, p, x, ax)
-    m = torch.amax(logits, -1)
+    m = ax.pmax_tp(torch.amax(logits, -1))
     se = torch.sum(torch.exp(logits - m[..., None]), -1)
     lse = torch.log(ax.psum_tp(se)) + m
     v_loc = logits.shape[-1]
@@ -175,11 +204,54 @@ def lm_head_loss(cfg: ModelConfig, p, x, targets, ax: AxisCtx = UNSHARDED):
 
 
 def lm_head_logits(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
-    """Greedy decode read-out: -> (argmax id, ties to the lowest, and its
-    logit), each (B, S)."""
+    """Greedy decode read-out: -> (argmax global id, and its logit), each
+    (B, S). Ties go to the lowest global id, on one rank or across
+    ranks, so a mesh reads out what one device does."""
     logits = _masked_logits(cfg, p, x, ax)
-    idx = torch.argmax(logits, -1)
-    return idx + ax.tp_index() * logits.shape[-1], torch.amax(logits, -1)
+    val = torch.amax(logits, -1)
+    gid = torch.argmax(logits, -1) + ax.tp_index() * logits.shape[-1]
+    if not ax.tp:
+        return gid, val
+    best = ax.pmax_tp(val)
+    mine = torch.where(val >= best, gid, torch.iinfo(gid.dtype).max)
+    return ax.pmin_tp(mine), best
+
+
+# ---------------------------------------------------------------------------
+# weight-stationary decode matmuls (FSDP archs: the weights stay split
+# over data, the activations move: gather x over data, contract the local
+# slice of the contraction dim, sum over data)
+# ---------------------------------------------------------------------------
+
+
+def ws_colshard_matmul(x, ws, ax: AxisCtx):
+    """x: (B_loc, 1, d); ws: weights (d / dp, cols_i), their contraction
+    dim split over data -> [(B_loc, 1, cols_i)], one for each. One gather
+    of x and one sum over data serve them all: the products of the local
+    slices are joined (a few rows wide), never the weights."""
+    xg = ax.all_gather_dp(x, 0)                           # (B_tot, 1, d)
+    k_loc, idx, B_loc = ws[0].shape[0], ax.dp_index(), x.shape[0]
+    xs = xg[..., idx * k_loc:(idx + 1) * k_loc]
+    full = ax.psum_data(torch.cat([xs @ w for w in ws], -1))
+    out = full[idx * B_loc:(idx + 1) * B_loc]
+    return out.split([w.shape[1] for w in ws], -1)
+
+
+def ws_rowshard_matmul(o, w, ax: AxisCtx):
+    """o: (B_loc, 1, K_loc), K split over TP; w: (K_loc, d / dp), its
+    output dim split over data -> (B_loc, 1, d). Every rank computes its
+    output columns for the rows of all the data ranks (o gathered over
+    data), sums them over TP, gathers the columns over data and keeps its
+    own rows. (The reference gathers the columns of each rank's own rows,
+    which joins different rows' columns when the batch is split over
+    data: ROADMAP Queue 3.)"""
+    B_loc, idx = o.shape[0], ax.dp_index()
+    part = ax.psum_tp(ax.all_gather_dp(o, 0) @ w)        # (B_tot, 1, d/dp)
+    return ax.all_gather_dp(part, 2)[idx * B_loc:(idx + 1) * B_loc]
+
+
+def _use_ws(ax: AxisCtx) -> bool:
+    return bool(ax.decode_ws and ax.fsdp and ax.dp)
 
 
 # ---------------------------------------------------------------------------
@@ -187,11 +259,13 @@ def lm_head_logits(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
 # ---------------------------------------------------------------------------
 
 
-def attention_params(gen, cfg: ModelConfig):
-    """Global param shapes (unsharded: the q heads unpadded); a
-    cross-attention block has the same params."""
+def attention_params(gen, cfg: ModelConfig, tp: int = 1):
+    """Global param shapes (a cross-attention block has the same params):
+    q heads padded to a multiple of ``tp`` (arctic 56 -> 64 at 16); the kv
+    weights are split over TP with their heads when n_kv >= TP, else
+    replicated, each rank slicing its group's head."""
     dt = _dtype(cfg.param_dtype)
-    d, hd, hq = cfg.d_model, cfg.hd, cfg.n_heads
+    d, hd, hq = cfg.d_model, cfg.hd, cfg.padded_heads(tp)
     dev = gen.device
     p = {"wq": _dense_init(gen, (d, hq * hd), dt),
          "wk": _dense_init(gen, (d, cfg.n_kv_heads * hd), dt),
@@ -210,22 +284,37 @@ def attention_params(gen, cfg: ModelConfig):
 def _project_qkv(cfg: ModelConfig, p, x, x_kv, ax: AxisCtx, positions,
                  kv_positions):
     """q from x, k and v from x_kv -> q (B, S, KVg, R, hd), k and v
-    (B, Skv, KVg, hd). Rope applies when ``rope_theta > 0`` and positions
-    are given (q at ``positions``, k at ``kv_positions``)."""
+    (B, Skv, KVg, hd) in the rank's local GQA layout (KVg local kv heads,
+    R local q heads each). Rope applies when ``rope_theta > 0`` and
+    positions are given (q at ``positions``, k at ``kv_positions``)."""
     hd = cfg.hd
-    q = x @ ax.all_gather_param(p["wq"], 0)
-    k = x_kv @ ax.all_gather_param(p["wk"], 0)
-    v = x_kv @ ax.all_gather_param(p["wv"], 0)
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    kv_split = cfg.n_kv_heads >= ax.tp_size
+    if _use_ws(ax):
+        q, k, v = ws_colshard_matmul(x, [p["wq"], p["wk"], p["wv"]], ax)
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    else:
+        xq = ax.pvary_tp(x)
+        xk = ((xq if x_kv is x else ax.pvary_tp(x_kv)) if kv_split
+              else x_kv)
+        q = xq @ ax.all_gather_param(p["wq"], 0)
+        k = xk @ ax.all_gather_param(p["wk"], 0)
+        v = xk @ ax.all_gather_param(p["wv"], 0)
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S, Skv = x.shape[0], x.shape[1], x_kv.shape[1]
     q = q.reshape(B, S, q.shape[-1] // hd, hd)
     k = k.reshape(B, Skv, k.shape[-1] // hd, hd)
     v = v.reshape(B, Skv, v.shape[-1] // hd, hd)
+    if ax.tp and not kv_split:
+        # kv replicated (n_kv < TP): this rank's group takes its one head
+        g = ax.tp_index() // (ax.tp_size // cfg.n_kv_heads)
+        k = ax.pvary_tp(k)[:, :, g:g + 1]
+        v = ax.pvary_tp(v)[:, :, g:g + 1]
     kvg = k.shape[2]
     if cfg.qk_norm:
-        q = rms_head_norm(p["qnorm"], q)
-        k = rms_head_norm(p["knorm"], k)
+        q = rms_head_norm(ax.pvary_tp(p["qnorm"]), q)
+        k = rms_head_norm(ax.pvary_tp(p["knorm"]), k)
     if cfg.rope_theta > 0 and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
@@ -238,8 +327,9 @@ def attention_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED, *,
     """Full attention for train / prefill: (B, S, d) -> (B, S, d) after
     the output projection. Self-attention by default; cross-attention
     over ``x_kv`` (B, Skv, d) at ``kv_positions``. ``causal`` defaults to
-    the config's; ``window > 0`` is a sliding window. Heads go to the
-    kernels' (B, H, S, hd)."""
+    the config's; ``window > 0`` is a sliding window. The rank's local
+    heads go to the kernels' (B, H, S, hd); the output projection sums
+    over TP."""
     causal = cfg.causal if causal is None else causal
     x_kv = x if x_kv is None else x_kv
     kv_positions = positions if kv_positions is None else kv_positions
@@ -298,23 +388,45 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, pos: int,
                            inject: bool = True, kv_len=None,
                            ring_window: int = 0):
     """One-token decode against the cache. x: (B, 1, d); cache k / v
-    (B, S, KV, hd) (int8 with bf16 ``k_scale`` / ``v_scale``); pos: the
+    (B, S_loc, KV, hd) (int8 with bf16 ``k_scale`` / ``v_scale``), its
+    sequence dim split over TP (rank t holds slots t * S_loc ..); pos: the
     token's absolute position (a Python int).
 
-    ``inject``: the token's k and v go into slot pos (``pos %
-    ring_window`` for a ring buffer of ``ring_window`` slots), in place; a
-    slot outside the cache is silently skipped, as the reference drops it.
-    Keys at slots <= pos are seen (all of them once a ring has wrapped),
-    within ``window`` of pos when it is > 0. ``inject=False``:
-    cross-attention against a static cache whose first ``kv_len`` slots
-    are valid. Returns (y (B, 1, d), cache), the cache the same tensors."""
+    Every rank attends its chunk for all heads: q (and the new k, v) are
+    gathered over TP, a few KB a token; the partial softmax statistics
+    merge across ranks (flash-decoding), and the output projection
+    returns to the rank's heads. ``inject``: the token's k and v go into
+    slot pos (``pos % ring_window`` for a ring buffer of ``ring_window``
+    slots), in place, on the rank that owns the slot; a slot outside the
+    cache is silently skipped, as the reference drops it. Keys at slots
+    <= pos are seen (all of them once a ring has wrapped), within
+    ``window`` of pos when it is > 0. ``inject=False``: cross-attention
+    against a static cache whose first ``kv_len`` slots are valid.
+    Returns (y (B, 1, d), cache), the cache the same tensors."""
     B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
     at = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, x, ax, at, at)
+    if ax.tp:
+        # one gather for q, k and v: (B, KVg, (R + 2) hd) by local kv head
+        kvg, r = q.shape[2], q.shape[3]
+        parts = [q.reshape(B, kvg, r * hd)]
+        if inject:
+            parts += [k_new.reshape(B, kvg, hd), v_new.reshape(B, kvg, hd)]
+        g = ax.all_gather_tp(torch.cat(parts, -1), 1)
+        q = g[..., :r * hd].reshape(B, 1, -1, r, hd)
+        if inject:
+            k_new = g[..., r * hd:(r + 1) * hd].reshape(B, 1, -1, hd)
+            v_new = g[..., (r + 1) * hd:].reshape(B, 1, -1, hd)
+            if KV < ax.tp_size:
+                # each group computed the same kv head: one copy a head
+                group = ax.tp_size // KV
+                k_new, v_new = k_new[:, :, ::group], v_new[:, :, ::group]
+    Hp = q.shape[2] * q.shape[3]
     S = cache["k"].shape[1]
+    tp_idx = ax.tp_index()
     quantized = cache["k"].dtype == torch.int8
     if inject:
-        slot = pos % ring_window if ring_window else pos
+        slot = (pos % ring_window if ring_window else pos) - tp_idx * S
         if 0 <= slot < S:
             if quantized:
                 kq, ks = _quantize_kv(k_new)
@@ -329,9 +441,9 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, pos: int,
     else:
         k_eff, v_eff = cache["k"].float(), cache["v"].float()
 
-    kpos = torch.arange(S, device=x.device)
+    kpos = tp_idx * S + torch.arange(S, device=x.device)
     if not inject:
-        valid = kpos < (kv_len if kv_len is not None else S)
+        valid = kpos < (kv_len if kv_len is not None else S * ax.tp_size)
     elif ring_window:
         # a ring holds the last ``ring_window`` tokens once it has wrapped;
         # before that only slots <= pos are filled
@@ -340,16 +452,28 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, pos: int,
         valid = kpos <= pos
         if window > 0:
             valid = valid & (kpos > pos - window)
-    qf = q.reshape(B, KV, -1, hd).float() * (1.0 / math.sqrt(hd))
+    qf = q.reshape(B, KV, Hp // KV, hd).float() * (1.0 / math.sqrt(hd))
     s = torch.einsum("bgrh,bkgh->bgrk", qf, k_eff)
     s = torch.where(valid, s, -1e30)
-    m = torch.amax(s, -1, keepdim=True)
-    pr = torch.exp(s - m)
+    m = torch.amax(s, -1)
+    pr = torch.exp(s - m[..., None])
     l = torch.sum(pr, -1)
     o = torch.einsum("bgrk,bkgh->bgrh", pr, v_eff)
-    o = o / torch.clamp(l, min=1e-30)[..., None]
-    y = o.reshape(B, 1, -1).to(x.dtype) @ ax.all_gather_param(p["wo"], 1)
-    return ax.psum_tp(y), cache
+    if ax.tp:
+        # the flash-decoding merge: one sum over TP for o and l together
+        corr = torch.exp(m - ax.pmax_tp(m))
+        ol = ax.psum_tp(torch.cat([o * corr[..., None], (l * corr)[..., None]],
+                                  -1))
+        o, l = ol[..., :hd], ol[..., hd]
+    o = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, 1, Hp, hd)
+
+    # the output projection on this rank's slice of the heads
+    wo = p["wo"] if _use_ws(ax) else ax.all_gather_param(p["wo"], 1)
+    h_loc = wo.shape[0] // hd
+    o = o[:, :, tp_idx * h_loc:(tp_idx + 1) * h_loc].reshape(B, 1, -1)
+    if _use_ws(ax):
+        return ws_rowshard_matmul(o.to(x.dtype), wo, ax), cache
+    return ax.psum_tp(o.to(x.dtype) @ wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -368,9 +492,18 @@ def mlp_params(gen, cfg: ModelConfig):
 
 
 def mlp_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
-    h = x @ ax.all_gather_param(p["wi"], 0)
+    if _use_ws(ax):
+        if cfg.act == "swiglu":
+            h, g = ws_colshard_matmul(x, [p["wi"], p["wg"]], ax)
+            h = F.silu(g) * h
+        else:
+            h = F.gelu(ws_colshard_matmul(x, [p["wi"]], ax)[0],
+                       approximate="tanh")
+        return ws_rowshard_matmul(h, p["wo"], ax)
+    xv = ax.pvary_tp(x)
+    h = xv @ ax.all_gather_param(p["wi"], 0)
     if cfg.act == "swiglu":
-        h = F.silu(x @ ax.all_gather_param(p["wg"], 0)) * h
+        h = F.silu(xv @ ax.all_gather_param(p["wg"], 0)) * h
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
     return ax.psum_tp(h @ ax.all_gather_param(p["wo"], 1))

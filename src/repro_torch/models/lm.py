@@ -1,5 +1,6 @@
 """Model assembly for every LM family: the port of ``repro/models/lm.py``,
-unsharded.
+unsharded or on a mesh (the layers' ``AxisCtx``; ``launch/steps.py``
+builds the sharded steps).
 
 Parameters are nested dicts with the repeated layers stacked on a leading
 L dim (``layers``: the frozen trunk, ``adaptive_layers``: the FedSTIL
@@ -20,7 +21,9 @@ Decode (``decode_step``) feeds one token against the cache of
 ``init_cache`` (a bf16, fp32 or int8 KV cache, full or a ring of
 ``window`` slots; the rwkv and mamba states), which it updates in place
 and returns: the reference returns an updated copy, which at a 32k cache
-would copy gigabytes a step. ``pos`` is a Python int.
+would copy gigabytes a step. ``pos`` is a Python int. On a mesh the KV
+caches split their sequence dim over TP and the recurrent states their
+heads (``init_cache(tp=)`` gives a rank's local state shapes).
 """
 from __future__ import annotations
 
@@ -39,9 +42,9 @@ from repro_torch.models import ssm as SSM
 # ---------------------------------------------------------------------------
 
 
-def _dense_layer_init(gen, cfg: ModelConfig):
+def _dense_layer_init(gen, cfg: ModelConfig, tp: int = 1):
     block = {"ln1": L.norm_params(cfg, cfg.d_model, gen.device),
-             "attn": L.attention_params(gen, cfg),
+             "attn": L.attention_params(gen, cfg, tp),
              "ln2": L.norm_params(cfg, cfg.d_model, gen.device)}
     if cfg.family == "moe" or (cfg.n_experts and cfg.family != "hybrid"):
         block["moe"] = MOE.moe_params(gen, cfg, cfg.n_experts)
@@ -50,42 +53,44 @@ def _dense_layer_init(gen, cfg: ModelConfig):
     return block
 
 
-def _rwkv_layer_init(gen, cfg: ModelConfig):
+def _rwkv_layer_init(gen, cfg: ModelConfig, tp: int = 1):
     return {"ln1": L.norm_params(cfg, cfg.d_model, gen.device),
             "time": RWKV.rwkv_time_params(gen, cfg),
             "ln2": L.norm_params(cfg, cfg.d_model, gen.device),
             "chan": RWKV.rwkv_channel_params(gen, cfg)}
 
 
-def _mamba_layer_init(gen, cfg: ModelConfig):
+def _mamba_layer_init(gen, cfg: ModelConfig, tp: int = 1):
     return {"ln": L.norm_params(cfg, cfg.d_model, gen.device),
-            "mamba": SSM.mamba_params(gen, cfg)}
+            "mamba": SSM.mamba_params(gen, cfg, tp)}
 
 
-def _enc_layer_init(gen, cfg: ModelConfig):
+def _enc_layer_init(gen, cfg: ModelConfig, tp: int = 1):
     return {"ln1": L.norm_params(cfg, cfg.d_model, gen.device),
-            "attn": L.attention_params(gen, cfg),
+            "attn": L.attention_params(gen, cfg, tp),
             "ln2": L.norm_params(cfg, cfg.d_model, gen.device),
             "mlp": L.mlp_params(gen, cfg)}
 
 
-def _dec_layer_init(gen, cfg: ModelConfig):
+def _dec_layer_init(gen, cfg: ModelConfig, tp: int = 1):
     return {"ln1": L.norm_params(cfg, cfg.d_model, gen.device),
-            "attn": L.attention_params(gen, cfg),
+            "attn": L.attention_params(gen, cfg, tp),
             "lnx": L.norm_params(cfg, cfg.d_model, gen.device),
-            "cross": L.attention_params(gen, cfg),
+            "cross": L.attention_params(gen, cfg, tp),
             "ln2": L.norm_params(cfg, cfg.d_model, gen.device),
             "mlp": L.mlp_params(gen, cfg)}
 
 
-def _stack_init(init, gen, cfg: ModelConfig, n: int):
-    layers = [init(gen, cfg) for _ in range(n)]
+def _stack_init(init, gen, cfg: ModelConfig, n: int, tp: int):
+    layers = [init(gen, cfg, tp) for _ in range(n)]
     return tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator):
+def init_params(cfg: ModelConfig, gen: torch.Generator, tp: int = 1):
     """Global (unsharded) parameter tree on the generator's device, drawn
-    from it in a fixed order (embed, head, then the stacks)."""
+    from it in a fixed order (embed, head, then the stacks); q heads
+    padded to a multiple of ``tp``. ``gen=layers.SHAPES_ONLY`` builds it
+    of meta tensors (shapes and dtypes, no memory)."""
     vp = cfg.padded_vocab()
     n_ad = cfg.n_adaptive_layers
     n_trunk = cfg.n_layers - n_ad
@@ -93,24 +98,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
               "final_norm": L.norm_params(cfg, cfg.d_model, gen.device),
               "head": L.head_params(gen, cfg, vp)}
     if cfg.family in ("dense", "moe", "vlm"):
-        params["layers"] = _stack_init(_dense_layer_init, gen, cfg, n_trunk)
+        params["layers"] = _stack_init(_dense_layer_init, gen, cfg, n_trunk,
+                                       tp)
         params["adaptive_layers"] = _stack_init(_dense_layer_init, gen, cfg,
-                                                n_ad)
+                                                n_ad, tp)
     elif cfg.family == "ssm":
-        params["layers"] = _stack_init(_rwkv_layer_init, gen, cfg, n_trunk)
+        params["layers"] = _stack_init(_rwkv_layer_init, gen, cfg, n_trunk,
+                                       tp)
         params["adaptive_layers"] = _stack_init(_rwkv_layer_init, gen, cfg,
-                                                n_ad)
+                                                n_ad, tp)
     elif cfg.family == "hybrid":
         params["layers"] = _stack_init(_mamba_layer_init, gen, cfg,
-                                       cfg.n_layers)
-        params["shared_attn"] = _dense_layer_init(gen, cfg)
+                                       cfg.n_layers, tp)
+        params["shared_attn"] = _dense_layer_init(gen, cfg, tp)
     elif cfg.family == "encdec":
         params["enc_layers"] = _stack_init(_enc_layer_init, gen, cfg,
-                                           cfg.n_enc_layers)
+                                           cfg.n_enc_layers, tp)
         params["enc_norm"] = L.norm_params(cfg, cfg.d_model, gen.device)
-        params["layers"] = _stack_init(_dec_layer_init, gen, cfg, n_trunk)
+        params["layers"] = _stack_init(_dec_layer_init, gen, cfg, n_trunk,
+                                       tp)
         params["adaptive_layers"] = _stack_init(_dec_layer_init, gen, cfg,
-                                                n_ad)
+                                                n_ad, tp)
     else:
         raise ValueError(cfg.family)
     return params
@@ -268,12 +276,14 @@ def loss_fn(cfg: ModelConfig, params, batch, ax: AxisCtx = UNSHARDED, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, *, enc_seq: int = 0,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None, tp: int = 1):
     """The decode cache tree of zeros: KV caches of ``seq`` slots in
     ``dtype`` for attention (int8: codes with bf16 scales, in the dense,
     moe and vlm families), the fp32 recurrent states (and ``dtype`` token
     / conv tails) for rwkv and mamba; encdec also holds cross caches of
-    ``enc_seq`` slots."""
+    ``enc_seq`` slots. ``batch``, ``seq`` and ``enc_seq`` are the shapes
+    wanted (local ones on a mesh); ``tp`` divides the recurrent states'
+    heads and channels, as the reference's."""
     n_ad = cfg.n_adaptive_layers
     n_trunk = cfg.n_layers - n_ad
     kv = lambda n, slots=seq: L.init_kv_cache(cfg, batch, slots, dtype,
@@ -285,13 +295,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, enc_seq: int = 0,
     if cfg.family in ("dense", "moe", "vlm"):
         return {"trunk": kv(n_trunk), "adaptive": kv(n_ad)}
     if cfg.family == "ssm":
-        nh = cfg.d_model // cfg.rwkv_head_size
+        nh = cfg.d_model // cfg.rwkv_head_size // tp
         mk = lambda n: RWKV.init_rwkv_state(cfg, batch, nh, dtype, device,
                                             lead=(n,))
         return {"trunk": mk(n_trunk), "adaptive": mk(n_ad)}
     if cfg.family == "hybrid":
-        return {"mamba": SSM.init_ssm_state(cfg, batch, cfg.d_inner, dtype,
-                                            device, lead=(cfg.n_layers,)),
+        return {"mamba": SSM.init_ssm_state(cfg, batch, cfg.d_inner // tp,
+                                            dtype, device,
+                                            lead=(cfg.n_layers,)),
                 "attn": bare(cfg.n_layers // cfg.attn_every)}
     if cfg.family == "encdec":
         return {"trunk": bare(n_trunk), "adaptive": bare(n_ad),

@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN: the port of ``repro/models/moe.py``, unsharded
-(every expert local).
+or with its experts split over the "model" axis (expert parallel: rank t
+holds experts t * E_loc .. t * E_loc + E_loc - 1).
 
 Routing in fp32: softmax over the router's logits, the top-k experts of
 each token (ties to the lowest expert id, as ``lax.top_k``: a stable
@@ -18,9 +19,19 @@ token's updates on the CPU, and it is fixed: ``index_add_`` on the card
 adds atomically in an unspecified order, so a bf16 sum of top_k = 8
 terms would change from run to run.
 
-Arctic's dense residual MLP adds on top of the expert combine (the
-reference fuses its partial sum into the combine's psum, which
-unsharded is the same sum).
+On a mesh the routing runs replicated on every TP rank; each rank
+dispatches to its own experts only (the others' slots fall to the
+sentinel), and one psum over TP combines the ranks' partial outputs,
+the psum a dense MLP pays. The block's input and the gate weights enter
+the rank's experts marked TP-varying. Arctic's dense residual MLP adds
+its partial sum before that same psum (one all-reduce for both, as in
+the reference). Weight-stationary decode (``AxisCtx.decode_ws`` with
+FSDP) keeps the experts split over data on their hidden dim and sums the
+partial contractions over data; every rank runs the tokens of all the
+data ranks for that and keeps its own. (The reference runs each rank's
+own tokens and sums those partials over data, which adds up different
+tokens' contractions when the batch is split over data: ROADMAP Queue
+3.)
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.axes import AxisCtx, UNSHARDED
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _dense_init, _dtype, mlp_params
+from repro_torch.models.layers import (_dense_init, _dtype, mlp_block,
+                                       mlp_params)
 
 CAPACITY_FACTOR = 1.25
 
@@ -69,6 +81,29 @@ def top_k_lowest(x, k: int):
 
 def moe_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
     """x: (B, S, d) -> (y (B, S, d), aux loss)."""
+    if ax.decode_ws and ax.fsdp and ax.dp:
+        # weight-stationary decode: the experts stay split over data on
+        # their hidden dim, so every rank runs the tokens of all the data
+        # ranks (their partial contractions sum over data) and keeps its
+        # own rows
+        B_loc, i = x.shape[0], ax.dp_index()
+        xg = ax.all_gather_dp(x, 0)
+        out, aux = _experts(cfg, p, xg, xg, ax, ws=True)
+        out = ax.psum_tp(out)[i * B_loc:(i + 1) * B_loc]
+        if cfg.dense_residual:
+            out = out + mlp_block(_dense_cfg(cfg), p["dense"], x, ax)
+        return out, aux
+    xv = ax.pvary_tp(x)
+    out, aux = _experts(cfg, p, x, xv, ax, ws=False)
+    if cfg.dense_residual:
+        out = out + _mlp_partial(_dense_cfg(cfg), p["dense"], xv, ax)
+    return ax.psum_tp(out), aux
+
+
+def _experts(cfg: ModelConfig, p, x, xv, ax: AxisCtx, ws: bool):
+    """Routing over x (the same on every TP rank) and this rank's experts
+    over xv (x marked TP-varying) -> (the rank's partial output (B, S, d),
+    before the psum over TP; the aux loss)."""
     B, S, d = x.shape
     T, E, k = B * S, cfg.n_experts, cfg.top_k
     xf = x.reshape(T, d)
@@ -98,21 +133,26 @@ def moe_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
     seg_start = torch.searchsorted(ef_s, torch.arange(E, device=dev))
     rank = torch.arange(T * k, device=dev) - seg_start[ef_s]
     e_loc = p["wi"].shape[0]
-    e_off = ax.tp_index() * e_loc
+    e_off = ax.tp_index() * e_loc           # this rank's first expert
     local = (ef_s >= e_off) & (ef_s < e_off + e_loc) & (rank < C)
     buf_pos = torch.where(local, (ef_s - e_off) * C + rank, e_loc * C)
 
     idx_buf = torch.full((e_loc * C + 1,), T, dtype=torch.long, device=dev)
     idx_buf[buf_pos] = tok_s
     w_buf = torch.zeros((e_loc * C + 1,), dtype=torch.float32, device=dev)
-    w_buf[buf_pos] = wf_s
+    w_buf[buf_pos] = ax.pvary_tp(wf_s)
     idx_buf, w_buf = idx_buf[:e_loc * C], w_buf[:e_loc * C]
 
-    xpad = torch.cat([xf, xf.new_zeros((1, d))], 0)
+    xpad = torch.cat([xv.reshape(T, d), xf.new_zeros((1, d))], 0)
     gathered = xpad[idx_buf].reshape(e_loc, C, d)
-    h = torch.bmm(gathered, ax.all_gather_param(p["wi"], 2))
-    g = torch.bmm(gathered, ax.all_gather_param(p["wg"], 2))
-    y = torch.bmm(F.silu(g) * h, ax.all_gather_param(p["wo"], 1))
+    if ws:
+        h = torch.bmm(gathered, p["wi"])
+        g = torch.bmm(gathered, p["wg"])
+        y = ax.psum_data(torch.bmm(F.silu(g) * h, p["wo"]))
+    else:
+        h = torch.bmm(gathered, ax.all_gather_param(p["wi"], 2))
+        g = torch.bmm(gathered, ax.all_gather_param(p["wg"], 2))
+        y = torch.bmm(F.silu(g) * h, ax.all_gather_param(p["wo"], 1))
     y = y * w_buf.reshape(e_loc, C, 1).to(y.dtype)
 
     # combine: each token's kept slots in ascending expert order (a
@@ -125,18 +165,15 @@ def moe_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
     out = y.new_zeros((T, d))
     for j in range(k):
         out = out + ypad[slot_buf[:, j]]
-    out = out.reshape(B, S, d)
-    if cfg.dense_residual:
-        out = out + _mlp_partial(_dense_cfg(cfg), p["dense"], x, ax)
-    return ax.psum_tp(out), aux
+    return out.reshape(B, S, d), aux
 
 
-def _mlp_partial(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED):
+def _mlp_partial(cfg: ModelConfig, p, xv, ax: AxisCtx = UNSHARDED):
     """``mlp_block`` without the trailing psum (the caller's combine
-    carries it)."""
-    h = x @ ax.all_gather_param(p["wi"], 0)
+    carries it); ``xv``: the block's input, already marked TP-varying."""
+    h = xv @ ax.all_gather_param(p["wi"], 0)
     if cfg.act == "swiglu":
-        h = F.silu(x @ ax.all_gather_param(p["wg"], 0)) * h
+        h = F.silu(xv @ ax.all_gather_param(p["wg"], 0)) * h
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ ax.all_gather_param(p["wo"], 1)

@@ -1,6 +1,6 @@
-"""RWKV6 ("Finch") block: the port of ``repro/models/rwkv.py``, unsharded.
-Attention-free time mix with a data-dependent decay, then a channel mix.
-[arXiv:2404.05892]
+"""RWKV6 ("Finch") block: the port of ``repro/models/rwkv.py``, unsharded
+or with its heads split over the "model" axis. Attention-free time mix
+with a data-dependent decay, then a channel mix. [arXiv:2404.05892]
 
 Time mix, per head of ``rwkv_head_size`` channels, with an (hd x hd)
 fp32 matrix state S (the decode cache: O(1) in the sequence length):
@@ -14,6 +14,14 @@ output projection. The token-shift mixes run in fp32 and are cast back to
 the activations' dtype before each projection. The recurrence is a plain
 loop over time in fp32, as the reference's ``lax.scan`` (no TPU kernel
 stands behind it). The carried token of each mix is ``x[:, -1]``.
+
+On a mesh the r / k / v / g projections are split by head over TP, the
+output projection by rows (a psum over TP closes the block); the decay
+runs replicated over all of d (its LoRA is replicated) and each rank
+slices its heads' block of it. The mixes entering the split projections
+and the full decay are marked TP-varying where they enter. The channel
+mix's k projection is split by column, its v by row (psum), its gate
+``wr`` replicated.
 """
 from __future__ import annotations
 
@@ -96,15 +104,19 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED,
     xf, xxf = x.float(), xx.float()
     xr, xk, xv, xw, xg = (xf + (xxf - xf) * p["mu"][i] for i in range(5))
 
-    r = xr.to(x.dtype) @ ax.all_gather_param(p["wr"], 0)
-    k = xk.to(x.dtype) @ ax.all_gather_param(p["wk"], 0)
-    v = xv.to(x.dtype) @ ax.all_gather_param(p["wv"], 0)
-    g = xg.to(x.dtype) @ ax.all_gather_param(p["wg"], 0)
+    proj = lambda xm, name: (ax.pvary_tp(xm.to(x.dtype))
+                             @ ax.all_gather_param(p[name], 0))
+    r, k, v, g = (proj(xr, "wr"), proj(xk, "wk"), proj(xv, "wv"),
+                  proj(xg, "wg"))
     d_loc = r.shape[-1]
     nh = d_loc // hd
 
+    # the decay over all of d, then this rank's heads' block of it
     w = p["w0"] + torch.tanh(xw @ p["Aw"]) @ p["Bw"]
     w = torch.exp(-torch.exp(w))
+    if ax.tp:
+        off = ax.tp_index() * d_loc
+        w = ax.pvary_tp(w)[..., off:off + d_loc]
     heads = lambda t: t.reshape(B, L, nh, hd).float()
     S0 = (state["S"] if state is not None else
           torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device))
@@ -128,7 +140,8 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED,
     xf, xxf = x.float(), xx.float()
     xk = (xf + (xxf - xf) * p["mu"][0]).to(x.dtype)
     xr = (xf + (xxf - xf) * p["mu"][1]).to(x.dtype)
-    k = torch.square(F.relu(xk @ ax.all_gather_param(p["wk"], 0)))
+    k = torch.square(F.relu(ax.pvary_tp(xk)
+                            @ ax.all_gather_param(p["wk"], 0)))
     kv = ax.psum_tp(k @ ax.all_gather_param(p["wv"], 1))
     r = torch.sigmoid((xr @ p["wr"]).float())
     return (r * kv.float()).to(x.dtype), x[:, -1]

@@ -1,5 +1,6 @@
 """Mamba2-style selective SSM block (zamba2's trunk layer): the port of
-``repro/models/ssm.py``, unsharded.
+``repro/models/ssm.py``, unsharded or with its channels and heads split
+over the "model" axis.
 
 The depthwise causal conv runs on x alone and keeps a (k - 1)-token tail
 as decode state; B and C are one group; the recurrence over time
@@ -10,6 +11,16 @@ is a plain loop in fp32 with the (B, nh, hd, ds) state as the decode
 cache, as the reference's ``lax.scan`` (no TPU kernel stands behind it).
 A = -exp(A_log) and dt = softplus(dt_r + dt_bias). The output passes a
 gated RMSNorm whose mean square runs over all of d_inner.
+
+On a mesh d_inner and the heads split over TP (w_zx, w_dt by column,
+w_out by row with a psum over TP, the per-channel and per-head vectors
+with them). w_zx's columns are [z | x], and ``sharding.specs.shard_tree``
+deals each half on its own, so a rank holds [z_r | x_r] for its channels
+and the sharded block is the unsharded one (the reference's contiguous
+split hands one rank z and the other x: ROADMAP Queue 3). B and C come
+from the replicated ``w_bc`` and enter the rank's heads marked
+TP-varying, as the block's input does; the norm's mean square sums over
+TP and re-enters the rank's channels marked TP-varying.
 """
 from __future__ import annotations
 
@@ -21,7 +32,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, _dtype
 
 
-def mamba_params(gen, cfg: ModelConfig):
+def mamba_params(gen, cfg: ModelConfig, tp: int = 1):
+    """Global param shapes (``tp`` does not change them; the reference
+    takes it too)."""
     dt = _dtype(cfg.param_dtype)
     d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh = di // cfg.ssm_head_dim
@@ -86,11 +99,12 @@ def mamba_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED, state=None):
     and "conv") means decode."""
     B, L, _ = x.shape
     hd, ds = cfg.ssm_head_dim, cfg.ssm_state
-    zx = x @ ax.all_gather_param(p["w_zx"], 0)
+    xv = ax.pvary_tp(x)
+    zx = xv @ ax.all_gather_param(p["w_zx"], 0)             # [z_r | x_r]
     di_loc = zx.shape[-1] // 2
     z, xs = zx[..., :di_loc], zx[..., di_loc:]
-    bc = (x @ p["w_bc"]).float()
-    dt_r = (x @ ax.all_gather_param(p["w_dt"], 0)).float()
+    bc = ax.pvary_tp((x @ ax.all_gather_param(p["w_bc"], 0)).float())
+    dt_r = (xv @ ax.all_gather_param(p["w_dt"], 0)).float()
 
     tail = state["conv"] if state is not None else None
     xs, new_tail = _causal_depthwise_conv(xs, p["conv_w"], p["conv_b"], tail)
@@ -107,7 +121,8 @@ def mamba_block(cfg: ModelConfig, p, x, ax: AxisCtx = UNSHARDED, state=None):
 
     yf = y * F.silu(z.float())
     ss = ax.psum_tp(torch.sum(torch.square(yf), -1, keepdim=True))
-    yf = yf * torch.rsqrt(ss / di_loc + 1e-6) * p["norm"]
+    ms = ax.pvary_tp(ss / (di_loc * ax.tp_size))
+    yf = yf * torch.rsqrt(ms + 1e-6) * p["norm"]
     out = ax.psum_tp(yf.to(x.dtype) @ ax.all_gather_param(p["w_out"], 1))
     new_state = None if state is None else {"h": hN, "conv": new_tail}
     return out, new_state

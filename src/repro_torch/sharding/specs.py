@@ -1,11 +1,12 @@
-"""The federated engine's mesh and layouts over ``torch.distributed``.
+"""Meshes and layouts over ``torch.distributed``: the port of
+``repro/sharding/specs.py``, the federated engine's half and the model's.
 
-The port of the engine half of ``repro/sharding/specs.py``. The reference
-lets GSPMD partition its jitted programs from ``PartitionSpec`` layouts;
-PyTorch has no such partitioner that reaches hand-written kernels, so the
-port runs explicit SPMD: every rank runs the same Python on plain local
-tensors (its block of each layout) and calls the named collectives of
-``EngineMesh`` where GSPMD would insert them.
+The reference lets GSPMD partition its jitted programs from
+``PartitionSpec`` layouts; PyTorch has no such partitioner that reaches
+hand-written kernels, so the port runs explicit SPMD: every rank runs the
+same Python on plain local tensors (its block of each layout) and calls
+the named collectives of ``EngineMesh`` (the model code: of
+``common.axes.AxisCtx``) where GSPMD would insert them.
 
 Axis names are the reference's: "data" shards the client dim (every
 stacked (C, ...) leaf puts its leading dim there), "model" the flattened
@@ -14,8 +15,20 @@ today; the axis exists so the layouts carry over to meshes that split P.
 
 A spec is a tuple with one entry per dim: an axis name (that dim is
 split over the axis in contiguous blocks, rank r of the axis holding
-block r, as GSPMD's row sharding does) or None (whole on every rank).
-``place`` cuts a global tensor (or tree) to this rank's block of a spec.
+block r, as GSPMD's row sharding does), a tuple of axis names (split
+over their product, the first the major one, as ``P(("pod", "data"))``)
+or None (whole on every rank). ``place`` / ``shard_tree`` cut a global
+tensor (or tree) to this rank's block of a spec; ``gather_tree`` puts the
+ranks' blocks back together.
+
+The model half (``param_spec``, ``tree_param_specs``, ``batch_specs``,
+``cache_specs``, ``serving_index_specs``) maps every leaf of an LM's
+parameter, batch and decode-cache trees to its spec by its path, with the
+reference's rules: Megatron tensor parallel over "model" (q / k / v and
+the MLP's input projections split by column, the output projections by
+row, experts and SSM heads over it, the vocab of the embedding and the
+head), FSDP over "data" for the configs that ask for it, batches over
+"data" (and "pod"), decode caches by sequence over "model".
 
 C is padded to Cp, a multiple of the data-axis size
 (``padded_clients``); rows [C, Cp) are padding (``pad_client_rows`` in
@@ -39,7 +52,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import (leaf_paths, tree_from_paths,
+                                       tree_leaves, tree_map)
+from repro_torch.configs.base import ModelConfig
 
 ENGINE_AXES = ("data", "model")
 # every process group of the port waits at most this long in a collective:
@@ -105,6 +120,7 @@ class EngineMesh:
             groups, device.type, mesh=layout, mesh_dim_names=names)
         self.coords = {n: self.device_mesh.get_local_rank(n) for n in names}
         self.shape = dict(shape)
+        self._axis_groups = {n: self.device_mesh.get_group(n) for n in names}
 
     def __repr__(self):
         return f"EngineMesh({self.shape}, rank={self.rank}, {self.device})"
@@ -127,13 +143,18 @@ class EngineMesh:
         return self.shape[axis]
 
     def group(self, axis: str):
-        """This rank's process group along ``axis``."""
-        return self.device_mesh.get_group(axis)
+        """This rank's process group along ``axis`` (looked up once: the
+        model code asks for it at every collective)."""
+        return self._axis_groups[axis]
 
-    def block(self, n: int, axis: str = "data") -> Tuple[int, int]:
+    def block(self, n: int, axis="data") -> Tuple[int, int]:
         """[lo, hi): this rank's contiguous block of ``n`` (a multiple of
-        the axis size) along ``axis``."""
-        return row_block(n, self.shape[axis], self.coords[axis])
+        the axis size) along ``axis``, or along a tuple of axes (their
+        product, the first the major one)."""
+        d, r = 1, 0
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            d, r = d * self.shape[a], r * self.shape[a] + self.coords[a]
+        return row_block(n, d, r)
 
     # ---- collectives ---------------------------------------------------------
     def all_gather_rows(self, t: torch.Tensor, axis: str = "data"):
@@ -211,15 +232,19 @@ def stacked_tree_specs(tree, *, client_axis: str = "data"):
                     tree)
 
 
-def place(t: torch.Tensor, spec: Sequence[Optional[str]], mesh: EngineMesh,
-          device=None) -> torch.Tensor:
+def place(t: torch.Tensor, spec: Sequence, mesh: EngineMesh,
+          device=None, parts: int = 1) -> torch.Tensor:
     """This rank's block of the global tensor ``t`` under ``spec`` (the
     counterpart of ``jax.device_put`` with a ``NamedSharding``), moved to
-    ``device`` (the mesh's by default)."""
+    ``device`` (the mesh's by default). ``parts`` > 1: the last dim is
+    that many equal parts side by side, and the rank takes its block of
+    each (``_PARTED``)."""
     for dim, axis in enumerate(spec):
         if axis is not None:
-            lo, hi = mesh.block(t.shape[dim], axis)
-            t = t.narrow(dim, lo, hi - lo)
+            k = parts if dim == t.dim() - 1 else 1
+            t = t.unflatten(dim, (k, -1))
+            lo, hi = mesh.block(t.shape[dim + 1], axis)
+            t = t.narrow(dim + 1, lo, hi - lo).flatten(dim, dim + 1)
     return t.contiguous().to(mesh.device if device is None else device)
 
 
@@ -227,6 +252,54 @@ def place_tree(tree, spec_tree, mesh: EngineMesh, device=None):
     """``place`` over corresponding leaves of a tree and its spec tree (the
     counterpart of ``named_shardings`` + ``jax.device_put``)."""
     return tree_map(lambda t, s: place(t, s, mesh, device), tree, spec_tree)
+
+
+# leaves whose last dim is equal parts side by side, each split over its
+# axis on its own: mamba's w_zx (d, 2 d_inner) is [z | x], and a rank's
+# channels need their z and x columns both, [z_r | x_r]. (The reference
+# splits the concatenation by contiguous columns, so that at TP 2 one rank
+# holds z and the other x: ROADMAP Queue 3.) The spec stays the
+# reference's; the split and the gather deal the parts.
+_PARTED = {("mamba", "w_zx"): 2}
+
+
+def _parts_tree(tree):
+    """The parts of each leaf of ``tree``, by its path's last two keys."""
+    paths = leaf_paths(tree)
+    return tree_from_paths(paths, [
+        _PARTED.get(tuple(str(k) for k in p[-2:]), 1) for p in paths])
+
+
+def shard_tree(tree, spec_tree, mesh: EngineMesh):
+    """A global tree -> this rank's shards under ``spec_tree``, on the
+    mesh's device (meta tensors stay meta)."""
+    return tree_map(lambda t, s, k: place(
+        t, s, mesh, t.device if t.is_meta else None, k), tree, spec_tree,
+        _parts_tree(tree))
+
+
+def _gather_dim(t: torch.Tensor, dim: int, axis, mesh: EngineMesh):
+    for a in reversed(axis if isinstance(axis, tuple) else (axis,)):
+        t = mesh.all_gather_rows(t.movedim(dim, 0), a).movedim(0, dim)
+    return t.contiguous()
+
+
+def gather_tree(tree, spec_tree, mesh: EngineMesh):
+    """Inverse of ``shard_tree``: every rank's shards -> the global tree,
+    on every rank (a collective: every rank of the mesh calls it)."""
+    def one(t, spec, parts):
+        t = t.detach()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                g = _gather_dim(t, dim, axis, mesh)
+                if parts > 1 and dim == t.dim() - 1:
+                    # the ranks' [z_r | x_r] blocks -> [z | x]
+                    n = g.shape[dim] // t.shape[dim]
+                    g = g.unflatten(dim, (n, parts, -1)).transpose(
+                        dim, dim + 1).flatten(dim, dim + 2)
+                t = g
+        return t.contiguous()
+    return tree_map(one, tree, spec_tree, _parts_tree(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +339,160 @@ def stacked_eval_theta_specs(theta, *, client_axis: str = "data"):
     """Spec tree of a stacked (C, ...) eval-time head: client rows over
     ``client_axis``, everything else whole."""
     return stacked_tree_specs(theta, client_axis=client_axis)
+
+
+# ---------------------------------------------------------------------------
+# the model half: parameters, batches and decode caches of an LM
+# ---------------------------------------------------------------------------
+
+# stacked-subtree prefixes (leading layer dim)
+_STACKED = ("layers", "adaptive_layers", "enc_layers")
+
+
+def _path_str(path) -> str:
+    """A leaf's key path (``common.pytree.leaf_paths``) as "a/b/c"."""
+    return "/".join(str(p) for p in path)
+
+
+def param_spec(cfg: ModelConfig, path: str, shape, *, tp_axis="model",
+               fsdp_axis: Optional[str] = "data", tp_size: int = 16) -> Spec:
+    """The spec of one parameter leaf, identified by its path string. The
+    path may carry any prefix (trainable/alpha/..., optimizer m / v, B):
+    the rules match its trailing components."""
+    fs = fsdp_axis if cfg.fsdp else None
+    parts = path.split("/")
+    stacked = any(s in parts for s in _STACKED)
+    kv_split = cfg.n_kv_heads >= tp_size   # else replicated, group-sliced
+
+    def lead(*spec):
+        return ((None,) + spec) if stacked else spec
+
+    def whole():
+        return lead(*([None] * (len(shape) - (1 if stacked else 0))))
+
+    name = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+
+    if parent in ("attn", "cross"):
+        if name == "wq":
+            return lead(fs, tp_axis)
+        if name in ("wk", "wv"):
+            return lead(fs, tp_axis) if kv_split else lead(fs, None)
+        if name == "wo":
+            return lead(tp_axis, fs)
+        if name == "bq":
+            return lead(tp_axis)
+        if name in ("bk", "bv"):
+            return lead(tp_axis) if kv_split else lead(None)
+        if name in ("qnorm", "knorm"):
+            return lead(None)
+    if parent in ("mlp", "dense"):            # dense MLP, MoE dense residual
+        if name in ("wi", "wg"):
+            return lead(fs, tp_axis)
+        if name == "wo":
+            return lead(tp_axis, fs)
+    if parent == "moe":
+        if name == "router":
+            return lead(None, None)
+        if name in ("wi", "wg"):                # (E, d, f)
+            return lead(tp_axis, None, fs)
+        if name == "wo":                        # (E, f, d)
+            return lead(tp_axis, fs, None)
+    if parent == "mamba":
+        if name in ("w_zx", "w_dt"):
+            return lead(fs, tp_axis)
+        if name == "w_bc":
+            return lead(fs, None)
+        if name in ("dt_bias", "A_log", "D", "conv_b", "norm"):
+            return lead(tp_axis)
+        if name == "conv_w":
+            return lead(None, tp_axis)
+        if name == "w_out":
+            return lead(tp_axis, fs)
+    if parent == "time":                        # rwkv time mix
+        if name in ("wr", "wk", "wv", "wg"):
+            return lead(fs, tp_axis)
+        if name == "wo":
+            return lead(tp_axis, fs)
+        if name in ("u", "ln_scale", "ln_bias"):
+            return lead(tp_axis)
+        if name in ("mu", "w0", "Aw", "Bw"):
+            return whole()
+    if parent == "chan":                        # rwkv channel mix
+        if name == "wk":
+            return lead(fs, tp_axis)
+        if name == "wv":
+            return lead(tp_axis, fs)
+        if name in ("wr", "mu"):
+            return whole()
+    if parent == "embed" and name == "table":
+        return (tp_axis, None)
+    if parent == "head" and name == "w":
+        return (None, tp_axis)
+    # norms, scalars, anything else: replicated
+    return (None,) * len(shape)
+
+
+def tree_param_specs(cfg: ModelConfig, tree, **kw):
+    """The spec tree of a parameter tree (of tensors, meta ones too)."""
+    return tree_from_paths(leaf_paths(tree), [
+        param_spec(cfg, _path_str(p), t.shape, **kw)
+        for p, t in zip(leaf_paths(tree), tree_leaves(tree))])
+
+
+def batch_axes(global_batch: int, dp: int, multi_pod: bool):
+    """The axes the batch dim splits over: ("pod", "data") or "data", or
+    None (replicated, e.g. long_500k's batch of 1) when they do not divide
+    it."""
+    axes = ("pod", "data") if multi_pod else ("data",)
+    total = dp * (2 if multi_pod else 1)
+    if global_batch % total == 0:
+        return axes if multi_pod else "data"
+    if global_batch % dp == 0:                  # over data alone
+        return "data"
+    return None
+
+
+def batch_specs(cfg: ModelConfig, batch_tree, global_batch: int, dp: int,
+                multi_pod: bool):
+    """Every batch leaf split over ``batch_axes`` on its leading dim."""
+    b = batch_axes(global_batch, dp, multi_pod)
+    return tree_map(lambda t: (b,) + (None,) * (len(t.shape) - 1),
+                    batch_tree)
+
+
+def cache_specs(cfg: ModelConfig, cache_tree, global_batch: int, dp: int,
+                multi_pod: bool, *, tp_axis="model"):
+    """Decode caches: (L, B, S, KV, hd) k / v by batch over data and by
+    SEQUENCE over model (the flash-decoding layout); the recurrent states
+    by heads / channels over model."""
+    b = batch_axes(global_batch, dp, multi_pod)
+    rules = {"k": (None, b, tp_axis, None, None),
+             "v": (None, b, tp_axis, None, None),
+             "k_scale": (None, b, tp_axis, None),
+             "v_scale": (None, b, tp_axis, None),
+             "h": (None, b, tp_axis, None, None),        # mamba
+             "conv": (None, b, None, tp_axis),
+             "S": (None, b, tp_axis, None, None),        # rwkv
+             "x_att": (None, b, None), "x_ffn": (None, b, None)}
+    return tree_from_paths(leaf_paths(cache_tree), [
+        rules.get(p[-1], (None,) * len(t.shape))
+        for p, t in zip(leaf_paths(cache_tree), tree_leaves(cache_tree))])
+
+
+def serving_index_specs(*, client_axis: str = "data"):
+    """Layouts of the serving index's device image (``serving/``): every
+    resident array (query batches, the flat int8 image, the IVF bucket
+    image) leads with the client dim, split over ``client_axis``; each
+    rank serves its own clients' galleries end to end with no
+    cross-client collective."""
+    def row(nd):
+        return client_row_spec(nd, client_axis=client_axis)
+
+    return {"qp": row(3), "qmask": row(2), "bn_mu": row(2), "bn_sd": row(2),
+            "gq": row(3), "gscale": row(2), "gn2": row(2), "gids": row(2),
+            "gf": row(3), "cent": row(3), "cn2": row(2), "bq": row(4),
+            "pack": row(4), "binv": row(3)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Adam and global-norm clipping over stacked client parameters.
+"""Adam, SGD and global-norm clipping over stacked client parameters.
 
 The port of ``adam``, ``apply_updates`` and ``clip_by_global_norm`` in
 ``repro/train/optimizer.py`` as the stacked engine uses them there (inside
@@ -69,6 +69,19 @@ def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
             return u
 
         return tree_map(upd, m, v, params), {"m": m, "v": v, "count": count}
+
+    return Optimizer(init, update)
+
+
+def sgd(lr=1e-2) -> Optimizer:
+    """The reference's ``sgd`` without momentum: the update is -lr * g
+    and the state empty. Elementwise, so a stack of clients or of one
+    takes it as it is."""
+    def init(params):
+        return {}
+
+    def update(grads, state, params=None):
+        return tree_map(lambda g: -lr * g, grads), state
 
     return Optimizer(init, update)
 

@@ -1,6 +1,6 @@
 """LM trainer: the FedSTIL split step at architecture scale (frozen trunk;
 the adaptive last block + head trained as theta = B ⊙ alpha + A), the port
-of ``repro/train/trainer.py``, unsharded.
+of ``repro/train/trainer.py``, unsharded or on a mesh.
 
 Gradients flow only into (alpha, A): the trunk's parameters and the
 embedding do not require them, so autograd records nothing there and its
@@ -14,6 +14,25 @@ count, one global norm), run as a stack of one model on
 therefore holds (1, ...) moments and a (1,) count. The tying term's
 ``|a|`` is ``where(a >= 0, a, -a)``, whose slope at 0 is +1 as JAX's
 ``abs`` gives it (``core/tying.py``): A is exactly 0 on the first step.
+
+On a mesh (an ``AxisCtx`` that names axes; ``launch/steps.py`` builds
+it) every rank computes on its local shards, and a step's gradient is the
+unsharded step's on every layout:
+
+  * the loss is the mean over the data axes, taken inside the
+    differentiated function (``pmean_dp``), as the reference does;
+  * each param leaf enters the model marked varying over the data axes
+    its layout does not split (``pvary``): its gradient is summed over
+    them, the sum JAX's ``shard_map`` inserts on a replicated param (an
+    FSDP leaf's is the reduce-scatter of its gather);
+  * the tying term is an l1 over the local shards, added outside that
+    mark, so its gradient (the sign) is neither summed over data nor
+    scales the cross-entropy's. The reference's sharded step adds it to
+    a TP-invariant loss, which makes the loss TP-varying and sums the
+    cross-entropy's cotangent over TP: its gradient comes out x TP there
+    (ROADMAP Queue 3; pinned by ``tests/test_torch_tp.py``);
+  * no global-norm clip under TP (``grad_norm`` reports 0), as the
+    reference: the leaves are TP-split, and a local norm would be wrong.
 """
 from __future__ import annotations
 
@@ -30,6 +49,7 @@ from repro_torch.core.adaptive import (combine, init_adaptive, merge_params,
                                        split_params)
 from repro_torch.core.tying import _abs
 from repro_torch.models import lm
+from repro_torch.sharding.specs import tree_param_specs
 from repro_torch.train.optimizer import (adam, apply_updates,
                                          clip_by_global_norm)
 
@@ -61,20 +81,45 @@ def init_opt_state(optimizer, params):
     return optimizer.init(_stack1(params))
 
 
-def _opt_step(optimizer, params, grads, opt_state):
-    """Global-norm clip to 1.0, one optimizer update, the new params:
-    -> (params, opt_state, grad norm before clipping)."""
-    grads, gnorm = clip_by_global_norm(_stack1(grads), 1.0)
+def _opt_step(optimizer, params, grads, opt_state, ax: AxisCtx):
+    """Global-norm clip to 1.0 (unsharded and the dp layout: not under
+    TP), one optimizer update, the new params: -> (params, opt_state, grad
+    norm before clipping, 0 under TP)."""
+    grads = _stack1(grads)
+    if ax.tp is None:
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        gnorm = gnorm[0]
+    else:
+        gnorm = torch.zeros((), device=tree_leaves(grads)[0].device)
     updates, opt_state = optimizer.update(grads, opt_state, _stack1(params))
-    return apply_updates(params, _unstack1(updates)), opt_state, gnorm[0]
+    return apply_updates(params, _unstack1(updates)), opt_state, gnorm
 
 
-def init_train_state(cfg: ModelConfig, gen: torch.Generator,
+def _data_varying(cfg: ModelConfig, tree, ax: AxisCtx):
+    """Each leaf marked varying over the data axes its layout does not
+    split (all of them, but "data" for an FSDP leaf)."""
+    axes = ax.dp_axes
+    if not axes:
+        return tree
+    if not ax.fsdp:
+        return tree_map(lambda t: ax.pvary(t, axes), tree)
+
+    def one(t, spec):
+        split = {a for e in spec if e
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        return ax.pvary(t, tuple(a for a in axes if a not in split))
+
+    return tree_map(one, tree, tree_param_specs(cfg, tree,
+                                                tp_size=ax.tp_size))
+
+
+def init_train_state(cfg: ModelConfig, gen: torch.Generator, tp: int = 1,
                      optimizer=None) -> TrainState:
-    """Random weights from ``gen`` (on its device), split into the frozen
-    trunk and the adaptive slice, which starts at B = theta0, alpha = 1,
-    A = 0."""
-    params = lm.init_params(cfg, gen)
+    """Random weights from ``gen`` (on its device; ``layers.SHAPES_ONLY``:
+    meta tensors), q heads padded for ``tp``, split into the frozen trunk
+    and the adaptive slice, which starts at B = theta0, alpha = 1, A =
+    0."""
+    params = lm.init_params(cfg, gen, tp=tp)
     return train_state_from_params(cfg, params, optimizer)
 
 
@@ -94,11 +139,12 @@ def adaptive_loss_and_grads(cfg: ModelConfig, frozen, B, trainable, batch,
     """The split step's objective and its gradient in (alpha, A):
     -> ((loss, ce, aux), grads shaped as ``trainable``). The reported
     loss excludes the tying term, as in the reference. ``window > 0``:
-    sliding-window attention."""
+    sliding-window attention. On a mesh: local shards in, the rank's
+    shards of the unsharded gradient out."""
     paths = leaf_paths(trainable)
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(trainable)]
     tr = tree_from_paths(paths, leaves)
-    theta = combine(B, tr["alpha"], tr["A"])
+    theta = _data_varying(cfg, combine(B, tr["alpha"], tr["A"]), ax)
     total, (ce, aux) = lm.loss_fn(cfg, merge_params(frozen, theta), batch,
                                   ax, window=window)
     total = ax.pmean_dp(total)
@@ -122,7 +168,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None, ax: AxisCtx = UNSHARDED,
             cfg, frozen, B, trainable, batch, ax, window=window,
             tie_lambda=tie_lambda)
         trainable, opt_state, gnorm = _opt_step(opt, trainable, grads,
-                                                opt_state)
+                                                opt_state, ax)
         return trainable, opt_state, {"loss": loss, "ce": ce, "moe_aux": aux,
                                       "grad_norm": gnorm}
 
@@ -139,11 +185,12 @@ def make_full_train_step(cfg: ModelConfig, optimizer=None,
     def train_step(params, opt_state, batch):
         paths = leaf_paths(params)
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        total, (ce, aux) = lm.loss_fn(cfg, tree_from_paths(paths, leaves),
-                                      batch, ax, window=window)
+        p = _data_varying(cfg, tree_from_paths(paths, leaves), ax)
+        total, (ce, aux) = lm.loss_fn(cfg, p, batch, ax, window=window)
         loss = ax.pmean_dp(total)
         grads = tree_from_paths(paths, list(torch.autograd.grad(loss, leaves)))
-        params, opt_state, gnorm = _opt_step(opt, params, grads, opt_state)
+        params, opt_state, gnorm = _opt_step(opt, params, grads, opt_state,
+                                             ax)
         return params, opt_state, {"loss": loss.detach(),
                                    "ce": ax.pmean_dp(ce).detach(),
                                    "grad_norm": gnorm}

@@ -675,7 +675,7 @@ def test_fed_round_launcher_runs_both_demos_traced(tmp_path):
 
 
 def test_fed_round_launcher_refuses_arch():
-    with pytest.raises(NotImplementedError, match="LM scale-out"):
+    with pytest.raises(NotImplementedError, match="slice 10b"):
         FR.main(["--arch", "qwen1.5-0.5b", "--device", "cpu"])
 
 
