@@ -207,9 +207,10 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  FedWeIT (a) l1 1e-4 / l2 1e-6 and (b) 5e-6 / 1e-3 on the
                  host engine, on the paper's bench (C=5, T=6, the edge
                  model's widths) for 6 rounds (one a task; the protocol's
-                 60 cut), evaluated every 2 rounds, each on the card and
-                 again on the CPU: per-eval-round mAP / R1 / forgetting,
-                 every eval round's mAP / R1 card vs CPU within 1e-4,
+                 60 cut), evaluated every 2 rounds, on the card; then 2
+                 rounds (tasks 1-2) of each on the card and on the CPU:
+                 per-eval-round mAP / R1 / forgetting, every eval round's
+                 mAP / R1 card vs CPU within 1e-4,
                  C2S / S2C / storage bytes equal (FedWeIT: up to the
                  exact ties at its top-30% threshold, counted per
                  upload), round wall and stage ms (medians); FedProx also
@@ -276,6 +277,19 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  (|loss delta| <= 2e-2, relative L2 <= 2e-2); one more step
                  under torch.profiler: device ms by kernel group, idle
                  share
+     lm_roofline lm_train's step priced against the H100's roofline
+                 (``sharding/analysis.py``): one step counted on the card
+                 (``OpCounter``; flash 27 / 1 / 1 / 1, counts zeroed just
+                 before) and on meta tensors, FLOPs equal; three timed
+                 steps' median beside t_compute (counted FLOPs / 989
+                 TFLOP/s) and t_memory (the analytic model's HBM bytes /
+                 3.35 TB/s), the roofline share and the MFU; the step's
+                 peak above what was held beside the meta estimate; a
+                 bf16 8192^3 mm's rate and a 1 GiB copy's bandwidth
+                 beside the constants; ``python -m
+                 repro_torch.launch.dryrun`` on qwen3-1.7b train_4k at 16 x
+                 16 and 2 x 16 x 16 (started in the background at the
+                 script's start) ending with failures=0
      lm_train_reduced: the GQA-reduced config (R = 2, hd 64, fp32) trained
                  10 steps on the card and on the CPU, B=4 x S=200, per-step
                  loss within 1e-4, every stage on the FMA kernels; then one
@@ -329,11 +343,14 @@ then the script's wall time, the ``{"kernels": [...]}`` line, the
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -416,7 +433,9 @@ from repro_torch.serving import (ContinuousBatcher, GalleryIndex,  # noqa: E402
 from repro_torch.serving.engine import (featurize, rank_shortlist,  # noqa: E402
                                         rank_topk)
 from repro_torch.serving.index import index_features  # noqa: E402
+from repro_torch.sharding import analysis as AN  # noqa: E402
 from repro_torch.sharding import specs as SH  # noqa: E402
+from repro_torch.sharding.analytic import analytic_roofline  # noqa: E402
 from repro_torch.train.optimizer import (adam, apply_updates,  # noqa: E402
                                          cosine_schedule, sgd)
 from repro_torch.train.trainer import (  # noqa: E402
@@ -539,8 +558,12 @@ VARIANT_ROUNDS = 4                      # round_host_variants' runs
 # (tasks 1-4) for lm_scaleout
 INT8_CPU_ROUNDS = 4
 # round_zoo: the Table II baselines at benchmarks/common.py's epochs, one
-# round a task (the protocol's 60 rounds cut to 6), evaluated every 2
+# round a task (the protocol's 60 rounds cut to 6), evaluated every 2; the
+# card-vs-CPU comparison runs both at ZOO_CPU_ROUNDS (tasks 1-2, one eval
+# round: the 6-round CPU reruns took 21 s on the card's host, cut for
+# lm_roofline)
 ZOO_ROUNDS, ZOO_EPOCHS, ZOO_EVAL_EVERY = 6, 4, 2
+ZOO_CPU_ROUNDS = 2
 # every eval round's mAP / R1: card vs CPU (the same code on the same
 # weights; at most 5.7e-7 measured on the H100) and FedProx host vs stacked
 # on the card (at most 1.5e-6)
@@ -639,8 +662,8 @@ KERNELS = {
         "fn": adaptive_combine_tree,
         "paths": ("round_fedstil", "round_fedstil_codec",
                   "round_fedstil_host", "round_fedstil_codec_int8",
-                  "round_sharded", "lm_train", "lm_scaleout",
-                  "lm_families"),
+                  "round_sharded", "lm_train", "lm_roofline",
+                  "lm_scaleout", "lm_families"),
         "source": "src/repro_torch/kernels/csrc/adaptive_combine.cu",
         "replaces": "src/repro/kernels/adaptive_combine.py:36"},
     "batched_cluster_dist": {
@@ -700,25 +723,26 @@ KERNELS = {
     # forwards and steps on the tensor cores)
     "flash_attention_fwd": {
         "fn": flash_attention_fwd,
-        "paths": ("lm_train", "lm_decode", "lm_scaleout", "lm_families"),
+        "paths": ("lm_train", "lm_roofline", "lm_decode", "lm_scaleout",
+                  "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention_fwd_lse": {
         "fn": flash_attention_fwd_lse,
-        "paths": ("lm_train", "lm_scaleout", "lm_families"),
+        "paths": ("lm_train", "lm_roofline", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:171"},
     "flash_attention_dq": {
         "fn": flash_attention_dq,
-        "paths": ("lm_train", "lm_scaleout", "lm_families"),
+        "paths": ("lm_train", "lm_roofline", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:209"},
     "flash_attention_dkv": {
         "fn": flash_attention_dkv,
-        "paths": ("lm_train", "lm_scaleout", "lm_families"),
+        "paths": ("lm_train", "lm_roofline", "lm_scaleout", "lm_families"),
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
@@ -3137,6 +3161,14 @@ def path_operand_errs(seen):
         "adaptive_combine": combine_tree_err,
         "batched_quantize": lambda x: quantize_err(x, 256),
         "batched_dequantize": lambda q, sc: dequantize_err(q, sc, 256)}
+    plain = {"batched_pairwise_dist": REF.batched_pairwise_dist_ref,
+             "kl_similarity": REF.kl_similarity_ref,
+             "fused_relevance_aggregate": REF.fused_relevance_aggregate_ref,
+             "normalize_relevance": REF.normalized_relevance_ref,
+             "relevance_aggregate": REF.relevance_aggregate_ref,
+             "adaptive_combine": REF.adaptive_combine_tree_ref,
+             "batched_quantize": REF.batched_quantize_ref,
+             "batched_dequantize": REF.batched_dequantize_ref}
     peak = peaks(torch.cuda.get_device_name(0))
     out = {}
     for n in (n for n in checks if n in seen):
@@ -3151,6 +3183,7 @@ def path_operand_errs(seen):
                   else [list(a.shape) for a in args],
                   "max_abs_err": checks[n](*args),
                   "ms": time_ms(lambda: KERNELS[n]["fn"](*args, **kw)),
+                  "plain_ms": time_ms(lambda: plain[n](*args, **kw)),
                   "bound_ms": b[0], "bound_by": b[1]}
         if n == "adaptive_combine":
             out[n]["library_ms"] = time_ms(
@@ -3391,8 +3424,19 @@ def codec_path_errs(seen, prog):
                packed, k=k, group=g, kg=kg),
            "batched_topk_unpack": lambda: batched_topk_unpack(
                vals, idx, p=p, group=g, kg=kg)}
+    one_plain = {
+        "batched_topk_pack": lambda: REF.batched_topk_pack_ref(
+            x, group=g, kg=kg),
+        "batched_idx_bitpack": lambda: REF.batched_idx_bitpack_ref(
+            idx, group=g, kg=kg),
+        "batched_idx_bitunpack": lambda: REF.batched_idx_bitunpack_ref(
+            packed, k=k, group=g, kg=kg),
+        "batched_topk_unpack": lambda: REF.batched_topk_unpack_ref(
+            vals, idx, p=p, group=g, kg=kg)}
     if int8:
         one["batched_dequantize"] = lambda: batched_dequantize(
+            q, sc, chunk=prog.chunk)
+        one_plain["batched_dequantize"] = lambda: REF.batched_dequantize_ref(
             q, sc, chunk=prog.chunk)
     peak = peaks(torch.cuda.get_device_name(0))
     got = decode()
@@ -3431,7 +3475,8 @@ def codec_path_errs(seen, prog):
                                                  "batched_idx_bitpack")),
                         (dec, parts)):
         out[name]["one_stage"] = {
-            n: {"ms": time_ms(one[n]), "bound_ms": one_bound(n)}
+            n: {"ms": time_ms(one[n]), "plain_ms": time_ms(one_plain[n]),
+                "bound_ms": one_bound(n)}
             for n in names}
     return out
 
@@ -4009,12 +4054,12 @@ def zoo_strategies(cfg):
             "fedweit_b": weit(5e-6, 1e-3)}
 
 
-def zoo_run(bench, device, make, engine="host"):
-    """One traced zoo run of ZOO_ROUNDS from SEED's weights -> (strategy,
+def zoo_run(bench, device, make, engine="host", rounds=ZOO_ROUNDS):
+    """One traced zoo run of ``rounds`` from SEED's weights -> (strategy,
     result, wall s)."""
     strategy = make()
     t0 = time.perf_counter()
-    res = run_simulation(strategy, bench, rounds=ZOO_ROUNDS,
+    res = run_simulation(strategy, bench, rounds=rounds,
                          eval_every=ZOO_EVAL_EVERY, seed=SEED, engine=engine,
                          device=device, trace=obs.Tracer())
     return strategy, res, time.perf_counter() - t0
@@ -4041,7 +4086,7 @@ def zoo_bytes(name, card_run, cpu_run):
     out.update(nnz=[na, nb], ties=[sum(sa.ties), sum(sb.ties)], k=sa.k,
                uploads=len(sa.nnz),
                uploads_nnz_differ=sum(a != b for a, b in zip(sa.nnz, sb.nnz)))
-    out["equal"] = (len(sa.nnz) == len(sb.nnz) == N_CLIENTS * ZOO_ROUNDS
+    out["equal"] = (len(sa.nnz) == len(sb.nnz) == N_CLIENTS * ZOO_CPU_ROUNDS
                     and sa.k == sb.k
                     and all(n == sa.k + t for n, t in zip(sa.nnz, sa.ties))
                     and all(n == sb.k + t for n, t in zip(sb.nnz, sb.ties))
@@ -4059,10 +4104,11 @@ def phase_round_zoo(dev, card):
     initial weights, on the paper's bench (C = 5, T = 6, the edge model's
     widths), ZOO_ROUNDS rounds: EWC, MAS, iCaRL, FedProx, FedCurv and
     FedWeIT (a) and (b) on the host engine, FedProx also on the stacked
-    engine on the card. Card vs CPU: bytes (``zoo_bytes``), every eval
-    round's mAP / R1 within ZOO_TOL; FedProx host vs stacked the same, with
-    equal bytes; batched_pairwise_dist once an evaluation and no other
-    kernel, held against its plain version on its last on-path operands."""
+    engine on the card. Card vs CPU, both at ZOO_CPU_ROUNDS: bytes
+    (``zoo_bytes``), every eval round's mAP / R1 within ZOO_TOL; FedProx
+    host vs stacked on the card the same, with equal bytes;
+    batched_pairwise_dist once an evaluation and no other kernel, held
+    against its plain version on its last on-path operands."""
     bench = FederatedReIDBenchmark(seed=SEED)
     cfg = EM.EdgeModelConfig(n_classes=bench.n_classes)
     makes = zoo_strategies(cfg)
@@ -4075,20 +4121,31 @@ def phase_round_zoo(dev, card):
     n_eval = len(stacked[1].rounds)
     expect = {n: 0 for n in KERNELS}
     expect["batched_pairwise_dist"] = (len(card_runs) + 1) * n_eval
+    # card vs CPU at ZOO_CPU_ROUNDS (a prefix of the card path: one round a
+    # task at either depth)
+    short = {n: zoo_run(bench, dev, m, rounds=ZOO_CPU_ROUNDS)
+             for n, m in makes.items()}
     t0 = time.perf_counter()
-    cpu_runs = {n: zoo_run(bench, "cpu", m) for n, m in makes.items()}
+    cpu_runs = {n: zoo_run(bench, "cpu", m, rounds=ZOO_CPU_ROUNDS)
+                for n, m in makes.items()}
     cpu_s = time.perf_counter() - t0
 
     keys = ("mAP", "R1", "forgetting_mAP")
     runs, tables = {}, {}
     for name, (strat, res, wall_s) in card_runs.items():
+        _, res_short, _ = short[name]
         _, res_cpu, _ = cpu_runs[name]
-        check(len(res.rounds) == n_eval == len(res_cpu.rounds),
-              f"round_zoo {name}: {len(res.rounds)} eval rounds")
+        check(len(res.rounds) == n_eval
+              and [r["round"] for r in res_short.rounds]
+              == [r["round"] for r in res_cpu.rounds]
+              == [r["round"] for r in res.rounds
+                  if r["round"] < ZOO_CPU_ROUNDS] != [],
+              f"round_zoo {name}: eval rounds {len(res.rounds)}, card "
+              f"{res_short.rounds} vs CPU {res_cpu.rounds}")
         for r in res.rounds:
             check(all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0
                       for k in keys), f"round_zoo {name}: bad metrics {r}")
-        per_round, final = metric_deltas(res.rounds, res_cpu.rounds)
+        per_round, final = metric_deltas(res_short.rounds, res_cpu.rounds)
         stages = ("local_train", "server", "apply", "eval")
         runs[name] = {
             "eval_rounds": [r["round"] for r in res.rounds],
@@ -4097,7 +4154,7 @@ def phase_round_zoo(dev, card):
             "card_vs_cpu": {"largest_per_round_delta": per_round,
                             "final_abs_delta": final,
                             "tolerance": ZOO_TOL},
-            "bytes": zoo_bytes(name, card_runs[name], cpu_runs[name]),
+            "bytes": zoo_bytes(name, short[name], cpu_runs[name]),
             "round_wall_ms_median": float(np.median(
                 [s["wall_ms"] for s in res.stage_ms])),
             "stage_ms_median": {k: float(np.median(
@@ -4122,6 +4179,7 @@ def phase_round_zoo(dev, card):
                                    "fedprox_stacked": st_res.stage_ms}))
     emit({"phase": "round_zoo", "card": card, "clients": N_CLIENTS,
           "tasks": bench.n_tasks, "rounds": ZOO_ROUNDS,
+          "card_vs_cpu_rounds": ZOO_CPU_ROUNDS,
           "epochs": ZOO_EPOCHS, "eval_every": ZOO_EVAL_EVERY, "runs": runs,
           "fedprox_host_vs_stacked": fedprox_stacked,
           "cpu_reruns_s": cpu_s,
@@ -4728,6 +4786,187 @@ FAMILY_DECODE_BATCH, FAMILY_DECODE_SLOTS = 8, 4096
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 32
 FAMILY_RED_STEPS, FAMILY_RED_BATCH, FAMILY_RED_SEQ = 3, 2, 32
 FAMILY_RED_TOL = 1e-4                   # lm_train_reduced's bar
+
+
+# lm_roofline: lm_train's split step priced against the H100's roofline
+# (``sharding/analysis.py``'s constants): its FLOPs counted on the card (the
+# flash kernels launched) and on meta tensors (the same code, no card), its
+# median ms beside t_compute and t_memory, its peak beside the meta
+# estimate; the card's own bf16 matmul rate and copy bandwidth beside the
+# constants; and ``launch/dryrun.py`` on lm_train's arch (both production
+# meshes), started in the background at the script's start
+ROOFLINE_MM = 8192                       # bf16 (n, n) x (n, n) torch.mm
+ROOFLINE_COPY_BYTES = 1 << 30            # one device-to-device copy
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_ARGS = ("--arch", LM_ARCH, "--shape", "train_4k", "--multi-pod",
+               "both")
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` on lm_train's arch in a
+    subprocess (host work only: meta tensors in a fake world), killed at
+    the script's exit -> (the process, its start time)."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    # one thread: meta tensors do no arithmetic, and the CPU reruns share
+    # the host's cores
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", str(DRYRUN_OUT)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def join_dryrun(started):
+    """The dryrun's records (it must end with failures=0) and the seconds
+    from its start to this join."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    check(proc.returncode == 0 and "dryrun complete; failures=0" in out,
+          f"launch.dryrun exited {proc.returncode}: {out[-2000:]} "
+          f"{err[-2000:]}")
+    recs = [json.loads(p.read_text()) for p in sorted(DRYRUN_OUT.glob(
+        "*.json"))]
+    check(len(recs) == 2 and all(r["ok"] for r in recs),
+          f"launch.dryrun records {[r.get('ok') for r in recs]}")
+    return {"command": "python -m repro_torch.launch.dryrun "
+            + " ".join(DRYRUN_ARGS), "failures": 0,
+            "joined_after_s": time.perf_counter() - t0,
+            "records": {r["mesh"]: {
+                "flops_per_device": r["cost"]["flops"],
+                "analytic_flops_per_device":
+                    r["analytic"]["flops_per_device"],
+                "collective_bytes_per_device":
+                    r["collectives"]["total_bytes"],
+                "internode_bytes": r["collectives"]["internode_bytes"],
+                "bottleneck": r["roofline"]["bottleneck"],
+                "lower_s": r["lower_s"]} for r in recs}}
+
+
+def card_rates(dev):
+    """The card's bf16 matmul rate and copy bandwidth (CUDA events, median
+    of REPS) beside the constants ``sharding/analysis.py`` prices with."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn((ROOFLINE_MM,) * 2, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    b = torch.randn((ROOFLINE_MM,) * 2, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.mm(a, b))
+    del a, b
+    n = ROOFLINE_COPY_BYTES // 4
+    src = torch.empty(n, device=dev)
+    dst = torch.empty(n, device=dev)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    del src, dst
+    torch.cuda.empty_cache()
+    mm_rate = 2 * ROOFLINE_MM ** 3 / (mm_ms / 1e3)
+    # a copy reads and writes every byte
+    copy_rate = 2 * ROOFLINE_COPY_BYTES / (copy_ms / 1e3)
+    return {"mm_bf16_n": ROOFLINE_MM, "mm_ms": mm_ms,
+            "mm_flops_per_s": mm_rate,
+            "peak_flops_bf16": AN.PEAK_FLOPS_BF16,
+            "mm_share_of_peak": mm_rate / AN.PEAK_FLOPS_BF16,
+            "copy_bytes": ROOFLINE_COPY_BYTES, "copy_ms": copy_ms,
+            "copy_read_write_bytes_per_s": copy_rate,
+            "hbm_bw": AN.HBM_BW, "copy_share_of_hbm_bw": copy_rate / AN.HBM_BW}
+
+
+def phase_lm_roofline(dev, card, train_ctx, dryrun):
+    """lm_train's split step (qwen3-1.7b, B=2 x S=4096, bf16) priced
+    against the H100's roofline: one step counted (``OpCounter``) on the
+    card with the flash kernels launched (27 / 1 / 1 / 1) and the same step
+    on meta tensors, FLOPs equal; three timed steps' median beside
+    t_compute = FLOPs / peak and t_memory = the analytic model's HBM bytes
+    / HBM bandwidth (tp 1, dp 1), the roofline share and the MFU
+    (``analytic_model_flops``); the step's peak above what was held beside
+    the meta estimate; the card's measured rates; the dryrun subprocess's
+    records. Reported, not gated, but for the FLOPs, the launches and the
+    dryrun's failures=0. Returns the counted step's launches."""
+    t_phase = time.perf_counter()
+    cfg, st, batch, _ = train_ctx
+    opt = adam(lr=1e-3, weight_decay=1e-5,
+               schedule=cosine_schedule(warmup=20, total=LM_STEPS))
+    step = make_train_step(cfg, optimizer=opt, tie_lambda=LM_TIE)
+
+    def run(state, b):
+        return step(state.frozen, state.B, state.trainable, state.opt_state,
+                    b)
+
+    run(st, batch)                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    with AN.OpCounter() as on_card:
+        out = run(st, batch)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    del out
+    step_ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(st, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    median_ms = float(np.median(step_ms))
+
+    t0 = time.perf_counter()
+    meta_st = init_train_state(cfg, LMLAYERS.SHAPES_ONLY, optimizer=opt)
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    with AN.OpCounter() as on_meta:
+        run(meta_st, meta_batch)
+    meta_s = time.perf_counter() - t0
+
+    shape = ShapeConfig("lm_train", LM_SEQ, LM_BATCH, "train")
+    analytic = analytic_roofline(cfg, shape, tp=1, dp=1, pods=1)
+    model_flops = AN.analytic_model_flops(cfg, shape)
+    t_compute = on_card.flops / AN.PEAK_FLOPS_BF16
+    t_memory = analytic["hbm_bytes_per_device"] / AN.HBM_BW
+    step_s = median_ms / 1e3
+    n_trunk = cfg.n_layers - cfg.n_adaptive_layers
+    expect = {"flash_attention_fwd": n_trunk,
+              "flash_attention_fwd_lse": cfg.n_adaptive_layers,
+              "flash_attention_dq": cfg.n_adaptive_layers,
+              "flash_attention_dkv": cfg.n_adaptive_layers}
+    flash = {n: launches[n] for n in FLASH_STAGES}
+    rates = card_rates(dev)
+    dry = join_dryrun(dryrun)
+    emit({"phase": "lm_roofline", "card": card, "arch": LM_ARCH,
+          "batch": LM_BATCH, "seq": LM_SEQ,
+          "flops_on_card": on_card.flops, "flops_on_meta": on_meta.flops,
+          "flops_by_op": on_card.flops_by_op,
+          "analytic_flops": analytic["flops_per_device"],
+          "counted_over_analytic": on_card.flops
+          / analytic["flops_per_device"],
+          "model_flops": model_flops,
+          "step_ms": step_ms, "median_step_ms": median_ms,
+          "t_compute_ms": t_compute * 1e3, "t_memory_ms": t_memory * 1e3,
+          "analytic_hbm_bytes": analytic["hbm_bytes_per_device"],
+          "roofline_share": max(t_compute, t_memory) / step_s,
+          "mfu": model_flops / (step_s * AN.PEAK_FLOPS_BF16),
+          "peak_mem_above_held": peak,
+          "peak_live_estimate_meta": on_meta.peak_live_bytes,
+          "peak_over_estimate": peak / max(on_meta.peak_live_bytes, 1),
+          "meta_walk_s": meta_s, "launches": flash,
+          "combine_launches": launches["adaptive_combine"],
+          "rates": rates, "dryrun": dry,
+          "phase_s": time.perf_counter() - t_phase})
+    check(on_card.flops == on_meta.flops > 0,
+          f"lm_roofline: FLOPs on the card {on_card.flops} vs meta "
+          f"{on_meta.flops}")
+    check(flash == expect,
+          f"lm_roofline: flash launches {flash}, expected {expect}")
+    return launches
 
 
 def family_variant(base, family):
@@ -5546,6 +5785,8 @@ def main():
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # launch.dryrun is host work: it runs beside the card phases
+    dryrun = start_dryrun() if "lm_train" in groups else None
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5625,6 +5866,11 @@ def main():
         # path 8: the dense LM's edge train step (counts zeroed inside)
         launches["lm_train"], errs, train_ctx = phase_lm_train(dev, card)
         fold(errs)
+        torch.cuda.empty_cache()
+        # path 8b: the same step priced against the roofline (counts zeroed
+        # inside)
+        launches["lm_roofline"] = phase_lm_roofline(dev, card, train_ctx,
+                                                    dryrun)
         torch.cuda.empty_cache()
         phase_lm_train_reduced(dev, card)
         torch.cuda.empty_cache()

@@ -3,10 +3,20 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version in ``ref``. There is no
 backend switch: the plain version is never taken for a CUDA tensor.
+Meta tensors (the production lowering, ``launch/dryrun.py``) take the
+plain versions' shapes and dtypes and allocate nothing; the four flash
+stages are operators of their own (``repro_torch::flash_*``), whose meta
+versions make empty outputs and whose FLOPs ``torch.utils.flop_counter``
+(and ``sharding.analysis.OpCounter``) count by the kernels' own
+arithmetic, the same on the card, the CPU and meta.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ref as REF
@@ -40,13 +50,16 @@ from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
+    """True for CUDA operands (the kernel), False for CPU ones (the plain
+    version) or meta ones (its shapes); operands on more than one kind of
+    device raise."""
     kinds = {t.device.type for t in ts}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     raise ValueError(f"operands on {sorted(kinds)}: all must lie on one "
-                     "CUDA device or all on the CPU")
+                     "CUDA device or all on the CPU (or all on meta)")
 
 
 def batched_pairwise_dist(q, g):
@@ -273,42 +286,107 @@ def batched_topk_decode_int8(codes, scales, packed, *, k: int, p: int,
 # ---------------------------------------------------------------------------
 
 
+# each stage is an operator of its own: the kernel for CUDA operands, the
+# plain version for CPU ones, empty outputs for meta ones (its fake), and
+# the kernels' FLOPs wherever a flop counter looks. The kernels compute
+# only the visible (query, key) pairs: 2 hd FLOPs a pair a product, two
+# products in a forward (S = Q K^T, O = P V), three in dQ (S and dP = dO
+# V^T again, dQ = dS K), four in dK/dV (S, dP, dV = P^T dO, dK = dS^T Q)
+_PRODUCTS = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}
+
+
+@functools.lru_cache(maxsize=256)
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a flash call computes: key j is visible
+    from query i when j <= i (causal, aligned top-left, ``ref.py``) and
+    j > i - window (window > 0)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, i) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(stage: str, q_shape, k_shape, causal: bool,
+                window: int) -> int:
+    """FLOPs of one flash stage's kernel: 2 hd a visible pair a product,
+    over every q head (zamba2's hd 80 counts 80, not the kernel's padding
+    to 128)."""
+    B, hq, sq, hd = q_shape
+    return (2 * _PRODUCTS[stage] * B * hq * hd
+            * visible_pairs(sq, k_shape[2], bool(causal), int(window)))
+
+
+def _flash_op(stage, schema, kernel, plain, fake):
+    """Define ``repro_torch::flash_<stage>`` over ``kernel`` / ``plain``
+    with its fake and its FLOPs."""
+    def impl(*args):
+        *tensors, causal, window = args
+        fn = kernel if _on_cuda(*tensors) else plain
+        return fn(*tensors, causal=causal, window=window)
+
+    op = torch.library.custom_op(f"repro_torch::flash_{stage}", impl,
+                                 mutates_args=(), schema=schema)
+    op.register_fake(fake)
+
+    @register_flop_formula(getattr(torch.ops.repro_torch, f"flash_{stage}"))
+    def _flops(q_shape, k_shape, *rest, out_shape=None, **kw):
+        return flash_flops(stage, q_shape, k_shape, rest[-2], rest[-1])
+    return op
+
+
+_QKV = "Tensor q, Tensor k, Tensor v"
+_BWD = _QKV + ", Tensor do, Tensor lse, Tensor delta"
+_MASK = "bool causal, int window"
+_fwd_op = _flash_op(
+    "fwd", f"({_QKV}, {_MASK}) -> Tensor", _flash.flash_attention_fwd,
+    REF.flash_attention_ref,
+    lambda q, k, v, causal, window: torch.empty_like(q))
+_fwd_lse_op = _flash_op(
+    "fwd_lse", f"({_QKV}, {_MASK}) -> (Tensor, Tensor)",
+    _flash.flash_attention_fwd_lse, REF.flash_attention_fwd_lse_ref,
+    lambda q, k, v, causal, window: (
+        torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)))
+_dq_op = _flash_op(
+    "dq", f"({_BWD}, {_MASK}) -> Tensor", _flash.flash_attention_dq,
+    REF.flash_attention_dq_ref,
+    lambda q, k, v, do, lse, delta, causal, window: torch.empty_like(q))
+_dkv_op = _flash_op(
+    "dkv", f"({_BWD}, {_MASK}) -> (Tensor, Tensor)",
+    _flash.flash_attention_dkv, REF.flash_attention_dkv_ref,
+    lambda q, k, v, do, lse, delta, causal, window: (
+        torch.empty_like(k), torch.empty_like(v)))
+
+
+# each wrapper checks its operands' devices first: the dispatcher alone
+# would send a meta + CPU mix to the meta fake
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
     """Attention alone: q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd) -> o
     (B, Hq, Sq, hd). Causal aligned top-left (``ref.py``)."""
-    if _on_cuda(q, k, v):
-        return _flash.flash_attention_fwd(q, k, v, causal=causal,
-                                          window=window)
-    return REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _on_cuda(q, k, v)
+    return _fwd_op(q, k, v, causal, window)
 
 
 def flash_attention_fwd_lse(q, k, v, *, causal: bool, window: int = 0):
     """Attention and its fp32 logsumexp (B, Hq, Sq)."""
-    if _on_cuda(q, k, v):
-        return _flash.flash_attention_fwd_lse(q, k, v, causal=causal,
-                                              window=window)
-    return REF.flash_attention_fwd_lse_ref(q, k, v, causal=causal,
-                                           window=window)
+    _on_cuda(q, k, v)
+    return _fwd_lse_op(q, k, v, causal, window)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
                        window: int = 0):
     """dQ of attention, given dO, lse and delta = rowsum(O dO)."""
-    if _on_cuda(q, k, v, do, lse, delta):
-        return _flash.flash_attention_dq(q, k, v, do, lse, delta,
-                                         causal=causal, window=window)
-    return REF.flash_attention_dq_ref(q, k, v, do, lse, delta,
-                                      causal=causal, window=window)
+    _on_cuda(q, k, v, do, lse, delta)
+    return _dq_op(q, k, v, do, lse, delta, causal, window)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
                         window: int = 0):
     """(dK, dV) of attention, summed over each kv head's q heads."""
-    if _on_cuda(q, k, v, do, lse, delta):
-        return _flash.flash_attention_dkv(q, k, v, do, lse, delta,
-                                          causal=causal, window=window)
-    return REF.flash_attention_dkv_ref(q, k, v, do, lse, delta,
-                                       causal=causal, window=window)
+    _on_cuda(q, k, v, do, lse, delta)
+    return _dkv_op(q, k, v, do, lse, delta, causal, window)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -30,9 +30,17 @@ On the card (the default device) the world is ``torchrun``'s, one card a
 rank, or one process a card (``--world``, default: every visible card).
 ``--trace out.jsonl`` records a ``repro_torch.obs`` span per action on rank
 0 (read it with ``python -m repro_torch.obs.report out.jsonl``).
-``--arch`` (the production lowering of an LM's federated round) comes with
-the production lowering (slice 10b: the per-rank program on meta tensors
-under a fake process group) and is not ported yet.
+``--arch`` lowers an LM's federated round onto the production mesh
+(16 x 16, or 2 x 16 x 16 with ``--multi-pod``): one client a "data" (and
+"pod") rank, each client's adaptive tree (``steps.abstract_train_state``'s
+B) split over "model" by ``tree_param_specs``, D = 256, k = 6. Rank 0's
+``fed_round`` (``fed_round_hierarchical``) runs on meta tensors in a fake
+world (``launch.mesh.fake_world``) under ``sharding.analysis.OpCounter``,
+and the launcher prints the adaptive payload per client and the
+collective bytes per device by kind:
+
+  PYTHONPATH=src python -m repro_torch.launch.fed_round --arch qwen3-1.7b \
+      [--multi-pod]
 """
 from __future__ import annotations
 
@@ -42,15 +50,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.pytree import (tree_flatten_stacked, tree_map,
-                                       tree_unflatten_stacked)
+from repro_torch.common.pytree import (tree_flatten_stacked, tree_leaves,
+                                       tree_map, tree_unflatten_stacked)
 from repro_torch.core.fedstil import sharded_fused_aggregate
 from repro_torch.core.relevance import decayed_relevance, normalize_rows
-from repro_torch.federated.base import not_in_this_slice
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as M
+from repro_torch.launch.steps import abstract_train_state
 from repro_torch.obs import trace as obs
 from repro_torch.sharding import specs as S
+from repro_torch.sharding.analysis import OpCounter
 
 
 def fed_round(theta_local, task_feature_local, hist_features_local, *, mesh,
@@ -177,6 +187,58 @@ def _stacked_demo(mesh, C: int = 64, P: int = 4096):
               f"{mesh.size('model')}) == kernel path")
 
 
+ROUND_D, ROUND_K = 256, 6
+
+
+def lower_round(cfg, mesh, *, multi_pod: bool, D: int = ROUND_D,
+                k: int = ROUND_K):
+    """This rank's part of one federated round of ``cfg``'s adaptive heads
+    on ``mesh`` (one client a "data" rank, and a "pod" rank with
+    ``multi_pod``; each head split over "model"), on the mesh's device
+    (zeros; meta in a fake world), under an ``OpCounter`` -> (the counter,
+    the global head ``B0``, a tree of meta tensors)."""
+    tp = mesh.size("model")
+    _, B0, _, _ = abstract_train_state(cfg, tp)
+    # the client axis holds whole clients: no FSDP split of a head over it
+    specs = S.tree_param_specs(cfg, B0, tp_size=tp, fsdp_axis=None)
+    th = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                        device=mesh.device),
+                  S.shard_tree(B0, specs, mesh))
+    feat = torch.zeros(D, device=mesh.device)
+    hist = torch.zeros((k, D), device=mesh.device)
+    with OpCounter() as counter:
+        if multi_pod:
+            fed_round_hierarchical(th, feat, hist, mesh=mesh,
+                                   client_axis="data", pod_axis="pod")
+        else:
+            fed_round(th, feat, hist, mesh=mesh, client_axis="data")
+    return counter, B0
+
+
+def payload_bytes(B0) -> int:
+    """The adaptive payload of one client: the bytes of its whole head."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(B0))
+
+
+def _lower(arch: str, multi_pod: bool):
+    """Lower a production federated round: 16 clients (data axis; 32 over
+    two pods), each client's adaptive layers TP-split over the model
+    axis; print its payload and collectives."""
+    cfg = get_config(arch)
+    with M.fake_world(512 if multi_pod else 256):
+        with M.make_production_mesh(multi_pod=multi_pod, device="meta",
+                                    model=16) as mesh:
+            counter, B0 = lower_round(cfg, mesh, multi_pod=multi_pod)
+    stats = counter.stats()
+    print(f"fed_round lowered for {arch} on "
+          f"{'2x16x16' if multi_pod else '16x16'}")
+    print(f"  adaptive payload/client: {payload_bytes(B0) / 1e6:.1f} MB")
+    print(f"  collective bytes/device: {stats.total_bytes / 1e6:.2f} MB "
+          f"{stats.count_by_kind}")
+    print(f"  bytes by kind: {stats.bytes_by_kind}")
+    return counter, B0
+
+
 def _ranks(demo: bool, stacked_demo: bool, device: str, trace):
     """Every rank's part: the demos on a (world / 2, 2) mesh (world x 1 for
     an odd world), traced on rank 0."""
@@ -201,7 +263,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--demo", action="store_true")
     ap.add_argument("--stacked-demo", action="store_true")
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="lower this arch's round onto the production mesh "
+                         "(meta tensors in a fake world)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --arch: 2 x 16 x 16, the hierarchical round")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--world", type=int, default=None,
                     help="ranks to spawn outside torchrun (default: 8 on "
@@ -212,11 +278,17 @@ def main(argv=None):
                          "repro_torch.obs.report")
     args = ap.parse_args(argv)
     if args.arch:
-        raise not_in_this_slice(
-            "fed_round --arch (the production lowering of an LM's round)",
-            "slice 10b, the production lowering: launch/dryrun.py and "
-            "sharding/{analytic,analysis}.py on meta tensors under a fake "
-            "process group")
+        # the production lowering: meta tensors in a fake world, no device
+        tracer = obs.Tracer(path=args.trace) if args.trace else \
+            obs.NullTracer()
+        try:
+            with obs.active(tracer), obs.span("fed_round.lower", cat="phase",
+                                              arch=args.arch):
+                _lower(args.arch, args.multi_pod)
+        finally:
+            tracer.close()
+        if not (args.demo or args.stacked_demo):
+            return
     demo = args.demo or not args.stacked_demo
     run = (demo, args.stacked_demo, args.device, args.trace)
     if S.torchrun_world(args.device):

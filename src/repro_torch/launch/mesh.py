@@ -17,7 +17,9 @@ fresh temporary directory, NCCL with one card a rank), runs a function on
 every rank and returns each rank's result. Every group waits at most
 ``sharding.specs.GROUP_TIMEOUT`` in a collective, and ``spawn`` kills the
 world when a rank fails or the whole call outlasts its timeout, so a rank
-that raised never leaves the others hanging.
+that raised never leaves the others hanging. ``fake_world`` is a world of
+any size inside this one process, on meta tensors: the production
+lowering's (``launch/dryrun.py``).
 
 Hardware figures, where the port needs them, are the H100's as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` names
@@ -25,6 +27,7 @@ the card; none is carried over from the reference's TPU constants.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import queue
@@ -47,7 +50,10 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda",
                          model: int = 1) -> EngineMesh:
     """A mesh over every rank of the current world (one card a rank):
     ("data", "model") with ``model`` ranks on the model axis, or with
-    ``multi_pod`` ("pod", "data", "model") over two pods."""
+    ``multi_pod`` ("pod", "data", "model") over two pods. The reference's
+    production meshes, 16 x 16 and 2 x 16 x 16, are
+    ``make_production_mesh(multi_pod=..., device="meta", model=16)`` in a
+    ``fake_world(256)`` / ``fake_world(512)``."""
     n = dist.get_world_size()
     pods = 2 if multi_pod else 1
     if n % (pods * model):
@@ -57,6 +63,24 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda",
     if multi_pod:
         shape = {"pod": pods, **shape}
     return EngineMesh(shape, world_device(device))
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A world of ``n`` ranks in this process on torch's "fake" backend, as
+    rank ``rank``: every collective is accepted and moves nothing, so the
+    rank's program runs on meta tensors (``device="meta"``) over meshes of
+    any size (``make_production_mesh``), allocating nothing and running
+    nothing on any device. Destroyed on exit; the process must hold no
+    other default group."""
+    # the backend is registered by this module (torch 2.11; built in since)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(BACKENDS["meta"], store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_debug_mesh(tp: int = 2, dp: int = 2, multi_pod: bool = False,

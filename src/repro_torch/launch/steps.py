@@ -25,7 +25,14 @@ FSDP over "data" for the configs that ask for it) and "dp" (the
 small-model layout: params replicated, the "model" axis carries batch).
 ``optimizer`` and ``tie_lambda`` default to the reference's (Adam at lr
 1e-3, weight decay 1e-5; 1e-4). Prefill returns the next token; decode
-takes a Python int ``pos`` and writes its cache shards in place.
+takes a Python int ``pos`` and writes its cache shards in place. The meta
+``pos`` of ``decode_inputs_struct`` stands in the input structs and specs
+only (its 4 bytes count in ``args_bytes_per_device``); a caller passes an
+int in its place: ``launch/dryrun.py`` passes seq_len - 1, the last
+position (long_500k writes its ring slot pos % LONG_CONTEXT_WINDOW).
+Every builder runs on meta tensors too: in a fake world
+(``launch.mesh.fake_world``) on ``make_production_mesh(device="meta")``
+the step allocates nothing, and ``sharding.analysis.OpCounter`` counts it.
 """
 from __future__ import annotations
 

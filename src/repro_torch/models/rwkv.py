@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.common.axes import AxisCtx, UNSHARDED
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.sharding.analysis import repeat_step
 
 _DECAY_LORA = 64
 
@@ -82,14 +83,24 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, nh_local: int,
             "x_att": zeros(cfg.d_model), "x_ffn": zeros(cfg.d_model)}
 
 
+def _wkv_step(r, k, v, w, u, S, t: int = 0):
+    """Step t of the WKV loop -> (y_t (B, nh, hd), S_t)."""
+    kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r[:, t], S + u[None, :, :, None] * kv)
+    return y, w[:, t, :, :, None] * S + kv
+
+
 def wkv_recurrence(r, k, v, w, u, S):
     """The WKV loop over time, fp32: r, k, v, w (B, L, nh, hd), u (nh, hd),
-    S (B, nh, hd, hd) -> (y (B, L, nh, hd), the last S)."""
+    S (B, nh, hd, hd) -> (y (B, L, nh, hd), the last S). On meta tensors
+    one step stands for all L (``sharding.analysis.repeat_step``: every
+    step costs the same)."""
+    if r.is_meta:
+        return repeat_step(_wkv_step, r.shape[1], (r.shape, S.shape),
+                           r, k, v, w, u, S)
     ys = []
     for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
-        y = torch.einsum("bhk,bhkv->bhv", r[:, t], S + u[None, :, :, None] * kv)
-        S = w[:, t, :, :, None] * S + kv
+        y, S = _wkv_step(r, k, v, w, u, S, t)
         ys.append(y)
     return torch.stack(ys, 1), S
 

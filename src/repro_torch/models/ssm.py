@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.common.axes import AxisCtx, UNSHARDED
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.sharding.analysis import repeat_step
 
 
 def mamba_params(gen, cfg: ModelConfig, tp: int = 1):
@@ -81,16 +82,26 @@ def init_ssm_state(cfg: ModelConfig, batch: int, di_local: int,
                                 dtype=dtype, device=device)}
 
 
+def _ssm_step(x, b, c, decay, dt, h, t: int = 0):
+    """Step t of the scan -> (y_t (B, nh, hd), h_t)."""
+    upd = ((dt[:, t, :, None, None] * x[:, t, :, :, None])
+           * b[:, t, None, None, :])
+    h = decay[:, t, :, None, None] * h + upd
+    return torch.einsum("bhps,bs->bhp", h, c[:, t]), h
+
+
 def ssm_recurrence(x, b, c, decay, dt, h):
     """The selective scan over time, fp32: x (B, L, nh, hd), b and c
     (B, L, ds), decay and dt (B, L, nh), h (B, nh, hd, ds) -> (y (B, L,
-    nh, hd), the last h)."""
+    nh, hd), the last h). On meta tensors one step stands for all L
+    (``sharding.analysis.repeat_step``: every step costs the same)."""
+    if x.is_meta:
+        return repeat_step(_ssm_step, x.shape[1], (x.shape, h.shape),
+                           x, b, c, decay, dt, h)
     ys = []
     for t in range(x.shape[1]):
-        upd = ((dt[:, t, :, None, None] * x[:, t, :, :, None])
-               * b[:, t, None, None, :])
-        h = decay[:, t, :, None, None] * h + upd
-        ys.append(torch.einsum("bhps,bs->bhp", h, c[:, t]))
+        y, h = _ssm_step(x, b, c, decay, dt, h, t)
+        ys.append(y)
     return torch.stack(ys, 1), h
 
 

@@ -39,7 +39,10 @@ initialized default group when there is one, else the world ``torchrun``
 describes in the environment (joined for the rest of the process), else a
 world of one on the run's device, destroyed at the end. NCCL goes with
 CUDA tensors and gloo with CPU ones; a group whose backend does not match
-the run's device raises.
+the run's device raises. Meta tensors go with torch's "fake" backend
+(``launch.mesh.fake_world``): a world of any size in one process, whose
+collectives move nothing, where ``launch/dryrun.py`` runs rank 0's program
+on the production meshes.
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ ENGINE_AXES = ("data", "model")
 # every process group of the port waits at most this long in a collective:
 # a rank that raised must not hang the others for the default 30 minutes
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# meta tensors run in a fake world (``launch.mesh.fake_world``): its
+# collectives move nothing and return results of the right shapes
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 Spec = Tuple[Optional[str], ...]
 
@@ -503,9 +508,15 @@ def serving_index_specs(*, client_axis: str = "data"):
 def world_device(device) -> torch.device:
     """The device a rank of an initialized world runs on: ``cuda`` means
     ``cuda:LOCAL_RANK`` (0 without the variable), set as the current CUDA
-    device; ``cpu`` and an explicit ``cuda:N`` are taken as given."""
+    device; ``cpu`` and an explicit ``cuda:N`` are taken as given; ``meta``
+    only inside a fake world (``launch.mesh.fake_world``)."""
     dev = torch.device(device)
-    if dev.type == "cuda":
+    if dev.type == "meta":
+        if not (dist.is_initialized()
+                and dist.get_backend() == BACKENDS["meta"]):
+            raise ValueError("device 'meta' runs only inside a fake world "
+                             "(repro_torch.launch.mesh.fake_world)")
+    elif dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {str(dev)!r} requested but torch.cuda.is_available() "
@@ -514,7 +525,8 @@ def world_device(device) -> torch.device:
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(dev)!r}: use cuda or cpu")
+        raise ValueError(f"unsupported device {str(dev)!r}: use cuda, cpu "
+                         "or, in a fake world, meta")
     return dev
 
 

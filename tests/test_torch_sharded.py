@@ -42,6 +42,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_dryrun_workers as DW
 import torch_sharded_workers as W
 from repro.common import precision as JPREC
 from repro.core import FedSTIL as JFedSTIL
@@ -56,6 +57,7 @@ from repro.kernels import ops as JOPS
 from repro.obs import trace as JOBS
 from repro.sharding import specs as JSPECS
 from repro_torch.common import precision as PREC
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core.convert import (init_params_from_jax, theta_from_jax,
                                      theta_to_jax)
 from repro_torch.core.fedstil import FedSTIL
@@ -674,9 +676,80 @@ def test_fed_round_launcher_runs_both_demos_traced(tmp_path):
     assert spans == ["fed_round.stacked_demo", "fed_round.demo"]
 
 
-def test_fed_round_launcher_refuses_arch():
-    with pytest.raises(NotImplementedError, match="slice 10b"):
-        FR.main(["--arch", "qwen1.5-0.5b", "--device", "cpu"])
+@pytest.fixture(scope="module")
+def arch_lowering(tmp_path_factory):
+    """``fed_round --arch qwen1.5-0.5b`` on both production meshes, the
+    round's counts at a fake (2, 2) and (2, 1, 2) (a subprocess) and in a
+    gloo world of 4 (spawned), all started together."""
+    out_dir = tmp_path_factory.mktemp("fed_round_arch")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    launchers = {mp: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.fed_round", "--arch",
+         DW.ROUND_ARCH] + (["--multi-pod"] if mp else []),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT, start_new_session=True) for mp in (False, True)}
+    meta = DW.start("meta_rounds", out_dir)
+    try:
+        gloo = spawn(DW.gloo_rank, 4, ["round/single", "round/pod"],
+                     device="cpu", timeout=DW.JOB_TIMEOUT_S)[0]
+        printed = {}
+        for mp, proc in launchers.items():
+            out, err = proc.communicate(timeout=DW.JOB_TIMEOUT_S)
+            assert proc.returncode == 0, err[-4000:]
+            printed[mp] = out
+    finally:
+        for proc in launchers.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return {"printed": printed, "meta": DW.collect(meta),
+            "gloo": json.loads(json.dumps(gloo))}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+def test_fed_round_launcher_lowers_arch(arch_lowering, multi_pod):
+    """``--arch`` lowers the LM's round onto the production mesh (meta
+    tensors in a fake world): the payload and collectives it prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import abstract_train_state
+    out = arch_lowering["printed"][multi_pod]
+    mesh = "2x16x16" if multi_pod else "16x16"
+    assert f"fed_round lowered for {DW.ROUND_ARCH} on {mesh}" in out
+    payload = FR.payload_bytes(abstract_train_state(
+        get_config(DW.ROUND_ARCH), 16)[1])
+    assert f"adaptive payload/client: {payload / 1e6:.1f} MB" in out
+    counts = json.loads(out.split("collective bytes/device: ")[1]
+                        .split(" MB ")[1].splitlines()[0].replace("'", '"'))
+    # the history and W gathers, Eq. 6's reduce-scatter; across pods one
+    # mean a leaf of the head
+    assert counts["all-gather"] == 2 and counts["reduce-scatter"] == 1
+    assert (counts["all-reduce"] > 0) == multi_pod
+    assert "not ported" not in out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fed_round_payload_equals_reference(arch):
+    """The adaptive payload a client equals the bytes of the reference's
+    ``abstract_train_state`` B (traced on one CPU device)."""
+    from repro.configs import get_config as j_get_config
+    from repro.launch.steps import abstract_train_state as j_state
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import abstract_train_state
+    want = sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+               for leaf in jax.tree.leaves(j_state(j_get_config(arch),
+                                                   16)[1]))
+    assert FR.payload_bytes(abstract_train_state(get_config(arch),
+                                                 16)[1]) == want
+
+
+@pytest.mark.parametrize("mesh", ["single", "pod"])
+def test_fed_round_ledger_fake_equals_gloo(arch_lowering, mesh):
+    """The round's FLOPs and collective ledger on meta tensors in a fake
+    world of 4 equal those on CPU tensors in a gloo world of 4."""
+    meta = arch_lowering["meta"][f"round/{mesh}"]
+    assert meta["ledger"] and meta == arch_lowering["gloo"][f"round/{mesh}"]
 
 
 def test_eval_round_launcher_runs_the_demo():
