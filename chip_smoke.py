@@ -337,6 +337,19 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  reduced, and of the vlm and encdec variants, 3 steps on
                  the card and on the CPU (per step |delta loss| <= 1e-4).
                  Flash launches are checked a forward and a step
+ 14. analysis    the port's lint (``repro_torch.analysis.lint``) in this
+                 process on meta tensors: every registered program traced,
+                 no new finding, no stale suppression; then each of the 34
+                 programs once on the card at its registered shapes
+                 (inputs from its meta args: floats standard normal from a
+                 seeded generator, ints zero, bools true, valid ids where a
+                 program indexes by them), under the lint's recorder and
+                 torch's sync debug mode ("error" where the static pass
+                 saw no host sync): no sync where the meta trace has none,
+                 every ``kernels.*`` program launching its CUDA kernel
+                 (wrapper counters), the card's peak above held beside
+                 the meta estimate and its budget, held to the band
+                 PERF.md predicted where the meta peak is 64 MiB or more
 
 then the script's wall time, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -354,6 +367,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -364,6 +378,8 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.analysis import lint as ALINT  # noqa: E402
+from repro_torch.analysis import registry as AREG  # noqa: E402
 from repro_torch.comm.batched import BatchedCodec  # noqa: E402
 from repro_torch.comm.codec import make_codec  # noqa: E402
 from repro_torch.common.pytree import (flatten_stacked,  # noqa: E402
@@ -1315,7 +1331,7 @@ def relevance_kernel_rows(gen, dev, peak):
         err = max(err, aggregate_err(w, th))
     w, th = relevance(C), params(C, P_EDGE)
     err = max(err, aggregate_err(w, th))
-    wn = REF.normalized_relevance_ref(w)
+    wn = REF.normalize_relevance_ref(w)
     rows["fused_relevance_aggregate"] = dict(
         max_abs_err=err,
         bound=bound(*aggregate_work(C, C, P_EDGE, True), peak),
@@ -1345,7 +1361,7 @@ def relevance_kernel_rows(gen, dev, peak):
         max_abs_err=max(err, normalize_err(w)),
         bound=bound(*normalize_work(C), peak),
         ms=time_ms(lambda: normalize_relevance(w)),
-        plain_ms=time_ms(lambda: REF.normalized_relevance_ref(w)),
+        plain_ms=time_ms(lambda: REF.normalize_relevance_ref(w)),
         library_ms=None, shape=[C, C],
         detail={"library": "none: no one PyTorch call masks the diagonal "
                 "and normalizes the rows",
@@ -1361,7 +1377,7 @@ def normalize_err(w):
     or at C <= 32 the skinny variant's one-warp sum in the same order)."""
     C = w.shape[0]
     wn_k = normalize_relevance(w)
-    wn_r = REF.normalized_relevance_ref(w)
+    wn_r = REF.normalize_relevance_ref(w)
     _, wn_f = fused_relevance_aggregate(
         w, torch.zeros((C, 4), dtype=torch.float32, device=w.device))
     torch.cuda.synchronize()
@@ -1387,7 +1403,7 @@ def skinny_vs_tiled(gen, dev):
     out = []
     for c in (5, 8, 16, 24, 32):
         w = torch.rand((c, c), generator=gen, device=dev)
-        wn = REF.normalized_relevance_ref(w)
+        wn = REF.normalize_relevance_ref(w)
         th = torch.randn((c, P_EDGE), generator=gen, device=dev)
         row = {"C": c}
         for variant, most in (("skinny", RA.SKINNY_MAX_C), ("tiled", 0)):
@@ -1417,7 +1433,7 @@ def aggregate_timings(gen, dev, peak, fused):
         th = torch.randn((c, p), generator=gen, device=dev)
         w = torch.rand((r, c), generator=gen, device=dev)
         if fused:
-            wn = REF.normalized_relevance_ref(w)
+            wn = REF.normalize_relevance_ref(w)
             kern = lambda: fused_relevance_aggregate(w, th)  # noqa: E731
             plain = lambda: REF.fused_relevance_aggregate_ref(w, th)  # noqa: E731,E501
         else:
@@ -3164,7 +3180,7 @@ def path_operand_errs(seen):
     plain = {"batched_pairwise_dist": REF.batched_pairwise_dist_ref,
              "kl_similarity": REF.kl_similarity_ref,
              "fused_relevance_aggregate": REF.fused_relevance_aggregate_ref,
-             "normalize_relevance": REF.normalized_relevance_ref,
+             "normalize_relevance": REF.normalize_relevance_ref,
              "relevance_aggregate": REF.relevance_aggregate_ref,
              "adaptive_combine": REF.adaptive_combine_tree_ref,
              "batched_quantize": REF.batched_quantize_ref,
@@ -5745,10 +5761,193 @@ def phase_lm_families(dev, card, peak):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# analysis: the port's lint on meta tensors, then each program on the card
+# ---------------------------------------------------------------------------
+
+# the kernels.* programs whose KERNELS row is not named after them: the
+# row whose wrapper's ``launches`` (every launch: the flash program is
+# fp32, the FMA kernel) must move; the rest launch ``kernels.<row>``
+ANALYSIS_KERNEL_OF = {
+    "kernels.batched_cluster_assign": "batched_cluster_dist",
+    "kernels.batched_ivf_shortlist": "batched_ivf_shortlist_scores",
+    "kernels.flash_attention": "flash_attention_fwd",
+}
+
+
+def analysis_kernel(program: str):
+    """The KERNELS row a kernels.* program must launch, else None."""
+    if not program.startswith("kernels."):
+        return None
+    return ANALYSIS_KERNEL_OF.get(program, program.split(".", 1)[1])
+# meta peaks below this are reported, not held: the caching allocator's
+# rounding and library workspaces dominate there
+ANALYSIS_PEAK_FLOOR = 64 << 20
+# the card's peak above held over the meta estimate, where the meta peak
+# is at least the floor: the band PERF.md predicted before the first run
+ANALYSIS_PEAK_BAND = (0.85, 1.30)
+
+
+def unpack_ids(args, kwargs, dev):
+    """Top-k unpack indices that stay in their groups: slot j of group g
+    holds g * group + j (the unpack scatters by them)."""
+    vals, idx = args
+    slot = torch.arange(idx.shape[1], device=dev)
+    ids = (slot // kwargs["kg"]) * kwargs["group"] + slot % kwargs["kg"]
+    return (vals, ids.to(torch.int32).expand_as(idx).contiguous()), kwargs
+
+
+# programs whose filled inputs need valid ids
+ANALYSIS_FILL = {"kernels.batched_topk_unpack": unpack_ids}
+# the sync debug mode's warning (its "error" mode raises with it)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def analysis_inputs(spec, dev, gen):
+    """Card tensors in place of a program's meta args: floats standard
+    normal from ``gen``, ints zero, bools true, then its ``ANALYSIS_FILL``
+    override."""
+    def fill(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, device=dev).to(t.dtype)
+        if t.dtype == torch.bool:
+            return torch.ones(t.shape, dtype=torch.bool, device=dev)
+        return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+    args, kwargs = torch.utils._pytree.tree_map_only(
+        torch.Tensor, fill, spec.build_args())
+    if spec.name in ANALYSIS_FILL:
+        args, kwargs = ANALYSIS_FILL[spec.name](args, kwargs, dev)
+    return args, kwargs
+
+
+def analysis_card_run(spec, dev, gen, sync_free):
+    """One run of a program on the card under the lint's recorder and
+    torch's sync debug mode ("error" where the meta trace saw no sync, so
+    a sync fails the run; "warn" elsewhere, counted) -> (the card's
+    trace, the debug mode's syncs, peak bytes above held, {kernel:
+    launches}, host ms, the other warnings)."""
+    args, kwargs = analysis_inputs(spec, dev, gen)
+    before = {n: s["fn"].launches for n, s in KERNELS.items()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("error" if sync_free else "warn")
+        try:
+            tr = AREG.record(spec.fn, args, kwargs)
+        except RuntimeError as e:
+            fail(f"analysis: {spec.name} on the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    syncs = sum(SYNC_WARNING in str(w.message) for w in warned)
+    other = sorted({str(w.message)[:160] for w in warned
+                    if SYNC_WARNING not in str(w.message)})
+    launched = {n: s["fn"].launches - before[n] for n, s in KERNELS.items()
+                if s["fn"].launches > before[n]}
+    return tr, syncs, peak, launched, ms, other
+
+
+def host_data_syncs(dev) -> int:
+    """The meta trace's blind spot, measured: the sync debug mode's
+    warnings for one scalar made from host data on the card
+    (``torch.tensor(x, device=dev)`` dispatches nothing a mode sees on
+    meta; ``ivf_build`` fills its constant on the device instead)."""
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.tensor(1.0 / 64, dtype=torch.float32, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(SYNC_WARNING in str(w.message) for w in warned)
+
+
+def phase_analysis(dev, card):
+    """The port's lint in this process on meta tensors (every program
+    traced, nothing new, nothing stale), then each registered program once
+    on the card: no sync where the meta trace has none, each kernels.*
+    program's CUDA kernel launched, the peak above held against the meta
+    estimate. One ``{"analysis": {...}}`` line."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "analysis: a default process group is "
+          "up; the sharded programs trace in a fake world of their own")
+    report = ALINT.run()
+    new, base, stale = ALINT.partition_findings(
+        report["findings"], ALINT.load_baseline(ALINT.BASELINE_PATH))
+    specs = AREG.iter_programs()
+    traced = [n for n, p in report["programs"].items() if p["traced"]]
+    check(len(traced) == len(specs) == len(report["programs"]),
+          f"analysis: traced {len(traced)} of {len(specs)} programs")
+    check(not new and not stale, "analysis: lint not clean: new "
+          f"{[f.as_dict() for f in new]}, stale {stale}")
+    lint_s = time.perf_counter() - t_phase
+    static_syncs = {f.program for f in report["findings"]
+                    if f.code == "host-transfer"}
+
+    t_card = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, syncs_card, recorded_card = {}, 0, 0
+    with SH.engine_world(dev):          # the sharded programs' world of one
+        for spec in specs:
+            sync_free = spec.name not in static_syncs and not spec.allow_syncs
+            tr, syncs, peak, launched, ms, other = analysis_card_run(
+                spec, dev, gen, sync_free)
+            meta_peak = report["programs"][spec.name]["peak_bytes"]
+            rows[spec.name] = {
+                "ms": ms, "ops_meta": report["programs"][spec.name]["ops"],
+                "ops_card": len(tr.ops), "syncs": syncs,
+                "recorded_syncs": len(tr.syncs), "launches": launched,
+                "peak_meta": meta_peak, "peak_card": peak,
+                "peak_card_counted": tr.peak_bytes,
+                "budget": spec.budget_bytes,
+                "ratio": peak / meta_peak if meta_peak else None,
+                "warnings": other}
+            syncs_card += syncs
+            recorded_card += len(tr.syncs)
+            if sync_free:
+                check(syncs == 0 and not tr.syncs,
+                      f"analysis: {spec.name} synced on the card "
+                      f"({syncs}, {tr.syncs}) where the meta trace has none")
+            k = analysis_kernel(spec.name)
+            if k is not None:
+                check(launched.get(k, 0) >= 1,
+                      f"analysis: {spec.name} did not launch {k}: {launched}")
+    card_s = time.perf_counter() - t_card
+    held = {n: r["ratio"] for n, r in rows.items()
+            if r["peak_meta"] >= ANALYSIS_PEAK_FLOOR}
+    lo, hi = ANALYSIS_PEAK_BAND
+    check(held and all(lo <= v <= hi for v in held.values()),
+          f"analysis: card / meta peaks {held} outside {ANALYSIS_PEAK_BAND}")
+    emit({"analysis": {
+        "programs_registered": len(report["programs"]),
+        "programs_traced": len(traced), "programs_on_card": len(rows),
+        "findings": len(new), "baselined": len(base),
+        "stale_suppressions": len(stale),
+        "baselined_by_code": {c: sum(f.code == c for f in base)
+                              for c in sorted({f.code for f in base})},
+        "static_sync_programs": sorted(static_syncs),
+        "syncs_card": syncs_card, "recorded_syncs_card": recorded_card,
+        "host_data_syncs": host_data_syncs(dev),
+        "kernel_programs_launching": sum(
+            rows[n]["launches"].get(analysis_kernel(n), 0) >= 1
+            for n in rows if analysis_kernel(n)),
+        "peak_band": ANALYSIS_PEAK_BAND, "peak_floor": ANALYSIS_PEAK_FLOOR,
+        "peak_ratios_held": held, "programs": rows,
+        "seconds": {"lint": lint_s, "card": card_s,
+                    "total": time.perf_counter() - t_phase},
+        "card": card}})
+
+
 # the groups of phases ``--only`` selects, in the order main runs them,
 # and the groups each needs first
 ONLY_GROUPS = ("kernels", "serve", "rounds", "lm_train", "lm_decode",
-               "lm_scaleout", "lm_families")
+               "lm_scaleout", "lm_families", "analysis")
 ONLY_NEEDS = {"lm_scaleout": ("lm_train", "lm_decode")}
 
 
@@ -5889,6 +6088,11 @@ def main():
     if "lm_families" in groups:
         # path 11: the LM zoo (counts zeroed inside)
         launches["lm_families"] = phase_lm_families(dev, card, peaks(kind))
+        torch.cuda.empty_cache()
+    if "analysis" in groups:
+        # the lint on meta, then every registered program on the card
+        # (launches read as deltas: no path's counts are touched)
+        phase_analysis(dev, card)
 
     last = {"ok": True, "device": {"platform": "gpu", "kind": kind,
                                    "count": torch.cuda.device_count()}}

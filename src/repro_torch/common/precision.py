@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.common.pytree import tree_map
 
+# the (src, dst) casts the analysis convert-churn lint accepts in programs
+# that declare them: the wire cast down and its matching upcast
+WIRE_CASTS = frozenset({("float32", "bfloat16"), ("bfloat16", "float32")})
+
 
 def _cast_floating(x, dtype: torch.dtype):
     t = torch.as_tensor(x)

@@ -77,6 +77,14 @@ def init_adaptive_layers(cfg: EdgeModelConfig,
     }
 
 
+def adaptive_layers_meta(cfg: EdgeModelConfig, n: int) -> Theta:
+    """``n`` stacked heads' shapes and dtypes on the meta device, no data
+    (the analysis registry's abstract inputs)."""
+    one = init_adaptive_layers(cfg, torch.Generator().manual_seed(0))
+    return {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                           device="meta") for k, v in one.items()}
+
+
 def stack_heads(heads: Sequence[Theta], device) -> Theta:
     """Per-client heads -> one stacked head on ``device``."""
     return {k: torch.stack([h[k] for h in heads]).to(device)

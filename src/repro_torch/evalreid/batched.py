@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import meta, register_program
 from repro_torch.kernels import ops
 
 _PAD_DIST = 1e30      # >> max squared distance of unit vectors (4.0)
@@ -68,6 +69,20 @@ def max_match_bound(qids, gids, *, qmask=None, gmask=None) -> int:
     return best
 
 
+def _metrics_abstract():
+    """Bench-scale abstract eval inputs: C=100 clients x T=3 tasks."""
+    C, T, Q, G, F = 100, 3, 16, 96, 64
+    i32 = torch.int32
+    return ((meta(C, T, Q, F), meta(C, T, Q, dtype=i32), meta(C, G, F),
+             meta(C, G, dtype=i32)),
+            {"qmask": meta(C, T, Q), "gmask": meta(C, G), "ranks": (1, 3, 5),
+             "max_matches": 4})
+
+
+@register_program(
+    "evalreid.batched_retrieval_metrics", abstract_args=_metrics_abstract,
+    oracle="repro_torch.evalreid.retrieval.evaluate_retrieval",
+    budget_bytes=64 << 20)
 def batched_retrieval_metrics(qf, qids, gf, gids, *, qmask=None, gmask=None,
                               ranks: Tuple[int, ...] = (1, 3, 5),
                               max_matches: Optional[int] = None

@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import meta, register_program
 from repro_torch.comm.batched import BatchedCodec
 from repro_torch.comm.codec import make_codec
 from repro_torch.common.pytree import (device_of, tree_bytes,
@@ -156,6 +157,21 @@ def fisher_diag(theta, protos, labels):
     return tree_map(lambda gg: torch.mean(torch.square(gg), 0), g)
 
 
+def _stacked_eval_abstract():
+    """Bench-scale abstract eval-round inputs (C=8 stacked clients)."""
+    cfg = EM.EdgeModelConfig()
+    C, T, Q, G, D = 8, 3, 16, 96, cfg.proto_dim
+    i32 = torch.int32
+    return ((EM.adaptive_layers_meta(cfg, C), meta(C, T, Q, D),
+             meta(C, T, Q, dtype=i32), meta(C, T), meta(C, G, D),
+             meta(C, G, dtype=i32), meta(C, G)),
+            {"ranks": (1, 3, 5), "max_matches": 4})
+
+
+@register_program(
+    "federated.stacked_eval", abstract_args=_stacked_eval_abstract,
+    oracle="repro_torch.federated.simulation._eval_round",
+    budget_bytes=64 << 20)
 def eval_round_stacked(theta, qp, qids, task_mask, gp, gids, gmask, *,
                        ranks=(1, 3, 5), max_matches=None):
     """Every client x task retrieval evaluation of one round.
@@ -214,11 +230,6 @@ def place_client_rows(tree, mesh, n_to: int, device=None):
     padded = pad_client_rows(tree, n_to)
     return shard_specs.place_tree(padded, shard_specs.stacked_tree_specs(
         padded), mesh, device)
-
-
-def not_in_this_slice(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where} (ROADMAP, Queue 1)")
 
 
 class Strategy:
@@ -471,14 +482,19 @@ class Strategy:
                             protos_list, labels_list, rnd: int):
         """Train all C clients, one stacked step per epoch. Returns
         (stacked state, stacked upload or None)."""
-        extras = self._stacked_loss_extras(stacked)
-        trainable, opt_state = stacked.trainable, stacked.opt_state
+        stacked.trainable, stacked.opt_state = self.train_epochs_stacked(
+            stacked.trainable, stacked.opt_state,
+            self._stacked_loss_extras(stacked), bx, by)
+        return stacked, None
+
+    def train_epochs_stacked(self, trainable, opt_state, extras, bx, by):
+        """One stacked step per epoch of (C, epochs, B, D) ``bx`` and (C,
+        epochs, B) ``by`` -> (trainable, opt_state): the device part of
+        ``local_train_stacked`` (the reference's ``_stacked_train_fn``)."""
         for e in range(bx.shape[1]):
             trainable, opt_state, _ = self._train_step(
                 trainable, opt_state, bx[:, e], by[:, e], extras)
-        stacked.trainable = trainable
-        stacked.opt_state = opt_state
-        return stacked, None
+        return trainable, opt_state
 
     def server_round_stacked(self, rnd: int, upload, valid=None):
         """The server round over the stacked upload (None = no dispatch).

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis.registry import meta, register_program
 from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels import flash_attention as _flash
@@ -49,6 +50,19 @@ from repro_torch.kernels.topk_pack import batched_topk_pack as _btopk
 from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
 
 
+# ---- static-analysis registration (repro_torch.analysis) -------------------
+# The reference's dispatchers register at its bench-scale shapes (C=100
+# clients, P=4096 payload entries); their counterparts here register under
+# the same names and shapes, on meta tensors. The decorator only records
+# metadata: the lint traces them lazily.
+_AC, _AP = 100, 4096
+_I8, _I32, _U8 = torch.int8, torch.int32, torch.uint8
+
+
+def _ref(name):
+    return f"repro_torch.kernels.ref.{name}_ref"
+
+
 def _on_cuda(*ts: torch.Tensor) -> bool:
     """True for CUDA operands (the kernel), False for CPU ones (the plain
     version) or meta ones (its shapes); operands on more than one kind of
@@ -62,6 +76,10 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
                      "CUDA device or all on the CPU (or all on meta)")
 
 
+@register_program(
+    "kernels.batched_pairwise_dist",
+    abstract_args=lambda: ((meta(_AC, 48, 64), meta(_AC, 96, 64)), {}),
+    oracle=_ref("batched_pairwise_dist"), budget_bytes=64 << 20)
 def batched_pairwise_dist(q, g):
     """(C, Q, D) x (C, G, D) -> (C, Q, G) fp32 squared distances."""
     if _on_cuda(q, g):
@@ -69,6 +87,10 @@ def batched_pairwise_dist(q, g):
     return REF.batched_pairwise_dist_ref(q, g)
 
 
+@register_program(
+    "kernels.pairwise_dist",
+    abstract_args=lambda: ((meta(128, 64), meta(256, 64)), {}),
+    oracle=_ref("pairwise_dist"), budget_bytes=16 << 20)
 def pairwise_dist(q, g):
     """(Q, D) x (G, D) -> (Q, G) fp32 squared distances."""
     if _on_cuda(q, g):
@@ -76,6 +98,11 @@ def pairwise_dist(q, g):
     return REF.pairwise_dist_ref(q, g)
 
 
+@register_program(
+    "kernels.batched_int8_pairwise_dist",
+    abstract_args=lambda: ((meta(8, 32, 64), meta(8, 4096, 64, dtype=_I8),
+                            meta(8, 4096), meta(8, 4096)), {}),
+    oracle=_ref("batched_int8_pairwise_dist"), budget_bytes=32 << 20)
 def batched_int8_pairwise_dist(q, gq, gscale, gn2):
     """(C, B, F) fp32 queries x int8 resident gallery ((C, G, F) codes,
     (C, G) scales, (C, G) dequantized squared norms) -> (C, B, G)."""
@@ -84,6 +111,10 @@ def batched_int8_pairwise_dist(q, gq, gscale, gn2):
     return REF.batched_int8_pairwise_dist_ref(q, gq, gscale, gn2)
 
 
+@register_program(
+    "kernels.batched_quantize",
+    abstract_args=lambda: ((meta(_AC, _AP),), {"chunk": 256}),
+    oracle=_ref("batched_quantize"), budget_bytes=16 << 20)
 def batched_quantize(x, *, chunk: int = 256):
     """(C, P) fp32 -> ((C, P) int8, (C, ceil(P/chunk)) fp32 scales)."""
     if _on_cuda(x):
@@ -91,6 +122,11 @@ def batched_quantize(x, *, chunk: int = 256):
     return REF.batched_quantize_ref(x, chunk=chunk)
 
 
+@register_program(
+    "kernels.batched_dequantize",
+    abstract_args=lambda: ((meta(_AC, _AP, dtype=_I8),
+                            meta(_AC, _AP // 256)), {"chunk": 256}),
+    oracle=_ref("batched_dequantize"), budget_bytes=16 << 20)
 def batched_dequantize(q, scales, *, chunk: int = 256):
     """Inverse of ``batched_quantize``: (C, P) int8 + (C, ceil(P/chunk))
     fp32 scales -> (C, P) fp32."""
@@ -156,12 +192,20 @@ def adaptive_combine_tree(B, alpha, A):
     return tree_map(lambda _: next(outs), B)
 
 
+@register_program(
+    "kernels.adaptive_combine",
+    abstract_args=lambda: ((meta(_AC, _AP),) * 3, {}),
+    oracle=_ref("adaptive_combine"), budget_bytes=16 << 20)
 def adaptive_combine(base, alpha, a):
     """FedSTIL Eq. 2 over one leaf: base * alpha + a, differentiable (the
     tree entry over a single tensor)."""
     return adaptive_combine_tree(base, alpha, a)
 
 
+@register_program(
+    "kernels.relevance_aggregate",
+    abstract_args=lambda: ((meta(_AC, _AC), meta(_AC, _AP)), {}),
+    oracle=_ref("relevance_aggregate"), budget_bytes=16 << 20)
 def relevance_aggregate(w, thetas):
     """Eq. 6 over given rows: (R, C) fp32 relevance x (C, P) -> (R, P)."""
     if _on_cuda(w, thetas):
@@ -169,6 +213,10 @@ def relevance_aggregate(w, thetas):
     return REF.relevance_aggregate_ref(w, thetas)
 
 
+@register_program(
+    "kernels.kl_similarity",
+    abstract_args=lambda: ((meta(64, 128), meta(48, 128)), {}),
+    oracle=_ref("kl_similarity"), budget_bytes=16 << 20)
 def kl_similarity(a, b):
     """(N, D) x (M, D) -> (N, M) fp32 exp(-KL(softmax(a_i) || softmax(b_j)))."""
     if _on_cuda(a, b):
@@ -176,6 +224,10 @@ def kl_similarity(a, b):
     return REF.kl_similarity_ref(a, b)
 
 
+@register_program(
+    "kernels.fused_relevance_aggregate",
+    abstract_args=lambda: ((meta(_AC, _AC), meta(_AC, _AP)), {}),
+    oracle=_ref("fused_relevance_aggregate"), budget_bytes=16 << 20)
 def fused_relevance_aggregate(w, thetas):
     """Raw relevance (C, C) + stacked parameters (C, P) -> (B = Wn @ Θ
     (C, P), Wn (C, C) fp32): diagonal masked, rows normalized, zero rows
@@ -190,9 +242,14 @@ def normalize_relevance(w):
     Wn alone: diagonal masked, rows normalized, zero rows kept zero."""
     if _on_cuda(w):
         return _normalize(w)
-    return REF.normalized_relevance_ref(w)
+    return REF.normalize_relevance_ref(w)
 
 
+@register_program(
+    "kernels.batched_cluster_assign",
+    abstract_args=lambda: ((meta(8, 32, 64), meta(8, 64, 64), meta(8, 64)),
+                           {"nprobe": 8}),
+    oracle=_ref("batched_cluster_assign"), budget_bytes=16 << 20)
 def batched_cluster_assign(qf, cent, cn2, *, nprobe: int):
     """IVF coarse-quantizer stage: (C, B, F) fp32 queries x ((C, L, F)
     centroids, (C, L) squared norms) -> (C, B, nprobe) int32 nearest bucket
@@ -202,6 +259,12 @@ def batched_cluster_assign(qf, cent, cn2, *, nprobe: int):
     return REF.batched_cluster_assign_ref(qf, cent, cn2, nprobe=nprobe)
 
 
+@register_program(
+    "kernels.batched_ivf_shortlist",
+    abstract_args=lambda: ((meta(8, 32, 64), meta(8, 32, 8, dtype=_I32),
+                            meta(8, 64, 96, 64, dtype=_I8),
+                            meta(8, 64, 3, 96)), {}),
+    oracle=_ref("batched_ivf_shortlist"), budget_bytes=32 << 20)
 def batched_ivf_shortlist(qf, probe, bq, pack):
     """IVF shortlist stage: score only the probed buckets of the
     bucket-major int8 image. (C, B, F) queries + (C, B, P) probe ids x
@@ -214,6 +277,10 @@ def batched_ivf_shortlist(qf, probe, bq, pack):
     return REF.batched_ivf_shortlist_ref(qf, probe, bq, pack)
 
 
+@register_program(
+    "kernels.batched_topk_pack",
+    abstract_args=lambda: ((meta(_AC, _AP),), {"group": 8, "kg": 2}),
+    oracle=_ref("batched_topk_pack"), budget_bytes=32 << 20)
 def batched_topk_pack(x, *, group: int = 8, kg: int):
     """Wire-codec sparsify stage: (C, P) -> (values (C, ceil(P/group)*kg)
     fp32, absolute indices int32): the kg largest magnitudes of every group
@@ -223,6 +290,12 @@ def batched_topk_pack(x, *, group: int = 8, kg: int):
     return REF.batched_topk_pack_ref(x, group=group, kg=kg)
 
 
+@register_program(
+    "kernels.batched_topk_unpack",
+    abstract_args=lambda: ((meta(_AC, _AP // 8 * 2),
+                            meta(_AC, _AP // 8 * 2, dtype=_I32)),
+                           {"p": _AP, "group": 8, "kg": 2}),
+    oracle=_ref("batched_topk_unpack"), budget_bytes=32 << 20)
 def batched_topk_unpack(vals, idx, *, p: int, group: int = 8, kg: int):
     """Inverse of ``batched_topk_pack``: values + indices -> dense (C, p)
     fp32, dropped entries zero."""
@@ -231,6 +304,11 @@ def batched_topk_unpack(vals, idx, *, p: int, group: int = 8, kg: int):
     return REF.batched_topk_unpack_ref(vals, idx, p=p, group=group, kg=kg)
 
 
+@register_program(
+    "kernels.batched_idx_bitpack",
+    abstract_args=lambda: ((meta(_AC, _AP // 8 * 2, dtype=_I32),),
+                           {"group": 8, "kg": 2}),
+    oracle=_ref("batched_idx_bitpack"), budget_bytes=16 << 20)
 def batched_idx_bitpack(idx, *, group: int = 8, kg: int):
     """Wire-codec index compression: (C, K) int32 grouped-pack indices ->
     (C, bits*ceil(K/8)) uint8 bit-planes of the local in-group index (3
@@ -240,6 +318,11 @@ def batched_idx_bitpack(idx, *, group: int = 8, kg: int):
     return REF.batched_idx_bitpack_ref(idx, group=group, kg=kg)
 
 
+@register_program(
+    "kernels.batched_idx_bitunpack",
+    abstract_args=lambda: ((meta(_AC, 3 * (_AP // 8 * 2 // 8), dtype=_U8),),
+                           {"k": _AP // 8 * 2, "group": 8, "kg": 2}),
+    oracle=_ref("batched_idx_bitunpack"), budget_bytes=16 << 20)
 def batched_idx_bitunpack(packed, *, k: int, group: int = 8, kg: int):
     """Inverse of ``batched_idx_bitpack``: uint8 bit-planes -> (C, k) int32
     absolute indices."""
@@ -340,7 +423,7 @@ _BWD = _QKV + ", Tensor do, Tensor lse, Tensor delta"
 _MASK = "bool causal, int window"
 _fwd_op = _flash_op(
     "fwd", f"({_QKV}, {_MASK}) -> Tensor", _flash.flash_attention_fwd,
-    REF.flash_attention_ref,
+    REF.flash_attention_fwd_ref,
     lambda q, k, v, causal, window: torch.empty_like(q))
 _fwd_lse_op = _flash_op(
     "fwd_lse", f"({_QKV}, {_MASK}) -> (Tensor, Tensor)",
@@ -415,6 +498,10 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@register_program(
+    "kernels.flash_attention",
+    abstract_args=lambda: ((meta(2, 4, 128, 64),) * 3, {"causal": True}),
+    oracle=_ref("flash_attention"), budget_bytes=64 << 20)
 def flash_attention(q, k, v, *, causal: bool, window: int = 0):
     """Attention over (B, Hq, Sq, hd) q and (B, Hkv, Sk, hd) k, v (Hq a
     multiple of Hkv), softmax in fp32, output in q's dtype. With no

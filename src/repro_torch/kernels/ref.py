@@ -109,7 +109,7 @@ def kl_similarity_ref(a, b):
     return torch.exp(-(h[:, None] - cross))
 
 
-def normalized_relevance_ref(w):
+def normalize_relevance_ref(w):
     """Diagonal-masked, row-normalized relevance (C, C) fp32: the diagonal
     is replaced (``where``, so junk there never leaks, NaN included), rows
     are divided by their sums, and rows that do not sum above zero stay
@@ -127,7 +127,7 @@ def fused_relevance_aggregate_ref(w, thetas):
     """FedSTIL's server tail (Eq. 5 post-processing + Eq. 6): raw relevance
     w (C, C) and stacked parameters thetas (C, P) -> (B = Wn @ thetas in
     thetas' dtype (fp32 sums), Wn (C, C) fp32)."""
-    wn = normalized_relevance_ref(w)
+    wn = normalize_relevance_ref(w)
     return (wn @ thetas.float()).to(thetas.dtype), wn
 
 
@@ -385,6 +385,11 @@ def flash_attention_ref(q, k, v, *, causal: bool, window: int = 0):
     """Attention alone (the forward stage): o (B, Hq, Sq, hd), q's dtype."""
     return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
                                        window=window)[0]
+
+
+# the forward stage's plain version under its dispatcher's name
+# (``ops.flash_attention_fwd``)
+flash_attention_fwd_ref = flash_attention_ref
 
 
 def _flash_ds(q, k, v, do, lse, delta, *, causal, window):

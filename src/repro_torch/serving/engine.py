@@ -20,9 +20,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import (meta, register_program,
+                                           register_runtime)
 from repro_torch.core import edge_model as EM
 from repro_torch.core.convert import theta_numpy
 from repro_torch.kernels import ops
@@ -54,6 +58,60 @@ def rank_topk(dist, gids, qmask, k: int):
     return ids, d
 
 
+def _query_abstract(int8: bool):
+    """Bench-scale abstract query inputs: C=8 clients x a batch of 32
+    against G=4096 resident rows."""
+    cfg = EM.EdgeModelConfig()
+    C, B, G, F = 8, 32, 4096, cfg.feat_dim
+    common = (EM.adaptive_layers_meta(cfg, C), meta(C, F), meta(C, F),
+              meta(C, B, cfg.proto_dim), meta(C, B))
+    if int8:
+        gal = (meta(C, G, F, dtype=torch.int8), meta(C, G), meta(C, G),
+               meta(C, G, dtype=torch.int32))
+    else:
+        gal = (meta(C, G, F), meta(C, G, dtype=torch.int32))
+    return common + gal, {"k": _K}
+
+
+@register_program(
+    "serving.query_int8", abstract_args=lambda: _query_abstract(True),
+    oracle="repro_torch.serving.engine.query_host", budget_bytes=64 << 20)
+def query_int8_program(theta, bn_mu, bn_sd, qp, qmask, gq, gscale, gn2,
+                       gids, *, k: int):
+    """The serving fast path: (C, B, proto_dim) padded query batch against
+    the int8 resident gallery -> top-k ids + squared distances, on the
+    device."""
+    qf = featurize(theta, bn_mu, bn_sd, qp)
+    dist = ops.batched_int8_pairwise_dist(qf, gq, gscale, gn2)
+    return rank_topk(dist, gids, qmask, k)
+
+
+@register_program(
+    "serving.query_fp32", abstract_args=lambda: _query_abstract(False),
+    oracle="repro_torch.serving.engine.query_host", budget_bytes=64 << 20)
+def query_fp32_program(theta, bn_mu, bn_sd, qp, qmask, gf, gids, *, k: int):
+    """Exact-path twin of ``query_int8_program`` over the fp32 rows: the
+    on-device parity oracle for the int8 index."""
+    qf = featurize(theta, bn_mu, bn_sd, qp)
+    dist = ops.batched_pairwise_dist(qf, gf)
+    return rank_topk(dist, gids, qmask, k)
+
+
+def _query_ivf_abstract(with_metrics: bool = False):
+    cfg = EM.EdgeModelConfig()
+    C, B, L, K, F = 8, 32, 64, 96, cfg.feat_dim
+    return ((EM.adaptive_layers_meta(cfg, C), meta(C, F), meta(C, F),
+             meta(C, B, cfg.proto_dim), meta(C, B), meta(C, L, F),
+             meta(C, L), meta(C, L, K, F, dtype=torch.int8),
+             meta(C, L, 3, K)),
+            {"k": _K, "nprobe": 8, **({"with_metrics": True}
+                                      if with_metrics else {})})
+
+
+@register_program(
+    "serving.query_ivf", abstract_args=_query_ivf_abstract,
+    oracle="repro_torch.serving.engine.query_ivf_host",
+    budget_bytes=64 << 20)
 def query_ivf(theta, bn_mu, bn_sd, qp, qmask, cent, cn2, bq, pack, *,
               k: int, nprobe: int, with_metrics: bool = False):
     """The approximate serving path: featurize -> the ``nprobe`` nearest
@@ -71,6 +129,15 @@ def query_ivf(theta, bn_mu, bn_sd, qp, qmask, cent, cn2, bq, pack, *,
     if not with_metrics:
         return top, d
     return top, d, ivf_metrics(ids, qmask, idx, bq.shape[2], nprobe)
+
+
+register_runtime(
+    "serving.query_ivf_metrics", functools.partial(query_ivf,
+                                                   with_metrics=True),
+    abstract_args=lambda: _query_ivf_abstract(True),
+    module="repro_torch.serving.engine",
+    oracle="repro_torch.serving.engine.query_ivf_host",
+    budget_bytes=64 << 20)
 
 
 def rank_shortlist(d, ids, qf, qmask, k: int):
@@ -297,12 +364,13 @@ class RetrievalEngine:
                 obs.metric("serve.ivf", out[2], nprobe=self.nprobe)
             ids, d = out[:2]
             return ids.cpu().numpy(), d.cpu().numpy()
-        qf = featurize(self.theta, ix.bn_mu, ix.bn_sd, qp)
         if self.mode == "int8":
-            dist = ops.batched_int8_pairwise_dist(qf, ix.gq, ix.gscale, ix.gn2)
+            ids, d = query_int8_program(self.theta, ix.bn_mu, ix.bn_sd, qp,
+                                        qmask, ix.gq, ix.gscale, ix.gn2,
+                                        ix.gids, k=k)
         else:
-            dist = ops.batched_pairwise_dist(qf, ix.gf)
-        ids, d = rank_topk(dist, ix.gids, qmask, k)
+            ids, d = query_fp32_program(self.theta, ix.bn_mu, ix.bn_sd, qp,
+                                        qmask, ix.gf, ix.gids, k=k)
         return ids.cpu().numpy(), d.cpu().numpy()
 
     def query_host(self, qp, qmask, *, k: Optional[int] = None):

@@ -46,6 +46,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import meta, register_program
 from repro_torch.common.device import resolve_device
 from repro_torch.core import edge_model as EM
 from repro_torch.core.convert import theta_numpy
@@ -68,6 +69,22 @@ def index_features(theta, gp, gmask):
     return l2n(fn) * gmask[..., None], mu, sd
 
 
+def _refresh_abstract(ivf: bool = False):
+    """Bench-scale abstract refresh inputs: C=8 clients x G=4096 rows."""
+    cfg = EM.EdgeModelConfig()
+    C, G = 8, 4096
+    args = (EM.adaptive_layers_meta(cfg, C), meta(C, G, cfg.proto_dim),
+            meta(C, G))
+    if not ivf:
+        return args, {}
+    return (args + (meta(C, G, dtype=torch.int32),),
+            {"nlist": 64, "bcap": 96, "iters": 4, "train_cap": 2048,
+             "balance": 0.1})
+
+
+@register_program(
+    "serving.index_refresh", abstract_args=_refresh_abstract,
+    oracle="repro_torch.serving.index.refresh_host", budget_bytes=192 << 20)
 def index_refresh(theta, gp, gmask):
     """Rebuild the resident image under a stacked head -> (int8 codes,
     per-row scales, dequantized squared norms, BN mu, BN sd, fp32 rows).
@@ -136,9 +153,11 @@ def ivf_build(deq, gmask, *, nlist: int, bcap: int, iters: int,
                       (torch.arange(nlist, device=dev) * nv[:, None]) // nlist)
     cent = _take_rows(deq, csel)
     # the reference divides by the constant nlist, which XLA compiles to a
-    # multiply by its fp32 reciprocal: the same product here
+    # multiply by its fp32 reciprocal: the same product here (filled on the
+    # device: a tensor made from host data would be a blocking copy, a
+    # sync in the middle of the refresh)
     target = torch.clamp(
-        nv_f * torch.tensor(1.0 / nlist, dtype=torch.float32, device=dev),
+        nv_f * torch.full((), 1.0 / nlist, dtype=torch.float32, device=dev),
         min=1e-6)[:, None]                                       # (C, 1)
     onehot_ids = torch.arange(nlist, device=dev)[None, :, None]
     wtrain = train * tm[..., None]
@@ -183,6 +202,11 @@ def ivf_build(deq, gmask, *, nlist: int, bcap: int, iters: int,
     return cent, cn2, inv[:, :NS].reshape(C, nlist, bcap).int()
 
 
+@register_program(
+    "serving.index_refresh_ivf",
+    abstract_args=lambda: _refresh_abstract(ivf=True),
+    oracle="repro_torch.serving.index.ivf_refresh_host",
+    budget_bytes=256 << 20)
 def index_refresh_ivf(theta, gp, gmask, gids, *, nlist: int, bcap: int,
                       iters: int, train_cap: int, balance: float):
     """``index_refresh`` and the IVF coarse quantizer in one call: the flat

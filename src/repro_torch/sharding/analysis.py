@@ -315,6 +315,7 @@ class OpCounter(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
         out = func(*args, **kwargs)
+        self.on_op(func, args, kwargs, out)
         scale = _SCALE[-1]
         packet = func._overloadpacket
         if packet in flop_registry:
@@ -332,6 +333,11 @@ class OpCounter(TorchDispatchMode):
         if not func.is_view:
             self._track(args, kwargs, out)
         return out
+
+    def on_op(self, func, args, kwargs, out) -> None:
+        """Called with every op this counter runs (not one it hands on
+        decomposed), before it is counted: a subclass's hook
+        (``analysis.registry.Recorder``)."""
 
     def _track(self, args, kwargs, out) -> None:
         seen = {id(t.untyped_storage()) for t in _tensors((args, kwargs))}

@@ -424,7 +424,7 @@ def test_tile_summation_order_has_margin_at_the_fleet_shape():
     C, P = 1000, 64
     w = rng.random((C, C)).astype(np.float32)
     np.fill_diagonal(w, 0.0)
-    wn = ref.normalized_relevance_ref(torch.from_numpy(w)).numpy()
+    wn = ref.normalize_relevance_ref(torch.from_numpy(w)).numpy()
     th = rng.standard_normal((C, P)).astype(np.float32)
     acc = np.zeros((C, P), np.float32)
     for k in range(C):
