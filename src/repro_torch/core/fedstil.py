@@ -29,14 +29,15 @@ holds a block of the Cp padded client rows. The server round all-gathers
 the task features and validity of every row, keeps the relevance ring
 replicated (Eq. 4 contracts every row against every history, and the ring
 is only Cp x k x D), so W and Wn are the same on every rank, and forms
-Eq. 6 as ``sharded_fused_aggregate``: Wn through
-``ops.normalize_relevance``, each rank's partial product of its own column
-block of Wn and its rows of Theta through ``ops.relevance_aggregate``, then
-one reduce-scatter over "data". Each rank casts its flattened rows to
-``wire_dtype`` (bf16 by default, ``common/precision.py``) and upcasts them
-to fp32 for its partial product: the cast keeps the reference's precision
-rule, and saves no bytes here, since no bf16 tensor crosses ranks (the one
-transfer of Eq. 6 is the fp32 (Cp, P) partial of the reduce-scatter).
+Eq. 5 -> 6 as ``sharded_fused_aggregate``: one launch of the fused
+aggregate's column-block form (``ops.fused_relevance_aggregate(w,
+thetas, lo, hi)``: Wn, and the rank's partial product of its own column
+block of Wn and its rows of Theta), then one reduce-scatter over "data".
+Each rank casts its flattened rows to ``wire_dtype`` (bf16 by default,
+``common/precision.py``) and upcasts them to fp32 for its partial product:
+the cast keeps the reference's precision rule, and saves no bytes here,
+since no bf16 tensor crosses ranks (the one transfer of Eq. 6 is the fp32
+(Cp, P) partial of the reduce-scatter).
 
 Ablation switches (Table III): ``st_integration``, ``rehearsal``,
 ``tying``; the similarity switch (Table VI): ``metric``.
@@ -70,19 +71,17 @@ def sharded_fused_aggregate(w, thetas, mesh):
     relevance (C, C), ``thetas`` this rank's (C / d, P / m) block of the
     stacked parameters (client rows over "data", columns over "model").
 
-    Wn (the diagonal masked, rows normalized, zero rows kept zero:
-    ``ops.normalize_relevance``, the fused kernel's first stage, so on the
-    card Wn is the fused kernel's bit for bit) is the same on every rank.
-    Rank r contracts its own column block of Wn against its rows:
-    ``ops.relevance_aggregate(Wn[:, block_r], thetas)``, a (C, P / m) fp32
-    partial product through the hand-written Eq. 6 kernel; one
-    reduce-scatter over "data" sums the partials and leaves rank r with
-    its own rows of B (on one rank, the fused kernel's B bit for bit).
-    Returns (B block (C / d, P / m) fp32, Wn (C, C))."""
-    wn = ops.normalize_relevance(w)
-    lo, hi = mesh.block(wn.shape[0])
-    partial = ops.relevance_aggregate(wn[:, lo:hi].contiguous(),
-                                      thetas.contiguous())
+    One launch of the fused aggregate's column-block form
+    (``ops.fused_relevance_aggregate(w, thetas, *block_r)``) gives Wn
+    (the diagonal masked, rows normalized, zero rows kept zero; the same
+    on every rank, and on the card the fused kernel's bit for bit) and
+    rank r's (C, P / m) fp32 partial product Wn[:, block_r] @ thetas of
+    its own column block of Wn against its rows; one reduce-scatter over
+    "data" sums the partials and leaves rank r with its own rows of B (on
+    one rank, the fused kernel's B bit for bit). Returns (B block (C / d,
+    P / m) fp32, Wn (C, C))."""
+    partial, wn = ops.fused_relevance_aggregate(
+        w, thetas.contiguous(), *mesh.block(w.shape[0]))
     return mesh.reduce_scatter_rows(partial), wn
 
 

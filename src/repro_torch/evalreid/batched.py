@@ -28,6 +28,11 @@ shifts a real match's rank.
 Memory: step 2 holds a (C, T, Q, M, G) boolean, M = ``max_matches``; it
 grows as C² with the galleries, which bounds the client count one eval
 round can take on one card.
+
+``evaluate_retrieval_batched`` takes numpy arrays and returns numpy
+metrics from ``batched_retrieval_metrics`` on ``device`` (the card unless
+the caller names the CPU): the reference's ``backend="device"``. Its
+numpy oracle is ``evalreid.retrieval.evaluate_retrieval``.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.registry import meta, register_program
+from repro_torch.common.device import resolve_device
 from repro_torch.kernels import ops
 
 _PAD_DIST = 1e30      # >> max squared distance of unit vectors (4.0)
@@ -140,3 +146,26 @@ def batched_retrieval_metrics(qf, qids, gf, gids, *, qmask=None, gmask=None,
     for k in ranks:
         out[f"R{k}"] = torch.sum((best <= k).float() * vf, -1) / cnt
     return out
+
+
+def evaluate_retrieval_batched(qf, qids, gf, gids, *, qmask=None, gmask=None,
+                               ranks: Tuple[int, ...] = (1, 3, 5),
+                               max_matches: Optional[int] = None,
+                               device="cuda") -> Dict[str, np.ndarray]:
+    """All (c, t) retrieval evaluations at once from numpy arrays ->
+    {"mAP": (C, T), "R1": ..., ...} numpy fp32: ``batched_retrieval_metrics``
+    on ``device`` (distances through the CUDA kernel there; ``device="cpu"``
+    takes the plain versions), with ``max_matches`` bounded on the host by
+    ``max_match_bound`` unless given."""
+    if max_matches is None:
+        max_matches = max_match_bound(qids, gids, qmask=qmask, gmask=gmask)
+    dev = resolve_device(device)
+
+    def put(a):
+        return None if a is None else torch.as_tensor(np.asarray(a),
+                                                      device=dev)
+
+    out = batched_retrieval_metrics(
+        put(qf), put(qids), put(gf), put(gids), qmask=put(qmask),
+        gmask=put(gmask), ranks=tuple(ranks), max_matches=int(max_matches))
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -3,27 +3,29 @@
 //
 // repro_fused_relevance_aggregate replaces the Pallas TPU kernel
 // src/repro/kernels/relevance_aggregate.py:fused_relevance_aggregate
-// (_fused_kernel), the stacked round's Eq. 5 -> 6 tail:
+// (_fused_kernel), Eq. 5 -> 6 in column-block form:
 //
 //   Wm = where(i == j, 0, W)          (no self-relevance; junk, even NaN,
 //                                      on the diagonal never leaks)
 //   Wn = where(rowsum(Wm) > 0, Wm / rowsum(Wm), 0)   (zero rows stay zero)
-//   B  = Wn @ Theta                   (fp32 sums)
+//   B  = Wn[:, lo:hi] @ Theta         (fp32 sums)
 //
-// with W (C, C) raw decayed relevance and Theta (C, P) the stacked client
-// parameters, both fp32; outputs B (C, P) and Wn (C, C) fp32.
+// with W (C, C) raw decayed relevance and Theta (hi - lo, P) the client
+// parameters of rows lo..hi, both fp32; outputs B (C, P) and the whole Wn
+// (C, C) fp32. At lo = 0, hi = C it is the stacked round's fused tail (B =
+// Wn @ Theta); on the sharded engine each rank passes its own row block of
+// Theta and gets its partial product, which a reduce-scatter sums. Every
+// launch normalizes the whole W, as the Pallas kernel recomputes
+// _normalized_w in every grid step, so Wn never waits on another launch.
 //
 // repro_relevance_aggregate replaces
 // src/repro/kernels/relevance_aggregate.py:relevance_aggregate
 // (_agg_kernel), the plain product B = W @ Theta with W (R, C) already
 // normalized, B (R, P): on the host server the rows of clients with
-// relevant neighbours (R <= C), on the sharded engine one rank's column
-// block of Wn (R = Cp rows over its C = Cp / d clients).
+// relevant neighbours (R <= C).
 //
 // repro_normalize_relevance is the fused entry's first stage alone (W ->
-// Wn): the sharded engine normalizes the replicated W once, and each rank
-// then runs repro_relevance_aggregate on its block of Wn's columns against
-// its rows of Theta.
+// Wn), with no main-path caller: the fused entry's Wn bit for bit.
 //
 // What bounds them on an H100: B does 2 R C P FLOPs over about 4 (R + C) P
 // bytes, about R / 4 FLOP per byte at R = C, against the card's fp32 ridge
@@ -35,7 +37,7 @@
 // ascending k from 0.
 //
 // Variants (chosen by _plan in relevance_aggregate.py; both entries take
-// all three):
+// all three; for the fused entry R is W's C and the contraction hi - lo):
 //   skinny  R, C <= SKINNY_MAX_C (32), Theta 16-byte aligned, P % 4 == 0:
 //           one launch streams Theta with float4 loads; a thread keeps the
 //           8 x 4 outputs of its 8 rows and 4 columns in registers, each
@@ -43,12 +45,14 @@
 //           first), its rows' weights k-major in shared memory. The fused
 //           entry's blocks each normalize the tiny W in shared memory, as
 //           the Pallas kernel recomputes _normalized_w in every grid step;
-//           block 0 writes Wn. One launch where the tile takes three: it
-//           beat the tile at every C <= 32 on the card.
+//           block 0 writes Wn, and the k loop reads Wn's columns lo..hi.
+//           One launch where the tile takes three: it beat the tile at
+//           every C <= 32 on the card.
 //   tiled   larger C, aligned: a prologue writes the rows of W k-major, WT
 //           (C, ld) with ld = R rounded up to 4, into the caller's scratch
 //           (the fused entry first normalizes W into Wn, one block a row,
-//           then transposes Wn). The product runs 128 x 128 output tiles,
+//           then transposes Wn's columns lo..hi in place: Wn + lo, row
+//           stride C). The product runs 128 x 128 output tiles,
 //           256 threads each holding an 8 x 8 block in registers, read as
 //           two float4 halves 64 apart in rows and in columns (a warp's
 //           loads hit no bank twice): per k a thread issues 4 LDS.128 for
@@ -363,27 +367,27 @@ normalize_kernel(const float* __restrict__ w, float* __restrict__ wn, int C) {
     out[j] = (pos && j != i) ? __fdiv_rn(wr[j], rows) : 0.f;
 }
 
-// a 32 x 32 block of w (R, C) -> its transpose in wt (C, ld): both sides
-// coalesced through shared memory
+// a 32 x 32 block of w (R, C; row stride ldw) -> its transpose in wt (C,
+// ld): both sides coalesced through shared memory
 __global__ void __launch_bounds__(kPrepThreads)
 transpose_kernel(const float* __restrict__ w, float* __restrict__ wt, int R,
-                 int C, int ld) {
+                 int C, int ldw, int ld) {
   __shared__ float tile[32][33];
   const int j0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int i = ty; i < 32; i += kPrepThreads / 32)
     if (r0 + i < R && j0 + tx < C)
-      tile[i][tx] = w[(size_t)(r0 + i) * C + j0 + tx];
+      tile[i][tx] = w[(size_t)(r0 + i) * ldw + j0 + tx];
   __syncthreads();
   for (int i = ty; i < 32; i += kPrepThreads / 32)
     if (j0 + i < C && r0 + tx < R)
       wt[(size_t)(j0 + i) * ld + r0 + tx] = tile[tx][i];
 }
 
-int run_transpose(const float* w, float* wt, int R, int C, int ld,
+int run_transpose(const float* w, float* wt, int R, int C, int ldw, int ld,
                   cudaStream_t s) {
   const dim3 grid((C + 31) / 32, (R + 31) / 32);
-  transpose_kernel<<<grid, kPrepThreads, 0, s>>>(w, wt, R, C, ld);
+  transpose_kernel<<<grid, kPrepThreads, 0, s>>>(w, wt, R, C, ldw, ld);
   return (int)cudaGetLastError();
 }
 
@@ -393,12 +397,13 @@ int run_transpose(const float* w, float* wt, int R, int C, int ld,
 
 // block g * groups + h: rows [8 h, 8 h + 8) of B, columns [512 g, 512 g +
 // 512): the row groups of one column block are neighbours, so they share
-// its Theta in L2
+// its Theta in L2. w is (R, C); the product contracts its columns lo ..
+// lo + K against Theta's K rows (the plain entry: lo = 0, K = C)
 template <bool kFused>
 __global__ void __launch_bounds__(kSkinnyThreads)
 skinny_kernel(const float* __restrict__ w, const float4* __restrict__ theta,
               float4* __restrict__ b, float* __restrict__ wn, int R, int C,
-              long long P4) {
+              int lo, int K, long long P4) {
   __shared__ float ws[kSkinnyMaxC * kSkinnyMaxC];
   __shared__ __align__(16) float wk[kSkinnyMaxC][kSkinnyRows];  // k-major
   const int groups = (R + kSkinnyRows - 1) / kSkinnyRows;
@@ -421,9 +426,9 @@ skinny_kernel(const float* __restrict__ w, const float4* __restrict__ theta,
     }
     __syncthreads();
   }
-  for (int e = threadIdx.x; e < C * kSkinnyRows; e += kSkinnyThreads) {
+  for (int e = threadIdx.x; e < K * kSkinnyRows; e += kSkinnyThreads) {
     const int k = e / kSkinnyRows, r = e % kSkinnyRows;
-    wk[k][r] = r0 + r < R ? ws[(r0 + r) * C + k] : 0.f;
+    wk[k][r] = r0 + r < R ? ws[(r0 + r) * C + lo + k] : 0.f;
   }
   __syncthreads();
   if (q >= P4) return;
@@ -432,7 +437,7 @@ skinny_kernel(const float* __restrict__ w, const float4* __restrict__ theta,
   for (int r = 0; r < kSkinnyRows; ++r)
     acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-  for (int k = 0; k < C; ++k) {
+  for (int k = 0; k < K; ++k) {
     const float4 t = __ldg(theta + (size_t)k * P4 + q);
     const float4 a0 = *reinterpret_cast<const float4*>(&wk[k][0]);
     const float4 a1 = *reinterpret_cast<const float4*>(&wk[k][4]);
@@ -453,14 +458,15 @@ skinny_kernel(const float* __restrict__ w, const float4* __restrict__ theta,
 
 template <bool kFused>
 int run_skinny(const float* w, const float* theta, float* b, float* wn,
-               int R, int C, long long P, long long grid, cudaStream_t s) {
+               int R, int C, int lo, int K, long long P, long long grid,
+               cudaStream_t s) {
   if (C > kSkinnyMaxC || R > kSkinnyMaxC || P % 4 ||
       reinterpret_cast<uintptr_t>(theta) % 16 ||
       reinterpret_cast<uintptr_t>(b) % 16)
     return (int)cudaErrorInvalidValue;
   skinny_kernel<kFused><<<(unsigned)grid, kSkinnyThreads, 0, s>>>(
       w, reinterpret_cast<const float4*>(theta), reinterpret_cast<float4*>(b),
-      wn, R, C, P / 4);
+      wn, R, C, lo, K, P / 4);
   return (int)cudaGetLastError();
 }
 
@@ -500,39 +506,46 @@ bool bad_plan(int variant, int R, int C, long long P, int ld,
 
 }  // namespace
 
-// w (C, C) raw relevance, theta (C, P), b (C, P), wn (C, C); wt the scratch
-// (C, ld) of the tiled and ragged variants (ld = C rounded up to 4; null
-// for the skinny one); all fp32, contiguous, on the current device.
-// variant and grid (blocks of the product) as _plan gives them. Returns
-// cudaGetLastError() after the last launch (cudaErrorInvalidValue for a
-// plan the operands do not allow).
+// w (C, C) raw relevance, theta (hi - lo, P) the rows lo..hi of the client
+// parameters, b (C, P) = Wn[:, lo:hi] @ theta, wn (C, C) the whole Wn; wt
+// the scratch (hi - lo, ld) of the tiled and ragged variants (ld = C
+// rounded up to 4; null for the skinny one); all fp32, contiguous, on the
+// current device; 0 <= lo < hi <= C. variant and grid (blocks of the
+// product) as _plan(C, hi - lo, P) gives them. B is bit for bit the plain
+// entry's on the sliced Wn (the same product, fp32 FMAs in ascending k
+// from lo), Wn repro_normalize_relevance's. Returns cudaGetLastError()
+// after the last launch (cudaErrorInvalidValue for a plan or a block the
+// operands do not allow).
 extern "C" int repro_fused_relevance_aggregate(const void* w,
                                                const void* theta, void* b,
                                                void* wn, void* wt, int C,
-                                               long long P, int variant,
-                                               int ld, long long grid,
+                                               int lo, int hi, long long P,
+                                               int variant, int ld,
+                                               long long grid,
                                                void* stream) {
   if (C == 0) return 0;
-  if (bad_plan(variant, C, C, P, ld, grid)) return (int)cudaErrorInvalidValue;
+  if (lo < 0 || hi <= lo || hi > C) return (int)cudaErrorInvalidValue;
+  const int K = hi - lo;
+  if (bad_plan(variant, C, K, P, ld, grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == kSkinny)
     return run_skinny<true>((const float*)w, (const float*)theta, (float*)b,
-                            (float*)wn, C, C, P, grid, s);
+                            (float*)wn, C, C, lo, K, P, grid, s);
   normalize_kernel<<<C, kPrepThreads, 0, s>>>((const float*)w, (float*)wn, C);
   if (int err = (int)cudaGetLastError()) return err;
-  if (int err = run_transpose((const float*)wn, (float*)wt, C, C, ld, s))
+  if (int err = run_transpose((const float*)wn + lo, (float*)wt, C, K, C, ld,
+                              s))
     return err;
   return run_tile(variant, (const float*)wt, ld, (const float*)theta,
-                  (float*)b, C, C, P, grid, s);
+                  (float*)b, C, K, P, grid, s);
 }
 
 // the fused entry's first stage alone: w (C, C) raw relevance -> wn (C, C)
 // (the diagonal masked, rows normalized, zero rows kept zero), fp32,
 // contiguous, on the current device; one normalize_kernel launch, so wn is
 // the fused entry's Wn bit for bit (the skinny variant's one-warp sum adds
-// the same terms in the same order at C <= 32). The sharded engine's
-// server round runs it once, then repro_relevance_aggregate on its block of
-// wn's columns. Returns cudaGetLastError().
+// the same terms in the same order at C <= 32). No main path calls it: it
+// stays as the stage's standalone counterpart. Returns cudaGetLastError().
 extern "C" int repro_normalize_relevance(const void* w, void* wn, int C,
                                          void* stream) {
   if (C == 0) return 0;
@@ -556,8 +569,8 @@ extern "C" int repro_relevance_aggregate(const void* w, const void* theta,
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == kSkinny)
     return run_skinny<false>((const float*)w, (const float*)theta, (float*)b,
-                             nullptr, R, C, P, grid, s);
-  if (int err = run_transpose((const float*)w, (float*)wt, R, C, ld, s))
+                             nullptr, R, C, 0, C, P, grid, s);
+  if (int err = run_transpose((const float*)w, (float*)wt, R, C, C, ld, s))
     return err;
   return run_tile(variant, (const float*)wt, ld, (const float*)theta,
                   (float*)b, R, C, P, grid, s);

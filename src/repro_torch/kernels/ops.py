@@ -228,18 +228,21 @@ def kl_similarity(a, b):
     "kernels.fused_relevance_aggregate",
     abstract_args=lambda: ((meta(_AC, _AC), meta(_AC, _AP)), {}),
     oracle=_ref("fused_relevance_aggregate"), budget_bytes=16 << 20)
-def fused_relevance_aggregate(w, thetas):
+def fused_relevance_aggregate(w, thetas, lo=0, hi=None):
     """Raw relevance (C, C) + stacked parameters (C, P) -> (B = Wn @ Θ
     (C, P), Wn (C, C) fp32): diagonal masked, rows normalized, zero rows
-    kept zero."""
+    kept zero. With a column block lo..hi, ``thetas`` holds only the rows
+    lo..hi (hi - lo, P) and B is the partial product Wn[:, lo:hi] @ Θ (C,
+    P), the whole Wn beside it (the sharded server's block, one launch)."""
     if _on_cuda(w, thetas):
-        return _fused_agg(w, thetas)
-    return REF.fused_relevance_aggregate_ref(w, thetas)
+        return _fused_agg(w, thetas, lo, hi)
+    return REF.fused_relevance_aggregate_ref(w, thetas, lo, hi)
 
 
 def normalize_relevance(w):
     """Raw relevance (C, C) -> Wn (C, C) fp32, ``fused_relevance_aggregate``'s
-    Wn alone: diagonal masked, rows normalized, zero rows kept zero."""
+    Wn alone: diagonal masked, rows normalized, zero rows kept zero (the
+    stage's standalone counterpart; no main path calls it)."""
     if _on_cuda(w):
         return _normalize(w)
     return REF.normalize_relevance_ref(w)

@@ -123,12 +123,14 @@ def normalize_relevance_ref(w):
                        torch.zeros((), device=w.device))
 
 
-def fused_relevance_aggregate_ref(w, thetas):
+def fused_relevance_aggregate_ref(w, thetas, lo=0, hi=None):
     """FedSTIL's server tail (Eq. 5 post-processing + Eq. 6): raw relevance
     w (C, C) and stacked parameters thetas (C, P) -> (B = Wn @ thetas in
-    thetas' dtype (fp32 sums), Wn (C, C) fp32)."""
+    thetas' dtype (fp32 sums), Wn (C, C) fp32). With a column block lo..hi,
+    thetas holds the rows lo..hi only, and B = Wn[:, lo:hi] @ thetas (C,
+    P)."""
     wn = normalize_relevance_ref(w)
-    return (wn @ thetas.float()).to(thetas.dtype), wn
+    return (wn[:, lo:hi] @ thetas.float()).to(thetas.dtype), wn
 
 
 def pairwise_dist_ref(q, g):

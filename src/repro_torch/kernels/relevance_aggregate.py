@@ -5,18 +5,22 @@
 
     fused:  Wn = row-normalized W with the diagonal masked (zero rows stay
             zero), B = Wn @ Theta          (the stacked server round)
+    fused, column block lo..hi: the same Wn, B = Wn[:, lo:hi] @ Theta_r
+            with Theta_r the rows lo..hi   (the sharded server round: one
+                                            rank's partial product)
     plain:  B = W @ Theta, W (R, C) rows already normalized
-                                            (the host server round; on
-                                            the sharded engine a rank's
-                                            column block of Wn)
-    normalize: the fused entry's Wn alone   (the sharded server round)
+                                            (the host server round)
+    normalize: the fused entry's Wn alone   (no main-path caller)
 
-Both entries run one of three variants of the product, which ``_plan``
-picks from the shapes and Theta's alignment: ``skinny`` (C at most
-``SKINNY_MAX_C``: one launch streams Theta), ``tiled`` (128 x 128 output
-tiles fed by TMA from a k-major copy of W's rows in scratch) and
-``ragged`` (the same tile fed by 4-byte copies, where P % 4 != 0 or Theta's
-base is off 16 bytes and no TMA map can be encoded).
+The fused entry and its column-block form are one wrapper and one C entry
+point: the first is the second at lo = 0, hi = C. Every entry runs one of
+three variants of the product, which ``_plan`` picks from the shapes and
+Theta's alignment: ``skinny`` (C at most ``SKINNY_MAX_C``: one launch
+streams Theta, the fused entry normalizing W in every block), ``tiled``
+(128 x 128 output tiles fed by TMA from a k-major copy of W's rows, or of
+Wn's columns lo..hi, in scratch) and ``ragged`` (the same tile fed by
+4-byte copies, where P % 4 != 0 or Theta's base is off 16 bytes and no
+TMA map can be encoded).
 
 Take CUDA tensors only; ``ops.fused_relevance_aggregate``,
 ``ops.relevance_aggregate`` and ``ops.normalize_relevance`` send CPU
@@ -81,13 +85,15 @@ def _scratch(plan: Plan, dev):
 
 
 _FUSED_ARGS = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_void_p)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p)
 
 
-def _fused(w, thetas, plan: Plan):
-    """Launch the fused entry under ``plan``: (B, Wn)."""
-    C, P = thetas.shape
+def _fused(w, thetas, plan: Plan, lo: int, hi: int):
+    """Launch the fused entry on Wn's columns lo..hi under ``plan``: (B (C,
+    P), Wn (C, C))."""
+    C = w.shape[0]
+    P = thetas.shape[1]
     dev = thetas.device
     b = torch.empty((C, P), dtype=torch.float32, device=dev)
     wn = torch.empty((C, C), dtype=torch.float32, device=dev)
@@ -99,25 +105,33 @@ def _fused(w, thetas, plan: Plan):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(w.data_ptr(), thetas.data_ptr(), b.data_ptr(), wn.data_ptr(),
-                None if wt is None else wt.data_ptr(), C, P,
+                None if wt is None else wt.data_ptr(), C, lo, hi, P,
                 VARIANTS.index(plan.variant), ld, plan.grid, stream)
     _build.raise_on_error("fused_relevance_aggregate", rc)
     return b, wn
 
 
-def fused_relevance_aggregate(w, thetas):
-    """w (C, C) raw relevance, thetas (C, P), both fp32 -> (B (C, P) fp32,
-    Wn (C, C) fp32)."""
+def fused_relevance_aggregate(w, thetas, lo: int = 0,
+                              hi: Optional[int] = None):
+    """w (C, C) raw relevance, thetas (hi - lo, P) the parameters of rows
+    lo..hi (all C rows by default), both fp32 -> (B = Wn[:, lo:hi] @ thetas
+    (C, P) fp32, the whole Wn (C, C) fp32), in one launch at C <=
+    ``SKINNY_MAX_C``. On a column block, Wn is ``normalize_relevance``'s and
+    B the plain entry's on ``Wn[:, lo:hi]``, bit for bit."""
     if w.dim() != 2 or thetas.dim() != 2:
-        raise ValueError(f"expected w (C, C) and thetas (C, P), got "
+        raise ValueError(f"expected w (C, C) and thetas (hi - lo, P), got "
                          f"{tuple(w.shape)} and {tuple(thetas.shape)}")
-    C, P = thetas.shape
+    C = w.shape[0]
+    hi = C if hi is None else hi
+    if not 0 <= lo < hi <= C:
+        raise ValueError(f"column block [{lo}, {hi}) is empty or outside "
+                         f"W's {C} columns")
+    P = thetas.shape[1]
     dev = thetas.device
     _build.check_operand("w", w, torch.float32, (C, C), dev)
-    _build.check_operand("thetas", thetas, torch.float32, (C, P), dev)
-    out = _fused(w, thetas, _plan(C, C, P, _aligned(thetas)))
-    if C:
-        fused_relevance_aggregate.launches += 1
+    _build.check_operand("thetas", thetas, torch.float32, (hi - lo, P), dev)
+    out = _fused(w, thetas, _plan(C, hi - lo, P, _aligned(thetas)), lo, hi)
+    fused_relevance_aggregate.launches += 1
     return out
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device, synchronize
+from repro_torch.common.pytree import device_of
 from repro_torch.configs import get_config
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype
@@ -49,8 +50,11 @@ def parse_args(argv=None):
 def serve(cfg, params, prompt, gen: int, *, window: int = 0, device=None):
     """The launcher's loop: prompt (B, P) ids fed token by token, then
     ``gen`` greedy tokens, one ``decode_step`` each on one cache in the
-    params' dtype (a ring of ``window`` slots when ``window > 0``).
-    Returns (generated (B, gen) int32 numpy, the cache)."""
+    params' dtype (a ring of ``window`` slots when ``window > 0``), on
+    ``device`` (the params' device by default). Returns (generated (B,
+    gen) int32 numpy, the cache)."""
+    if device is None:
+        device = device_of(params)
     B, P = prompt.shape
     total = P + gen
     cache = lm.init_cache(cfg, B, window or total, enc_seq=cfg.enc_seq,

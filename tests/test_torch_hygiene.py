@@ -26,6 +26,7 @@ WRAPPERS = [("quantize", "batched_quantize"),
             ("pairwise_dist", "batched_pairwise_dist"),
             ("kl_similarity", "kl_similarity"),
             ("relevance_aggregate", "fused_relevance_aggregate"),
+            ("relevance_aggregate", "normalize_relevance"),
             ("ivf", "batched_cluster_dist"),
             ("ivf", "batched_ivf_shortlist_scores"),
             ("topk_pack", "batched_topk_pack"),
@@ -47,6 +48,8 @@ SOURCE_OF = {("ivf", "batched_cluster_dist"): "cluster_dist",
              ("ivf", "batched_ivf_shortlist_scores"): "ivf_shortlist"}
 # wrappers whose TPU kernel is not ``<module>.py:<wrapper name>``
 REPLACES = {
+    ("relevance_aggregate", "normalize_relevance"):
+        "src/repro/kernels/relevance_aggregate.py:fused_relevance_aggregate",
     ("topk_pack", "batched_topk_decode_int8"):
         "src/repro/kernels/quantize.py:batched_dequantize",
     ("flash_attention", "flash_attention_fwd"):

@@ -44,10 +44,9 @@ from repro_torch.kernels.pairwise_dist import (batched_pairwise_dist,
 from repro_torch.kernels.quantize import Plan as QPlan
 from repro_torch.kernels.quantize import _plan as quantize_plan
 from repro_torch.kernels.quantize import batched_dequantize, batched_quantize
-from repro_torch.kernels.relevance_aggregate import (SKINNY_MAX_C, Plan,
-                                                     _plan,
-                                                     fused_relevance_aggregate,
-                                                     relevance_aggregate)
+from repro_torch.kernels.relevance_aggregate import (
+    SKINNY_MAX_C, Plan, _plan, fused_relevance_aggregate,
+    relevance_aggregate)
 
 SHAPES = [(3, 4, 40, 64), (2, 16, 300, 64), (1, 1, 7, 32)]
 BACKENDS = ["ref", "interpret"]
@@ -407,6 +406,90 @@ def test_aggregate_plan(args, plan):
         assert R <= got.scratch[1] < R + 4
     assert (got.variant == "skinny") == (aligned and P % 4 == 0
                                          and max(R, C) <= SKINNY_MAX_C)
+
+
+# (Cp, lo, hi, P, aligned) of the fused entry's column-block form -> its
+# plan, _plan(Cp, hi - lo, P): the sharded round's C = 5 on worlds of 1, 2
+# and 4 (Cp 5, 6, 8), the skinny variant's edge, a fleet's rank blocks,
+# ragged P and a misaligned base
+BLOCK_PLANS = [
+    ((5, 0, 5, 37696, True), Plan("skinny", 74, None)),
+    ((6, 3, 6, 37696, True), Plan("skinny", 74, None)),
+    ((8, 6, 8, 18848, True), Plan("skinny", 37, None)),
+    ((32, 0, 8, 1000, True), Plan("skinny", 8, None)),
+    ((33, 22, 33, 1000, True), Plan("tiled", 8, (11, 36))),
+    ((100, 25, 50, 57664, True), Plan("tiled", 451, (25, 100))),
+    ((1000, 750, 1000, 14416, True), Plan("tiled", 904, (250, 1000))),
+    ((40, 39, 40, 1000, True), Plan("tiled", 8, (1, 40))),
+    ((6, 0, 3, 1001, True), Plan("ragged", 8, (3, 8))),
+    ((6, 0, 3, 1000, False), Plan("ragged", 8, (3, 8))),
+]
+
+
+@pytest.mark.parametrize("args,plan", BLOCK_PLANS, ids=[
+    "-".join(map(str, a)) for a, _ in BLOCK_PLANS])
+def test_block_aggregate_plan(args, plan):
+    """The column-block form plans its product as (Cp, hi - lo) x (hi - lo,
+    P): skinny (one launch, every block normalizing W) at Cp <= 32 with an
+    aligned Theta, tiled or ragged above, the scratch holding Wn's columns
+    lo..hi k-major (hi - lo rows of Cp rounded up to 4)."""
+    Cp, lo, hi, P, aligned = args
+    got = _plan(Cp, hi - lo, P, aligned)
+    assert got == plan
+    assert (got.variant == "skinny") == (aligned and P % 4 == 0
+                                         and Cp <= SKINNY_MAX_C)
+    if got.scratch is not None:
+        assert got.scratch == (hi - lo, -(-Cp // 4) * 4)
+
+
+@pytest.mark.parametrize("lo,hi", [(-1, 2), (3, 2), (2, 2), (0, 5), (5, 6)])
+def test_block_wrapper_refuses_blocks_outside_w(lo, hi):
+    """The fused wrapper checks its column block against W's columns before
+    anything else (an empty block is refused too), takes CUDA tensors only
+    on a block inside W, and its launch count does not move."""
+    before = fused_relevance_aggregate.launches
+    with pytest.raises(ValueError, match="empty or outside W's 4 columns"):
+        fused_relevance_aggregate(torch.zeros(4, 4),
+                                  torch.zeros(max(hi - lo, 0), 8), lo, hi)
+    with pytest.raises(ValueError, match=r"expected w \(C, C\)"):
+        fused_relevance_aggregate(torch.zeros(4), torch.zeros(1, 8), 0, 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fused_relevance_aggregate(torch.zeros(4, 4), torch.zeros(2, 8), 1, 3)
+    assert fused_relevance_aggregate.launches == before
+
+
+@pytest.mark.parametrize("C", (1, 5, 33, 300))
+def test_block_plain_version_on_the_whole_block_is_the_fused_one(C):
+    """``ops.fused_relevance_aggregate(w, thetas, 0, C)`` on the CPU
+    is the fused plain version bit for bit (B and Wn), with finite junk on
+    the diagonal, an all-zero row and a NaN off the diagonal; a block's B
+    is that of its slice of Wn, bit for bit, and the column blocks' B sum
+    to the whole B."""
+    rng = np.random.default_rng(C + 32)
+    w = _relevance(rng, C, 7.5)
+    w[0] = 0.0
+    if C > 2:
+        w[2, 0] = np.nan
+    wt = torch.from_numpy(w)
+    th = torch.from_numpy(rng.standard_normal((C, 37)).astype(np.float32))
+    b, wn = ops.fused_relevance_aggregate(wt, th)
+    bc, wnc = ops.fused_relevance_aggregate(wt, th, 0, C)
+    assert torch.equal(bc, b) and torch.equal(wnc, wn)
+    assert not torch.isnan(wn).any() and not wn[0].any()
+    total = torch.zeros_like(b)
+    for lo, hi in _blocks(C, 4):
+        bb, wnb = ops.fused_relevance_aggregate(wt, th[lo:hi], lo, hi)
+        assert torch.equal(wnb, wn)
+        assert torch.equal(bb, ref.relevance_aggregate_ref(
+            wn[:, lo:hi].contiguous(), th[lo:hi]))
+        total += bb
+    np.testing.assert_allclose(total.numpy(), b.numpy(), atol=1e-5)
+
+
+def _blocks(C, d):
+    """[lo, hi) of C columns dealt into at most d contiguous blocks."""
+    edges = np.linspace(0, C, min(C, d) + 1).round().astype(int)
+    return list(zip(edges[:-1].tolist(), edges[1:].tolist()))
 
 
 AGG_TOL = 2e-5   # chip_smoke.py's bar for the kernels against torch.mm

@@ -426,13 +426,17 @@ def test_world_of_one_fedavg_matches_host():
 
 def test_sharded_run_joins_an_initialized_group(monkeypatch):
     """Inside an initialized gloo group the run joins it (and leaves it
-    up); its Eq. 6 goes through ``ops.relevance_aggregate`` once a server
-    round, never through the one-device fused entry."""
+    up); its Eq. 5 -> 6 goes through the fused aggregate's column-block
+    form (``ops.fused_relevance_aggregate(w, thetas, lo, hi)``) once a server
+    round, never through the plain entry or the standalone normalize."""
     calls = []
-    real = POPS.relevance_aggregate
-    monkeypatch.setattr(POPS, "relevance_aggregate",
-                        lambda w, t: calls.append(w.shape) or real(w, t))
-    monkeypatch.setattr(POPS, "fused_relevance_aggregate", None)
+    real = POPS.fused_relevance_aggregate
+    monkeypatch.setattr(
+        POPS, "fused_relevance_aggregate",
+        lambda w, t, *cols: calls.append((w.shape, cols))
+        or real(w, t, *cols))
+    monkeypatch.setattr(POPS, "relevance_aggregate", None)
+    monkeypatch.setattr(POPS, "normalize_relevance", None)
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -440,7 +444,7 @@ def test_sharded_run_joins_an_initialized_group(monkeypatch):
         assert dist.is_initialized()
     finally:
         dist.destroy_process_group()
-    assert calls == [(3, 3)] * 4
+    assert calls == [((3, 3), (0, 3))] * 4
     monkeypatch.undo()
     _close(_one("stacked", "float32").rounds, sh.rounds, 1e-6)
 
@@ -640,6 +644,43 @@ def test_kernel_order_wn_matches_jax(C):
         Bs, Wns = sharded_fused_aggregate(wt, th, mesh)
     assert torch.equal(Wns, Wn) and torch.equal(Bs, B)
     assert not torch.isnan(Wns).any()
+
+
+@pytest.mark.parametrize("C", (1, 5, 33, 300))
+def test_block_aggregate_plain_matches_jax_per_rank_block(C):
+    """The fused aggregate's column-block form (its plain version on the
+    CPU), on each rank's column block of simulated worlds of 2 and 4 (C
+    padded to a multiple of the world, as the engine pads its rows),
+    against the JAX fused aggregate (``backend="ref"``) sliced to that
+    block: Wn within 1e-6, the partial B within 1e-5 of the block's
+    columns of JAX's Wn times its rows of Theta, and the partials' sum
+    within 1e-5 of JAX's B; an all-zero row and a NaN off the diagonal,
+    as in ``test_kernel_order_wn_matches_jax``."""
+    rng = np.random.default_rng(C + 1)
+    for d in (2, 4):
+        Cp = -(-C // d) * d
+        w = np.abs(rng.standard_normal((Cp, Cp))).astype(np.float32)
+        w[0] = 0.0
+        if C > 2:
+            w[2, 0] = np.nan
+        w[C:] = 0.0                       # padding rows: no relevance
+        w[:, C:] = 0.0
+        th = rng.standard_normal((Cp, 24)).astype(np.float32)
+        th[C:] = 0.0
+        Bref, Wnref = JOPS.fused_relevance_aggregate(
+            jnp.asarray(w), jnp.asarray(th), backend="ref")
+        total = np.zeros((Cp, 24), np.float32)
+        for r in range(d):
+            lo, hi = S.row_block(Cp, d, r)
+            B, Wn = POPS.fused_relevance_aggregate(
+                torch.from_numpy(w), torch.from_numpy(th[lo:hi]), lo, hi)
+            np.testing.assert_allclose(Wn.numpy(), np.asarray(Wnref),
+                                       atol=1e-6)
+            part = np.asarray(Wnref[:, lo:hi] @ jnp.asarray(th[lo:hi]))
+            np.testing.assert_allclose(B.numpy(), part, atol=1e-5)
+            total += B.numpy()
+        np.testing.assert_allclose(total, np.asarray(Bref), atol=1e-5)
+        assert not np.isnan(total).any()
 
 
 def test_normalize_wrapper_takes_cuda_tensors_only():
