@@ -307,13 +307,14 @@ class FedSTIL(Strategy):
         its W rows and columns stay zero and it keeps its base), the
         flatten is cast to ``wire_dtype`` and the aggregate is
         ``sharded_fused_aggregate``; "B" and "nz" are this rank's rows and
-        ``last_W`` the (Cp, Cp) Wn."""
+        ``last_W`` the (Cp, Cp) Wn. Traced, the stage spans take their
+        device time from their stamps: none waits on the device."""
         if not self.st_integration:
             return None
         io = (_StackedServer if valid is None
               else _ShardedServer(self.mesh, valid, self.wire_dtype))
         with torch.no_grad():
-            with obs.span("server.relevance", cat="stage", round=rnd) as sp:
+            with obs.span("server.relevance", cat="stage", round=rnd):
                 feats, mask = io.gather(upload["task_feature"])  # (C, D)
                 if self._ring is None:
                     C, D = feats.shape
@@ -321,14 +322,14 @@ class FedSTIL(Strategy):
                                                    feats.device)
                 ring = self._ring
                 ring.push_all(feats, mask)
-                W_raw = sp.sync(ring.raw_relevance(
+                W_raw = ring.raw_relevance(
                     forgetting_ratio=self.forgetting_ratio,
-                    metric=self.metric))
-            with obs.span("server.flatten", cat="stage", round=rnd) as sp:
+                    metric=self.metric)
+            with obs.span("server.flatten", cat="stage", round=rnd):
                 flat, meta = flatten_stacked(upload["theta"])  # (C, P)
-                flat = sp.sync(io.wire(flat))
-            with obs.span("server.aggregate", cat="stage", round=rnd) as sp:
-                B_flat, Wn, Wn_mine = sp.sync(io.aggregate(W_raw, flat))
+                flat = io.wire(flat)
+            with obs.span("server.aggregate", cat="stage", round=rnd):
+                B_flat, Wn, Wn_mine = io.aggregate(W_raw, flat)
             # per-client round observables (staleness, ring fill, W row
             # mass / density): computed and read back only under a tracer
             if obs.is_active():
@@ -338,8 +339,8 @@ class FedSTIL(Strategy):
             self.last_W = Wn.cpu().numpy()
             # all-zero rows (no relevant neighbours yet) keep their old base
             nz = torch.sum(Wn_mine, 1) > 0
-            with obs.span("server.unflatten", cat="stage", round=rnd) as sp:
-                B = sp.sync(unflatten_stacked(B_flat, meta))
+            with obs.span("server.unflatten", cat="stage", round=rnd):
+                B = unflatten_stacked(B_flat, meta)
         return {"B": B, "nz": nz}
 
     # ---- wire-codec payload split --------------------------------------------

@@ -11,10 +11,16 @@ and cache, as the reference); ``--full-model`` serves the configuration
 at its published width, in its bf16. On the card unless ``--device cpu``
 (the plain versions, for small shapes).
 
+``--trace out.jsonl`` serves under a live ``repro_torch.obs`` tracer: a
+dense model's ``decode.step`` spans and the phases that tile them (per
+layer the qkv projection and cache write, the cache read, the attention,
+the output projection and MLP; then the head), with device time on the
+card; read it with ``python -m repro_torch.obs.report out.jsonl``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-1.6b \\
       --batch 4 --prompt-len 16 --gen 32 [--window 16] [--full-model] \\
-      [--device cpu]
+      [--device cpu] [--trace out.jsonl]
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.common.pytree import device_of
 from repro_torch.configs import get_config
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype
+from repro_torch.obs import trace as obs
 
 
 def parse_args(argv=None):
@@ -44,6 +51,10 @@ def parse_args(argv=None):
     ap.add_argument("--full-model", dest="reduced", action="store_false")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
+    ap.add_argument("--trace", default=None, metavar="OUT.jsonl",
+                    help="write a repro_torch.obs telemetry JSONL (a span "
+                         "per step and per phase); read it with python -m "
+                         "repro_torch.obs.report")
     return ap.parse_args(argv)
 
 
@@ -84,17 +95,25 @@ def main(argv=None):
         args.seed))
     prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
 
+    tracer = obs.Tracer(path=args.trace) if args.trace else obs.NullTracer()
     synchronize(dev)
     t0 = time.time()
-    gen, _ = serve(cfg, params, prompt, args.gen, window=args.window,
-                   device=dev)
-    synchronize(dev)
-    wall = time.time() - t0
+    try:
+        with obs.active(tracer):
+            gen, _ = serve(cfg, params, prompt, args.gen,
+                           window=args.window, device=dev)
+            synchronize(dev)
+            wall = time.time() - t0
+    finally:
+        tracer.close()
     print(f"arch={cfg.name} batch={args.batch} generated={gen.shape[1]} "
           f"tokens window={args.window or 'full'}")
     print(f"throughput: {args.batch * gen.shape[1] / wall:.1f} tok/s "
           f"({dev.type}, {'reduced' if args.reduced else 'full'} config)")
     print("sample:", gen[0][:16].tolist())
+    if args.trace:
+        print(f"telemetry: {args.trace}  "
+              f"(python -m repro_torch.obs.report {args.trace})")
     return gen
 
 

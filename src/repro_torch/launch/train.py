@@ -7,9 +7,16 @@ block + head as theta = B * alpha + A, ``tie_lambda`` 1e-4) or, with
 trains the configuration at its published width. On the card unless
 ``--device cpu`` (the plain versions, for small shapes).
 
+``--trace out.jsonl`` runs the steps under a live ``repro_torch.obs``
+tracer: each split step's ``train.step`` span and the phases that tile it
+(combine, trunk, adaptive, head, the two halves of the backward, clip,
+Adam), with device time on the card; read it with
+``python -m repro_torch.obs.report out.jsonl``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
-      --steps 100 --batch 8 --seq 64 [--full-model] [--full] [--device cpu]
+      --steps 100 --batch 8 --seq 64 [--full-model] [--full] [--device cpu] \\
+      [--trace out.jsonl]
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from repro_torch.common.device import resolve_device, synchronize
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.models import lm
+from repro_torch.obs import trace as obs
 from repro_torch.train.optimizer import adam, cosine_schedule
 from repro_torch.train.trainer import (init_opt_state, init_train_state,
                                        make_full_train_step, make_train_step)
@@ -45,12 +53,29 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
+    ap.add_argument("--trace", default=None, metavar="OUT.jsonl",
+                    help="write a repro_torch.obs telemetry JSONL (a span "
+                         "per step and per phase); read it with python -m "
+                         "repro_torch.obs.report")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     """Train; returns the per-step losses (host floats)."""
     args = parse_args(argv)
+    tracer = obs.Tracer(path=args.trace) if args.trace else obs.NullTracer()
+    try:
+        with obs.active(tracer):
+            losses = _train(args)
+    finally:
+        tracer.close()
+    if args.trace:
+        print(f"telemetry: {args.trace}  "
+              f"(python -m repro_torch.obs.report {args.trace})")
+    return losses
+
+
+def _train(args):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

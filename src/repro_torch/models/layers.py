@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.common.axes import AxisCtx, UNSHARDED
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -383,97 +384,125 @@ def _cache_write(cache, names, values, slot: int) -> None:
         cache[name][:, slot] = value[:, 0].to(cache[name].dtype)
 
 
+def decode_attention(cfg: ModelConfig, p, x, cache, pos: int,
+                     ax: AxisCtx = UNSHARDED, *, window: int = 0,
+                     inject: bool = True, kv_len=None,
+                     ring_window: int = 0):
+    """One-token decode against the cache, up to the output projection.
+    x: (B, 1, d); cache k / v (B, S_loc, KV, hd) (int8 with bf16
+    ``k_scale`` / ``v_scale``), its sequence dim split over TP (rank t
+    holds slots t * S_loc ..); pos: the token's absolute position (a
+    Python int).
+
+    Every rank attends its chunk for all heads: q (and the new k, v) are
+    gathered over TP, a few KB a token; the partial softmax statistics
+    merge across ranks (flash-decoding). ``inject``: the token's k and v
+    go into slot pos (``pos % ring_window`` for a ring buffer of
+    ``ring_window`` slots), in place, on the rank that owns the slot; a
+    slot outside the cache is silently skipped, as the reference drops
+    it. Keys at slots <= pos are seen (all of them once a ring has
+    wrapped), within ``window`` of pos when it is > 0. ``inject=False``:
+    cross-attention against a static cache whose first ``kv_len`` slots
+    are valid. Returns every head's fp32 output (B, 1, H, hd); the cache
+    is updated in place. Its parts are the spans ``decode.qkv`` (the
+    projection, rope, the cache write), ``decode.kv_read`` (the cache into
+    fp32) and ``decode.attend``, which tile with the caller's."""
+    B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
+    S = cache["k"].shape[1]
+    tp_idx = ax.tp_index()
+    quantized = cache["k"].dtype == torch.int8
+    with obs.span("decode.qkv", cat="phase", tile=True):
+        at = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        q, k_new, v_new = _project_qkv(cfg, p, x, x, ax, at, at)
+        if ax.tp:
+            # one gather for q, k and v: (B, KVg, (R + 2) hd) by local kv
+            # head
+            kvg, r = q.shape[2], q.shape[3]
+            parts = [q.reshape(B, kvg, r * hd)]
+            if inject:
+                parts += [k_new.reshape(B, kvg, hd),
+                          v_new.reshape(B, kvg, hd)]
+            g = ax.all_gather_tp(torch.cat(parts, -1), 1)
+            q = g[..., :r * hd].reshape(B, 1, -1, r, hd)
+            if inject:
+                k_new = g[..., r * hd:(r + 1) * hd].reshape(B, 1, -1, hd)
+                v_new = g[..., (r + 1) * hd:].reshape(B, 1, -1, hd)
+                if KV < ax.tp_size:
+                    # each group computed the same kv head: one copy a head
+                    group = ax.tp_size // KV
+                    k_new, v_new = k_new[:, :, ::group], v_new[:, :, ::group]
+        if inject:
+            slot = (pos % ring_window if ring_window else pos) - tp_idx * S
+            if 0 <= slot < S:
+                if quantized:
+                    kq, ks = _quantize_kv(k_new)
+                    vq, vs = _quantize_kv(v_new)
+                    _cache_write(cache, ("k", "v", "k_scale", "v_scale"),
+                                 (kq, vq, ks, vs), slot)
+                else:
+                    _cache_write(cache, ("k", "v"), (k_new, v_new), slot)
+    Hp = q.shape[2] * q.shape[3]
+    with obs.span("decode.kv_read", cat="phase", tile=True):
+        if quantized:
+            k_eff = _dequantize_kv(cache["k"], cache["k_scale"])
+            v_eff = _dequantize_kv(cache["v"], cache["v_scale"])
+        else:
+            k_eff, v_eff = cache["k"].float(), cache["v"].float()
+
+    with obs.span("decode.attend", cat="phase", tile=True):
+        kpos = tp_idx * S + torch.arange(S, device=x.device)
+        if not inject:
+            valid = kpos < (kv_len if kv_len is not None
+                            else S * ax.tp_size)
+        elif ring_window:
+            # a ring holds the last ``ring_window`` tokens once it has
+            # wrapped; before that only slots <= pos are filled
+            valid = (kpos <= pos) | (pos >= ring_window)
+        else:
+            valid = kpos <= pos
+            if window > 0:
+                valid = valid & (kpos > pos - window)
+        qf = q.reshape(B, KV, Hp // KV, hd).float() * (1.0 / math.sqrt(hd))
+        s = torch.einsum("bgrh,bkgh->bgrk", qf, k_eff)
+        s = torch.where(valid, s, -1e30)
+        m = torch.amax(s, -1)
+        pr = torch.exp(s - m[..., None])
+        l = torch.sum(pr, -1)
+        o = torch.einsum("bgrk,bkgh->bgrh", pr, v_eff)
+        if ax.tp:
+            # the flash-decoding merge: one sum over TP for o and l together
+            corr = torch.exp(m - ax.pmax_tp(m))
+            ol = ax.psum_tp(torch.cat([o * corr[..., None],
+                                       (l * corr)[..., None]], -1))
+            o, l = ol[..., :hd], ol[..., hd]
+        return (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, 1, Hp,
+                                                                   hd)
+
+
+def decode_out_proj(cfg: ModelConfig, p, o, dtype, ax: AxisCtx = UNSHARDED):
+    """The output projection of ``decode_attention``'s heads o (B, 1, H,
+    hd), on this rank's slice of them, in ``dtype`` -> (B, 1, d)."""
+    B, hd = o.shape[0], cfg.hd
+    wo = p["wo"] if _use_ws(ax) else ax.all_gather_param(p["wo"], 1)
+    h_loc = wo.shape[0] // hd
+    tp_idx = ax.tp_index()
+    o = o[:, :, tp_idx * h_loc:(tp_idx + 1) * h_loc].reshape(B, 1, -1)
+    if _use_ws(ax):
+        return ws_rowshard_matmul(o.to(dtype), wo, ax)
+    return ax.psum_tp(o.to(dtype) @ wo)
+
+
 def decode_attention_block(cfg: ModelConfig, p, x, cache, pos: int,
                            ax: AxisCtx = UNSHARDED, *, window: int = 0,
                            inject: bool = True, kv_len=None,
                            ring_window: int = 0):
-    """One-token decode against the cache. x: (B, 1, d); cache k / v
-    (B, S_loc, KV, hd) (int8 with bf16 ``k_scale`` / ``v_scale``), its
-    sequence dim split over TP (rank t holds slots t * S_loc ..); pos: the
-    token's absolute position (a Python int).
-
-    Every rank attends its chunk for all heads: q (and the new k, v) are
-    gathered over TP, a few KB a token; the partial softmax statistics
-    merge across ranks (flash-decoding), and the output projection
-    returns to the rank's heads. ``inject``: the token's k and v go into
-    slot pos (``pos % ring_window`` for a ring buffer of ``ring_window``
-    slots), in place, on the rank that owns the slot; a slot outside the
-    cache is silently skipped, as the reference drops it. Keys at slots
-    <= pos are seen (all of them once a ring has wrapped), within
-    ``window`` of pos when it is > 0. ``inject=False``: cross-attention
-    against a static cache whose first ``kv_len`` slots are valid.
-    Returns (y (B, 1, d), cache), the cache the same tensors."""
-    B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
-    at = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, x, ax, at, at)
-    if ax.tp:
-        # one gather for q, k and v: (B, KVg, (R + 2) hd) by local kv head
-        kvg, r = q.shape[2], q.shape[3]
-        parts = [q.reshape(B, kvg, r * hd)]
-        if inject:
-            parts += [k_new.reshape(B, kvg, hd), v_new.reshape(B, kvg, hd)]
-        g = ax.all_gather_tp(torch.cat(parts, -1), 1)
-        q = g[..., :r * hd].reshape(B, 1, -1, r, hd)
-        if inject:
-            k_new = g[..., r * hd:(r + 1) * hd].reshape(B, 1, -1, hd)
-            v_new = g[..., (r + 1) * hd:].reshape(B, 1, -1, hd)
-            if KV < ax.tp_size:
-                # each group computed the same kv head: one copy a head
-                group = ax.tp_size // KV
-                k_new, v_new = k_new[:, :, ::group], v_new[:, :, ::group]
-    Hp = q.shape[2] * q.shape[3]
-    S = cache["k"].shape[1]
-    tp_idx = ax.tp_index()
-    quantized = cache["k"].dtype == torch.int8
-    if inject:
-        slot = (pos % ring_window if ring_window else pos) - tp_idx * S
-        if 0 <= slot < S:
-            if quantized:
-                kq, ks = _quantize_kv(k_new)
-                vq, vs = _quantize_kv(v_new)
-                _cache_write(cache, ("k", "v", "k_scale", "v_scale"),
-                             (kq, vq, ks, vs), slot)
-            else:
-                _cache_write(cache, ("k", "v"), (k_new, v_new), slot)
-    if quantized:
-        k_eff = _dequantize_kv(cache["k"], cache["k_scale"])
-        v_eff = _dequantize_kv(cache["v"], cache["v_scale"])
-    else:
-        k_eff, v_eff = cache["k"].float(), cache["v"].float()
-
-    kpos = tp_idx * S + torch.arange(S, device=x.device)
-    if not inject:
-        valid = kpos < (kv_len if kv_len is not None else S * ax.tp_size)
-    elif ring_window:
-        # a ring holds the last ``ring_window`` tokens once it has wrapped;
-        # before that only slots <= pos are filled
-        valid = (kpos <= pos) | (pos >= ring_window)
-    else:
-        valid = kpos <= pos
-        if window > 0:
-            valid = valid & (kpos > pos - window)
-    qf = q.reshape(B, KV, Hp // KV, hd).float() * (1.0 / math.sqrt(hd))
-    s = torch.einsum("bgrh,bkgh->bgrk", qf, k_eff)
-    s = torch.where(valid, s, -1e30)
-    m = torch.amax(s, -1)
-    pr = torch.exp(s - m[..., None])
-    l = torch.sum(pr, -1)
-    o = torch.einsum("bgrk,bkgh->bgrh", pr, v_eff)
-    if ax.tp:
-        # the flash-decoding merge: one sum over TP for o and l together
-        corr = torch.exp(m - ax.pmax_tp(m))
-        ol = ax.psum_tp(torch.cat([o * corr[..., None], (l * corr)[..., None]],
-                                  -1))
-        o, l = ol[..., :hd], ol[..., hd]
-    o = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, 1, Hp, hd)
-
-    # the output projection on this rank's slice of the heads
-    wo = p["wo"] if _use_ws(ax) else ax.all_gather_param(p["wo"], 1)
-    h_loc = wo.shape[0] // hd
-    o = o[:, :, tp_idx * h_loc:(tp_idx + 1) * h_loc].reshape(B, 1, -1)
-    if _use_ws(ax):
-        return ws_rowshard_matmul(o.to(x.dtype), wo, ax), cache
-    return ax.psum_tp(o.to(x.dtype) @ wo), cache
+    """``decode_attention`` then its output projection, which returns to
+    the rank's heads: -> (y (B, 1, d), cache), the cache the same tensors
+    updated in place."""
+    o = decode_attention(cfg, p, x, cache, pos, ax, window=window,
+                         inject=inject, kv_len=kv_len,
+                         ring_window=ring_window)
+    return decode_out_proj(cfg, p, o, x.dtype, ax), cache
 
 
 # ---------------------------------------------------------------------------

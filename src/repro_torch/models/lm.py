@@ -36,6 +36,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
+from repro_torch.obs import trace as obs
 
 # ---------------------------------------------------------------------------
 # initialization
@@ -202,11 +203,20 @@ def _embed_inputs(cfg: ModelConfig, params, batch, ax: AxisCtx):
     return x
 
 
-def forward(cfg: ModelConfig, params, batch, ax: AxisCtx = UNSHARDED, *,
-            window: int = 0):
-    """Trunk + adaptive layers -> (hidden (B, S, d), moe aux). ``batch``
-    holds ``tokens``, and ``vision_embeds`` (vlm) or ``frames`` (encdec);
-    ``window > 0``: sliding-window self-attention."""
+_STACK_PHASE = {"layers": "lm.trunk", "adaptive_layers": "lm.adaptive"}
+
+
+def _phase(stack: str):
+    """The tiling span of a stack's forward."""
+    return obs.span(_STACK_PHASE[stack], cat="phase", tile=True)
+
+
+def _stacks(cfg: ModelConfig, params, batch, ax: AxisCtx, window: int):
+    """The embedding and every layer -> (hidden before the final norm, moe
+    aux), in the spans ``lm.trunk`` (the embedding and the frozen stack;
+    hybrid: its mamba groups; encdec: the encoder too) and ``lm.adaptive``
+    (the adaptive stack; hybrid: its shared attention block), which tile
+    with the caller's spans."""
     x = _embed_inputs(cfg, params, batch, ax)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -214,60 +224,85 @@ def forward(cfg: ModelConfig, params, batch, ax: AxisCtx = UNSHARDED, *,
 
     if cfg.family in ("dense", "moe", "vlm"):
         for stack in ("layers", "adaptive_layers"):
-            auxs = []
-            for lp in _layers(params[stack]):
-                x, aux = _dense_layer_apply(cfg, lp, x, ax, positions,
-                                            window)
-                auxs.append(aux)
-            aux_total = aux_total + torch.stack(auxs).sum()
+            with _phase(stack):
+                auxs = []
+                for lp in _layers(params[stack]):
+                    x, aux = _dense_layer_apply(cfg, lp, x, ax, positions,
+                                                window)
+                    auxs.append(aux)
+                aux_total = aux_total + torch.stack(auxs).sum()
 
     elif cfg.family == "ssm":
         for stack in ("layers", "adaptive_layers"):
-            for lp in _layers(params[stack]):
-                x, _ = _rwkv_layer_apply(cfg, lp, x, ax)
+            with _phase(stack):
+                for lp in _layers(params[stack]):
+                    x, _ = _rwkv_layer_apply(cfg, lp, x, ax)
 
     elif cfg.family == "hybrid":
         layers = _layers(params["layers"])
         auxs = []
         for g in range(cfg.n_layers // cfg.attn_every):
-            for lp in layers[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
-                x, _ = _mamba_layer_apply(cfg, lp, x, ax)
-            x, aux = _dense_layer_apply(cfg, params["shared_attn"], x, ax,
-                                        positions)
+            with _phase("layers"):
+                for lp in layers[g * cfg.attn_every:
+                                 (g + 1) * cfg.attn_every]:
+                    x, _ = _mamba_layer_apply(cfg, lp, x, ax)
+            with _phase("adaptive_layers"):
+                x, aux = _dense_layer_apply(cfg, params["shared_attn"], x,
+                                            ax, positions)
             auxs.append(aux)
         aux_total = aux_total + torch.stack(auxs).sum()
 
     elif cfg.family == "encdec":
-        frames = batch["frames"]
-        enc = frames.to(x.dtype) + L.sinusoidal_positions(
-            frames.shape[1], cfg.d_model, device=x.device).to(x.dtype)
-        enc, enc_pos = _encode(cfg, params, enc, ax)
+        with _phase("layers"):
+            frames = batch["frames"]
+            enc = frames.to(x.dtype) + L.sinusoidal_positions(
+                frames.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+            enc, enc_pos = _encode(cfg, params, enc, ax)
         for stack in ("layers", "adaptive_layers"):
-            for lp in _layers(params[stack]):
-                h = L.apply_norm(cfg, lp["ln1"], x)
-                x = x + L.attention_block(cfg, lp["attn"], h, ax,
-                                          positions=positions, window=window)
-                h = L.apply_norm(cfg, lp["lnx"], x)
-                x = x + L.attention_block(cfg, lp["cross"], h, ax,
-                                          positions=positions, x_kv=enc,
-                                          kv_positions=enc_pos, causal=False)
-                h = L.apply_norm(cfg, lp["ln2"], x)
-                x = x + L.mlp_block(cfg, lp["mlp"], h, ax)
+            with _phase(stack):
+                for lp in _layers(params[stack]):
+                    h = L.apply_norm(cfg, lp["ln1"], x)
+                    x = x + L.attention_block(cfg, lp["attn"], h, ax,
+                                              positions=positions,
+                                              window=window)
+                    h = L.apply_norm(cfg, lp["lnx"], x)
+                    x = x + L.attention_block(cfg, lp["cross"], h, ax,
+                                              positions=positions, x_kv=enc,
+                                              kv_positions=enc_pos,
+                                              causal=False)
+                    h = L.apply_norm(cfg, lp["ln2"], x)
+                    x = x + L.mlp_block(cfg, lp["mlp"], h, ax)
     else:
         raise ValueError(cfg.family)
+    return x, aux_total
 
-    return L.apply_norm(cfg, params["final_norm"], x), aux_total
+
+def forward(cfg: ModelConfig, params, batch, ax: AxisCtx = UNSHARDED, *,
+            window: int = 0):
+    """Trunk + adaptive layers -> (hidden (B, S, d), moe aux). ``batch``
+    holds ``tokens``, and ``vision_embeds`` (vlm) or ``frames`` (encdec);
+    ``window > 0``: sliding-window self-attention."""
+    x, aux = _stacks(cfg, params, batch, ax, window)
+    return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, ax: AxisCtx = UNSHARDED, *,
-            window: int = 0, aux_weight: float = 0.01):
+            window: int = 0, aux_weight: float = 0.01, head_input=None):
     """Next-token cross-entropy + aux_weight x the MoE load-balance aux ->
-    (total, (ce, aux)); vlm's vision positions carry no labels."""
-    x, aux = forward(cfg, params, batch, ax, window=window)
-    if cfg.family == "vlm":
-        x = x[:, cfg.n_vision_tokens:]
-    loss = L.lm_head_loss(cfg, params["head"], x, batch["labels"], ax)
-    return loss + aux_weight * aux, (loss, aux)
+    (total, (ce, aux)); vlm's vision positions carry no labels. The final
+    norm, the fp32 logits and the cross-entropy are the span ``lm.head``.
+    ``head_input``: called with the head's input (the last layer's
+    output), for a caller that marks where the backward reaches it."""
+    x, aux = _stacks(cfg, params, batch, ax, window)
+    if head_input is not None:
+        head_input(x)
+    with obs.span("lm.head", cat="phase", tile=True):
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_vision_tokens:]
+        loss = L.lm_head_loss(cfg, params["head"], x, batch["labels"], ax)
+        total = loss + aux_weight * aux
+    return total, (loss, aux)
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +385,11 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int,
     ``window`` slots (long_500k). ``enc_len``: the encdec cross caches'
     valid length. Returns (next token (B, 1) int32, cache), the cache
     updated in place."""
-    x = L.embed_lookup(cfg, params["embed"], token, ax)
-    if cfg.rope_theta <= 0:
-        x = x + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
-                                       device=x.device).to(x.dtype)
     self_kw = dict(window=0 if ring else window,
                    ring_window=window if ring else 0)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _dense_decode(cfg, params, cache, token, pos, ax, self_kw)
+    x = _embed_token(cfg, params, token, pos, ax)
 
     def attn_dec(lp, xx, kv):
         h = L.apply_norm(cfg, lp["ln1"], xx)
@@ -363,19 +397,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int,
                                         **self_kw)
         return xx + y
 
-    if cfg.family in ("dense", "moe", "vlm"):
-        for stack, part in (("layers", "trunk"),
-                            ("adaptive_layers", "adaptive")):
-            for i, lp in enumerate(_layers(params[stack])):
-                x = attn_dec(lp, x, _layer_cache(cache[part], i))
-                h = L.apply_norm(cfg, lp["ln2"], x)
-                if "moe" in lp:
-                    y, _ = MOE.moe_block(cfg, lp["moe"], h, ax)
-                else:
-                    y = L.mlp_block(cfg, lp["mlp"], h, ax)
-                x = x + y
-
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         for stack, part in (("layers", "trunk"),
                             ("adaptive_layers", "adaptive")):
             for i, lp in enumerate(_layers(params[stack])):
@@ -410,7 +432,49 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int,
                 x = x + L.mlp_block(cfg, lp["mlp"], h, ax)
     else:
         raise ValueError(cfg.family)
+    return _read_out(cfg, params, x, ax), cache
 
+
+def _embed_token(cfg: ModelConfig, params, token, pos: int, ax: AxisCtx):
+    x = L.embed_lookup(cfg, params["embed"], token, ax)
+    if cfg.rope_theta <= 0:
+        x = x + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
+                                       device=x.device).to(x.dtype)
+    return x
+
+
+def _read_out(cfg: ModelConfig, params, x, ax: AxisCtx):
+    """The final norm and the greedy read-out -> (B, 1) int32 ids."""
     x = L.apply_norm(cfg, params["final_norm"], x)
     next_tok, _ = L.lm_head_logits(cfg, params["head"], x, ax)
-    return next_tok.to(torch.int32), cache
+    return next_tok.to(torch.int32)
+
+
+def _dense_decode(cfg: ModelConfig, params, cache, token, pos: int,
+                  ax: AxisCtx, self_kw):
+    """The dense families' decode step: the span ``decode.step``, tiled
+    per layer by ``decode.qkv`` (the embedding before the first, ln1, the
+    projection, rope, the cache write), ``decode.kv_read``,
+    ``decode.attend`` (inside ``layers.decode_attention``) and
+    ``decode.out`` (the output projection, the residual, ln2 and the MLP),
+    then by ``decode.head``."""
+    with obs.span("decode.step", cat="step"):
+        x = _embed_token(cfg, params, token, pos, ax)
+        for stack, part in (("layers", "trunk"),
+                            ("adaptive_layers", "adaptive")):
+            for i, lp in enumerate(_layers(params[stack])):
+                h = L.apply_norm(cfg, lp["ln1"], x)
+                o = L.decode_attention(cfg, lp["attn"], h,
+                                       _layer_cache(cache[part], i), pos, ax,
+                                       **self_kw)
+                with obs.span("decode.out", cat="phase", tile=True):
+                    x = x + L.decode_out_proj(cfg, lp["attn"], o, x.dtype,
+                                              ax)
+                    h = L.apply_norm(cfg, lp["ln2"], x)
+                    if "moe" in lp:
+                        y, _ = MOE.moe_block(cfg, lp["moe"], h, ax)
+                    else:
+                        y = L.mlp_block(cfg, lp["mlp"], h, ax)
+                    x = x + y
+        with obs.span("decode.head", cat="phase", tile=True):
+            return _read_out(cfg, params, x, ax), cache

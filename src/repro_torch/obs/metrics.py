@@ -2,10 +2,9 @@
 
 Device-side helpers compute the round's observables on tensors, on the
 device that holds them: relevance row mass / sparsity and ring staleness
-(``relevance_metrics``, ``update_staleness``), codec keep-rate /
-residual-norm (``codec_metrics``) and IVF probe hit-rates
-(``ivf_metrics``). The engines compute them only when a tracer is active,
-and the tracer reads them back.
+(``relevance_metrics``) and IVF probe hit-rates (``ivf_metrics``). The
+engines compute them only when a tracer is active, and the tracer reads
+them back.
 
 The host-side stats are copies (pure numpy there too; the port keeps its
 own rather than importing them): ``LatencyHistogram`` (fixed log-spaced
@@ -37,24 +36,6 @@ def relevance_metrics(W, valid, stale):
             "self_weight": torch.diagonal(W),
             "hist_fill": valid.sum(dim=1),
             "staleness": stale}
-
-
-def update_staleness(stale, mask):
-    """Advance the per-client staleness counter: clients that pushed a
-    feature this round (mask > 0) reset to 0, absent clients age by 1."""
-    return torch.where(mask > 0, torch.zeros_like(stale), stale + 1.0)
-
-
-def codec_metrics(residual, kept):
-    """Keep-rate + residual-norm of one encode step, per client row:
-    ``residual`` the (C, P) pre-sparsification delta, ``kept`` the (C, P)
-    reconstruction the decoder sees; ``kept_energy`` is the share of the
-    residual's energy the wire kept."""
-    r2 = torch.sum(torch.square(residual), dim=1)
-    k2 = torch.sum(torch.square(kept), dim=1)
-    return {"residual_norm": torch.sqrt(r2),
-            "kept_energy": k2 / torch.clamp(r2, min=1e-12),
-            "keep_rate": (kept != 0).float().mean(dim=1)}
 
 
 def ivf_metrics(ids, qmask, idx, bcap: int, nprobe: int):

@@ -7,13 +7,16 @@ The port of ``repro/obs/report.py``. Usage::
     python -m repro_torch.obs.report run.jsonl --chrome trace.json
 
 The summary has three sections: a per-phase wall-time breakdown (spans
-tagged ``cat="phase"`` — gather / local_train / encode / server / apply /
-eval — plus the ``cat="stage"`` sub-spans inside the server round), a
-per-client table from the LAST round's device metrics (staleness, ring
-fill, relevance row mass/density, codec keep-rate and residual-norm),
-and the serving snapshot (bucket-exact p50/p99, QPS, queue depth, DRR
-deficit spread) if the run served queries.  ``telemetry_block()`` is the
-same data without the per-client tables.
+tagged ``cat="phase"`` — a round's gather / local_train / encode / server /
+apply / eval, or an LM step's phases — plus the ``cat="stage"`` sub-spans
+inside the server round; device time beside host time where the spans
+carry it), a per-client table from the LAST round's device metrics
+(staleness, ring fill, relevance row mass/density, codec keep-rate and
+residual-norm), and the serving snapshot (bucket-exact p50/p99, QPS,
+queue depth, DRR deficit spread) if the run served queries.
+``telemetry_block()`` is the same data without the per-client tables.
+The printed report adds the ``cat="step"`` spans (an LM step around its
+phases) as a table of its own.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ from repro_torch.obs.trace import RunLog, chrome_trace
 
 
 def _span_groups(events: List[Dict[str, Any]], cat: str) -> Dict[str, Dict]:
+    """Spans of category ``cat`` by name: host seconds (total, count, max,
+    mean, share of the category's total) and, where the spans carry a
+    device time, ``dev_total_s`` and ``dev_mean_s``."""
     groups: Dict[str, Dict[str, Any]] = {}
     for e in events:
         if e.get("kind") == "span" and e.get("cat") == cat:
@@ -34,10 +40,14 @@ def _span_groups(events: List[Dict[str, Any]], cat: str) -> Dict[str, Dict]:
             g["total_s"] += e["dur"]
             g["count"] += 1
             g["max_s"] = max(g["max_s"], e["dur"])
+            if "dev" in e:
+                g["dev_total_s"] = g.get("dev_total_s", 0.0) + e["dev"]
     total = sum(g["total_s"] for g in groups.values())
     for g in groups.values():
         g["mean_s"] = g["total_s"] / g["count"]
         g["share"] = g["total_s"] / total if total > 0 else 0.0
+        if "dev_total_s" in g:
+            g["dev_mean_s"] = g["dev_total_s"] / g["count"]
     return groups
 
 
@@ -97,14 +107,21 @@ def _fmt_ms(seconds: float) -> str:
 
 
 def _print_groups(title: str, groups: Dict[str, Dict]) -> None:
+    """A table of span groups: host ms, and device ms beside it where the
+    group's spans carry it."""
     if not groups:
         return
+    dev = any("dev_total_s" in g for g in groups.values())
     print(f"\n{title}")
     print(f"  {'name':<28} {'total ms':>9} {'mean ms':>9} "
-          f"{'count':>6} {'share':>6}")
+          f"{'count':>6} {'share':>6}"
+          + (f" {'dev ms':>9} {'dev mean':>9}" if dev else ""))
     for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["total_s"]):
-        print(f"  {name:<28} {_fmt_ms(g['total_s'])} {_fmt_ms(g['mean_s'])} "
-              f"{g['count']:>6} {g['share'] * 100:5.1f}%")
+        line = (f"  {name:<28} {_fmt_ms(g['total_s'])} {_fmt_ms(g['mean_s'])} "
+                f"{g['count']:>6} {g['share'] * 100:5.1f}%")
+        if "dev_total_s" in g:
+            line += f" {_fmt_ms(g['dev_total_s'])} {_fmt_ms(g['dev_mean_s'])}"
+        print(line)
 
 
 def _print_clients(clients: Dict[str, Any]) -> None:
@@ -163,6 +180,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     print(f"{args.path}: {s['events']['spans']} spans, "
           f"{s['events']['metrics']} metrics")
+    _print_groups("steps", _span_groups(events, "step"))
     _print_groups("phases", s["phases"])
     _print_groups("server stages", s["stages"])
     _print_clients(s["clients"])

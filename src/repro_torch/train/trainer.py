@@ -33,6 +33,14 @@ unsharded step's on every layout:
     (ROADMAP Queue 3; pinned by ``tests/test_torch_tp.py``);
   * no global-norm clip under TP (``grad_norm`` reports 0), as the
     reference: the leaves are TP-split, and a local norm would be wrong.
+
+A split step is the span ``train.step``, partitioned by the spans
+``train.combine``, ``lm.trunk``, ``lm.adaptive``, ``lm.head`` (the final
+norm, the fp32 logits and cross-entropy, then the mean over data and the
+tying term), ``train.head_bwd``, ``train.adaptive_bwd``, ``train.clip``
+and ``train.adam`` (the update and its application): ``obs.trace``'s
+tiling spans, recorded while a tracer is active or ``torch.profiler``
+records.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from repro_torch.core.adaptive import (combine, init_adaptive, merge_params,
                                        split_params)
 from repro_torch.core.tying import _abs
 from repro_torch.models import lm
+from repro_torch.obs import trace as obs
 from repro_torch.sharding.specs import tree_param_specs
 from repro_torch.train.optimizer import (adam, apply_updates,
                                          clip_by_global_norm)
@@ -86,13 +95,16 @@ def _opt_step(optimizer, params, grads, opt_state, ax: AxisCtx):
     TP), one optimizer update, the new params: -> (params, opt_state, grad
     norm before clipping, 0 under TP)."""
     grads = _stack1(grads)
-    if ax.tp is None:
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
-        gnorm = gnorm[0]
-    else:
-        gnorm = torch.zeros((), device=tree_leaves(grads)[0].device)
-    updates, opt_state = optimizer.update(grads, opt_state, _stack1(params))
-    return apply_updates(params, _unstack1(updates)), opt_state, gnorm
+    with obs.span("train.clip", cat="phase", tile=True):
+        if ax.tp is None:
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+            gnorm = gnorm[0]
+        else:
+            gnorm = torch.zeros((), device=tree_leaves(grads)[0].device)
+    with obs.span("train.adam", cat="phase", tile=True):
+        updates, opt_state = optimizer.update(grads, opt_state,
+                                              _stack1(params))
+        return apply_updates(params, _unstack1(updates)), opt_state, gnorm
 
 
 def _data_varying(cfg: ModelConfig, tree, ax: AxisCtx):
@@ -141,20 +153,50 @@ def adaptive_loss_and_grads(cfg: ModelConfig, frozen, B, trainable, batch,
     loss excludes the tying term, as in the reference. ``window > 0``:
     sliding-window attention. On a mesh: local shards in, the rank's
     shards of the unsharded gradient out."""
-    paths = leaf_paths(trainable)
-    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(trainable)]
-    tr = tree_from_paths(paths, leaves)
-    theta = _data_varying(cfg, combine(B, tr["alpha"], tr["A"]), ax)
-    total, (ce, aux) = lm.loss_fn(cfg, merge_params(frozen, theta), batch,
-                                  ax, window=window)
-    total = ax.pmean_dp(total)
-    reported = total.detach()
-    if tie_lambda:
-        l1 = sum(torch.sum(_abs(a)) for a in tree_leaves(tr["A"]))
-        total = total + tie_lambda * l1
-    grads = torch.autograd.grad(total, leaves)
+    with obs.span("train.combine", cat="phase", tile=True):
+        paths = leaf_paths(trainable)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(trainable)]
+        tr = tree_from_paths(paths, leaves)
+        theta = _data_varying(cfg, combine(B, tr["alpha"], tr["A"]), ax)
+    head_inputs = []
+    total, (ce, aux) = lm.loss_fn(
+        cfg, merge_params(frozen, theta), batch, ax, window=window,
+        head_input=head_inputs.append if obs.recording() else None)
+    with obs.span("lm.head", cat="phase", tile=True):
+        total = ax.pmean_dp(total)
+        reported = total.detach()
+        if tie_lambda:
+            l1 = sum(torch.sum(_abs(a)) for a in tree_leaves(tr["A"]))
+            total = total + tie_lambda * l1
+    grads = _grad(total, leaves, head_inputs)
     return ((reported, ax.pmean_dp(ce).detach(), ax.pmean_dp(aux).detach()),
             tree_from_paths(paths, list(grads)))
+
+
+def _grad(total, leaves, head_inputs):
+    """``torch.autograd.grad(total, leaves)``; with ``head_inputs`` (the
+    head's input, given only while spans record) in the spans
+    ``train.head_bwd``, until a hook on the head's input sees its gradient
+    (on autograd's device thread, while this one waits), then
+    ``train.adaptive_bwd``."""
+    if not head_inputs:
+        return torch.autograd.grad(total, leaves)
+    live = [obs.span("train.head_bwd", cat="phase", tile=True)]
+    live[0].__enter__()
+
+    def reached(grad):
+        live[0].__exit__(None, None, None)
+        live[0] = obs.span("train.adaptive_bwd", cat="phase", tile=True)
+        live[0].__enter__()
+
+    hooks = [x.register_hook(reached) for x in head_inputs]
+    try:
+        return torch.autograd.grad(total, leaves)
+    finally:
+        for h in hooks:
+            h.remove()
+        live[0].__exit__(None, None, None)
 
 
 def make_train_step(cfg: ModelConfig, optimizer=None, ax: AxisCtx = UNSHARDED,
@@ -164,11 +206,12 @@ def make_train_step(cfg: ModelConfig, optimizer=None, ax: AxisCtx = UNSHARDED,
     opt = optimizer or adam(lr=1e-3, weight_decay=1e-5)
 
     def train_step(frozen, B, trainable, opt_state, batch):
-        (loss, ce, aux), grads = adaptive_loss_and_grads(
-            cfg, frozen, B, trainable, batch, ax, window=window,
-            tie_lambda=tie_lambda)
-        trainable, opt_state, gnorm = _opt_step(opt, trainable, grads,
-                                                opt_state, ax)
+        with obs.span("train.step", cat="step"):
+            (loss, ce, aux), grads = adaptive_loss_and_grads(
+                cfg, frozen, B, trainable, batch, ax, window=window,
+                tie_lambda=tie_lambda)
+            trainable, opt_state, gnorm = _opt_step(opt, trainable, grads,
+                                                    opt_state, ax)
         return trainable, opt_state, {"loss": loss, "ce": ce, "moe_aux": aux,
                                       "grad_norm": gnorm}
 
