@@ -79,6 +79,11 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  four in bf16 (the tensor-core kernels, HGMMA in their
                  SASS) also at the edge shapes, rows that see no key o = dQ
                  = 0 with lse -1e30, kv rows that no query sees dK = dV = 0;
+                 the decode attention at every config's (hd, R) in bf16
+                 and fp32, ragged ranges and an empty TP range (2e-5 of
+                 the largest value), timed at both decode cells' shapes
+                 beside its bytes bound, its plain version, SDPA and a
+                 sweep of the split count;
                  times (CUDA events, median of 30 launches after warmup),
                  the relevance, codec, dequantize, aggregate and combine
                  kernels at the C = 1000 shapes; both aggregates also at
@@ -313,8 +318,10 @@ trace=obs.Tracer())``): its stages are the telemetry spans:
                  ms of 20 decode steps beside their bound (weights + cache
                  read once at 3.35 TB/s): decode_32k's 32768-slot cache at
                  B 8 (its 128 cut to fit) in bf16 and int8, long_500k's
-                 ring (B 1, window 8192, pos 524287), and the bf16 32k
-                 step's device ms by kernel group (torch.profiler)
+                 ring (B 1, window 8192, pos 524287), the bf16 32k
+                 step's decode attention launches (one or two a layer by
+                 its plan, no plain call) and its device ms by kernel
+                 group (torch.profiler)
      lm_scaleout the LM's sharded steps (``launch/steps.py``) on a world
                  of one over NCCL, on the models lm_train and lm_decode
                  hold: qwen3-1.7b's train step at lm_train's state and
@@ -408,6 +415,8 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import adaptive_combine as ACM  # noqa: E402
 from repro_torch.kernels.adaptive_combine import (  # noqa: E402
     adaptive_combine, adaptive_combine_tree)
+from repro_torch.kernels import decode_attention as DAM  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
     flash_attention_fwd_lse)
@@ -779,6 +788,13 @@ KERNELS = {
         "counter": "tc_launches",
         "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:226"},
+    # no TPU kernel: the reference decodes with jnp einsums; every decode
+    # step's attention, one or two launches a layer
+    "decode_attention": {
+        "fn": decode_attention,
+        "paths": ("lm_decode", "lm_scaleout", "lm_families"),
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None},
 }
 # the codec path's kernels, and the one-stage kernels they fold, which the
 # path must no longer launch; topk+int8 decodes in INT8_DECODE instead
@@ -1116,6 +1132,7 @@ def phase_kernels(dev, peak, card):
     rows.update(new_kernel_rows(gen, dev, peak))
     rows.update(combine_tree_rows(gen, dev, peak))
     rows.update(flash_kernel_rows(gen, dev, peak))
+    rows.update(decode_attention_rows(gen, dev, peak))
 
     for name, r in rows.items():
         emit({"phase": "kernel_check", "card": card, "name": name,
@@ -2818,6 +2835,115 @@ def flash_kernel_rows(gen, dev, peak):
                 "its autograd backward (dQ, dK and dV together)"),
                     "bound_peak": "bf16 tensor cores"})
     return rows
+
+
+# the decode cells' attention: (kv heads, q heads a kv head, hd) at B 8
+# against a 32768-slot bf16 cache, timed at the cells' mean valid length
+DECODE_ATTN_CELLS = {"qwen1.5-0.5b": (16, 1, 64), "qwen3-1.7b": (8, 2, 128)}
+DECODE_ATTN_SHAPE = (8, 32768, 32512)          # B, slots, valid
+# kernel vs plain version, max |diff| / max |plain|: fp32 sums in another
+# order over up to 32768 slots (tests/test_torch_decode_attention.py's bar)
+DECODE_ATTN_TOL = 2e-5
+DECODE_ATTN_SWEEP = (4, 8, 16, 32, 64, 128)    # BLOCKS_PER_SM, forced
+# every (hd, R) of configs/ and their reduced forms (arctic's R 7, 8 with
+# its padded heads), and ragged ranges of a 3000-slot cache
+DECODE_ATTN_WIDTHS = ((64, 1), (64, 2), (64, 4), (80, 1), (128, 1),
+                      (128, 2), (128, 7), (128, 8), (128, 16))
+DECODE_ATTN_RANGES = ((0, 1), (3, 131), (7, 2999), (1000, 1257), (0, 3000))
+
+
+def decode_attention_work(B, valid, kv, R, hd, itemsize):
+    """(bytes, FLOPs) of one call: k and v of the valid slots read once, q
+    read and o written in fp32; two products of 2 hd FLOPs a (q head,
+    slot)."""
+    nbytes = 2 * B * valid * kv * hd * itemsize + 2 * B * kv * R * hd * 4
+    return nbytes, 4 * B * kv * R * hd * valid
+
+
+def decode_attention_errs(q, k, v, lo, hi):
+    """Kernel vs plain version, normalized and partial: (max abs, max
+    relative to the plain's largest)."""
+    pairs = [(ops.decode_attention(q, k, v, lo, hi),
+              REF.decode_attention_ref(q, k, v, lo, hi))]
+    pairs += list(zip(ops.decode_attention(q, k, v, lo, hi, partial=True),
+                      REF.decode_attention_ref(q, k, v, lo, hi,
+                                               partial=True)))
+    torch.cuda.synchronize()
+    ab = max(float((a - b).abs().max()) for a, b in pairs)
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for a, b in pairs)
+    return ab, rel
+
+
+def decode_attention_rows(gen, dev, peak):
+    """The decode attention against its plain version at every config's
+    (hd, R) in bf16 and fp32, ragged ranges and an empty TP range; at the
+    decode cells' shapes in bf16, timed beside its bytes bound, the plain
+    version and ``scaled_dot_product_attention`` (``enable_gqa``, the
+    library yardstick only: the port never calls it), with a sweep of the
+    split count."""
+    abs_err, rel_err, edges = 0.0, 0.0, []
+    for dt in (torch.bfloat16, torch.float32):
+        for hd, R in DECODE_ATTN_WIDTHS:
+            q = 2.0 * torch.randn((2, 3, R, hd), generator=gen, device=dev)
+            k, v = (torch.randn((2, 3000, 3, hd), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            for lo, hi in DECODE_ATTN_RANGES:
+                ab, rel = decode_attention_errs(q, k, v, lo, hi)
+                abs_err, rel_err = max(abs_err, ab), max(rel_err, rel)
+            edges.append([str(dt), hd, R, rel])
+            o, m, l = ops.decode_attention(q, k, v, 9, 9, partial=True)
+            check(bool(torch.all(o == 0) & torch.all(m == -1e30)
+                       & torch.all(l == 0)),
+                  f"decode_attention {dt} hd {hd} R {R}: empty range not "
+                  "(0, -1e30, 0)")
+    B, slots, valid = DECODE_ATTN_SHAPE
+    by_cell, first = {}, None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for cell, (kv, R, hd) in DECODE_ATTN_CELLS.items():
+        q = 2.0 * torch.randn((B, kv, R, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, slots, kv, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        ab, rel = decode_attention_errs(q, k, v, 0, valid)
+        abs_err, rel_err = max(abs_err, ab), max(rel_err, rel)
+        work = decode_attention_work(B, valid, kv, R, hd, 2)
+        b = bound(*work, peak)
+        plan = DAM._plan(B, kv, R, hd, valid, 2, DAM._sms(dev.index))
+        ms = time_ms(lambda: ops.decode_attention(q, k, v, 0, valid))
+        sweep = {}
+        for bps in DECODE_ATTN_SWEEP:
+            pl = DAM._plan(B, kv, R, hd, valid, 2, DAM._sms(dev.index), bps)
+            sweep[bps] = {"nsplit": pl.nsplit, "chunk": pl.chunk,
+                          "ms": time_ms(lambda: DAM._launch(
+                              q, k, v, 0, valid, False, pl))}
+        qs = q.reshape(B, kv * R, 1, hd).to(torch.bfloat16)
+        ks, vs = (t[:, :valid].transpose(1, 2).contiguous() for t in (k, v))
+        row = dict(max_abs_err=ab, bound=b, ms=ms,
+                   plain_ms=time_ms(lambda: REF.decode_attention_ref(
+                       q, k, v, 0, valid)),
+                   library_ms=time_ms(lambda: sdpa(qs, ks, vs,
+                                                   enable_gqa=True)),
+                   shape=[B, slots, valid, kv, R, hd])
+        del qs, ks, vs, q, k, v
+        torch.cuda.empty_cache()
+        row["detail"] = {"rel_err": rel, "plan": plan._asdict(),
+                         "launches_a_call": 1 if plan.nsplit == 1 else 2,
+                         "bytes": work[0], "bound_share": b[0] / ms,
+                         "hbm_tb_s": work[0] / ms / 1e9, "sweep": sweep}
+        by_cell[cell] = row
+        first = first or row
+    check(rel_err <= DECODE_ATTN_TOL,
+          f"decode_attention: kernel vs plain {rel_err} > {DECODE_ATTN_TOL}")
+    row = dict(first, max_abs_err=abs_err)
+    row["detail"] = dict(first["detail"], rel_err=rel_err, edges=edges,
+                         by_cell={c: {k: r[k] for k in ("ms", "plain_ms",
+                                                        "library_ms",
+                                                        "shape")}
+                                  | {"bound_ms": r["bound"][0]}
+                                  | r["detail"] for c, r in by_cell.items()},
+                         library="scaled_dot_product_attention(enable_gqa)",
+                         sass=kernel_sass("decode_attention"))
+    return {"decode_attention": row}
 
 
 # ---------------------------------------------------------------------------
@@ -5345,6 +5471,33 @@ def device_profile(fn):
                 by_name.items(), key=lambda kv: -kv[1])[:8]]}
 
 
+def decode_attention_on_path(cfg, params, cache, tok, pos):
+    """One decode step's attention: the kernel launched one or two times a
+    layer (its plan at the step's range), its plain version never called."""
+    kv = cfg.n_kv_heads
+    B = tok.shape[0]
+    plan = DAM._plan(B, kv, cfg.n_heads // kv, cfg.hd, pos + 1,
+                     tree_leaves(cache)[0].element_size(),
+                     DAM._sms(tok.device.index))
+    plain, orig = [], REF.decode_attention_ref
+    REF.decode_attention_ref = lambda *a, **k: plain.append(1) or orig(*a,
+                                                                      **k)
+    before = decode_attention.launches
+    try:
+        with torch.no_grad():
+            lm.decode_step(cfg, params, cache, tok, pos)
+    finally:
+        REF.decode_attention_ref = orig
+    torch.cuda.synchronize()
+    got = decode_attention.launches - before
+    want = cfg.n_layers * (1 if plan.nsplit == 1 else 2)
+    check(got == want and not plain,
+          f"lm_decode: {got} decode attention launches a step (want {want}),"
+          f" {len(plain)} plain calls")
+    return {"launches_a_step": got, "plain_calls": len(plain),
+            "plan": plan._asdict()}
+
+
 def phase_lm_decode(dev, card, peak):
     """Decode serving of qwen1.5-0.5b (``serve_lm``'s default arch) at full
     width: the reference's decode-equals-forward gate in fp32 params (B 4
@@ -5434,6 +5587,8 @@ def phase_lm_decode(dev, card, peak):
         timed[name] = row
         if name == "decode_32k_bf16":
             tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+            row["attention"] = decode_attention_on_path(cfg, params, cache,
+                                                        tok, pos)
             with torch.no_grad():
                 profile_row = device_profile(lambda: lm.decode_step(
                     cfg, params, cache, tok, pos))
@@ -5451,7 +5606,8 @@ def phase_lm_decode(dev, card, peak):
                                "--gen 32", "seconds": serve_s,
                        "sample": served[0][:8].tolist()},
           "timed": timed, "decode_32k_bf16_profile": profile_row,
-          "launches": {n: launches[n] for n in FLASH_STAGES},
+          "launches": {n: launches[n]
+                       for n in FLASH_STAGES + ("decode_attention",)},
           "phase_s": time.perf_counter() - t_phase})
     return launches, (cfg, params, batch)
 

@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("quantize", "int8_dist", "pairwise_dist", "kl_similarity",
            "relevance_aggregate", "cluster_dist", "ivf_shortlist",
            "topk_pack", "adaptive_combine", "flash_attention",
-           "flash_fwd_sm90", "flash_bwd_sm90")
+           "flash_fwd_sm90", "flash_bwd_sm90", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -24,6 +24,8 @@ from repro_torch.kernels import ref as REF
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.adaptive_combine import \
     adaptive_combine_tree as _combine_tree
+from repro_torch.kernels.decode_attention import \
+    decode_attention as _decode_attention
 from repro_torch.kernels.int8_dist import \
     batched_int8_pairwise_dist as _bi8dist
 from repro_torch.kernels.ivf import batched_cluster_dist as _bcdist
@@ -56,7 +58,7 @@ from repro_torch.kernels.topk_pack import batched_topk_unpack as _buntopk
 # the same names and shapes, on meta tensors. The decorator only records
 # metadata: the lint traces them lazily.
 _AC, _AP = 100, 4096
-_I8, _I32, _U8 = torch.int8, torch.int32, torch.uint8
+_I8, _I32, _U8, _BF16 = torch.int8, torch.int32, torch.uint8, torch.bfloat16
 
 
 def _ref(name):
@@ -514,3 +516,27 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0):
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: one new token against the KV cache
+# ---------------------------------------------------------------------------
+
+
+@register_program(
+    "kernels.decode_attention",
+    abstract_args=lambda: ((meta(2, 4, 2, 64),
+                            meta(2, 512, 4, 64, dtype=_BF16),
+                            meta(2, 512, 4, 64, dtype=_BF16)),
+                           {"lo": 0, "hi": 500}),
+    oracle=_ref("decode_attention"), budget_bytes=16 << 20)
+def decode_attention(q, k, v, lo: int, hi: int, *, partial: bool = False):
+    """One decode token's attention: q (B, KV, R, hd) fp32 (kv head g
+    serving q heads g * R ..) against the cache's k and v (B, S, KV, hd),
+    bf16 or fp32, read in place at the valid slots [lo, hi) -> o (B, KV,
+    R, hd) fp32; with ``partial`` (a rank's share under tensor
+    parallelism), the unnormalized o with the scores' max m and l = sum
+    exp(s - m), each (B, KV, R): an empty range gives (0, -1e30, 0)."""
+    if _on_cuda(q, k, v):
+        return _decode_attention(q, k, v, lo, hi, partial=partial)
+    return REF.decode_attention_ref(q, k, v, lo, hi, partial=partial)

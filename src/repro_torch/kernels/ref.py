@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import decode_attention as _decode_attention
+
 
 def batched_pairwise_dist_ref(q, g):
     """Per-client squared euclidean: (C,Q,D) x (C,G,D) -> (C,Q,G), fp32."""
@@ -422,3 +424,7 @@ def flash_attention_dkv_ref(q, k, v, do, lse, delta, *, causal: bool,
     dv = (p.transpose(-1, -2) @ do.float()).reshape(B, hkv, r, sk, hd)
     dk = (ds.transpose(-1, -2) @ q.float()).reshape(B, hkv, r, sk, hd)
     return dk.sum(2).to(k.dtype), dv.sum(2).to(v.dtype)
+
+
+# the decode attention's plain version lives beside its wrapper
+decode_attention_ref = _decode_attention.decode_attention_ref

@@ -25,11 +25,13 @@ Train and prefill attention go through ``kernels.ops.flash_attention``
 on the rank's local heads, where the reference scans
 ``chunked_attention``: the same function with q0 = k0 = 0, causal or
 not, with or without a sliding window, Sq = Sk or (cross-attention) not.
-Decode attends one token against the KV cache in plain PyTorch, as the
-reference does with einsums: the whole cache read in fp32 (dequantized
-first when it is int8). On a mesh the cache's sequence dim is split over
-TP: every rank attends its chunk for all heads and the partial softmax
-statistics merge across ranks (flash-decoding). The cache is written in
+Decode attends one token against the KV cache through
+``kernels.ops.decode_attention``, where the reference computes einsums
+over the whole cache in fp32: the valid slots only, one range a rank, read
+in place in the cache's dtype (an int8 cache dequantized to fp32 first).
+On a mesh the cache's sequence dim is split over TP: every rank attends
+its chunk for all heads and the partial softmax statistics merge across
+ranks (flash-decoding). The cache is written in
 place: ``decode_attention_block`` stores the new token's k and v into its
 slot (on the rank that owns it) and returns the same tensors, where the
 reference returns an updated copy. Initializers draw from a
@@ -384,6 +386,26 @@ def _cache_write(cache, names, values, slot: int) -> None:
         cache[name][:, slot] = value[:, 0].to(cache[name].dtype)
 
 
+def decode_slot_range(S: int, tp_idx: int, tp_size: int, pos: int, *,
+                      window: int = 0, inject: bool = True, kv_len=None,
+                      ring_window: int = 0):
+    """The cache slots a decode token sees on this rank, [lo, hi) local to
+    its S slots (rank t holds global slots t * S ..): with ``inject``,
+    slots <= pos (a ring of ``ring_window`` slots: all of them once pos
+    has wrapped), within ``window`` of pos when it is > 0; without, the
+    first ``kv_len`` slots (every slot when None). Each of these masks is
+    one contiguous range of global slots, so one range a rank."""
+    if not inject:
+        lo, hi = 0, S * tp_size if kv_len is None else kv_len
+    elif ring_window and pos >= ring_window:
+        lo, hi = 0, S * tp_size
+    else:
+        lo = max(0, pos - window + 1) if window > 0 and not ring_window else 0
+        hi = pos + 1
+    first = tp_idx * S
+    return (min(max(lo - first, 0), S), min(max(hi - first, 0), S))
+
+
 def decode_attention(cfg: ModelConfig, p, x, cache, pos: int,
                      ax: AxisCtx = UNSHARDED, *, window: int = 0,
                      inject: bool = True, kv_len=None,
@@ -403,10 +425,14 @@ def decode_attention(cfg: ModelConfig, p, x, cache, pos: int,
     it. Keys at slots <= pos are seen (all of them once a ring has
     wrapped), within ``window`` of pos when it is > 0. ``inject=False``:
     cross-attention against a static cache whose first ``kv_len`` slots
-    are valid. Returns every head's fp32 output (B, 1, H, hd); the cache
-    is updated in place. Its parts are the spans ``decode.qkv`` (the
-    projection, rope, the cache write), ``decode.kv_read`` (the cache into
-    fp32) and ``decode.attend``, which tile with the caller's."""
+    are valid. The seen slots are one range a rank
+    (``decode_slot_range``), which ``ops.decode_attention`` reads in place
+    (the hand-written kernel on the card). Returns every head's fp32
+    output (B, 1, H, hd); the cache is updated in place. Its parts are the
+    spans ``decode.qkv`` (the projection, rope, the cache write),
+    ``decode.kv_read`` (an int8 cache dequantized to fp32; a bf16 or fp32
+    cache has no separate read) and ``decode.attend`` (the attention and
+    the merge across ranks), which tile with the caller's."""
     B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
     S = cache["k"].shape[1]
     tp_idx = ax.tp_index()
@@ -442,39 +468,27 @@ def decode_attention(cfg: ModelConfig, p, x, cache, pos: int,
                 else:
                     _cache_write(cache, ("k", "v"), (k_new, v_new), slot)
     Hp = q.shape[2] * q.shape[3]
-    with obs.span("decode.kv_read", cat="phase", tile=True):
-        if quantized:
+    lo, hi = decode_slot_range(S, tp_idx, ax.tp_size, pos, window=window,
+                               inject=inject, kv_len=kv_len,
+                               ring_window=ring_window)
+    k_eff, v_eff = cache["k"], cache["v"]
+    if quantized:
+        with obs.span("decode.kv_read", cat="phase", tile=True):
             k_eff = _dequantize_kv(cache["k"], cache["k_scale"])
             v_eff = _dequantize_kv(cache["v"], cache["v_scale"])
-        else:
-            k_eff, v_eff = cache["k"].float(), cache["v"].float()
 
     with obs.span("decode.attend", cat="phase", tile=True):
-        kpos = tp_idx * S + torch.arange(S, device=x.device)
-        if not inject:
-            valid = kpos < (kv_len if kv_len is not None
-                            else S * ax.tp_size)
-        elif ring_window:
-            # a ring holds the last ``ring_window`` tokens once it has
-            # wrapped; before that only slots <= pos are filled
-            valid = (kpos <= pos) | (pos >= ring_window)
-        else:
-            valid = kpos <= pos
-            if window > 0:
-                valid = valid & (kpos > pos - window)
-        qf = q.reshape(B, KV, Hp // KV, hd).float() * (1.0 / math.sqrt(hd))
-        s = torch.einsum("bgrh,bkgh->bgrk", qf, k_eff)
-        s = torch.where(valid, s, -1e30)
-        m = torch.amax(s, -1)
-        pr = torch.exp(s - m[..., None])
-        l = torch.sum(pr, -1)
-        o = torch.einsum("bgrk,bkgh->bgrh", pr, v_eff)
-        if ax.tp:
-            # the flash-decoding merge: one sum over TP for o and l together
-            corr = torch.exp(m - ax.pmax_tp(m))
-            ol = ax.psum_tp(torch.cat([o * corr[..., None],
-                                       (l * corr)[..., None]], -1))
-            o, l = ol[..., :hd], ol[..., hd]
+        qf = q.reshape(B, KV, Hp // KV, hd).float()
+        if not ax.tp:
+            o = ops.decode_attention(qf, k_eff, v_eff, lo, hi)
+            return o.reshape(B, 1, Hp, hd)
+        o, m, l = ops.decode_attention(qf, k_eff, v_eff, lo, hi,
+                                       partial=True)
+        # the flash-decoding merge: one sum over TP for o and l together
+        corr = torch.exp(m - ax.pmax_tp(m))
+        ol = ax.psum_tp(torch.cat([o * corr[..., None],
+                                   (l * corr)[..., None]], -1))
+        o, l = ol[..., :hd], ol[..., hd]
         return (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, 1, Hp,
                                                                    hd)
 

@@ -454,10 +454,11 @@ def _dense_decode(cfg: ModelConfig, params, cache, token, pos: int,
                   ax: AxisCtx, self_kw):
     """The dense families' decode step: the span ``decode.step``, tiled
     per layer by ``decode.qkv`` (the embedding before the first, ln1, the
-    projection, rope, the cache write), ``decode.kv_read``,
-    ``decode.attend`` (inside ``layers.decode_attention``) and
-    ``decode.out`` (the output projection, the residual, ln2 and the MLP),
-    then by ``decode.head``."""
+    projection, rope, the cache write), ``decode.kv_read`` (an int8
+    cache's dequantize only), ``decode.attend`` (inside
+    ``layers.decode_attention``) and ``decode.out`` (the output
+    projection, the residual, ln2 and the MLP), then by
+    ``decode.head``."""
     with obs.span("decode.step", cat="step"):
         x = _embed_token(cfg, params, token, pos, ax)
         for stack, part in (("layers", "trunk"),

@@ -39,8 +39,11 @@ ROOT = Path(__file__).resolve().parent.parent
 TRAIN_LEAVES = ["train.combine", "lm.trunk", "lm.adaptive", "lm.head",
                 "lm.head", "train.head_bwd", "train.adaptive_bwd",
                 "train.clip", "train.adam"]
-DECODE_LAYER = ["decode.qkv", "decode.kv_read", "decode.attend",
-                "decode.out"]
+# a bf16 or fp32 cache is read in place by the attention; an int8 cache
+# is dequantized first, in ``decode.kv_read``
+DECODE_LAYER = ["decode.qkv", "decode.attend", "decode.out"]
+DECODE_LAYER_INT8 = ["decode.qkv", "decode.kv_read", "decode.attend",
+                     "decode.out"]
 
 
 def _train_setup(arch, device="cpu", seed=0):
@@ -69,10 +72,11 @@ def _decode_setup(arch, device="cpu", seed=0, slots=12):
     return cfg, params, tok, slots
 
 
-def _decode(setup, steps=3):
-    """``steps`` greedy decode steps from a fresh cache -> (tokens, cache)."""
+def _decode(setup, steps=3, dtype=torch.float32):
+    """``steps`` greedy decode steps from a fresh cache of ``dtype`` ->
+    (tokens, cache)."""
     cfg, params, tok, slots = setup
-    cache = lm.init_cache(cfg, tok.shape[0], slots, dtype=torch.float32,
+    cache = lm.init_cache(cfg, tok.shape[0], slots, dtype=dtype,
                           device=tok.device)
     out = []
     for pos in range(steps):
@@ -315,7 +319,7 @@ def test_train_leaves_tile_the_step():
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-1.7b"])
 def test_decode_leaves_tile_the_step(arch):
     """Three traced decode steps: each ``decode.step`` is partitioned by
-    four leaves a layer and ``decode.head``."""
+    three leaves a layer and ``decode.head``."""
     setup = _decode_setup(arch)
     tr = PT.Tracer()
     with PT.active(tr):
@@ -326,6 +330,22 @@ def test_decode_leaves_tile_the_step(arch):
     for step, leaves in steps:
         assert [e["name"] for e in leaves] == \
             DECODE_LAYER * n_layers + ["decode.head"]
+        _assert_tiled(step, leaves)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-1.7b"])
+def test_int8_decode_leaves_open_kv_read(arch):
+    """An int8 cache's steps keep the dequantize in ``decode.kv_read``:
+    four leaves a layer, tiled."""
+    setup = _decode_setup(arch)
+    tr = PT.Tracer()
+    with PT.active(tr):
+        _decode(setup, dtype=torch.int8)
+    steps = _steps(_spans(tr), "decode.step")
+    assert len(steps) == 3
+    for step, leaves in steps:
+        assert [e["name"] for e in leaves] == \
+            DECODE_LAYER_INT8 * setup[0].n_layers + ["decode.head"]
         _assert_tiled(step, leaves)
 
 
